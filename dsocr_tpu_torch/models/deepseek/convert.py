@@ -1,0 +1,51 @@
+"""Load the reference engine's parameters into the port's modules.
+
+``params_from_jax(tree)`` takes the JAX engine's parameter tree as NumPy
+arrays — ``jax.device_get(engine.params)``, whose decoder is already fused
+(an unfused decoder tree is fused here) — and returns a state_dict for
+``engine.DeepseekOcrModel``, so both packages compute the same function.
+The reference's layouts are kept: [in, out] linears, OIHW convs, and each
+[L, ...] decoder stack split into one entry per layer.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from .decoder import fuse_decoder_params
+
+_STACKED = ("dense_layers", "moe_layers")
+
+
+def _flatten(prefix: str, node: Any, out: Dict[str, np.ndarray]) -> None:
+    if isinstance(node, dict):
+        for key, value in node.items():
+            _flatten(f"{prefix}.{key}" if prefix else key, value, out)
+    elif isinstance(node, (list, tuple)):
+        for i, value in enumerate(node):
+            _flatten(f"{prefix}.{i}", value, out)
+    elif node is not None:
+        out[prefix] = np.asarray(node)
+
+
+def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """{"sam", "clip", "projector", "decoder"} NumPy tree → state_dict."""
+    flat: Dict[str, np.ndarray] = {}
+    for part in ("sam", "clip", "projector"):
+        _flatten(part, tree[part], flat)
+    decoder = fuse_decoder_params(tree["decoder"])
+    for group in _STACKED:
+        for key, stack in (decoder.pop(group, None) or {}).items():
+            stack = np.asarray(stack)
+            for i in range(stack.shape[0]):
+                flat[f"decoder.{group}.{i}.{key}"] = stack[i]
+    _flatten("decoder", decoder, flat)
+    return {
+        key: torch.from_numpy(np.ascontiguousarray(value.astype(np.float32)))
+        if value.dtype.kind == "f" or value.dtype.name == "bfloat16"
+        else torch.from_numpy(np.ascontiguousarray(value))
+        for key, value in flat.items()
+    }

@@ -1,0 +1,264 @@
+"""DeepSeek-V2 MoE language decoder (dsocr_tpu/models/deepseek/decoder.py).
+
+RMSNorm → attention with partial RoPE (MLA even/odd regroup) → residual →
+RMSNorm → dense SwiGLU (first_k_dense_replace layers) or the DeepSeek-V2
+MoE (f32 gating, greedy top-k, shared experts) → residual; final RMSNorm;
+f32 lm_head. Residuals are `(x.f32 + y.f32).to(x.dtype)`, as in the
+reference.
+
+Weights are the reference's FUSED layout (fuse_decoder_params): qkv_proj,
+gateup_proj, shared_gateup and experts_gateup concatenated along their
+output dims, [in, out] matrices, one module per layer (the reference's
+[L, ...] stacks split).
+
+Two modes, as the slice needs:
+
+- ``prefill``: S > 1 tokens from an empty cache; attention over the
+  prompt's own K/V through ``flash_prefill_attention``; returns the
+  last-position logits and the [L, B, NKV, S, D] K/V stacks.
+- ``slot_step``: one token per row; row r's K/V is written at
+  ``row_lengths[r]`` of the slot cache (in place) and attends
+  ``[0, row_lengths[r]]`` through the slot kernels.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from ...ops import (
+    MoeConfig,
+    moe_apply_fused,
+    moe_router,
+    partial_rope,
+    project,
+    rms_norm,
+    silu,
+    slot_kv_write_attend,
+)
+from ...ops.kernels import flash_prefill_attention
+from .config import DeepseekV2Config
+from .sam import normal_, param
+
+
+def split_layers(cfg: DeepseekV2Config) -> Tuple[int, int]:
+    """(num_dense, num_moe) for the standard dense-prefix pattern."""
+    pattern = [cfg.is_moe_layer(i) for i in range(cfg.num_hidden_layers)]
+    num_dense = pattern.index(True) if True in pattern else len(pattern)
+    if not all(pattern[num_dense:]):
+        raise NotImplementedError("non-contiguous MoE layer patterns are not supported")
+    return num_dense, cfg.num_hidden_layers - num_dense
+
+
+_FUSED = (
+    (("q_proj", "k_proj", "v_proj"), "qkv_proj"),
+    (("gate_proj", "up_proj"), "gateup_proj"),
+    (("shared_gate", "shared_up"), "shared_gateup"),
+    (("experts_gate", "experts_up"), "experts_gateup"),
+)
+
+
+def fuse_decoder_params(params: Dict) -> Dict:
+    """Concatenate column-independent projections along their output dims
+    (dsocr_tpu/models/deepseek/decoder.py:150): q/k/v → qkv_proj, gate/up →
+    gateup_proj, shared gate/up → shared_gateup, expert gate/up →
+    experts_gateup — the layout this decoder's layers hold. Takes NumPy
+    arrays or tensors; a tree that is already fused passes through."""
+    out = dict(params)
+    for group in ("dense_layers", "moe_layers"):
+        if group not in out:
+            continue
+        grp = dict(out[group])
+        for keys, fused in _FUSED:
+            if all(k in grp for k in keys):
+                parts = [grp.pop(k) for k in keys]
+                if all(isinstance(p, torch.Tensor) for p in parts):
+                    grp[fused] = torch.cat(parts, dim=-1)
+                else:
+                    grp[fused] = np.concatenate([np.asarray(p) for p in parts], axis=-1)
+        out[group] = grp
+    return out
+
+
+class DecoderLayer(nn.Module):
+    def __init__(self, cfg: DeepseekV2Config, moe: bool, dtype, device):
+        super().__init__()
+        H, D, DV = cfg.hidden_size, cfg.head_dim, cfg.resolved_v_head_dim
+        NH, NKV = cfg.num_attention_heads, cfg.resolved_kv_heads
+        self.moe = moe
+        p = lambda *s: param(*s, dtype=dtype, device=device)  # noqa: E731
+        self.input_layernorm = p(H)
+        self.post_attention_layernorm = p(H)
+        self.qkv_proj = p(H, NH * D + NKV * D + NKV * DV)
+        self.o_proj = p(NH * DV, H)
+        if moe:
+            E = cfg.n_routed_experts
+            MI = cfg.moe_intermediate_size or cfg.intermediate_size
+            self.gate_weight = p(E, H)
+            self.experts_gateup = p(E, H, 2 * MI)
+            self.experts_down = p(E, MI, H)
+            SI = MI * (cfg.n_shared_experts or 0)
+            if SI:
+                self.shared_gateup = p(H, 2 * SI)
+                self.shared_down = p(SI, H)
+        else:
+            I = cfg.intermediate_size  # noqa: E741
+            self.gateup_proj = p(H, 2 * I)
+            self.down_proj = p(I, H)
+
+    @torch.no_grad()
+    def reset_(self, gen: torch.Generator) -> None:
+        """Random init at the reference's scales (decoder.py:57-147): every
+        matrix N(0, fan_in^-1), norms 1."""
+        for name, w in self.named_parameters():
+            if name.endswith("layernorm"):
+                w.fill_(1.0)
+            elif name == "gate_weight":
+                normal_(w, w.shape[-1] ** -0.5, gen)
+            else:
+                normal_(w, w.shape[-2] ** -0.5, gen)
+
+
+class DeepseekDecoder(nn.Module):
+    def __init__(self, cfg: DeepseekV2Config, dtype=torch.bfloat16, device=None):
+        super().__init__()
+        self.cfg = cfg
+        num_dense, num_moe = split_layers(cfg)
+        H, V = cfg.hidden_size, cfg.vocab_size
+        self.embed_tokens = param(V, H, dtype=dtype, device=device)
+        self.norm = param(H, dtype=dtype, device=device)
+        self.lm_head = param(H, V, dtype=dtype, device=device)
+        self.dense_layers = nn.ModuleList(
+            DecoderLayer(cfg, False, dtype, device) for _ in range(num_dense)
+        )
+        self.moe_layers = nn.ModuleList(
+            DecoderLayer(cfg, True, dtype, device) for _ in range(num_moe)
+        )
+        self.moe_cfg = MoeConfig(
+            num_experts=cfg.n_routed_experts or 0,
+            top_k=cfg.num_experts_per_tok or 1,
+            scoring=cfg.scoring_func or "softmax",
+            norm_topk_prob=cfg.norm_topk_prob,
+            routed_scaling_factor=cfg.routed_scaling_factor,
+        )
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.embed_tokens.dtype
+
+    @torch.no_grad()
+    def reset_(self, gen: torch.Generator) -> None:
+        normal_(self.embed_tokens, 0.02, gen)
+        self.norm.fill_(1.0)
+        normal_(self.lm_head, 0.02, gen)
+        for layer in self.layers():
+            layer.reset_(gen)
+
+    def layers(self):
+        return list(self.dense_layers) + list(self.moe_layers)
+
+    # -- blocks -------------------------------------------------------------
+
+    def _qkv(self, x, layer, cos, sin):
+        cfg = self.cfg
+        B, S, _ = x.shape
+        NH, NKV, D, DV = cfg.num_attention_heads, cfg.resolved_kv_heads, cfg.head_dim, cfg.resolved_v_head_dim
+        normed = rms_norm(x, layer.input_layernorm, cfg.rms_norm_eps)
+        qkv = project(normed, layer.qkv_proj)
+        q, k, v = torch.split(qkv, [NH * D, NKV * D, NKV * DV], dim=-1)
+        q = q.reshape(B, S, NH, D).transpose(1, 2)
+        k = k.reshape(B, S, NKV, D).transpose(1, 2)
+        v = v.reshape(B, S, NKV, DV).transpose(1, 2)
+        q = partial_rope(q, cos, sin, cfg.rope_dim, cfg.use_mla)
+        k = partial_rope(k, cos, sin, cfg.rope_dim, cfg.use_mla)
+        return q, k, v
+
+    def _mlp(self, x, layer):
+        cfg = self.cfg
+        B, S, H = x.shape
+        normed = rms_norm(x, layer.post_attention_layernorm, cfg.rms_norm_eps)
+        if not layer.moe:
+            gate, up = torch.chunk(project(normed, layer.gateup_proj).float(), 2, dim=-1)
+            mlp = project((silu(gate) * up).to(x.dtype), layer.down_proj)
+            return (x.float() + mlp.float()).to(x.dtype)
+        tokens = normed.reshape(B * S, H)
+        weights, indices = moe_router(tokens, layer.gate_weight, self.moe_cfg)
+        out = moe_apply_fused(
+            tokens, weights, indices, layer.experts_gateup, layer.experts_down
+        ).float()
+        if hasattr(layer, "shared_gateup"):
+            sg, su = torch.chunk(project(normed, layer.shared_gateup).float(), 2, dim=-1)
+            shared = project((silu(sg) * su).to(x.dtype), layer.shared_down)
+            out = out + shared.reshape(B * S, H).float()
+        return (x.float() + out.reshape(B, S, H)).to(x.dtype)
+
+    def _residual_attn(self, x, attn, layer):
+        attn = project(attn, layer.o_proj)
+        return (x.float() + attn.float()).to(x.dtype)
+
+    def _logits(self, x, last_index: Optional[torch.Tensor]) -> torch.Tensor:
+        x = rms_norm(x, self.norm, self.cfg.rms_norm_eps)
+        if last_index is None:
+            x_last = x[:, -1]
+        else:
+            x_last = x[torch.arange(x.shape[0], device=x.device), last_index]
+        return torch.matmul(x_last.float(), self.lm_head.float())
+
+    # -- modes ----------------------------------------------------------------
+
+    def prefill(
+        self,
+        embeds: torch.Tensor,  # [B, S, H]
+        positions: torch.Tensor,  # [B, S] absolute positions
+        rope: Tuple[torch.Tensor, torch.Tensor],
+        *,
+        last_index: Optional[torch.Tensor] = None,  # [B]
+    ):
+        """→ (logits [B, V] f32 at last_index, k [L, B, NKV, S, D], v).
+        Rows are right-padded, so no query is masked out entirely."""
+        cfg = self.cfg
+        B, S, _ = embeds.shape
+        dev = embeds.device
+        cos = rope[0][positions][:, None]
+        sin = rope[1][positions][:, None]
+        pad_start = torch.zeros((B,), dtype=torch.int32, device=dev)
+        L, NKV = cfg.num_hidden_layers, cfg.resolved_kv_heads
+        k_all = torch.empty((L, B, NKV, S, cfg.head_dim), dtype=embeds.dtype, device=dev)
+        v_all = torch.empty((L, B, NKV, S, cfg.resolved_v_head_dim), dtype=embeds.dtype, device=dev)
+        scale = cfg.head_dim ** -0.5
+        x = embeds
+        for li, layer in enumerate(self.layers()):
+            q, k, v = self._qkv(x, layer, cos, sin)
+            k_all[li] = k
+            v_all[li] = v
+            attn = flash_prefill_attention(
+                q.contiguous(), k.to(q.dtype).contiguous(), v.to(q.dtype).contiguous(),
+                pad_start, scale=scale,
+            )
+            x = self._mlp(self._residual_attn(x, attn, layer), layer)
+        return self._logits(x, last_index), k_all, v_all
+
+    def slot_step(
+        self,
+        embeds: torch.Tensor,  # [B, 1, H]
+        positions: torch.Tensor,  # [B, 1]
+        rope: Tuple[torch.Tensor, torch.Tensor],
+        cache,  # SlotCache: k/v [L, B, NKV, S_max, D], optional scales — updated in place
+    ) -> torch.Tensor:
+        """One token per row → logits [B, V] f32; row r's K/V lands at
+        cache.lengths[r] (lengths are NOT bumped here)."""
+        cos = rope[0][positions][:, None]
+        sin = rope[1][positions][:, None]
+        scale = self.cfg.head_dim ** -0.5
+        x = embeds
+        for li, layer in enumerate(self.layers()):
+            q, k, v = self._qkv(x, layer, cos, sin)
+            attn = slot_kv_write_attend(
+                q, k, v, cache.k, cache.v, cache.k_scale, cache.v_scale, li,
+                cache.lengths, scale,
+            )
+            x = self._mlp(self._residual_attn(x, attn, layer), layer)
+        return self._logits(x, None)

@@ -1,0 +1,146 @@
+"""Slot KV cache kernels of the continuous-batching decode step.
+
+``slot_kv_update`` replaces slot_kv_update
+(dsocr_tpu/ops/pallas/slot_attention.py:194) and ``slot_decode_attention``
+replaces slot_decode_attention (:375). Caches are [L, B, NKV, S, D] —
+int8 codes with [L, B, NKV, S] f32 scale planes, or the model dtype
+without scales. Main path: L = 12, B = 16, NKV = 10, D = 128, S = 2560.
+
+What bounds them on the H100: device-memory bytes. The write moves one
+token per (row, head), a few KB per call, so it is launch latency. The
+attend reads each row's used K/V once and does 4 FLOPs per byte of bf16
+(2 per byte of int8): at 16 rows × ~1.8k tokens it reads ~74 MB of int8
+KV per layer, ~22 µs at the card's 3.35 TB/s.
+
+What the design does (csrc/slot_attention.cu):
+
+- ``slot_kv_update``: grid (B, NKV), one thread per element of D,
+  writes row b's token at ``lengths[b]`` of the layer IN PLACE on the
+  torch cache — the port's choice (JAX's functional update aliases
+  its buffers instead). The layer is a Python int: the wrapper passes
+  the pointer of ``cache[layer]``, a view that costs no copy. Rows with
+  ``lengths[b] >= S`` write nothing.
+- ``slot_decode_attention``: grid (B, NKV); a block walks positions
+  [0, lengths[b]] in tiles of 64, so it reads only the used length of
+  each row (the point of the TPU kernel) — f32 scores against a K tile
+  staged in shared memory, an f32 online softmax from m = -1e30, and int8
+  scales folded in as the reference does (k scale after ``* scale``,
+  v scale into p after ``l`` has accumulated p). One block per (row,
+  head) is 160 blocks at the main path: too few to fill 132 SMs deeply;
+  split-K over the length is later work.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..attention import attention, attention_kv_int8
+from . import _lib
+
+
+def slot_kv_update_plain(k_all, v_all, ks_all, vs_all, k_new, v_new, ks_new,
+                         vs_new, layer: int, lengths):
+    """Indexed assignment in place; rows with lengths >= S are dropped
+    (the reference's out-of-bounds scatter semantics)."""
+    S = k_all.shape[3]
+    valid = (lengths >= 0) & (lengths < S)
+    rows = torch.arange(k_new.shape[0], device=k_new.device)[valid]
+    pos = lengths[valid].long()
+    k_all[layer, rows, :, pos] = k_new[valid].to(k_all.dtype)
+    v_all[layer, rows, :, pos] = v_new[valid].to(v_all.dtype)
+    if ks_all is not None:
+        ks_all[layer, rows, :, pos] = ks_new[valid]
+        vs_all[layer, rows, :, pos] = vs_new[valid]
+
+
+def slot_kv_update(k_all, v_all, ks_all, vs_all, k_new, v_new, ks_new, vs_new,
+                   layer: int, lengths):
+    """Write one token per row at position lengths[r] of `layer`, in place.
+
+    k_all/v_all [L, B, NKV, S, D|Dv] (int8 codes or model dtype),
+    ks_all/vs_all [L, B, NKV, S] f32 or None; k_new/v_new [B, NKV, D|Dv]
+    already in the cache dtype (quantized for int8), ks_new/vs_new
+    [B, NKV] f32 or None; lengths [B] int32. Returns None."""
+    if k_all.device.type == "cpu":
+        return slot_kv_update_plain(k_all, v_all, ks_all, vs_all, k_new, v_new,
+                                    ks_new, vs_new, layer, lengths)
+    name = "slot_kv_update"
+    _lib.require_cuda(name, k_all, v_all, ks_all, vs_all, k_new, v_new, ks_new,
+                      vs_new, lengths)
+    L, B, NKV, S, D = k_all.shape
+    Dv = v_all.shape[-1]
+    quant = ks_all is not None
+    if k_new.dtype != k_all.dtype or v_new.dtype != v_all.dtype or v_all.dtype != k_all.dtype:
+        raise ValueError(f"{name}: new rows must already be in the cache dtype")
+    if k_new.shape != (B, NKV, D) or v_new.shape != (B, NKV, Dv) or lengths.shape != (B,):
+        raise ValueError(f"{name}: bad shapes {k_new.shape} {v_new.shape}")
+    if lengths.dtype != torch.int32 or not 0 <= layer < L:
+        raise ValueError(f"{name}: lengths must be int32 and layer in range")
+    if quant and (vs_all is None or ks_new is None or vs_new is None
+                  or ks_new.dtype != torch.float32 or ks_all.dtype != torch.float32):
+        raise ValueError(f"{name}: int8 caches need f32 scale planes and new scales")
+    err = _lib.lib().dsocr_slot_kv_update(
+        k_all[layer].data_ptr(), v_all[layer].data_ptr(),
+        ks_all[layer].data_ptr() if quant else None,
+        vs_all[layer].data_ptr() if quant else None,
+        k_new.data_ptr(), v_new.data_ptr(), _lib.ptr(ks_new), _lib.ptr(vs_new),
+        lengths.data_ptr(), B, NKV, S, D, Dv, k_all.element_size(),
+        _lib.stream_ptr(k_all),
+    )
+    _lib.check(err, name)
+    _lib.count_launch(slot_kv_update)
+
+
+slot_kv_update.launches = 0
+
+
+def slot_decode_attention_plain(q, k_all, v_all, ks_all, vs_all, layer: int,
+                                lengths, *, scale: float):
+    """Dense masked attention over the whole [S] row (the reference's
+    einsum path: ops/attention.py attention / attention_kv_int8)."""
+    pos = torch.arange(k_all.shape[3], device=q.device)
+    mask = (pos[None, :] <= lengths.to(q.device)[:, None])[:, None, None, :]  # [B, 1, 1, S]
+    if ks_all is not None:
+        return attention_kv_int8(q, k_all[layer], ks_all[layer], v_all[layer], vs_all[layer],
+                                 mask, scale)
+    return attention(q, k_all[layer].to(q.dtype), v_all[layer].to(q.dtype), mask, scale)
+
+
+def slot_decode_attention(q, k_all, v_all, ks_all, vs_all, layer: int, lengths,
+                          *, scale: float):
+    """q [B, NH, 1, D] attends [0, lengths[b]] of `layer`'s cache →
+    [B, 1, NH·Dv] in q's dtype (f32 inside). CPU tensors run the plain
+    version; CUDA tensors launch the kernel."""
+    if q.device.type == "cpu":
+        return slot_decode_attention_plain(q, k_all, v_all, ks_all, vs_all, layer,
+                                           lengths, scale=scale)
+    name = "slot_decode_attention"
+    _lib.require_cuda(name, q, k_all, v_all, ks_all, vs_all, lengths)
+    B, NH, Sq, D = q.shape
+    L, _, NKV, S, Dv = v_all.shape
+    if Sq != 1 or k_all.shape != (L, B, NKV, S, D) or NH % NKV or NH // NKV > 8:
+        raise ValueError(f"{name}: bad shapes {q.shape} {k_all.shape} {v_all.shape}")
+    if D > 128 or Dv > 128:
+        raise ValueError(f"{name}: head dims above 128 are not supported")
+    if q.dtype not in (torch.float32, torch.bfloat16) or k_all.dtype != v_all.dtype:
+        raise ValueError(f"{name}: unsupported dtypes {q.dtype} {k_all.dtype}")
+    quant = k_all.dtype == torch.int8
+    if quant != (ks_all is not None and vs_all is not None):
+        raise ValueError(f"{name}: scale planes go with int8 caches only")
+    if lengths.dtype != torch.int32 or not 0 <= layer < L:
+        raise ValueError(f"{name}: lengths must be int32 and layer in range")
+    out = torch.empty((B, 1, NH * Dv), dtype=q.dtype, device=q.device)
+    err = _lib.lib().dsocr_slot_decode_attention(
+        q.data_ptr(), k_all[layer].data_ptr(), v_all[layer].data_ptr(),
+        ks_all[layer].data_ptr() if quant else None,
+        vs_all[layer].data_ptr() if quant else None,
+        lengths.data_ptr(), out.data_ptr(), B, NH, NKV, S, D, Dv, float(scale),
+        _lib.DTYPE_CODES[q.dtype], _lib.DTYPE_CODES[k_all.dtype],
+        _lib.stream_ptr(q),
+    )
+    _lib.check(err, name)
+    _lib.count_launch(slot_decode_attention)
+    return out
+
+
+slot_decode_attention.launches = 0

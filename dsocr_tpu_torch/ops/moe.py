@@ -1,0 +1,128 @@
+"""Mixture-of-experts routing and the fused bf16 expert tiers
+(dsocr_tpu/ops/moe.py: moe_router and moe_apply_fused).
+
+Expert stacks keep the reference layout: gate+up fused along the output
+dim, [E, hidden, 2*inter], and down [E, inter, hidden]. Three tiers by
+token count N, as in the reference:
+
+- N = 1: an unrolled loop over the K selected experts;
+- N <= 32: every expert on every token (reads each expert once), then a
+  gather of the selected outputs;
+- N > 32: assignments sorted by expert and run as a grouped GEMM, one
+  torch.matmul per expert on its contiguous slice — the product that the
+  reference leaves to XLA's ragged_dot.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from .activations import silu
+
+
+@dataclasses.dataclass
+class MoeConfig:
+    num_experts: int
+    top_k: int
+    scoring: str = "softmax"  # "softmax" | "sigmoid"
+    norm_topk_prob: bool = False
+    routed_scaling_factor: float = 1.0
+
+
+def moe_router(
+    tokens: torch.Tensor,  # [N, hidden]
+    gate_weight: torch.Tensor,  # [E, hidden]
+    cfg: MoeConfig,
+    aux_bias: Optional[torch.Tensor] = None,  # [E]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(topk_weights [N, K] f32, topk_indices [N, K] int64); the gating
+    matmul runs in full f32 (core.device turns TF32 off)."""
+    logits = torch.matmul(tokens.float(), gate_weight.float().t())
+    if aux_bias is not None:
+        logits = logits + aux_bias.float()[None, :]
+    if cfg.scoring == "softmax":
+        scores = torch.softmax(logits, dim=-1)
+    elif cfg.scoring == "sigmoid":
+        scores = torch.sigmoid(logits)
+    else:
+        raise ValueError(f"MoE scoring `{cfg.scoring}` not supported")
+    topk_weights, topk_indices = torch.topk(scores, cfg.top_k, dim=-1)
+    if cfg.top_k > 1 and cfg.norm_topk_prob:
+        topk_weights = topk_weights / (topk_weights.sum(dim=-1, keepdim=True) + 1e-20)
+    if cfg.routed_scaling_factor != 1.0:
+        topk_weights = topk_weights * cfg.routed_scaling_factor
+    return topk_weights, topk_indices
+
+
+def _split_gateup(x: torch.Tensor):
+    half = x.shape[-1] // 2
+    return x[..., :half], x[..., half:]
+
+
+def moe_apply_single_fused(tokens, topk_weights, topk_indices, gateup, down):
+    """N = 1: loop over the K selected experts (reads K of E)."""
+    out = torch.zeros((1, down.shape[-1]), dtype=torch.float32, device=tokens.device)
+    for slot in range(topk_indices.shape[1]):
+        e = topk_indices[0, slot : slot + 1]  # stays on the device: no sync
+        gu = torch.matmul(tokens, gateup.index_select(0, e)[0]).float()
+        gate, up = _split_gateup(gu)
+        inter = (silu(gate) * up).to(tokens.dtype)
+        wd = down.index_select(0, e)[0]
+        out = out + topk_weights[:, slot : slot + 1] * torch.matmul(inter, wd).float()
+    return out.to(tokens.dtype)
+
+
+def moe_apply_dense_fused(tokens, topk_weights, topk_indices, gateup, down):
+    """N <= 32: all experts on all tokens, then the K selected outputs."""
+    gus = torch.matmul(tokens[None], gateup).float()  # [E, N, 2I]
+    gates, ups = _split_gateup(gus)
+    inter = (silu(gates) * ups).to(tokens.dtype)
+    outs = torch.matmul(inter, down).float()  # [E, N, H]
+    n_idx = torch.arange(tokens.shape[0], device=tokens.device)[:, None]
+    sel = outs[topk_indices, n_idx]  # [N, K, H]
+    return (sel * topk_weights[..., None]).sum(dim=1).to(tokens.dtype)
+
+
+def moe_apply_grouped_fused(tokens, topk_weights, topk_indices, gateup, down):
+    """N > 32: assignments sorted by expert, one matmul per expert slice."""
+    n, hidden = tokens.shape
+    k = topk_indices.shape[1]
+    flat_expert = topk_indices.reshape(n * k)
+    order = torch.argsort(flat_expert, stable=True)
+    sorted_tokens = tokens[order // k]
+    # the one host sync of the grouped tier: slice bounds per expert
+    counts = torch.bincount(flat_expert, minlength=gateup.shape[0]).tolist()
+    outs = torch.empty((n * k, hidden), dtype=tokens.dtype, device=tokens.device)
+    start = 0
+    for e, count in enumerate(counts):
+        if count == 0:
+            continue
+        seg = slice(start, start + count)
+        gates, ups = _split_gateup(torch.matmul(sorted_tokens[seg], gateup[e]).float())
+        inter = (silu(gates) * ups).to(tokens.dtype)
+        outs[seg] = torch.matmul(inter, down[e])
+        start += count
+    unsorted = torch.empty_like(outs)
+    unsorted[order] = outs
+    per_slot = unsorted.reshape(n, k, hidden).float()
+    return (per_slot * topk_weights[..., None]).sum(dim=1).to(tokens.dtype)
+
+
+def moe_apply_fused(
+    tokens: torch.Tensor,  # [N, hidden]
+    topk_weights: torch.Tensor,  # [N, K] f32
+    topk_indices: torch.Tensor,  # [N, K]
+    gateup: torch.Tensor,  # [E, hidden, 2*inter]
+    down: torch.Tensor,  # [E, inter, hidden]
+    *,
+    dense_threshold: int = 32,
+) -> torch.Tensor:
+    """Routed experts → [N, hidden] in tokens.dtype (tier by N)."""
+    if tokens.shape[0] == 1:
+        return moe_apply_single_fused(tokens, topk_weights, topk_indices, gateup, down)
+    if tokens.shape[0] <= dense_threshold:
+        return moe_apply_dense_fused(tokens, topk_weights, topk_indices, gateup, down)
+    return moe_apply_grouped_fused(tokens, topk_weights, topk_indices, gateup, down)

@@ -1,0 +1,85 @@
+"""The PyTorch port imports without jax or the reference's heavy deps, and
+picks its device explicitly."""
+
+import json
+import subprocess
+import sys
+import os
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SLICE_MODULES = [
+    "dsocr_tpu_torch",
+    "dsocr_tpu_torch.core",
+    "dsocr_tpu_torch.core.device",
+    "dsocr_tpu_torch.core.params",
+    "dsocr_tpu_torch.core.sampling",
+    "dsocr_tpu_torch.ops",
+    "dsocr_tpu_torch.ops.norms",
+    "dsocr_tpu_torch.ops.activations",
+    "dsocr_tpu_torch.ops.rope",
+    "dsocr_tpu_torch.ops.attention",
+    "dsocr_tpu_torch.ops.linear",
+    "dsocr_tpu_torch.ops.moe",
+    "dsocr_tpu_torch.ops.resize",
+    "dsocr_tpu_torch.ops.kernels",
+    "dsocr_tpu_torch.ops.kernels.sam_attention",
+    "dsocr_tpu_torch.ops.kernels.prefill_attention",
+    "dsocr_tpu_torch.ops.kernels.slot_attention",
+    "dsocr_tpu_torch.image",
+    "dsocr_tpu_torch.models.deepseek",
+    "dsocr_tpu_torch.models.deepseek.config",
+    "dsocr_tpu_torch.models.deepseek.sam",
+    "dsocr_tpu_torch.models.deepseek.clip",
+    "dsocr_tpu_torch.models.deepseek.fusion",
+    "dsocr_tpu_torch.models.deepseek.decoder",
+    "dsocr_tpu_torch.models.deepseek.engine",
+    "dsocr_tpu_torch.models.deepseek.convert",
+    "dsocr_tpu_torch.runtime.slots",
+    "dsocr_tpu_torch.server.scheduler",
+]
+FORBIDDEN = ["jax", "PIL", "safetensors", "ml_dtypes", "tokenizers", "aiohttp", "triton"]
+
+
+def test_port_imports_no_jax_nor_heavy_deps():
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {SLICE_MODULES!r}: importlib.import_module(m)\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN + ['dsocr_tpu']!r})))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, env=env,
+        cwd=REPO, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_cuda_request_without_gpu_raises():
+    from dsocr_tpu_torch.core.device import select_device
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        select_device("cuda")
+    assert select_device(None).type == "cpu"
+    assert select_device("cpu").type == "cpu"
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
+    with pytest.raises(ValueError):
+        select_device("tpu")
+
+
+def test_wrappers_refuse_to_fall_back():
+    """A wrapper given a non-CPU, non-CUDA tensor raises instead of running
+    its twin (a CUDA tensor launches the kernel; only CPU runs the twin)."""
+    from dsocr_tpu_torch.ops.kernels import flash_prefill_attention
+
+    q = torch.zeros((1, 2, 4, 8), device="meta")
+    with pytest.raises((ValueError, RuntimeError, NotImplementedError)):
+        flash_prefill_attention(q, q, q, torch.zeros((1,), dtype=torch.int32, device="meta"), scale=1.0)

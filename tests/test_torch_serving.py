@@ -1,0 +1,137 @@
+"""Continuous-batching serving through the port's ContinuousScheduler
+against the reference's, on the same weights (tiny config, f32, 2 slots):
+greedy tokens must be identical with a model-dtype and an int8 KV cache,
+including a request that joins while another row is mid-generation. (The
+model-dtype cache is bf16 on the card; here it is f32, because XLA's CPU
+backend cannot run the reference engine in bf16.)
+Also the join_many retry path: a failed batched join leaves the state
+intact, and only the bad request fails."""
+
+import asyncio
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dsocr_tpu.core import DecodeParameters as JaxParams
+from dsocr_tpu.core import VisionSettings as JaxVision
+from dsocr_tpu.models.deepseek import DeepseekOcrEngine as JaxEngine
+from dsocr_tpu.models.deepseek.config import tiny_deepseek_config as jax_tiny
+from dsocr_tpu.server.scheduler import ContinuousScheduler as JaxScheduler
+from dsocr_tpu_torch.core import DecodeParameters, VisionSettings
+from dsocr_tpu_torch.models.deepseek import DeepseekOcrEngine, params_from_jax, tiny_deepseek_config
+from dsocr_tpu_torch.runtime.slots import SlotRunner
+from dsocr_tpu_torch.server.scheduler import ContinuousScheduler
+
+BUDGETS = [3, 10, 10]  # the first row finishes early; the third joins mid-flight
+
+
+class _Tok:
+    def encode(self, text):
+        return [ord(c) % 100 for c in text]
+
+    def decode(self, ids, skip_special_tokens=True):
+        return " ".join(map(str, ids))
+
+    def token_to_id(self, token):
+        return 127 if token == "<image>" else None
+
+
+def _images():
+    rng = np.random.default_rng(3)
+    return [rng.integers(0, 256, size=(60, 60, 3), dtype=np.uint8) for _ in BUDGETS]
+
+
+def _serve(sched, params_cls, vision):
+    async def run():
+        return await asyncio.gather(*(
+            sched.submit("<image>q", [img], vision,
+                         params_cls(max_new_tokens=n, no_repeat_ngram_size=None))
+            for img, n in zip(_images(), BUDGETS)
+        ))
+
+    return [o.generated_tokens for o in asyncio.run(run())]
+
+
+@pytest.fixture(scope="module")
+def jax_engines():
+    return {
+        kvq: JaxEngine(jax_tiny(), dtype=jnp.float32, max_seq_len=512, kv_quant=kvq)
+        for kvq in (None, "int8")
+    }
+
+
+def _port(jax_engine, kv_quant):
+    state = params_from_jax(jax.device_get(jax_engine.params))
+    return DeepseekOcrEngine(tiny_deepseek_config(), dtype=torch.float32, device="cpu",
+                             max_seq_len=512, kv_quant=kv_quant, state=state)
+
+
+@pytest.mark.parametrize("kv_quant", [None, "int8"])
+def test_greedy_tokens_match_reference_scheduler(jax_engines, kv_quant, monkeypatch):
+    jax_engine = jax_engines[kv_quant]
+    want = _serve(JaxScheduler(jax_engine, _Tok(), n_slots=2, max_len=256, chunk_steps=4),
+                  JaxParams, JaxVision(64, 64, False))
+
+    busy_joins = []  # was another row live when a request joined?
+    for name in ("join", "join_many"):
+        orig = getattr(SlotRunner, name)
+
+        def spy(self, state, *args, _orig=orig, **kw):
+            busy_joins.append(bool(state.active.any()))
+            return _orig(self, state, *args, **kw)
+
+        monkeypatch.setattr(SlotRunner, name, spy)
+    sched = ContinuousScheduler(_port(jax_engine, kv_quant), _Tok(), n_slots=2, max_len=256,
+                                chunk_steps=4)
+    got = _serve(sched, DecodeParameters, VisionSettings(64, 64, False))
+    assert [len(t) for t in got] == BUDGETS
+    assert got == want
+    assert any(busy_joins), "no request joined while another was decoding"
+    assert len(sched.ttft_samples) == len(BUDGETS)
+
+
+def test_failed_join_many_retries_per_row(jax_engines, monkeypatch):
+    port = _port(jax_engines[None], None)
+    clean = _serve(ContinuousScheduler(port, _Tok(), n_slots=4, max_len=256, chunk_steps=4),
+                   DecodeParameters, VisionSettings(64, 64, False))
+
+    orig_prefill = port.prefill_for_slots
+
+    def corrupt_second(tokenizer, requests):
+        packets = orig_prefill(tokenizer, requests)
+        if len(packets) > 1:  # a K block with the wrong head count cannot join
+            packets[1] = dict(packets[1], row_k=packets[1]["row_k"][:, :, :1])
+        return packets
+
+    monkeypatch.setattr(port, "prefill_for_slots", corrupt_second)
+    calls = []
+    orig_join_many = SlotRunner.join_many
+
+    def spy_join_many(self, state, rows, packets, *args):
+        before = [t.clone() for t in (state.context, state.ctx_len, state.active, state.cache.k)]
+        try:
+            return orig_join_many(self, state, rows, packets, *args)
+        except ValueError:
+            after = (state.context, state.ctx_len, state.active, state.cache.k)
+            calls.append(all(torch.equal(a, b) for a, b in zip(before, after)))
+            raise
+
+    monkeypatch.setattr(SlotRunner, "join_many", spy_join_many)
+    sched = ContinuousScheduler(port, _Tok(), n_slots=4, max_len=256, chunk_steps=4,
+                                prefill_batch=3)
+
+    async def run():
+        return await asyncio.gather(*(
+            sched.submit("<image>q", [img], VisionSettings(64, 64, False),
+                         DecodeParameters(max_new_tokens=n, no_repeat_ngram_size=None))
+            for img, n in zip(_images(), BUDGETS)
+        ), return_exceptions=True)
+
+    outs = asyncio.run(run())
+    assert calls == [True], "join_many must fail once, leaving the state untouched"
+    assert isinstance(outs[1], ValueError)
+    assert outs[0].generated_tokens == clean[0]
+    assert outs[2].generated_tokens == clean[2]
