@@ -5,7 +5,11 @@ arrays — ``jax.device_get(engine.params)``, whose decoder is already fused
 (an unfused decoder tree is fused here) — and returns a state_dict for
 ``engine.DeepseekOcrModel``, so both packages compute the same function.
 The reference's layouts are kept: [in, out] linears, OIHW convs, and each
-[L, ...] decoder stack split into one entry per layer.
+[L, ...] decoder stack split into one entry per layer. A Q8_0 engine's
+tree (``quantize="q8_0"``) holds packed ``{codes, scales}`` dicts: each
+is split per layer the same way (``...qkv_proj.codes``), int8 codes stay
+int8 and scales f32, and a packed lm_head becomes
+``decoder.lm_head.codes``/``.scales``.
 """
 
 from __future__ import annotations
@@ -39,13 +43,16 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     decoder = fuse_decoder_params(tree["decoder"])
     for group in _STACKED:
         for key, stack in (decoder.pop(group, None) or {}).items():
-            stack = np.asarray(stack)
-            for i in range(stack.shape[0]):
-                flat[f"decoder.{group}.{i}.{key}"] = stack[i]
+            parts = stack.items() if isinstance(stack, dict) else [("", stack)]
+            for part, arr in parts:
+                arr = np.asarray(arr)
+                suffix = f".{part}" if part else ""
+                for i in range(arr.shape[0]):
+                    flat[f"decoder.{group}.{i}.{key}{suffix}"] = arr[i]
     _flatten("decoder", decoder, flat)
     return {
         key: torch.from_numpy(np.ascontiguousarray(value.astype(np.float32)))
         if value.dtype.kind == "f" or value.dtype.name == "bfloat16"
-        else torch.from_numpy(np.ascontiguousarray(value))
+        else torch.from_numpy(np.array(value))  # a writable copy (int8 codes)
         for key, value in flat.items()
     }

@@ -9,7 +9,12 @@ reference.
 Weights are the reference's FUSED layout (fuse_decoder_params): qkv_proj,
 gateup_proj, shared_gateup and experts_gateup concatenated along their
 output dims, [in, out] matrices, one module per layer (the reference's
-[L, ...] stacks split).
+[L, ...] stacks split). With ``quantize="q8_0"`` the eligible weights
+(quantize.packed_kind) are PackedQ8 holders instead, and the layers
+dispatch as the reference does (decoder.py:481-507, :567-585): the
+routed experts run the packed decode kernels when B·S ≤ 32 and both
+stacks are packed, else dequantize to bf16 for the float tiers; the
+packed lm_head runs q8_matmul.
 
 Two modes, as the slice needs:
 
@@ -23,6 +28,7 @@ Two modes, as the slice needs:
 
 from __future__ import annotations
 
+import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -39,8 +45,11 @@ from ...ops import (
     silu,
     slot_kv_write_attend,
 )
-from ...ops.kernels import flash_prefill_attention
+from ...ops.kernels import flash_prefill_attention, q8_matmul
+from ...ops.linear import PackedQ8
+from ...ops.moe import dequant_stack, is_quantized, moe_apply_q8_fused
 from .config import DeepseekV2Config
+from .quantize import packed_kind
 from .sam import normal_, param
 
 
@@ -83,60 +92,107 @@ def fuse_decoder_params(params: Dict) -> Dict:
     return out
 
 
+def _weight(name: str, shape, dtype, device, quantize: Optional[str]):
+    """A float parameter, or a PackedQ8 holder where `quantize` packs it."""
+    kind = packed_kind(name, shape[-2]) if quantize else None
+    if kind is None:
+        return param(*shape, dtype=dtype, device=device)
+    return PackedQ8.empty(shape, in_major=kind == "experts", device=device)
+
+
+@torch.no_grad()
+def _fill_(w, std: float, gen: torch.Generator, dtype) -> float:
+    """Draw N(0, std²) into a parameter, or draw the float weight a holder
+    stands for (rounded to the model dtype, as a float model holds it) and
+    pack it; returns the seconds spent packing."""
+    if not isinstance(w, PackedQ8):
+        normal_(w, std, gen)
+        return 0.0
+    tmp = torch.empty(w.float_shape, dtype=dtype, device=w.codes.device)
+    normal_(tmp, std, gen)
+    if tmp.is_cuda:
+        torch.cuda.synchronize(tmp.device)
+    t0 = time.perf_counter()
+    w.pack_(tmp)
+    if tmp.is_cuda:
+        torch.cuda.synchronize(tmp.device)
+    return time.perf_counter() - t0
+
+
+# a layer's weights in registration order (the order random init draws them)
+_LAYER_WEIGHTS = (
+    "input_layernorm", "post_attention_layernorm", "qkv_proj", "o_proj", "gate_weight",
+    "experts_gateup", "experts_down", "shared_gateup", "shared_down", "gateup_proj", "down_proj",
+)
+
+
 class DecoderLayer(nn.Module):
-    def __init__(self, cfg: DeepseekV2Config, moe: bool, dtype, device):
+    def __init__(self, cfg: DeepseekV2Config, moe: bool, dtype, device,
+                 quantize: Optional[str] = None):
         super().__init__()
         H, D, DV = cfg.hidden_size, cfg.head_dim, cfg.resolved_v_head_dim
         NH, NKV = cfg.num_attention_heads, cfg.resolved_kv_heads
         self.moe = moe
         p = lambda *s: param(*s, dtype=dtype, device=device)  # noqa: E731
+        w = lambda name, *s: _weight(name, s, dtype, device, quantize)  # noqa: E731
         self.input_layernorm = p(H)
         self.post_attention_layernorm = p(H)
-        self.qkv_proj = p(H, NH * D + NKV * D + NKV * DV)
-        self.o_proj = p(NH * DV, H)
+        self.qkv_proj = w("qkv_proj", H, NH * D + NKV * D + NKV * DV)
+        self.o_proj = w("o_proj", NH * DV, H)
         if moe:
             E = cfg.n_routed_experts
             MI = cfg.moe_intermediate_size or cfg.intermediate_size
             self.gate_weight = p(E, H)
-            self.experts_gateup = p(E, H, 2 * MI)
-            self.experts_down = p(E, MI, H)
+            self.experts_gateup = w("experts_gateup", E, H, 2 * MI)
+            self.experts_down = w("experts_down", E, MI, H)
             SI = MI * (cfg.n_shared_experts or 0)
             if SI:
-                self.shared_gateup = p(H, 2 * SI)
-                self.shared_down = p(SI, H)
+                self.shared_gateup = w("shared_gateup", H, 2 * SI)
+                self.shared_down = w("shared_down", SI, H)
         else:
             I = cfg.intermediate_size  # noqa: E741
             self.gateup_proj = p(H, 2 * I)
             self.down_proj = p(I, H)
 
     @torch.no_grad()
-    def reset_(self, gen: torch.Generator) -> None:
+    def reset_(self, gen: torch.Generator) -> float:
         """Random init at the reference's scales (decoder.py:57-147): every
-        matrix N(0, fan_in^-1), norms 1."""
-        for name, w in self.named_parameters():
+        matrix N(0, fan_in^-1), norms 1, drawn in registration order (a
+        packed holder draws its float weight in its place, so one seed
+        gives a packed model the float model's weights). Returns the
+        seconds spent packing."""
+        packing = 0.0
+        for name in _LAYER_WEIGHTS:
+            w = getattr(self, name, None)
+            if w is None:
+                continue
             if name.endswith("layernorm"):
                 w.fill_(1.0)
             elif name == "gate_weight":
                 normal_(w, w.shape[-1] ** -0.5, gen)
             else:
-                normal_(w, w.shape[-2] ** -0.5, gen)
+                fan_in = (w.float_shape if isinstance(w, PackedQ8) else w.shape)[-2]
+                packing += _fill_(w, fan_in ** -0.5, gen, self.input_layernorm.dtype)
+        return packing
 
 
 class DeepseekDecoder(nn.Module):
-    def __init__(self, cfg: DeepseekV2Config, dtype=torch.bfloat16, device=None):
+    def __init__(self, cfg: DeepseekV2Config, dtype=torch.bfloat16, device=None,
+                 quantize: Optional[str] = None):
         super().__init__()
         self.cfg = cfg
         num_dense, num_moe = split_layers(cfg)
         H, V = cfg.hidden_size, cfg.vocab_size
         self.embed_tokens = param(V, H, dtype=dtype, device=device)
         self.norm = param(H, dtype=dtype, device=device)
-        self.lm_head = param(H, V, dtype=dtype, device=device)
+        self.lm_head = _weight("lm_head", (H, V), dtype, device, quantize)
         self.dense_layers = nn.ModuleList(
-            DecoderLayer(cfg, False, dtype, device) for _ in range(num_dense)
+            DecoderLayer(cfg, False, dtype, device, quantize) for _ in range(num_dense)
         )
         self.moe_layers = nn.ModuleList(
-            DecoderLayer(cfg, True, dtype, device) for _ in range(num_moe)
+            DecoderLayer(cfg, True, dtype, device, quantize) for _ in range(num_moe)
         )
+        self.quantize_s = 0.0  # seconds spent packing at random init (reset_)
         self.moe_cfg = MoeConfig(
             num_experts=cfg.n_routed_experts or 0,
             top_k=cfg.num_experts_per_tok or 1,
@@ -151,11 +207,12 @@ class DeepseekDecoder(nn.Module):
 
     @torch.no_grad()
     def reset_(self, gen: torch.Generator) -> None:
+        """Random init; ``quantize_s`` records the seconds spent packing."""
         normal_(self.embed_tokens, 0.02, gen)
         self.norm.fill_(1.0)
-        normal_(self.lm_head, 0.02, gen)
+        self.quantize_s = _fill_(self.lm_head, 0.02, gen, self.dtype)
         for layer in self.layers():
-            layer.reset_(gen)
+            self.quantize_s += layer.reset_(gen)
 
     def layers(self):
         return list(self.dense_layers) + list(self.moe_layers)
@@ -186,9 +243,13 @@ class DeepseekDecoder(nn.Module):
             return (x.float() + mlp.float()).to(x.dtype)
         tokens = normed.reshape(B * S, H)
         weights, indices = moe_router(tokens, layer.gate_weight, self.moe_cfg)
-        out = moe_apply_fused(
-            tokens, weights, indices, layer.experts_gateup, layer.experts_down
-        ).float()
+        egu, ed = layer.experts_gateup, layer.experts_down
+        if is_quantized(egu) and is_quantized(ed) and B * S <= 32:
+            routed = moe_apply_q8_fused(tokens, weights, indices, egu, ed)
+        else:  # float stacks, or prefill of packed ones: bf16 weights, grouped tier
+            routed = moe_apply_fused(tokens, weights, indices,
+                                     dequant_stack(egu).to(x.dtype), dequant_stack(ed).to(x.dtype))
+        out = routed.float()
         if hasattr(layer, "shared_gateup"):
             sg, su = torch.chunk(project(normed, layer.shared_gateup).float(), 2, dim=-1)
             shared = project((silu(sg) * su).to(x.dtype), layer.shared_down)
@@ -205,6 +266,8 @@ class DeepseekDecoder(nn.Module):
             x_last = x[:, -1]
         else:
             x_last = x[torch.arange(x.shape[0], device=x.device), last_index]
+        if isinstance(self.lm_head, PackedQ8):
+            return q8_matmul(x_last.contiguous(), self.lm_head.codes, self.lm_head.scales)
         return torch.matmul(x_last.float(), self.lm_head.float())
 
     # -- modes ----------------------------------------------------------------

@@ -6,7 +6,8 @@ the prompt rows → slot decode under runtime.slots.SlotRunner.
 Only the continuous-batching surface is ported: prepare_vision_input,
 compute_image_embedding, build_prompt_tokens, slot_step_fn,
 new_slot_cache, make_slot_runner, prefill_for_slot and
-prefill_for_slots. Views are batched through the towers (4 global views
+prefill_for_slots. ``quantize="q8_0"`` serves packed Q8_0 decoder weights
+(models/deepseek/quantize.py), packed on the device. Views are batched through the towers (4 global views
 or 16 tiles per call) the way the reference batches them; the reference's
 host-link tricks (sparse or content-only upload, a transfer pool,
 streamed prep) are not carried over.
@@ -37,6 +38,7 @@ from .fusion import (
     format_global_tokens,
     format_local_tokens,
 )
+from .quantize import quantize_decoder_params
 from .sam import SamEncoder
 
 
@@ -61,12 +63,12 @@ class DeepseekOcrModel(nn.Module):
     """All weights of one DeepSeek-OCR v1 model; state_dict names follow
     the reference's parameter tree (see convert.params_from_jax)."""
 
-    def __init__(self, cfg: DeepseekOcrConfig, dtype, device):
+    def __init__(self, cfg: DeepseekOcrConfig, dtype, device, quantize: Optional[str] = None):
         super().__init__()
         self.sam = SamEncoder(cfg.sam, dtype, device)
         self.clip = ClipEncoder(cfg.clip, dtype, device)
         self.projector = Projector(cfg, dtype, device)
-        self.decoder = DeepseekDecoder(cfg.language, dtype, device)
+        self.decoder = DeepseekDecoder(cfg.language, dtype, device, quantize)
 
     @torch.no_grad()
     def reset_(self, gen: torch.Generator) -> None:
@@ -85,22 +87,36 @@ class DeepseekOcrEngine:
         seed: int = 0,
         kv_quant: Optional[str] = None,
         state: Optional[Dict[str, torch.Tensor]] = None,
+        quantize: Optional[str] = None,
     ):
         """Random weights from `seed` on the device, or `state` (a
-        state_dict, e.g. convert.params_from_jax of a reference engine)."""
+        state_dict, e.g. convert.params_from_jax of a reference engine).
+
+        quantize="q8_0" packs the decoder's eligible weights: random init
+        draws each float weight on the device and packs it there (one
+        float weight alive at a time, so peak memory is not float plus
+        Q8); a `state` may hold packed entries (``.codes``/``.scales``)
+        or float ones, which are packed on load."""
         if cfg.variant != "ocr1" or cfg.clip is None:
             raise NotImplementedError("the port serves DeepSeek-OCR v1 (SAM + CLIP) only")
         if kv_quant not in (None, "int8"):
             raise ValueError(f"unsupported kv_quant {kv_quant!r}")
+        if quantize in ("q4_k", "q6_k"):
+            raise NotImplementedError(f"{quantize} serving is not ported yet (ROADMAP Queue 1)")
+        if quantize not in (None, "q8_0"):
+            raise ValueError(f"unsupported quantize {quantize!r}")
         self.cfg = cfg
         self.dtype = dtype
         self.device = select_device(device)
         self.kv_quant = kv_quant
+        self.quantize = quantize
         self.max_seq_len = max_seq_len
-        self.model = DeepseekOcrModel(cfg, dtype, self.device)
+        self.model = DeepseekOcrModel(cfg, dtype, self.device, quantize)
         if state is None:
             self.model.reset_(torch.Generator(device=self.device).manual_seed(seed))
         else:
+            if quantize:
+                state = quantize_decoder_params(state, quantize)
             self.model.load_state_dict(state)
         self.model.eval()
         self.params = self.model.decoder  # what SlotRunner hands to slot_step_fn

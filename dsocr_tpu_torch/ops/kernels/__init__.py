@@ -7,6 +7,16 @@ falls back), and counts its launches in a plain int attribute
 TPU kernel each replaces.
 """
 
+from .dequant_matmul import (
+    q8_dense_experts,
+    q8_dense_experts_perx,
+    q8_dense_experts_perx_plain,
+    q8_dense_experts_plain,
+    q8_gather_matmul,
+    q8_gather_matmul_plain,
+    q8_matmul,
+    q8_matmul_plain,
+)
 from .prefill_attention import flash_prefill_attention, flash_prefill_attention_plain
 from .sam_attention import sam_flash_attention, sam_flash_attention_plain
 from .slot_attention import (
@@ -16,7 +26,9 @@ from .slot_attention import (
     slot_kv_update_plain,
 )
 
-# (wrapper, source, replaced TPU kernel's pallas_call site)
+_DQ = "dsocr_tpu/ops/pallas/dequant_matmul.py"
+
+# (wrapper, source, replaced TPU kernels' pallas_call sites)
 KERNELS = (
     (sam_flash_attention, "dsocr_tpu_torch/csrc/sam_attention.cu",
      "dsocr_tpu/ops/pallas/sam_attention.py:92"),
@@ -26,6 +38,14 @@ KERNELS = (
      "dsocr_tpu/ops/pallas/slot_attention.py:278"),
     (slot_decode_attention, "dsocr_tpu_torch/csrc/slot_attention.cu",
      "dsocr_tpu/ops/pallas/slot_attention.py:436"),
+    (q8_matmul, "dsocr_tpu_torch/csrc/dequant_matmul.cu",
+     f"{_DQ}:171 (q8_matmul), {_DQ}:312 (q8_matmul_layered)"),
+    (q8_gather_matmul, "dsocr_tpu_torch/csrc/dequant_matmul.cu",
+     f"{_DQ}:250 (q8_gather_matmul), {_DQ}:381 (q8_gather_matmul_layered)"),
+    (q8_dense_experts, "dsocr_tpu_torch/csrc/dequant_matmul.cu",
+     f"{_DQ}:480 (q8_dense_experts_layered)"),
+    (q8_dense_experts_perx, "dsocr_tpu_torch/csrc/dequant_matmul.cu",
+     f"{_DQ}:520 (q8_dense_experts_perx_layered)"),
 )
 
 
@@ -43,6 +63,14 @@ __all__ = [
     "flash_prefill_attention",
     "flash_prefill_attention_plain",
     "launch_counts",
+    "q8_dense_experts",
+    "q8_dense_experts_perx",
+    "q8_dense_experts_perx_plain",
+    "q8_dense_experts_plain",
+    "q8_gather_matmul",
+    "q8_gather_matmul_plain",
+    "q8_matmul",
+    "q8_matmul_plain",
     "reset_launches",
     "sam_flash_attention",
     "sam_flash_attention_plain",

@@ -38,12 +38,14 @@ NVCC_FLAGS = (
 # dtype codes shared with csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {
     "dsocr_sam_flash_attention": [_P] * 6 + [_I] * 6 + [_P],
     "dsocr_flash_prefill_attention": [_P] * 5 + [_I] * 6 + [_F, _I, _P],
     "dsocr_slot_kv_update": [_P] * 9 + [_I] * 6 + [_P],
     "dsocr_slot_decode_attention": [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P],
+    "dsocr_q8_matmul": [_P] * 4 + [_I] * 4 + [_P],
+    "dsocr_q8_expert_matmul": [_P] * 5 + [_I] * 5 + [_L, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,198 @@
+"""Fused dequantize-matmul over packed Q8_0 weights.
+
+Four wrappers over two CUDA kernels (csrc/dequant_matmul.cu) serve the
+six Q8_0 Pallas functions of dsocr_tpu/ops/pallas/dequant_matmul.py that
+the packed serving path reaches (a torch view of ``W[layer]`` costs no
+copy, so one kernel serves a function and its ``_layered`` twin):
+
+- ``q8_matmul`` ← q8_matmul (:151) and q8_matmul_layered (:282). Row
+  layout, codes [M, K], scales [M, K/32]: the plain projections (qkv
+  1280→3840, o 1280→1280, shared gate+up 1280→3584, shared down
+  1792→1280) at N = 16 rows per decode step and up to 16 × 1024 rows per
+  prefill wave, and the lm_head (1280→129280).
+- ``q8_gather_matmul`` ← q8_gather_matmul (:220) and
+  q8_gather_matmul_layered (:349): ``out[n] = x[n] @ W[idx[n]]``,
+  in-major codes [E, K, M], scales [E, K/32, M]; the routed experts while
+  N·top_k ≤ E (≤ 60 rows at full width).
+- ``q8_dense_experts`` ← q8_dense_experts_layered (:455):
+  ``out[e] = x @ W[e]`` → [E, N, M]; expert gate+up once N·top_k > E.
+- ``q8_dense_experts_perx`` ← q8_dense_experts_perx_layered (:495):
+  ``out[e] = x[e] @ W[e]``; the down projection of that sweep.
+
+Numerics are the reference's ("fast" expand mode): the weight is
+bf16(f32(code) · scale), rounded once per element; the activation is
+bf16(x) whatever the model dtype; products accumulate in f32. A bf16 ×
+bf16 product is exact in f32, so the kernels' tensor-core sums differ
+from the twins only in summation order.
+
+What bounds them on the H100:
+- decode (N ≤ 32) is device-memory bytes: the dense tier reads every
+  expert's codes once per step, ~2.4 GB of int8 plus ~0.3 GB of f32
+  scales over 11 MoE layers, ≥ ~0.8 ms per step at 3.35 TB/s. The expert
+  kernel grids over (M tile of 128, group), keeps the group's x rows as
+  bf16 in shared memory, dequantizes one 32-row Q8 block of the W tile
+  into shared memory per step (one scale per column), and prefetches the
+  next block's codes into registers while the tensor cores (WMMA bf16,
+  f32 accumulate) run the current one.
+- prefill (N = 16384) is tensor-core work, ~5 TFLOP per 16-row wave:
+  ``q8_matmul`` tiles 64 × 64 outputs per block, stages bf16(x) and the
+  dequantized W tile in shared memory 64 K-values (two Q8 blocks) at a
+  time and multiplies them with WMMA; a 16-row tile serves N ≤ 16.
+Neither uses wgmma or TMA yet (ROADMAP Queue 4).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ...dsq.serve_quant import Q8_BLOCK
+from . import _lib
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
+def _dequant_rows(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """Row layout [.., M, K] → f32 holding bf16(f32(code) · scale)."""
+    return _bf16(codes.float() * scales.repeat_interleave(Q8_BLOCK, dim=-1))
+
+
+def _dequant_inmajor(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """In-major layout [.., K, M] → f32 holding bf16(f32(code) · scale)."""
+    return _bf16(codes.float() * scales.repeat_interleave(Q8_BLOCK, dim=-2))
+
+
+def q8_matmul_plain(x, codes, scales):
+    return torch.matmul(_bf16(x), _dequant_rows(codes, scales).t())
+
+
+def q8_gather_matmul_plain(x, codes, scales, idx):
+    idx = idx.long()
+    w = _dequant_inmajor(codes[idx], scales[idx])  # [N, K, M]
+    return torch.bmm(_bf16(x)[:, None, :], w)[:, 0]
+
+
+def q8_dense_experts_plain(x, codes, scales):
+    return torch.matmul(_bf16(x)[None], _dequant_inmajor(codes, scales))
+
+
+def q8_dense_experts_perx_plain(x, codes, scales):
+    return torch.matmul(_bf16(x), _dequant_inmajor(codes, scales))
+
+
+def _check_x(name, x, K):
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: x must be f32 or bf16, got {x.dtype}")
+    if x.shape[-1] != K or K % Q8_BLOCK:
+        raise ValueError(f"{name}: x {tuple(x.shape)} does not match K = {K} (a multiple of 32)")
+
+
+def _check_packed(name, codes, scales, c_shape, s_shape):
+    if codes.dtype != torch.int8 or scales.dtype != torch.float32:
+        raise ValueError(f"{name}: codes must be int8 and scales f32")
+    if tuple(codes.shape) != c_shape or tuple(scales.shape) != s_shape:
+        raise ValueError(f"{name}: codes {tuple(codes.shape)} / scales {tuple(scales.shape)}, "
+                         f"expected {c_shape} / {s_shape}")
+    if codes.data_ptr() % 16 or scales.data_ptr() % 16:
+        raise ValueError(f"{name}: codes and scales must be 16-byte aligned")
+
+
+def q8_matmul(x, codes, scales):
+    """x [N, K] (f32 or bf16) @ dequant(W)ᵀ → [N, M] f32, with W in row
+    layout: codes [M, K] int8, scales [M, K/32] f32. CPU tensors run the
+    plain version; CUDA tensors launch the kernel."""
+    if x.device.type == "cpu":
+        return q8_matmul_plain(x, codes, scales)
+    name = "q8_matmul"
+    _lib.require_cuda(name, x, codes, scales)
+    N, K = x.shape
+    M = codes.shape[0]
+    _check_x(name, x, K)
+    _check_packed(name, codes, scales, (M, K), (M, K // Q8_BLOCK))
+    out = torch.empty((N, M), dtype=torch.float32, device=x.device)
+    if N == 0 or M == 0:
+        return out
+    err = _lib.lib().dsocr_q8_matmul(
+        x.data_ptr(), codes.data_ptr(), scales.data_ptr(), out.data_ptr(), N, K, M,
+        _lib.DTYPE_CODES[x.dtype], _lib.stream_ptr(x),
+    )
+    _lib.check(err, name)
+    _lib.count_launch(q8_matmul)
+    return out
+
+
+q8_matmul.launches = 0
+
+
+def _expert_launch(name, wrapper, x, codes, scales, idx, groups, rows, x_group_stride, out):
+    """One launch of the in-major expert kernel: group g multiplies
+    `rows` rows of x (from x + g * x_group_stride) by expert idx[g] (or
+    expert g when idx is None) into out[g]."""
+    E, K, M = codes.shape
+    _check_x(name, x, K)
+    _check_packed(name, codes, scales, (E, K, M), (E, K // Q8_BLOCK, M))
+    if M % 4:
+        raise ValueError(f"{name}: M = {M} must be a multiple of 4")
+    if groups == 0 or rows == 0 or M == 0:
+        return out
+    err = _lib.lib().dsocr_q8_expert_matmul(
+        x.data_ptr(), codes.data_ptr(), scales.data_ptr(), _lib.ptr(idx), out.data_ptr(),
+        groups, rows, K, M, E, x_group_stride, _lib.DTYPE_CODES[x.dtype], _lib.stream_ptr(x),
+    )
+    _lib.check(err, name)
+    _lib.count_launch(wrapper)
+    return out
+
+
+def q8_gather_matmul(x, codes, scales, idx):
+    """out[n] = bf16(x[n]) @ dequant(W[idx[n]]) → [N, M] f32; x [N, K],
+    in-major codes [E, K, M] int8, scales [E, K/32, M] f32, idx [N] int32
+    (an index outside [0, E) gives a zero row on the card)."""
+    if x.device.type == "cpu":
+        return q8_gather_matmul_plain(x, codes, scales, idx)
+    name = "q8_gather_matmul"
+    _lib.require_cuda(name, x, codes, scales, idx)
+    N = x.shape[0]
+    if x.dim() != 2 or idx.shape != (N,) or idx.dtype != torch.int32:
+        raise ValueError(f"{name}: x must be [N, K] and idx [N] int32")
+    out = torch.empty((N, codes.shape[-1]), dtype=torch.float32, device=x.device)
+    return _expert_launch(name, q8_gather_matmul, x, codes, scales, idx, N, 1, x.shape[1], out)
+
+
+q8_gather_matmul.launches = 0
+
+
+def q8_dense_experts(x, codes, scales):
+    """out[e] = bf16(x) @ dequant(W[e]) → [E, N, M] f32; x [N, K] shared by
+    every expert, in-major codes [E, K, M], scales [E, K/32, M]."""
+    if x.device.type == "cpu":
+        return q8_dense_experts_plain(x, codes, scales)
+    name = "q8_dense_experts"
+    _lib.require_cuda(name, x, codes, scales)
+    if x.dim() != 2:
+        raise ValueError(f"{name}: x must be [N, K]")
+    E, _, M = codes.shape
+    N = x.shape[0]
+    out = torch.empty((E, N, M), dtype=torch.float32, device=x.device)
+    return _expert_launch(name, q8_dense_experts, x, codes, scales, None, E, N, 0, out)
+
+
+q8_dense_experts.launches = 0
+
+
+def q8_dense_experts_perx(x, codes, scales):
+    """out[e] = bf16(x[e]) @ dequant(W[e]) → [E, N, M] f32; x [E, N, K]."""
+    if x.device.type == "cpu":
+        return q8_dense_experts_perx_plain(x, codes, scales)
+    name = "q8_dense_experts_perx"
+    _lib.require_cuda(name, x, codes, scales)
+    E, _, M = codes.shape
+    if x.dim() != 3 or x.shape[0] != E:
+        raise ValueError(f"{name}: x must be [E, N, K] with E = {E}")
+    N, K = x.shape[1], x.shape[2]
+    out = torch.empty((E, N, M), dtype=torch.float32, device=x.device)
+    return _expert_launch(name, q8_dense_experts_perx, x, codes, scales, None, E, N, N * K, out)
+
+
+q8_dense_experts_perx.launches = 0

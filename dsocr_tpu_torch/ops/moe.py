@@ -1,5 +1,6 @@
-"""Mixture-of-experts routing and the fused bf16 expert tiers
-(dsocr_tpu/ops/moe.py: moe_router and moe_apply_fused).
+"""Mixture-of-experts routing, the fused float expert tiers and the packed
+Q8_0 decode tiers (dsocr_tpu/ops/moe.py: moe_router, moe_apply_fused,
+dequant_q8_stack and moe_apply_q8_fused).
 
 Expert stacks keep the reference layout: gate+up fused along the output
 dim, [E, hidden, 2*inter], and down [E, inter, hidden]. Three tiers by
@@ -11,6 +12,10 @@ token count N, as in the reference:
 - N > 32: assignments sorted by expert and run as a grouped GEMM, one
   torch.matmul per expert on its contiguous slice — the product that the
   reference leaves to XLA's ragged_dot.
+
+Packed Q8_0 stacks (ops.linear.PackedQ8, in-major) run at decode through
+the kernels: the gather tier while N·top_k ≤ E, the dense all-expert
+sweep above that. Prefill dequantizes them to bf16 for the grouped tier.
 """
 
 from __future__ import annotations
@@ -20,7 +25,10 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..dsq.serve_quant import Q8_BLOCK
 from .activations import silu
+from .kernels import q8_dense_experts, q8_dense_experts_perx, q8_gather_matmul
+from .linear import PackedQ8
 
 
 @dataclasses.dataclass
@@ -126,3 +134,48 @@ def moe_apply_fused(
     if tokens.shape[0] <= dense_threshold:
         return moe_apply_dense_fused(tokens, topk_weights, topk_indices, gateup, down)
     return moe_apply_grouped_fused(tokens, topk_weights, topk_indices, gateup, down)
+
+
+# -- packed Q8_0 stacks ---------------------------------------------------------
+
+
+def is_quantized(q) -> bool:
+    return isinstance(q, PackedQ8)
+
+
+def dequant_q8_stack(q: PackedQ8) -> torch.Tensor:
+    """In-major {codes [E, in, out], scales [E, in/32, out]} → bf16
+    [E, in, out]: bf16(f32(code) · scale), the prefill path's weights."""
+    full = q.scales.repeat_interleave(Q8_BLOCK, dim=-2)
+    return (q.codes.float() * full).to(torch.bfloat16)
+
+
+def dequant_stack(q) -> torch.Tensor:
+    """A packed stack dequantized to bf16; a float stack as it is."""
+    return dequant_q8_stack(q) if is_quantized(q) else q
+
+
+def moe_apply_q8_fused(tokens, topk_weights, topk_indices, gateup_q: PackedQ8, down_q: PackedQ8):
+    """Decode MoE straight from packed Q8_0 stacks → [N, hidden] in
+    tokens.dtype. N·top_k ≤ E: the gather kernel reads only the selected
+    experts, one row per selection. Above: every expert once (dense
+    sweep), then the selected outputs. The combine is the reference's:
+    f32 outputs times f32 weights, summed over k, then cast."""
+    n, k = topk_indices.shape
+    hidden = tokens.shape[1]
+    if n * k > gateup_q.codes.shape[0]:
+        gus = q8_dense_experts(tokens, gateup_q.codes, gateup_q.scales)  # [E, N, 2I]
+        gates, ups = _split_gateup(gus)
+        inter = (silu(gates) * ups).to(tokens.dtype)
+        outs = q8_dense_experts_perx(inter, down_q.codes, down_q.scales)  # [E, N, H]
+        n_idx = torch.arange(n, device=tokens.device)[:, None]
+        sel = outs[topk_indices, n_idx]  # [N, K, H]
+    else:
+        flat_idx = topk_indices.reshape(n * k).to(torch.int32)
+        flat_x = tokens.repeat_interleave(k, dim=0)  # slot s uses token s // k
+        gus = q8_gather_matmul(flat_x, gateup_q.codes, gateup_q.scales, flat_idx)
+        gates, ups = _split_gateup(gus)
+        inter = (silu(gates) * ups).to(tokens.dtype)
+        outs = q8_gather_matmul(inter, down_q.codes, down_q.scales, flat_idx)
+        sel = outs.reshape(n, k, hidden)
+    return (sel * topk_weights[..., None]).sum(dim=1).to(tokens.dtype)

@@ -10,7 +10,9 @@ on a machine that has only PyTorch and the CUDA toolkit:
 
 Tolerances: f32 outputs atol = rtol = 1e-4 (the kernels sum in another
 order than cuBLAS); bf16 outputs one bf16 ulp at the largest magnitude;
-the KV write is bit-exact.
+the KV write is bit-exact. The Q8_0 matmuls: 1e-5 · max(|bf16 x| @ |W|),
+f32 reassociation of exact bf16 products; the quantizer is bit-exact
+with its CPU run.
 """
 
 import numpy as np
@@ -117,3 +119,84 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         K.flash_prefill_attention(q, q.cpu(), q, torch.zeros(1, dtype=torch.int32, device=dev), scale=1.0)
     with pytest.raises(ValueError):  # int64 pad_start
         K.flash_prefill_attention(q, q, q, torch.zeros(1, dtype=torch.int64, device=dev), scale=1.0)
+
+
+# -- Q8_0 dequantize-matmul ------------------------------------------------------
+
+
+def _q8_weights(rng, lead, k, m, in_major):
+    """Packed weights of a random float [*lead, k, m] stack (the quantizer
+    makes the f16-origin scales the kernels assume)."""
+    from dsocr_tpu_torch.dsq.serve_quant import quantize_expert_stack, quantize_plain
+
+    w = _randn(rng, *lead, k, m, std=k ** -0.5)
+    packed = (quantize_expert_stack if in_major else quantize_plain)(w)
+    return packed["codes"], packed["scales"]
+
+
+def _q8_close(got, want, bound):
+    """bound = |bf16 x| @ |W|, the largest sum of term magnitudes."""
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert float((got - want).abs().max()) <= 1e-5 * float(bound.max())
+
+
+def _abs_bound(x, w):
+    return torch.matmul(x.to(torch.bfloat16).float().abs(), w.abs())
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,k,m", [(16, 1280, 3840), (3, 32, 96), (300, 96, 200), (17, 1792, 1280)])
+def test_q8_matmul_kernel_matches_twin(dev, x_dtype, n, k, m):
+    rng = np.random.default_rng(n + k + m)
+    codes, scales = (t.to(dev) for t in _q8_weights(rng, (), k, m, False))
+    x = _randn(rng, n, k).to(dev, x_dtype)
+    before = K.q8_matmul.launches
+    got = K.q8_matmul(x, codes, scales)
+    assert K.q8_matmul.launches == before + 1
+    w = (codes.float() * scales.repeat_interleave(32, dim=1)).t()
+    _q8_close(got, K.q8_matmul_plain(x, codes, scales), _abs_bound(x, w))
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,n,k,m", [(64, 60, 1280, 1792), (64, 24, 896, 1280), (4, 5, 32, 64), (3, 7, 96, 36)])
+def test_q8_gather_kernel_matches_twin(dev, x_dtype, e, n, k, m):
+    rng = np.random.default_rng(e + n + k)
+    codes, scales = (t.to(dev) for t in _q8_weights(rng, (e,), k, m, True))
+    x = _randn(rng, n, k).to(dev, x_dtype)
+    idx = torch.from_numpy(rng.integers(0, e, size=n).astype(np.int32)).to(dev)
+    before = K.q8_gather_matmul.launches
+    got = K.q8_gather_matmul(x, codes, scales, idx)
+    assert K.q8_gather_matmul.launches == before + 1
+    w = (codes.float() * scales.repeat_interleave(32, dim=1))[idx.long()]
+    bound = torch.bmm(x.to(torch.bfloat16).float().abs()[:, None], w.abs())[:, 0]
+    _q8_close(got, K.q8_gather_matmul_plain(x, codes, scales, idx), bound)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,n,k,m", [(64, 16, 1280, 1792), (64, 16, 896, 1280), (4, 3, 32, 64), (5, 20, 64, 36)])
+def test_q8_dense_expert_kernels_match_twins(dev, x_dtype, e, n, k, m):
+    rng = np.random.default_rng(e * n + k)
+    codes, scales = (t.to(dev) for t in _q8_weights(rng, (e,), k, m, True))
+    w = codes.float() * scales.repeat_interleave(32, dim=1)
+    x = _randn(rng, n, k).to(dev, x_dtype)
+    before = K.q8_dense_experts.launches
+    got = K.q8_dense_experts(x, codes, scales)
+    assert K.q8_dense_experts.launches == before + 1
+    _q8_close(got, K.q8_dense_experts_plain(x, codes, scales), _abs_bound(x[None], w))
+    xe = _randn(rng, e, n, k).to(dev, x_dtype)
+    before = K.q8_dense_experts_perx.launches
+    got = K.q8_dense_experts_perx(xe, codes, scales)
+    assert K.q8_dense_experts_perx.launches == before + 1
+    _q8_close(got, K.q8_dense_experts_perx_plain(xe, codes, scales), _abs_bound(xe, w))
+
+
+def test_q8_quantizer_on_card_is_bit_exact_with_cpu(dev):
+    from dsocr_tpu_torch.dsq.serve_quant import quantize_expert_stack
+
+    rng = np.random.default_rng(9)
+    w = _randn(rng, 8, 1280, 1792, std=1280 ** -0.5).to(torch.bfloat16)
+    w[0, :32, :5] = 0.0  # all-zero blocks
+    got = quantize_expert_stack(w.to(dev))
+    want = quantize_expert_stack(w)
+    assert torch.equal(got["codes"].cpu(), want["codes"])
+    assert torch.equal(got["scales"].cpu(), want["scales"])

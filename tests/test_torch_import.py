@@ -29,6 +29,9 @@ SLICE_MODULES = [
     "dsocr_tpu_torch.ops.kernels.sam_attention",
     "dsocr_tpu_torch.ops.kernels.prefill_attention",
     "dsocr_tpu_torch.ops.kernels.slot_attention",
+    "dsocr_tpu_torch.ops.kernels.dequant_matmul",
+    "dsocr_tpu_torch.dsq",
+    "dsocr_tpu_torch.dsq.serve_quant",
     "dsocr_tpu_torch.image",
     "dsocr_tpu_torch.models.deepseek",
     "dsocr_tpu_torch.models.deepseek.config",
@@ -38,6 +41,7 @@ SLICE_MODULES = [
     "dsocr_tpu_torch.models.deepseek.decoder",
     "dsocr_tpu_torch.models.deepseek.engine",
     "dsocr_tpu_torch.models.deepseek.convert",
+    "dsocr_tpu_torch.models.deepseek.quantize",
     "dsocr_tpu_torch.runtime.slots",
     "dsocr_tpu_torch.server.scheduler",
 ]
@@ -75,11 +79,30 @@ def test_cuda_request_without_gpu_raises():
         select_device("tpu")
 
 
-def test_wrappers_refuse_to_fall_back():
+def _meta(*shape, dtype=torch.float32):
+    return torch.zeros(shape, dtype=dtype, device="meta")
+
+
+_MISPLACED_CALLS = {
+    "flash_prefill_attention": lambda K: K.flash_prefill_attention(
+        _meta(1, 2, 4, 8), _meta(1, 2, 4, 8), _meta(1, 2, 4, 8), _meta(1, dtype=torch.int32), scale=1.0),
+    "q8_matmul": lambda K: K.q8_matmul(_meta(4, 32), _meta(64, 32, dtype=torch.int8), _meta(64, 1)),
+    "q8_gather_matmul": lambda K: K.q8_gather_matmul(
+        _meta(4, 32), _meta(3, 32, 64, dtype=torch.int8), _meta(3, 1, 64), _meta(4, dtype=torch.int32)),
+    "q8_dense_experts": lambda K: K.q8_dense_experts(
+        _meta(4, 32), _meta(3, 32, 64, dtype=torch.int8), _meta(3, 1, 64)),
+    "q8_dense_experts_perx": lambda K: K.q8_dense_experts_perx(
+        _meta(3, 4, 32), _meta(3, 32, 64, dtype=torch.int8), _meta(3, 1, 64)),
+}
+
+
+@pytest.mark.parametrize("wrapper", sorted(_MISPLACED_CALLS))
+def test_wrappers_refuse_to_fall_back(wrapper):
     """A wrapper given a non-CPU, non-CUDA tensor raises instead of running
     its twin (a CUDA tensor launches the kernel; only CPU runs the twin)."""
-    from dsocr_tpu_torch.ops.kernels import flash_prefill_attention
+    from dsocr_tpu_torch.ops import kernels as K
 
-    q = torch.zeros((1, 2, 4, 8), device="meta")
+    before = K.launch_counts()
     with pytest.raises((ValueError, RuntimeError, NotImplementedError)):
-        flash_prefill_attention(q, q, q, torch.zeros((1,), dtype=torch.int32, device="meta"), scale=1.0)
+        _MISPLACED_CALLS[wrapper](K)
+    assert K.launch_counts() == before

@@ -5,9 +5,16 @@ including a request that joins while another row is mid-generation. (The
 model-dtype cache is bf16 on the card; here it is f32, because XLA's CPU
 backend cannot run the reference engine in bf16.)
 Also the join_many retry path: a failed batched join leaves the state
-intact, and only the bad request fails."""
+intact, and only the bad request fails.
+
+Packed Q8_0 serving: the port's scheduler on params_from_jax of the
+reference's Q8_0 engine gives the reference's greedy tokens in both decode
+tiers (2 slots gather, 4 slots run the dense sweep: 4 experts at top-2),
+and its prefill at S > 32 (packed experts dequantized) matches
+deepseek_forward within the tolerance of tests/test_torch_deepseek.py."""
 
 import asyncio
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -19,6 +26,8 @@ from dsocr_tpu.core import DecodeParameters as JaxParams
 from dsocr_tpu.core import VisionSettings as JaxVision
 from dsocr_tpu.models.deepseek import DeepseekOcrEngine as JaxEngine
 from dsocr_tpu.models.deepseek.config import tiny_deepseek_config as jax_tiny
+from dsocr_tpu.models.deepseek.decoder import build_decoder_rope, deepseek_forward, new_cache
+from dsocr_tpu.runtime.kv_cache import reset
 from dsocr_tpu.server.scheduler import ContinuousScheduler as JaxScheduler
 from dsocr_tpu_torch.core import DecodeParameters, VisionSettings
 from dsocr_tpu_torch.models.deepseek import DeepseekOcrEngine, params_from_jax, tiny_deepseek_config
@@ -135,3 +144,76 @@ def test_failed_join_many_retries_per_row(jax_engines, monkeypatch):
     assert isinstance(outs[1], ValueError)
     assert outs[0].generated_tokens == clean[0]
     assert outs[2].generated_tokens == clean[2]
+
+
+# -- packed Q8_0 --------------------------------------------------------------------
+
+
+def _q8_cfg(cfg):
+    """Q8_0 blocks need every contraction dim % 32 (the reference's own
+    quantized test config, tests/test_deepseek.py)."""
+    lang = dataclasses.replace(cfg.language, moe_intermediate_size=32, intermediate_size=64)
+    return dataclasses.replace(cfg, language=lang)
+
+
+@pytest.fixture(scope="module")
+def jax_q8_engines():
+    """The reference's Q8_0 engines, quantized from one float engine."""
+    float_engine = JaxEngine(_q8_cfg(jax_tiny()), dtype=jnp.float32, max_seq_len=512)
+    return {
+        kvq: JaxEngine(_q8_cfg(jax_tiny()), params=jax.tree_util.tree_map(lambda x: x, float_engine.params),
+                       dtype=jnp.float32, max_seq_len=512, kv_quant=kvq, quantize="q8_0")
+        for kvq in (None, "int8")
+    }
+
+
+def _port_q8(jax_engine, kv_quant):
+    state = params_from_jax(jax.device_get(jax_engine.params))
+    port = DeepseekOcrEngine(_q8_cfg(tiny_deepseek_config()), dtype=torch.float32, device="cpu",
+                             max_seq_len=512, kv_quant=kv_quant, state=state, quantize="q8_0")
+    assert set(state) == set(port.model.state_dict())
+    assert state["decoder.moe_layers.0.experts_gateup.codes"].dtype == torch.int8
+    return port
+
+
+@pytest.mark.parametrize("n_slots,tier", [(2, "q8_gather_matmul"), (4, "q8_dense_experts")])
+@pytest.mark.parametrize("kv_quant", [None, "int8"])
+def test_q8_greedy_tokens_match_reference_scheduler(jax_q8_engines, kv_quant, n_slots, tier, monkeypatch):
+    import dsocr_tpu_torch.ops.moe as port_moe
+
+    jax_engine = jax_q8_engines[kv_quant]
+    want = _serve(JaxScheduler(jax_engine, _Tok(), n_slots=n_slots, max_len=256, chunk_steps=4),
+                  JaxParams, JaxVision(64, 64, False))
+    ran = []
+    for name in ("q8_gather_matmul", "q8_dense_experts"):
+        orig = getattr(port_moe, name)
+        monkeypatch.setattr(port_moe, name, lambda *a, _o=orig, _n=name: ran.append(_n) or _o(*a))
+    sched = ContinuousScheduler(_port_q8(jax_engine, kv_quant), _Tok(), n_slots=n_slots,
+                                max_len=256, chunk_steps=4)
+    got = _serve(sched, DecodeParameters, VisionSettings(64, 64, False))
+    assert [len(t) for t in got] == BUDGETS
+    assert got == want
+    assert set(ran) == {tier}, f"decode ran {set(ran)}, expected the {tier} tier only"
+
+
+def test_q8_prefill_dequant_path_matches_deepseek_forward(jax_q8_engines, monkeypatch):
+    import dsocr_tpu_torch.models.deepseek.decoder as port_decoder
+
+    jax_engine = jax_q8_engines[None]
+    lang = jax_engine.cfg.language
+    params = jax_engine.params["decoder"]
+    S = 40  # > 32: the packed experts dequantize to bf16 for the grouped tier
+    rng = np.random.default_rng(4)
+    embeds = np.asarray(params["embed_tokens"])[rng.integers(0, lang.vocab_size, size=S)][None]
+    pos = np.arange(S, dtype=np.int32)[None]
+    want, _ = deepseek_forward(params, lang, jnp.asarray(embeds), jnp.asarray(pos),
+                               reset(new_cache(lang, 1, 64, jnp.float32)), build_decoder_rope(lang, 64))
+    port = _port_q8(jax_engine, None)
+    dequantized = []
+    orig = port_decoder.dequant_stack
+    monkeypatch.setattr(port_decoder, "dequant_stack", lambda q: dequantized.append(1) or orig(q))
+    with torch.no_grad():
+        got, _, _ = port.model.decoder.prefill(torch.from_numpy(embeds), torch.from_numpy(pos).long(),
+                                               port._rope)
+    assert len(dequantized) == 2 * (lang.num_hidden_layers - 1)  # both stacks of each MoE layer
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=1e-4)
