@@ -10,9 +10,14 @@ non-zero (nothing is caught):
 2. build    nvcc of dsocr_tpu_torch/csrc/*.cu into one shared library;
 3. kernels  each hand-written kernel against its plain PyTorch twin at
             the main path's shapes: max abs error against the stated
-            tolerance, median kernel and plain milliseconds (CUDA events);
-            and the Q8_0 quantizer on the card bit for bit against its CPU
-            run on a full-width expert stack;
+            tolerance, median kernel, plain and library milliseconds (CUDA
+            events; the library call is one PyTorch call computing the
+            same function, timed here and used nowhere in the port), and
+            the bound: the larger of the bytes the call must move over
+            3.35 TB/s and its operations over the peak rate of their type;
+            the Q8_0 quantizer on the card bit for bit against its CPU run
+            on a full-width expert stack, and the Q4_K quantizer on 8
+            experts of one;
 4. serve    DeepSeek-OCR v1 at full width (DeepseekOcrConfig(), bf16
             weights from a seeded torch.Generator, int8 KV): 16 requests
             of 128 new tokens through ContinuousScheduler.submit over 16
@@ -26,13 +31,24 @@ non-zero (nothing is caught):
             q8_dense_experts_perx must launch, with the attention kernels;
 4c. serve_q8_gather  the same Q8_0 engine, 4 requests × 32 tokens over 4
             slots (24 selections ≤ 64): q8_gather_matmul must launch;
+4d. serve_q4k        packed Q4_K decoder weights from the same seed (the
+            routed experts' down projection, in dim 896, packs as Q8_0):
+            16 requests × 128 tokens over 16 slots, the dense tier:
+            q4k_matmul, q4k_dense_experts and q8_dense_experts_perx must
+            launch;
+4e. serve_q4k_gather the same Q4_K engine, 4 requests × 32 tokens over 4
+            slots: q4k_gather_matmul and q8_gather_matmul must launch;
 5. parity   the tiny config in f32 with one set of weights, served on the
             card (kernels) and on the CPU (twins): greedy tokens must match;
-            again with Q8_0 weights (moe_intermediate_size 32) at 2 slots
-            (gather tier) and 4 slots (dense tier).
+            again with Q8_0 weights (moe_intermediate_size 32) and with
+            Q4_K weights (hidden 256, moe_intermediate_size 32: Q4_K
+            gate+up, Q8_0 down), each at 2 slots (gather tier) and 4 slots
+            (dense tier); and all-Q4_K experts (moe_intermediate_size 256)
+            at 4 slots, the path that reaches q4k_dense_experts_perx
+            (DeepSeek's full-width down projection is Q8_0).
 
-Then a {"kernels": [...]} summary line (launches: the sum over the
-three serving bursts), the nvidia-smi line, and last
+Then a {"kernels": [...]} summary line (launches: the sum over the five
+serving bursts), the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
 dsocr_tpu_torch package beside this file, it exits non-zero and prints
 no result.
@@ -119,6 +135,24 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}  # dense bf16 tensor cores; f32 off them
+
+
+def bound(nbytes: float, ops: float, kind: str):
+    """(bound_ms, bound_by): the least time the card could take, the larger
+    of the bytes the call must move (each input read once, each output
+    written once) over the memory rate and its operations over the peak
+    rate of their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
 def bf16_tol(ref) -> float:
     """One bf16 ulp at the reference's largest magnitude: both sides round
     their f32 result to bf16 once."""
@@ -150,11 +184,14 @@ def check_q8_kernels(torch, K, record, randn):
         ref = K.q8_matmul_plain(x, codes, scales)
         w = codes.float() * scales.repeat_interleave(32, dim=1)
         tol = q8_tol(torch.matmul(bf16_abs(x), w.abs().t()))
+        wt = w.to(torch.bfloat16).t()
         del w
         record("q8_matmul", f"{case} N={n} K={k} M={m}", float((out - ref).abs().max()), tol,
                time_ms(lambda: K.q8_matmul(x, codes, scales)),
-               time_ms(lambda: K.q8_matmul_plain(x, codes, scales)))
-        del out, ref
+               time_ms(lambda: K.q8_matmul_plain(x, codes, scales)),
+               time_ms(lambda: torch.matmul(x, wt)),
+               bound(nbytes(x, codes, scales, out), 2 * n * k * m, "bf16"))
+        del out, ref, wt
 
     # expert stacks of one MoE layer: gate+up [64, 1280, 1792], down [64, 896, 1280]
     t0 = time.perf_counter()
@@ -173,36 +210,126 @@ def check_q8_kernels(torch, K, record, randn):
     def deq(p):
         return p["codes"].float() * p["scales"].repeat_interleave(32, dim=1)
 
-    gen_idx = torch.Generator(device="cuda").manual_seed(1)
-    for case, p, k in (("gateup", gu, 1280), ("down", dn, 896)):
-        x = randn(60, k, dtype=torch.bfloat16)
-        idx = torch.randint(0, 64, (60,), generator=gen_idx, device="cuda", dtype=torch.int32)
-        out = K.q8_gather_matmul(x, p["codes"], p["scales"], idx)
-        ref = K.q8_gather_matmul_plain(x, p["codes"], p["scales"], idx)
-        bound = torch.bmm(bf16_abs(x)[:, None], deq(p)[idx.long()].abs())
-        record("q8_gather_matmul", f"{case} 60 rows", float((out - ref).abs().max()), q8_tol(bound),
-               time_ms(lambda: K.q8_gather_matmul(x, p["codes"], p["scales"], idx)),
-               time_ms(lambda: K.q8_gather_matmul_plain(x, p["codes"], p["scales"], idx)))
-        del out, ref, bound
+    check_expert_kernels(torch, record, randn, "q8", K.q8_gather_matmul, K.q8_gather_matmul_plain,
+                         K.q8_dense_experts, K.q8_dense_experts_plain, K.q8_dense_experts_perx,
+                         K.q8_dense_experts_perx_plain, gu, dn, deq, ("codes", "scales"))
 
-    x = randn(16, 1280, dtype=torch.bfloat16)
-    out = K.q8_dense_experts(x, gu["codes"], gu["scales"])
-    ref = K.q8_dense_experts_plain(x, gu["codes"], gu["scales"])
-    record("q8_dense_experts", "gateup N=16", float((out - ref).abs().max()),
-           q8_tol(torch.matmul(bf16_abs(x)[None], deq(gu).abs())),
-           time_ms(lambda: K.q8_dense_experts(x, gu["codes"], gu["scales"])),
-           time_ms(lambda: K.q8_dense_experts_plain(x, gu["codes"], gu["scales"])))
-    xe = randn(64, 16, 896, dtype=torch.bfloat16)
-    out = K.q8_dense_experts_perx(xe, dn["codes"], dn["scales"])
-    ref = K.q8_dense_experts_perx_plain(xe, dn["codes"], dn["scales"])
-    record("q8_dense_experts_perx", "down N=16", float((out - ref).abs().max()),
-           q8_tol(torch.matmul(bf16_abs(xe), deq(dn).abs())),
-           time_ms(lambda: K.q8_dense_experts_perx(xe, dn["codes"], dn["scales"])),
-           time_ms(lambda: K.q8_dense_experts_perx_plain(xe, dn["codes"], dn["scales"])))
+
+def check_expert_kernels(torch, record, randn, fmt, gather, gather_plain, dense, dense_plain, perx,
+                         perx_plain, gu, dn, deq, keys):
+    """The gather, dense and per-expert wrappers of one format against
+    their twins: gather 60 rows (10 tokens × top-6) of both stacks, the
+    dense pair at N = 16. `gu` and `dn` are packed [E, K, M] stacks (dn
+    may be a stand-in), `deq` dequantizes one to f32 [E, K, M]."""
+
+    def bf16_abs(x):
+        return x.to(torch.bfloat16).float().abs()
+
+    gen_idx = torch.Generator(device="cuda").manual_seed(1)
+    for case, p in (("gateup", gu), ("down", dn)):
+        packed = tuple(p[key] for key in keys)
+        w = deq(p)
+        E, k, m = w.shape
+        x = randn(60, k, dtype=torch.bfloat16)
+        idx = torch.randint(0, E, (60,), generator=gen_idx, device="cuda", dtype=torch.int32)
+        out = gather(x, *packed, idx)
+        ref = gather_plain(x, *packed, idx)
+        bnd = torch.bmm(bf16_abs(x)[:, None], w[idx.long()].abs())
+        wg = w[idx.long()].to(torch.bfloat16)  # the library call gets its weights gathered
+        used = torch.unique(idx).numel()  # bytes of the experts this run selects
+        record(f"{fmt}_gather_matmul", f"{case} 60 rows E={E} K={k} M={m}", float((out - ref).abs().max()),
+               q8_tol(bnd),
+               time_ms(lambda: gather(x, *packed, idx)),
+               time_ms(lambda: gather_plain(x, *packed, idx)),
+               time_ms(lambda: torch.bmm(x[:, None], wg)),
+               bound(nbytes(x, idx, out) + nbytes(*packed) * used // E, 2 * 60 * k * m, "bf16"))
+        del out, ref, bnd, wg, w
+
+    packed = tuple(gu[key] for key in keys)
+    w = deq(gu)
+    E, k, m = w.shape
+    x = randn(16, k, dtype=torch.bfloat16)
+    out = dense(x, *packed)
+    ref = dense_plain(x, *packed)
+    wb = w.to(torch.bfloat16)
+    record(f"{fmt}_dense_experts", f"gateup N=16 E={E} K={k} M={m}", float((out - ref).abs().max()),
+           q8_tol(torch.matmul(bf16_abs(x)[None], w.abs())),
+           time_ms(lambda: dense(x, *packed)), time_ms(lambda: dense_plain(x, *packed)),
+           time_ms(lambda: torch.matmul(x[None], wb)),
+           bound(nbytes(x, out, *packed), 2 * E * 16 * k * m, "bf16"))
+    del out, ref, wb, w
+    packed = tuple(dn[key] for key in keys)
+    w = deq(dn)
+    E, k, m = w.shape
+    xe = randn(E, 16, k, dtype=torch.bfloat16)
+    out = perx(xe, *packed)
+    ref = perx_plain(xe, *packed)
+    wb = w.to(torch.bfloat16)
+    record(f"{fmt}_dense_experts_perx", f"down N=16 E={E} K={k} M={m}", float((out - ref).abs().max()),
+           q8_tol(torch.matmul(bf16_abs(xe), w.abs())),
+           time_ms(lambda: perx(xe, *packed)), time_ms(lambda: perx_plain(xe, *packed)),
+           time_ms(lambda: torch.matmul(xe, wb)),
+           bound(nbytes(xe, out, *packed), 2 * E * 16 * k * m, "bf16"))
+
+
+def check_q4k_kernels(torch, K, record, randn):
+    """Phase 3, Q4_K: the four wrappers against their twins at the main
+    path's shapes (the per-expert sweep at a stand-in shape: DeepSeek's
+    down projection is Q8_0), and the quantizer on the card against its
+    CPU run on 8 experts of a full-width gate+up stack."""
+    from dsocr_tpu_torch.dsq.serve_quant import quantize_expert_stack, quantize_plain
+    from dsocr_tpu_torch.ops.kernels.kquant_matmul import dequant_q4k
+
+    def bf16_abs(x):
+        return x.to(torch.bfloat16).float().abs()
+
+    # lm_head at N = 16; qkv at decode and prefill; shared down (K 1792) at decode
+    for case, n, k, m in (("lm_head", 16, 1280, 129280), ("qkv", 16, 1280, 3840),
+                          ("qkv", 16384, 1280, 3840), ("shared_down", 16, 1792, 1280)):
+        p = quantize_plain(randn(k, m, dtype=torch.bfloat16, std=k ** -0.5), "q4_k")
+        packed = (p["codes"], p["scales"], p["mins"])
+        x = randn(n, k, dtype=torch.bfloat16)
+        out = K.q4k_matmul(x, *packed)
+        ref = K.q4k_matmul_plain(x, *packed)
+        w = dequant_q4k(*packed, -1).float()
+        tol = q8_tol(torch.matmul(bf16_abs(x), w.abs().t()))
+        wt = w.to(torch.bfloat16).t()
+        del w
+        record("q4k_matmul", f"{case} N={n} K={k} M={m}", float((out - ref).abs().max()), tol,
+               time_ms(lambda: K.q4k_matmul(x, *packed)),
+               time_ms(lambda: K.q4k_matmul_plain(x, *packed)),
+               time_ms(lambda: torch.matmul(x, wt)),
+               bound(nbytes(x, out, *packed), 2 * n * k * m, "bf16"))
+        del out, ref, wt
+
+    w8 = randn(8, 1280, 1792, dtype=torch.bfloat16, std=1280 ** -0.5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = quantize_expert_stack(w8, "q4_k")
+    torch.cuda.synchronize()
+    quant_ms = (time.perf_counter() - t0) * 1e3
+    twin = quantize_expert_stack(w8.cpu(), "q4_k")
+    same = all(torch.equal(card[key].cpu(), twin[key]) for key in ("codes", "scales", "mins"))
+    emit({"phase": "kernels", "kernel": "quantize_expert_stack", "case": "q4_k E=8 K=1280 M=1792 bf16",
+          "bit_exact": same, "ms": quant_ms})
+    require(same, "the Q4_K quantizer on the card differs from its CPU run")
+    del w8, card, twin
+
+    gu = quantize_expert_stack(randn(64, 1280, 1792, dtype=torch.bfloat16, std=1280 ** -0.5), "q4_k")
+    dn = quantize_expert_stack(randn(64, 1792, 1280, dtype=torch.bfloat16, std=1792 ** -0.5), "q4_k")
+
+    def deq(p):
+        return dequant_q4k(p["codes"], p["scales"], p["mins"], -2).float()
+
+    check_expert_kernels(torch, record, randn, "q4k", K.q4k_gather_matmul, K.q4k_gather_matmul_plain,
+                         K.q4k_dense_experts, K.q4k_dense_experts_plain, K.q4k_dense_experts_perx,
+                         K.q4k_dense_experts_perx_plain, gu, dn, deq, ("codes", "scales", "mins"))
 
 
 def check_kernels(torch, K):
     """Phase 3: every kernel against its twin at main-path shapes."""
+    import torch.nn.functional as F
+
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -211,9 +338,10 @@ def check_kernels(torch, K):
 
     cases = []
 
-    def record(kernel, case, err, tol, ms, plain_ms):
+    def record(kernel, case, err, tol, ms, plain_ms, library_ms, bnd):
         line = {"phase": "kernels", "kernel": kernel, "case": case, "max_abs_err": err,
-                "tol": tol, "ms": ms, "plain_ms": plain_ms}
+                "tol": tol, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                "bound_ms": bnd[0], "bound_by": bnd[1]}
         emit(line)
         require(err <= tol, f"{kernel} {case}: max abs err {err} > tol {tol}")
         cases.append(line)
@@ -228,9 +356,13 @@ def check_kernels(torch, K):
         out = K.sam_flash_attention(*args, width=w)
         ref = K.sam_flash_attention_plain(*args, width=w)
         err = float((out - ref).abs().max())
+        bias = (bias_h[..., :, None] + bias_w[..., None, :]).reshape(bh, s, s)
         record("sam_flash_attention", f"BH={bh} S={s}", err, 1e-4,
                time_ms(lambda: K.sam_flash_attention(*args, width=w)),
-               time_ms(lambda: K.sam_flash_attention_plain(*args, width=w)))
+               time_ms(lambda: K.sam_flash_attention_plain(*args, width=w)),
+               time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=1.0)),
+               bound(nbytes(*args, out), 4 * bh * s * s * 64, "f32"))
+        del bias
 
     # decoder prefill: 10 heads of 128, S = 1792, bf16, with left padding
     for b, pads in ((1, [0]), (4, [0, 300, 7, 1000])):
@@ -241,15 +373,24 @@ def check_kernels(torch, K):
         out = K.flash_prefill_attention(q, k, v, pad, scale=scale)
         ref = K.flash_prefill_attention_plain(q, k, v, pad, scale=scale)
         err = float((out.float() - ref.float()).abs().max())
+        pos = torch.arange(s, device=dev)
+        mask = (pos[None, None, :, None] >= pos[None, None, None, :]) & (
+            pos[None, None, None, :] >= pad[:, None, None, None])
+        # a live query attends keys pad..i; a fully padded one averages all S
+        keys = sum(p * s + (s - p) * (s - p + 1) // 2 for p in pads)
         record("flash_prefill_attention", f"B={b} S={s} pad_start={pads}", err, bf16_tol(ref),
                time_ms(lambda: K.flash_prefill_attention(q, k, v, pad, scale=scale)),
-               time_ms(lambda: K.flash_prefill_attention_plain(q, k, v, pad, scale=scale)))
+               time_ms(lambda: K.flash_prefill_attention_plain(q, k, v, pad, scale=scale)),
+               time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)),
+               bound(nbytes(q, k, v, pad, out), 4 * 10 * 128 * keys, "bf16"))
+        del mask
 
     # slot caches: L = 12, B = 16, NKV = 10, D = 128, S_max = 2560
     L, B, NKV, S, D = 12, 16, 10, 2560, 128
     lengths = torch.randint(0, S, (B,), generator=gen, device=dev, dtype=torch.int32)
     lengths[0], lengths[1] = 0, S - 1
     layer = 5
+    used = int((lengths.long() + 1).sum())  # positions the attend reads: [0, lengths[b]]
     for quant in (False, True):
         kind = "int8" if quant else "bf16"
         if quant:
@@ -271,20 +412,31 @@ def check_kernels(torch, K):
         K.slot_kv_update(*caches, *new, layer, lengths)
         K.slot_kv_update_plain(*twins, *new, layer, lengths)
         same = all(a is None or torch.equal(a, b) for a, b in zip(caches, twins))
+        # no single PyTorch call writes the four planes: no library time
         record("slot_kv_update", f"{kind} B={B} S={S}", 0.0 if same else float("inf"), 0.0,
                time_ms(lambda: K.slot_kv_update(*caches, *new, layer, lengths)),
-               time_ms(lambda: K.slot_kv_update_plain(*twins, *new, layer, lengths)))
+               time_ms(lambda: K.slot_kv_update_plain(*twins, *new, layer, lengths)),
+               None, bound(2 * nbytes(*new) + nbytes(lengths), 0, "bf16"))
 
         q = randn(B, 10, 1, D, dtype=torch.bfloat16)
         scale = D ** -0.5
         out = K.slot_decode_attention(q, *caches, layer, lengths, scale=scale)
         ref = K.slot_decode_attention_plain(q, *caches, layer, lengths, scale=scale)
         err = float((out.float() - ref.float()).abs().max())
+        kv_bytes = used * NKV * D * k_all.element_size() * 2 + (used * NKV * 4 * 2 if quant else 0)
+        library = None  # SDPA takes no int8 cache
+        if not quant:
+            live = (torch.arange(S, device=dev)[None, :] <= lengths.long()[:, None])[:, None, None, :]
+            kl, vl = k_all[layer], v_all[layer]
+            library = time_ms(lambda: F.scaled_dot_product_attention(q, kl, vl, attn_mask=live, scale=scale))
         record("slot_decode_attention", f"{kind} B={B} S={S}", err, bf16_tol(ref),
                time_ms(lambda: K.slot_decode_attention(q, *caches, layer, lengths, scale=scale)),
-               time_ms(lambda: K.slot_decode_attention_plain(q, *caches, layer, lengths, scale=scale)))
+               time_ms(lambda: K.slot_decode_attention_plain(q, *caches, layer, lengths, scale=scale)),
+               library, bound(nbytes(q, lengths, out) + kv_bytes, 4 * 10 * D * used, "bf16"))
     del k_all, v_all, ks_all, vs_all, caches, twins
     check_q8_kernels(torch, K, record, randn)
+    torch.cuda.empty_cache()
+    check_q4k_kernels(torch, K, record, randn)
     torch.cuda.empty_cache()
     return cases
 
@@ -406,27 +558,44 @@ def parity_phase(torch):
         key = kv_quant or "f32"
         result[f"{key}_equal"] = tokens["cpu"] == tokens["cuda"]
         result[f"{key}_tokens_cuda"] = tokens["cuda"]
-    # Q8_0: every contraction dim % 32, so the routed experts pack too
+    # Q8_0: every contraction dim % 32, so the routed experts pack too.
+    # Q4_K: hidden 256 puts the projections' in dims on the 256-value
+    # super-block; the down projections (in dim 32) pack as Q8_0, a mixed
+    # expert group as at full width.
     from dsocr_tpu_torch.ops import kernels as K
 
-    qcfg = dataclasses.replace(cfg, language=dataclasses.replace(cfg.language, moe_intermediate_size=32))
-    cpu = DeepseekOcrEngine(qcfg, dtype=torch.float32, device="cpu", max_seq_len=512, seed=7,
-                            quantize="q8_0")
-    state = cpu.model.state_dict()
-    for n_slots, tier in ((2, "q8_gather_matmul"), (4, "q8_dense_experts")):
-        for kv_quant in (None, "int8"):
-            tokens = {}
-            for device in ("cpu", "cuda"):
-                eng = DeepseekOcrEngine(qcfg, dtype=torch.float32, device=device, max_seq_len=512,
-                                        kv_quant=kv_quant, state=state, quantize="q8_0")
-                K.reset_launches()
-                outs, _ = serve(eng, TinyTokenizer(), images, vision, params,
-                                n_slots=n_slots, max_len=256, chunk=8)
-                tokens[device] = [o.generated_tokens for o in outs]
-            key = f"q8_{n_slots}slots_{kv_quant or 'f32'}"
-            result[f"{key}_equal"] = tokens["cpu"] == tokens["cuda"]
-            result[f"{key}_{tier}_launches"] = K.launch_counts()[tier]
-            require(K.launch_counts()[tier] > 0, f"{key}: the {tier} tier did not run on the card")
+    lang32 = dataclasses.replace(cfg.language, moe_intermediate_size=32)
+    # moe_intermediate_size 256 packs the down projections as Q4_K too: the
+    # one served path that reaches q4k_dense_experts_perx.
+    def kq(inter):
+        lang = dataclasses.replace(cfg.language, hidden_size=256, moe_intermediate_size=inter)
+        return dataclasses.replace(cfg, projector_n_embed=256, language=lang)
+
+    formats = (
+        ("q8_0", "q8", dataclasses.replace(cfg, language=lang32),
+         ((2, "q8_gather_matmul"), (4, "q8_dense_experts"))),
+        ("q4_k", "q4k", kq(32), ((2, "q4k_gather_matmul"), (4, "q4k_dense_experts"))),
+        ("q4_k", "q4k_all", kq(256), ((4, "q4k_dense_experts_perx"),)),
+    )
+    for method, tag, qcfg, tiers in formats:
+        cpu = DeepseekOcrEngine(qcfg, dtype=torch.float32, device="cpu", max_seq_len=512, seed=7,
+                                quantize=method)
+        state = cpu.model.state_dict()
+        for n_slots, tier in tiers:
+            for kv_quant in (None, "int8"):
+                tokens = {}
+                for device in ("cpu", "cuda"):
+                    eng = DeepseekOcrEngine(qcfg, dtype=torch.float32, device=device, max_seq_len=512,
+                                            kv_quant=kv_quant, state=state, quantize=method)
+                    K.reset_launches()
+                    outs, _ = serve(eng, TinyTokenizer(), images, vision, params,
+                                    n_slots=n_slots, max_len=256, chunk=8)
+                    tokens[device] = [o.generated_tokens for o in outs]
+                key = f"{tag}_{n_slots}slots_{kv_quant or 'f32'}"
+                result[f"{key}_equal"] = tokens["cpu"] == tokens["cuda"]
+                result[f"{key}_{tier}_launches"] = K.launch_counts()[tier]
+                result[f"{key}_tokens_per_request"] = [len(t) for t in tokens["cuda"]]
+                require(K.launch_counts()[tier] > 0, f"{key}: the {tier} tier did not run on the card")
     emit(result)
     require(all(v for k, v in result.items() if k.endswith("_equal")), "CUDA and CPU greedy tokens differ")
 
@@ -474,10 +643,20 @@ def main() -> int:
     del engine
     gc.collect()
     torch.cuda.empty_cache()
+    engine = full_width_engine(torch, quantize="q4_k")
+    bursts.append(serving_phase(
+        torch, K, "serve_q4k", engine, n_requests=N_REQUESTS, n_slots=N_SLOTS, max_new=MAX_NEW,
+        required=attention + ["q4k_matmul", "q4k_dense_experts", "q8_dense_experts_perx"]))
+    bursts.append(serving_phase(
+        torch, K, "serve_q4k_gather", engine, n_requests=4, n_slots=4, max_new=32,
+        required=["q4k_gather_matmul", "q8_gather_matmul"], warmup=False))
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
     launches = {name: sum(b[name] for b in bursts) for name in bursts[0]}
     parity_phase(torch)
 
-    # per kernel: the worst error over its cases; the times of its first case
+    # per kernel: the worst error over its cases; the times and bound of its first case
     summary = []
     for fn, source, replaces in K.KERNELS:
         mine = [c for c in cases if c["kernel"] == fn.__name__]
@@ -485,7 +664,7 @@ def main() -> int:
             "name": fn.__name__, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[fn.__name__],
             "max_abs_err": max(c["max_abs_err"] for c in mine),
-            "ms": mine[0]["ms"], "plain_ms": mine[0]["plain_ms"],
+            **{key: mine[0][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         })
     emit({"kernels": summary})
     print(smi, flush=True)

@@ -1,10 +1,11 @@
 """Device selection (counterpart of dsocr_tpu/core/runtime_device.py).
 
-The port runs on one CUDA card or on the host CPU. The device is picked
-once and passed explicitly to everything that allocates. Asking for
-"cuda" where no GPU is present raises: a measurement or a serving run
-that silently fell back to the CPU would report CPU numbers under a
-device's name.
+The port runs on one CUDA card, or on the host CPU when the caller asks
+for "cpu" (the tests and the CPU twin runs do). The device is picked once
+and passed explicitly to everything that allocates. No name, or "cuda",
+where no GPU is present raises: a measurement or a serving run that
+silently fell back to the CPU would report CPU numbers under a device's
+name.
 
 Float32 precision is set here as well: PyTorch runs f32 matmuls in full
 f32 by default but cuDNN f32 convolutions in TF32 (~3 decimal digits).
@@ -28,12 +29,12 @@ def set_f32_precision() -> None:
 
 
 def select_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
-    """Resolve a device name: None → "cuda" when a GPU is present, else
-    "cpu". "cuda" without a GPU raises."""
+    """Resolve a device name: None means "cuda"; "cpu" only when asked
+    for. The card without a GPU raises."""
     if isinstance(device, torch.device):
         name = device.type
     elif device is None:
-        name = "cuda" if torch.cuda.is_available() else "cpu"
+        name = "cuda"
     else:
         key = str(device).strip().lower().split(":")[0]
         if key not in _ALIASES:

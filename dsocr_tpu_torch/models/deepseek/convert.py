@@ -9,7 +9,12 @@ The reference's layouts are kept: [in, out] linears, OIHW convs, and each
 tree (``quantize="q8_0"``) holds packed ``{codes, scales}`` dicts: each
 is split per layer the same way (``...qkv_proj.codes``), int8 codes stay
 int8 and scales f32, and a packed lm_head becomes
-``decoder.lm_head.codes``/``.scales``.
+``decoder.lm_head.codes``/``.scales``. A Q4_K engine's tree holds the
+reference's plane dicts (``packed``, ``s_lo``, ``s_hi``, ``b_lo``,
+``b_hi``: the low nibble is K-index j, the high one j + K/2, along the
+last axis in row layout and the second-to-last in expert stacks); each is
+turned into the port's ``codes``/``scales``/``mins`` (adjacent K values
+per byte, dsq/serve_quant.py) before it is split per layer.
 """
 
 from __future__ import annotations
@@ -19,7 +24,9 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from ...dsq.serve_quant import pack_nibbles
 from .decoder import fuse_decoder_params
+from .quantize import EXPERT_KEYS
 
 _STACKED = ("dense_layers", "moe_layers")
 
@@ -35,14 +42,31 @@ def _flatten(prefix: str, node: Any, out: Dict[str, np.ndarray]) -> None:
         out[prefix] = np.asarray(node)
 
 
+def _q4k_from_planes(planes: Dict[str, Any], in_major: bool) -> Dict[str, np.ndarray]:
+    """The reference's Q4_K plane dict → {codes, scales, mins} in the
+    port's layout; `in_major` for expert stacks ([.., K/2, M])."""
+    axis = -2 if in_major else -1
+    packed = np.asarray(planes["packed"])
+    codes = np.concatenate([packed & 0xF, packed >> 4], axis=axis)  # K-index order
+    return {
+        "codes": pack_nibbles(torch.from_numpy(codes), axis).numpy(),
+        "scales": np.concatenate([np.asarray(planes["s_lo"]), np.asarray(planes["s_hi"])], axis=axis),
+        "mins": np.concatenate([np.asarray(planes["b_lo"]), np.asarray(planes["b_hi"])], axis=axis),
+    }
+
+
 def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """{"sam", "clip", "projector", "decoder"} NumPy tree → state_dict."""
     flat: Dict[str, np.ndarray] = {}
     for part in ("sam", "clip", "projector"):
         _flatten(part, tree[part], flat)
     decoder = fuse_decoder_params(tree["decoder"])
+    if isinstance(decoder.get("lm_head"), dict) and "packed" in decoder["lm_head"]:
+        decoder["lm_head"] = _q4k_from_planes(decoder["lm_head"], in_major=False)
     for group in _STACKED:
         for key, stack in (decoder.pop(group, None) or {}).items():
+            if isinstance(stack, dict) and "packed" in stack:
+                stack = _q4k_from_planes(stack, in_major=key in EXPERT_KEYS)
             parts = stack.items() if isinstance(stack, dict) else [("", stack)]
             for part, arr in parts:
                 arr = np.asarray(arr)

@@ -9,12 +9,14 @@ reference.
 Weights are the reference's FUSED layout (fuse_decoder_params): qkv_proj,
 gateup_proj, shared_gateup and experts_gateup concatenated along their
 output dims, [in, out] matrices, one module per layer (the reference's
-[L, ...] stacks split). With ``quantize="q8_0"`` the eligible weights
-(quantize.packed_kind) are PackedQ8 holders instead, and the layers
+[L, ...] stacks split). With ``quantize="q8_0"`` or ``"q4_k"`` the
+eligible weights (quantize.packed_kind) are PackedQ8 / PackedQ4K holders
+instead, each weight in the format it packs with, and the layers
 dispatch as the reference does (decoder.py:481-507, :567-585): the
 routed experts run the packed decode kernels when B·S ≤ 32 and both
-stacks are packed, else dequantize to bf16 for the float tiers; the
-packed lm_head runs q8_matmul.
+stacks are packed (moe_apply_quant_fused, each projection its own
+format's kernel), else dequantize to bf16 for the float tiers; a packed
+lm_head runs its format's matmul kernel.
 
 Two modes, as the slice needs:
 
@@ -45,9 +47,9 @@ from ...ops import (
     silu,
     slot_kv_write_attend,
 )
-from ...ops.kernels import flash_prefill_attention, q8_matmul
-from ...ops.linear import PackedQ8
-from ...ops.moe import dequant_stack, is_quantized, moe_apply_q8_fused
+from ...ops.kernels import flash_prefill_attention
+from ...ops.linear import HOLDERS, Packed, packed_matmul
+from ...ops.moe import dequant_stack, is_quantized, moe_apply_quant_fused
 from .config import DeepseekV2Config
 from .quantize import packed_kind
 from .sam import normal_, param
@@ -93,11 +95,13 @@ def fuse_decoder_params(params: Dict) -> Dict:
 
 
 def _weight(name: str, shape, dtype, device, quantize: Optional[str]):
-    """A float parameter, or a PackedQ8 holder where `quantize` packs it."""
-    kind = packed_kind(name, shape[-2]) if quantize else None
-    if kind is None:
+    """A float parameter, or the holder of the format `quantize` packs it
+    with (a Q8_0 fallback under Q4_K where the in dim misses 256)."""
+    found = packed_kind(name, shape[-2], quantize) if quantize else None
+    if found is None:
         return param(*shape, dtype=dtype, device=device)
-    return PackedQ8.empty(shape, in_major=kind == "experts", device=device)
+    kind, method = found
+    return HOLDERS[method].empty(shape, in_major=kind == "experts", device=device)
 
 
 @torch.no_grad()
@@ -105,7 +109,7 @@ def _fill_(w, std: float, gen: torch.Generator, dtype) -> float:
     """Draw N(0, std²) into a parameter, or draw the float weight a holder
     stands for (rounded to the model dtype, as a float model holds it) and
     pack it; returns the seconds spent packing."""
-    if not isinstance(w, PackedQ8):
+    if not isinstance(w, Packed):
         normal_(w, std, gen)
         return 0.0
     tmp = torch.empty(w.float_shape, dtype=dtype, device=w.codes.device)
@@ -171,7 +175,7 @@ class DecoderLayer(nn.Module):
             elif name == "gate_weight":
                 normal_(w, w.shape[-1] ** -0.5, gen)
             else:
-                fan_in = (w.float_shape if isinstance(w, PackedQ8) else w.shape)[-2]
+                fan_in = (w.float_shape if isinstance(w, Packed) else w.shape)[-2]
                 packing += _fill_(w, fan_in ** -0.5, gen, self.input_layernorm.dtype)
         return packing
 
@@ -245,7 +249,7 @@ class DeepseekDecoder(nn.Module):
         weights, indices = moe_router(tokens, layer.gate_weight, self.moe_cfg)
         egu, ed = layer.experts_gateup, layer.experts_down
         if is_quantized(egu) and is_quantized(ed) and B * S <= 32:
-            routed = moe_apply_q8_fused(tokens, weights, indices, egu, ed)
+            routed = moe_apply_quant_fused(tokens, weights, indices, egu, ed)
         else:  # float stacks, or prefill of packed ones: bf16 weights, grouped tier
             routed = moe_apply_fused(tokens, weights, indices,
                                      dequant_stack(egu).to(x.dtype), dequant_stack(ed).to(x.dtype))
@@ -266,8 +270,8 @@ class DeepseekDecoder(nn.Module):
             x_last = x[:, -1]
         else:
             x_last = x[torch.arange(x.shape[0], device=x.device), last_index]
-        if isinstance(self.lm_head, PackedQ8):
-            return q8_matmul(x_last.contiguous(), self.lm_head.codes, self.lm_head.scales)
+        if isinstance(self.lm_head, Packed):
+            return packed_matmul(x_last.contiguous(), self.lm_head)
         return torch.matmul(x_last.float(), self.lm_head.float())
 
     # -- modes ----------------------------------------------------------------

@@ -17,6 +17,16 @@ from .dequant_matmul import (
     q8_matmul,
     q8_matmul_plain,
 )
+from .kquant_matmul import (
+    q4k_dense_experts,
+    q4k_dense_experts_perx,
+    q4k_dense_experts_perx_plain,
+    q4k_dense_experts_plain,
+    q4k_gather_matmul,
+    q4k_gather_matmul_plain,
+    q4k_matmul,
+    q4k_matmul_plain,
+)
 from .prefill_attention import flash_prefill_attention, flash_prefill_attention_plain
 from .sam_attention import sam_flash_attention, sam_flash_attention_plain
 from .slot_attention import (
@@ -27,6 +37,7 @@ from .slot_attention import (
 )
 
 _DQ = "dsocr_tpu/ops/pallas/dequant_matmul.py"
+_KQ = "dsocr_tpu/ops/pallas/kquant_matmul.py"
 
 # (wrapper, source, replaced TPU kernels' pallas_call sites)
 KERNELS = (
@@ -46,6 +57,14 @@ KERNELS = (
      f"{_DQ}:480 (q8_dense_experts_layered)"),
     (q8_dense_experts_perx, "dsocr_tpu_torch/csrc/dequant_matmul.cu",
      f"{_DQ}:520 (q8_dense_experts_perx_layered)"),
+    (q4k_matmul, "dsocr_tpu_torch/csrc/kquant_matmul.cu",
+     f"{_KQ}:225 (q4k_matmul), {_KQ}:362 (q4k_matmul_layered)"),
+    (q4k_gather_matmul, "dsocr_tpu_torch/csrc/kquant_matmul.cu",
+     f"{_KQ}:593 (q4k_gather_matmul), {_KQ}:633 (q4k_gather_matmul_layered)"),
+    (q4k_dense_experts, "dsocr_tpu_torch/csrc/kquant_matmul.cu",
+     f"{_KQ}:844 (q4k_dense_experts_layered)"),
+    (q4k_dense_experts_perx, "dsocr_tpu_torch/csrc/kquant_matmul.cu",
+     f"{_KQ}:908 (q4k_dense_experts_perx_layered)"),
 )
 
 
@@ -63,6 +82,14 @@ __all__ = [
     "flash_prefill_attention",
     "flash_prefill_attention_plain",
     "launch_counts",
+    "q4k_dense_experts",
+    "q4k_dense_experts_perx",
+    "q4k_dense_experts_perx_plain",
+    "q4k_dense_experts_plain",
+    "q4k_gather_matmul",
+    "q4k_gather_matmul_plain",
+    "q4k_matmul",
+    "q4k_matmul_plain",
     "q8_dense_experts",
     "q8_dense_experts_perx",
     "q8_dense_experts_perx_plain",

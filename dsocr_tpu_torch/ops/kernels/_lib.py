@@ -46,6 +46,8 @@ _SIGNATURES = {
     "dsocr_slot_decode_attention": [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P],
     "dsocr_q8_matmul": [_P] * 4 + [_I] * 4 + [_P],
     "dsocr_q8_expert_matmul": [_P] * 5 + [_I] * 5 + [_L, _I, _P],
+    "dsocr_q4k_matmul": [_P] * 5 + [_I] * 4 + [_P],
+    "dsocr_q4k_expert_matmul": [_P] * 6 + [_I] * 5 + [_L, _I, _P],
 }
 
 _lock = threading.Lock()

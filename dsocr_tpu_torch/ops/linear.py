@@ -1,12 +1,13 @@
-"""Linear projection over float or packed Q8_0 weights
-(dsocr_tpu/ops/linear.py: the float and q8_0 branches of ``project``).
+"""Linear projection over float or packed Q8_0 / Q4_K weights
+(dsocr_tpu/ops/linear.py: the float, q8_0 and q4_k branches of ``project``).
 
-Float weights keep the reference's [in, out] layout. A packed weight is
-a :class:`PackedQ8` holder whose ``codes``/``scales`` buffers keep the
-reference's packed layouts (dsq/serve_quant.py), so state_dict names read
-``...qkv_proj.codes`` and ``...qkv_proj.scales``. One holder per layer:
-a torch tensor of one layer costs no copy, so the reference's
-``LayeredQ8`` views have no counterpart here.
+Float weights keep the reference's [in, out] layout. A packed weight is a
+holder whose buffers keep the packed layouts of dsq/serve_quant.py:
+:class:`PackedQ8` (``codes``/``scales``) or :class:`PackedQ4K`
+(``codes``/``scales``/``mins``), so state_dict names read
+``...qkv_proj.codes`` and ``...qkv_proj.mins``. One holder per layer: a
+torch tensor of one layer costs no copy, so the reference's ``LayeredQ8``
+and ``LayeredKQuant`` views have no counterpart here.
 """
 
 from __future__ import annotations
@@ -16,23 +17,45 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 
+from ..dsq.quant import Q4K_SUB
 from ..dsq.serve_quant import Q8_BLOCK, quantize_expert_stack, quantize_plain
-from .kernels import q8_matmul
+from .kernels import q4k_matmul, q8_matmul
 
 
-class PackedQ8(nn.Module):
-    """A Q8_0-packed weight that stands for a float [.., in, out] matrix.
+class Packed(nn.Module):
+    """A packed weight that stands for a float [.., in, out] matrix. Row
+    layout (``in_major=False``, plain linears and the lm_head): scales
+    [.., out, in/32]. In-major layout (``in_major=True``, expert stacks):
+    scales [.., in/32, out]. Subclasses name the method and the buffers."""
 
-    Row layout (``in_major=False``, plain linears and the lm_head): codes
-    [.., out, in] int8, scales [.., out, in/32] f32. In-major layout
-    (``in_major=True``, expert stacks): codes [.., in, out], scales
-    [.., in/32, out]."""
+    method = ""
 
-    def __init__(self, codes: torch.Tensor, scales: torch.Tensor, *, in_major: bool):
+    def __init__(self, *, in_major: bool, **buffers: torch.Tensor):
         super().__init__()
         self.in_major = in_major
-        self.register_buffer("codes", codes)
-        self.register_buffer("scales", scales)
+        for name, t in buffers.items():
+            self.register_buffer(name, t)
+
+    @property
+    def float_shape(self):
+        *lead, a, b = self.scales.shape  # 32 values per scale in both formats
+        return (*lead, a * 32, b) if self.in_major else (*lead, b * 32, a)
+
+    @torch.no_grad()
+    def pack_(self, w: torch.Tensor) -> None:
+        """Quantize the float weight `w` [.., in, out] into the buffers."""
+        packed = (quantize_expert_stack if self.in_major else quantize_plain)(w, self.method)
+        for name, t in packed.items():
+            getattr(self, name).copy_(t)
+
+
+class PackedQ8(Packed):
+    """Q8_0: codes int8 [.., out, in] (row) or [.., in, out] (in-major)."""
+
+    method = "q8_0"
+
+    def __init__(self, codes: torch.Tensor, scales: torch.Tensor, *, in_major: bool):
+        super().__init__(in_major=in_major, codes=codes, scales=scales)
 
     @classmethod
     def empty(cls, float_shape: Sequence[int], *, in_major: bool, device=None) -> "PackedQ8":
@@ -44,25 +67,47 @@ class PackedQ8(nn.Module):
         return cls(torch.zeros(c_shape, dtype=torch.int8, device=device),
                    torch.zeros(s_shape, dtype=torch.float32, device=device), in_major=in_major)
 
-    @property
-    def float_shape(self):
-        *lead, a, b = self.codes.shape
-        return (*lead, a, b) if self.in_major else (*lead, b, a)
 
-    @torch.no_grad()
-    def pack_(self, w: torch.Tensor) -> None:
-        """Quantize the float weight `w` [.., in, out] into the buffers."""
-        packed = (quantize_expert_stack if self.in_major else quantize_plain)(w)
-        self.codes.copy_(packed["codes"])
-        self.scales.copy_(packed["scales"])
+class PackedQ4K(Packed):
+    """Q4_K: two 4-bit codes per byte along in (the even in-index in the
+    low nibble), codes uint8 [.., out, in/2] (row) or [.., in/2, out]
+    (in-major); scales and mins f32 per 32 values; w = q·scale − min."""
+
+    method = "q4_k"
+
+    def __init__(self, codes: torch.Tensor, scales: torch.Tensor, mins: torch.Tensor, *,
+                 in_major: bool):
+        super().__init__(in_major=in_major, codes=codes, scales=scales, mins=mins)
+
+    @classmethod
+    def empty(cls, float_shape: Sequence[int], *, in_major: bool, device=None) -> "PackedQ4K":
+        *lead, i, o = float_shape
+        if in_major:
+            c_shape, s_shape = (*lead, i // 2, o), (*lead, i // Q4K_SUB, o)
+        else:
+            c_shape, s_shape = (*lead, o, i // 2), (*lead, o, i // Q4K_SUB)
+        return cls(torch.zeros(c_shape, dtype=torch.uint8, device=device),
+                   torch.zeros(s_shape, dtype=torch.float32, device=device),
+                   torch.zeros(s_shape, dtype=torch.float32, device=device), in_major=in_major)
+
+
+HOLDERS = {"q8_0": PackedQ8, "q4_k": PackedQ4K}
+
+
+def packed_matmul(x: torch.Tensor, w: Packed) -> torch.Tensor:
+    """x [N, in] @ a row-layout packed weight → [N, out] f32, through the
+    weight's own kernel (q8_matmul or q4k_matmul)."""
+    if isinstance(w, PackedQ4K):
+        return q4k_matmul(x, w.codes, w.scales, w.mins)
+    return q8_matmul(x, w.codes, w.scales)
 
 
 def project(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x [.., in] @ w → [.., out] in x.dtype (f32 accumulation); `w` is an
-    [in, out] tensor or a row-layout PackedQ8 (the q8_matmul kernel)."""
-    if isinstance(w, PackedQ8):
+    [in, out] tensor or a row-layout packed holder (its kernel)."""
+    if isinstance(w, Packed):
         lead = x.shape[:-1]
-        out = q8_matmul(x.reshape(-1, x.shape[-1]).contiguous(), w.codes, w.scales)
+        out = packed_matmul(x.reshape(-1, x.shape[-1]).contiguous(), w)
         out = out.reshape(*lead, out.shape[-1]).to(x.dtype)
     else:
         out = torch.matmul(x, w.to(x.dtype))

@@ -9,7 +9,7 @@ CPU, with inputs from numpy.random.default_rng fed to both packages:
   of moe_apply_q8_fused match the reference's;
 - a CPU tensor never reaches the CUDA library;
 - the engine's random init packs the float model's weights, and it
-  accepts Q8_0 only.
+  refuses Q6_K (not ported yet) and unknown formats.
 
 Tolerance of the matmuls: 1e-5 · max(|bf16 x| @ |W|). Both sides sum
 exact bf16 × bf16 products in f32, in different orders; this bounds the
@@ -96,14 +96,18 @@ def test_quantize_expert_stack_bit_exact(shape):
     np.testing.assert_array_equal(got["scales"].numpy(), want["scales"])
 
 
-@pytest.mark.parametrize("method", ["q4_k", "q6_k"])
-def test_k_quants_raise(method):
-    w = torch.zeros((256, 8))
+@pytest.mark.parametrize("packer", ["plain", "experts"])
+def test_k_quants_raise(packer):
+    """Q6_K is not ported yet: both packers raise at in % 256 == 0 and
+    fall back to Q8_0 below it, as the reference does."""
+    method = "q6_k"
+    pack = sq.quantize_plain if packer == "plain" else sq.quantize_expert_stack
+    lead = () if packer == "plain" else (2,)
     assert sq.effective_method(method, 256) == jax_sq.effective_method(method, 256) == method
     assert sq.effective_method(method, 96) == jax_sq.effective_method(method, 96) == "q8_0"
     with pytest.raises(NotImplementedError, match="Queue 1"):
-        sq.quantize_plain(w, method)
-    assert sq.quantize_plain(torch.zeros((96, 8)), method)["codes"].shape == (8, 96)
+        pack(torch.zeros((*lead, 256, 8)), method)
+    assert pack(torch.zeros((*lead, 96, 8)), method)["codes"].dtype == torch.int8
 
 
 # -- the kernel twins against the Pallas kernels ---------------------------------------
@@ -327,9 +331,11 @@ def test_q8_engine_packs_the_float_models_weights(init):
 
 
 def test_engine_accepts_q8_0_only():
+    """Of the K-quants only Q4_K is served (tests/test_torch_kquant.py);
+    Q6_K raises until its kernels are ported."""
     from dsocr_tpu_torch.models.deepseek import DeepseekOcrEngine
 
     with pytest.raises(NotImplementedError, match="Queue 1"):
-        DeepseekOcrEngine(_q8_tiny(), dtype=torch.float32, device="cpu", quantize="q4_k")
+        DeepseekOcrEngine(_q8_tiny(), dtype=torch.float32, device="cpu", quantize="q6_k")
     with pytest.raises(ValueError):
         DeepseekOcrEngine(_q8_tiny(), dtype=torch.float32, device="cpu", quantize="int4")

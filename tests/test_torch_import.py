@@ -30,7 +30,9 @@ SLICE_MODULES = [
     "dsocr_tpu_torch.ops.kernels.prefill_attention",
     "dsocr_tpu_torch.ops.kernels.slot_attention",
     "dsocr_tpu_torch.ops.kernels.dequant_matmul",
+    "dsocr_tpu_torch.ops.kernels.kquant_matmul",
     "dsocr_tpu_torch.dsq",
+    "dsocr_tpu_torch.dsq.quant",
     "dsocr_tpu_torch.dsq.serve_quant",
     "dsocr_tpu_torch.image",
     "dsocr_tpu_torch.models.deepseek",
@@ -71,7 +73,8 @@ def test_cuda_request_without_gpu_raises():
         pytest.skip("a CUDA card is present")
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         select_device("cuda")
-    assert select_device(None).type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):  # no name means the card
+        select_device(None)
     assert select_device("cpu").type == "cpu"
     assert not torch.backends.cudnn.allow_tf32
     assert not torch.backends.cuda.matmul.allow_tf32
@@ -93,6 +96,15 @@ _MISPLACED_CALLS = {
         _meta(4, 32), _meta(3, 32, 64, dtype=torch.int8), _meta(3, 1, 64)),
     "q8_dense_experts_perx": lambda K: K.q8_dense_experts_perx(
         _meta(3, 4, 32), _meta(3, 32, 64, dtype=torch.int8), _meta(3, 1, 64)),
+    "q4k_matmul": lambda K: K.q4k_matmul(
+        _meta(4, 256), _meta(64, 128, dtype=torch.uint8), _meta(64, 8), _meta(64, 8)),
+    "q4k_gather_matmul": lambda K: K.q4k_gather_matmul(
+        _meta(4, 256), _meta(3, 128, 64, dtype=torch.uint8), _meta(3, 8, 64), _meta(3, 8, 64),
+        _meta(4, dtype=torch.int32)),
+    "q4k_dense_experts": lambda K: K.q4k_dense_experts(
+        _meta(4, 256), _meta(3, 128, 64, dtype=torch.uint8), _meta(3, 8, 64), _meta(3, 8, 64)),
+    "q4k_dense_experts_perx": lambda K: K.q4k_dense_experts_perx(
+        _meta(3, 4, 256), _meta(3, 128, 64, dtype=torch.uint8), _meta(3, 8, 64), _meta(3, 8, 64)),
 }
 
 

@@ -11,7 +11,13 @@ Packed Q8_0 serving: the port's scheduler on params_from_jax of the
 reference's Q8_0 engine gives the reference's greedy tokens in both decode
 tiers (2 slots gather, 4 slots run the dense sweep: 4 experts at top-2),
 and its prefill at S > 32 (packed experts dequantized) matches
-deepseek_forward within the tolerance of tests/test_torch_deepseek.py."""
+deepseek_forward within the tolerance of tests/test_torch_deepseek.py.
+
+Packed Q4_K serving, at hidden 256 (K-quants need in dims % 256): the same
+against the reference's Q4_K engine at 2 and 4 slots, f32 and int8 KV, on
+a mixed group (Q4_K gate+up, Q8_0 down, as at full width) and, at 2 and 4
+slots with f32 KV, on an all-Q4_K group; each decode tier runs the
+kernels of each projection's own format."""
 
 import asyncio
 import dataclasses
@@ -217,3 +223,76 @@ def test_q8_prefill_dequant_path_matches_deepseek_forward(jax_q8_engines, monkey
                                                port._rope)
     assert len(dequantized) == 2 * (lang.num_hidden_layers - 1)  # both stacks of each MoE layer
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=1e-4)
+
+
+# -- packed Q4_K --------------------------------------------------------------------
+
+
+def _kq_cfg(cfg, moe_inter):
+    """K-quant super-blocks need in dims % 256: hidden 256 (the reference's
+    own K-quant engine test, tests/test_kquant_matmul.py). moe_inter 32
+    leaves the routed and shared down projections to Q8_0, a mixed group
+    as at full width; 256 packs every projection as Q4_K."""
+    lang = dataclasses.replace(cfg.language, hidden_size=256, moe_intermediate_size=moe_inter)
+    return dataclasses.replace(cfg, projector_n_embed=256, language=lang)
+
+
+@pytest.fixture(scope="module")
+def jax_q4k_engines():
+    """The reference's Q4_K engines (NumPy quantizer), quantized from one
+    float engine per config. At moe_inter 256, seed 0's weights end a row
+    on EOS at once; seed 3's rows reach their budgets."""
+    engines = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("DSOCR_NO_NATIVE", "1")
+        for inter, seed in ((32, 0), (256, 3)):
+            cfg = _kq_cfg(jax_tiny(), inter)
+            float_engine = JaxEngine(cfg, dtype=jnp.float32, max_seq_len=512, seed=seed)
+            for kvq in (None, "int8"):
+                engines[inter, kvq] = JaxEngine(
+                    cfg, params=jax.tree_util.tree_map(lambda x: x, float_engine.params),
+                    dtype=jnp.float32, max_seq_len=512, kv_quant=kvq, quantize="q4_k")
+    return engines
+
+
+def _port_q4k(jax_engine, moe_inter, kv_quant):
+    state = params_from_jax(jax.device_get(jax_engine.params))
+    port = DeepseekOcrEngine(_kq_cfg(tiny_deepseek_config(), moe_inter), dtype=torch.float32,
+                             device="cpu", max_seq_len=512, kv_quant=kv_quant, state=state,
+                             quantize="q4_k")
+    assert set(state) == set(port.model.state_dict())
+    assert state["decoder.moe_layers.0.experts_gateup.codes"].dtype == torch.uint8
+    return port
+
+
+_EXPERT_KERNELS = ("q4k_gather_matmul", "q4k_dense_experts", "q4k_dense_experts_perx",
+                   "q8_gather_matmul", "q8_dense_experts", "q8_dense_experts_perx")
+
+
+@pytest.mark.parametrize("moe_inter,n_slots,kv_quant,kernels", [
+    (32, 2, None, {"q4k_gather_matmul", "q8_gather_matmul"}),
+    (32, 2, "int8", {"q4k_gather_matmul", "q8_gather_matmul"}),
+    (32, 4, None, {"q4k_dense_experts", "q8_dense_experts_perx"}),
+    (32, 4, "int8", {"q4k_dense_experts", "q8_dense_experts_perx"}),
+    (256, 2, None, {"q4k_gather_matmul"}),
+    (256, 4, None, {"q4k_dense_experts", "q4k_dense_experts_perx"}),
+])
+def test_q4k_greedy_tokens_match_reference_scheduler(jax_q4k_engines, moe_inter, n_slots, kv_quant,
+                                                     kernels, monkeypatch):
+    """moe_inter 32: Q4_K gate+up with a Q8_0 down; 256: all Q4_K. Two
+    slots gather (N·top_k ≤ 4 experts), four sweep every expert."""
+    import dsocr_tpu_torch.ops.moe as port_moe
+
+    jax_engine = jax_q4k_engines[moe_inter, kv_quant]
+    want = _serve(JaxScheduler(jax_engine, _Tok(), n_slots=n_slots, max_len=256, chunk_steps=4),
+                  JaxParams, JaxVision(64, 64, False))
+    ran = []
+    for name in _EXPERT_KERNELS:
+        orig = getattr(port_moe, name)
+        monkeypatch.setattr(port_moe, name, lambda *a, _o=orig, _n=name: ran.append(_n) or _o(*a))
+    sched = ContinuousScheduler(_port_q4k(jax_engine, moe_inter, kv_quant), _Tok(), n_slots=n_slots,
+                                max_len=256, chunk_steps=4)
+    got = _serve(sched, DecodeParameters, VisionSettings(64, 64, False))
+    assert [len(t) for t in got] == BUDGETS
+    assert got == want
+    assert set(ran) == kernels, f"decode ran {set(ran)}, expected {kernels}"
