@@ -23,19 +23,24 @@ non-zero (nothing is caught):
             of 128 new tokens through ContinuousScheduler.submit over 16
             slots, 128-step chunks, on a seeded 1756×2852 page in 1024/640
             crop mode. The launch counters are zeroed just before and read
-            just after; every kernel of the bf16 path must have launched;
+            just after; every kernel of the bf16 path must have launched.
+            Then the profile of that engine at 16 rows (profile_phase):
+            a prefill wave and decode steps, their host and device time,
+            the largest kernels, and the host time spent in the kernel
+            wrappers against the rest of the step;
 4b. serve_q8         the same with packed Q8_0 decoder weights (quantized
             on the card from the same seed): 16 requests × 128 tokens over
             16 slots, 16·6 = 96 selections > 64 experts, so decode runs the
             dense all-expert tier: q8_matmul, q8_dense_experts and
             q8_dense_experts_perx must launch, with the attention kernels;
+            then its profile;
 4c. serve_q8_gather  the same Q8_0 engine, 4 requests × 32 tokens over 4
             slots (24 selections ≤ 64): q8_gather_matmul must launch;
 4d. serve_q4k        packed Q4_K decoder weights from the same seed (the
             routed experts' down projection, in dim 896, packs as Q8_0):
             16 requests × 128 tokens over 16 slots, the dense tier:
             q4k_matmul, q4k_dense_experts and q8_dense_experts_perx must
-            launch;
+            launch; then its profile;
 4e. serve_q4k_gather the same Q4_K engine, 4 requests × 32 tokens over 4
             slots: q4k_gather_matmul and q8_gather_matmul must launch;
 5. parity   the tiny config in f32 with one set of weights, served on the
@@ -71,6 +76,7 @@ MAX_NEW = 128
 N_REQUESTS = 16
 N_SLOTS = 16
 CHUNK = 128
+PROFILE_ROWS, PROFILE_WAVE, PROFILE_WINDOW = 16, 1024, 16  # rows, positions per row, steps
 PROMPT = "<image>\nFree OCR."
 IMAGE_TOKEN_ID = 128815  # the DeepSeek tokenizer's <image> id
 
@@ -455,11 +461,11 @@ def serve(engine, tokenizer, images, vision, params, *, n_slots, max_len, chunk)
 
 
 def serving_phase(torch, K, phase, engine, *, n_requests, n_slots, max_new, required,
-                  warmup=True):
-    """Phases 4, 4b, 4c: n_requests requests of max_new tokens through
+                  warmup=True, profile=False):
+    """Phases 4-4e: n_requests requests of max_new tokens through
     ContinuousScheduler over n_slots; the launch counters are zeroed just
     before and read just after, and every kernel in `required` must have
-    launched."""
+    launched. With `profile`, profile_phase follows on the page's packet."""
     import numpy as np
 
     from dsocr_tpu_torch.core import DecodeParameters, VisionSettings
@@ -513,7 +519,131 @@ def serving_phase(torch, K, phase, engine, *, n_requests, n_slots, max_new, requ
     require(line["logits_finite"], "non-finite logits")
     for name in required:
         require(launches[name] > 0, f"kernel {name} was not launched in the {phase} burst")
+    if profile:
+        profile_phase(torch, K, engine, pre)
     return launches
+
+
+def wrapper_host_ms(K, fn) -> float:
+    """Run fn with every kernel wrapper timed on the host clock where the
+    port calls it; → milliseconds spent inside the wrappers (checks, the
+    output's allocation, the ctypes launch). The kernel modules keep their
+    own names, through which they count launches."""
+    spent = []
+    patched = []
+    wrappers = {w.__name__: w for w, _, _ in K.KERNELS}
+    for mod in list(sys.modules.values()):
+        name = getattr(mod, "__name__", "")
+        if not name.startswith("dsocr_tpu_torch.") or name.startswith("dsocr_tpu_torch.ops.kernels."):
+            continue
+        for attr, w in wrappers.items():
+            if getattr(mod, attr, None) is w:
+                def timed(*args, _w=w, **kwargs):
+                    t0 = time.perf_counter()
+                    out = _w(*args, **kwargs)
+                    spent.append(time.perf_counter() - t0)
+                    return out
+
+                setattr(mod, attr, timed)
+                patched.append((mod, attr, w))
+    try:
+        fn()
+    finally:
+        for mod, attr, w in patched:
+            setattr(mod, attr, w)
+    return sum(spent) * 1e3
+
+
+def traced(torch, fn, n_calls: int):
+    """fn once under torch.profiler → (device ms per call: the kernel
+    events' durations; host ms per call of the traced window, which the
+    profiler slows; the 4 largest kernels [name, launches, ms] per call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_us(e):
+        value = getattr(e, "self_device_time_total", None)
+        return float(value if value is not None else e.self_cuda_time_total)
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    top = sorted(kernels, key=device_us, reverse=True)[:4]
+    return (sum(map(device_us, kernels)) / 1e3 / n_calls, wall * 1e3 / n_calls,
+            [[e.key[:60], e.count / n_calls, device_us(e) / 1e3 / n_calls] for e in top])
+
+
+def profile_phase(torch, K, engine, pre):
+    """Where the time goes at 16 rows in the engine's weight format:
+    a prefill wave (16 rows × 1024 seeded embeddings through the decoder,
+    host clock around synchronized work, median of 3 after a warm-up) and
+    decode steps (the page's packet joined into 16 slots that never end,
+    SlotRunner.run_chunk, greedy with the 20-gram ban: host ms per step,
+    median of 4 windows of 16 steps). Then one wave and 8 steps under
+    torch.profiler (device ms, busy share, largest kernels), and 16 steps
+    with every kernel wrapper timed on the host: the host ms per step
+    inside the wrappers against the rest of the step."""
+    from dsocr_tpu_torch.core import DecodeParameters
+    from dsocr_tpu_torch.ops.rope import build_rope_tables
+    from dsocr_tpu_torch.runtime.slots import SlotRunner
+
+    dec = engine.model.decoder
+    lang = engine.cfg.language
+    rows, window = PROFILE_ROWS, PROFILE_WINDOW
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rope = build_rope_tables(engine.max_seq_len, lang.rope_dim, lang.rope_theta, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    embeds = (torch.randn((rows, PROFILE_WAVE, lang.hidden_size), generator=gen, device="cuda")
+              * 0.02).to(engine.dtype)
+    positions = torch.arange(PROFILE_WAVE, device="cuda")[None].expand(rows, PROFILE_WAVE)
+    last = torch.full((rows,), PROFILE_WAVE - 1, device="cuda")
+
+    def wave():
+        with torch.no_grad():
+            dec.prefill(embeds, positions, rope, last_index=last)
+
+    def host_ms(fn, n_calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n_calls
+
+    wave()
+    line = {"phase": "profile", "quantize": engine.quantize,
+            "prefill_wave_ms": statistics.median(host_ms(wave, 1) for _ in range(3))}
+    line["prefill_device_ms"], _, line["prefill_top"] = traced(torch, wave, 1)
+    del embeds
+
+    context = 1536  # the 904-token prompt and every step below
+    runner = SlotRunner(engine.slot_step_fn, eos_ids=())
+    state = runner.init_state(engine.new_slot_cache(rows, context), context)
+    runner.join_many(state, list(range(rows)), [pre] * rows, [DecodeParameters()] * rows,
+                     [10 ** 6] * rows, [None] * rows)
+    chunk = lambda n: runner.run_chunk(dec, state, n)  # noqa: E731
+    chunk(8)
+    windows = [host_ms(lambda: chunk(window), window) for _ in range(4)]
+    line["decode_step_ms"], line["decode_step_ms_windows"] = statistics.median(windows), windows
+    line["step_device_ms"], traced_ms, line["step_top"] = traced(torch, lambda: chunk(8), 8)
+    line["step_busy_share"] = line["step_device_ms"] / traced_ms
+    K.reset_launches()
+    spent = []
+    step_ms = host_ms(lambda: spent.append(wrapper_host_ms(K, lambda: chunk(window))), window)
+    line["wrapper_calls_per_step"] = sum(K.launch_counts().values()) / window
+    line["wrapper_host_ms_per_step"] = spent[0] / window
+    line["rest_host_ms_per_step"] = step_ms - spent[0] / window
+    line["expert_bytes_per_dense_step"] = sum(
+        sum(t.numel() * t.element_size() for t in (w.buffers() if isinstance(w, torch.nn.Module) else [w]))
+        for layer in dec.moe_layers for w in (layer.experts_gateup, layer.experts_down))
+    line["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    emit(line)
+    require(all(t > 0 for t in (line["prefill_device_ms"], line["step_device_ms"])),
+            "the profiler saw no device time")
 
 
 def full_width_engine(torch, quantize=None):
@@ -629,14 +759,15 @@ def main() -> int:
                  "slot_decode_attention"]
     engine = full_width_engine(torch)
     bursts = [serving_phase(torch, K, "serve", engine, n_requests=N_REQUESTS, n_slots=N_SLOTS,
-                            max_new=MAX_NEW, required=attention)]
+                            max_new=MAX_NEW, required=attention, profile=True)]
     del engine
     gc.collect()
     torch.cuda.empty_cache()
     engine = full_width_engine(torch, quantize="q8_0")
     bursts.append(serving_phase(
         torch, K, "serve_q8", engine, n_requests=N_REQUESTS, n_slots=N_SLOTS, max_new=MAX_NEW,
-        required=attention + ["q8_matmul", "q8_dense_experts", "q8_dense_experts_perx"]))
+        required=attention + ["q8_matmul", "q8_dense_experts", "q8_dense_experts_perx"],
+        profile=True))
     bursts.append(serving_phase(
         torch, K, "serve_q8_gather", engine, n_requests=4, n_slots=4, max_new=32,
         required=["q8_gather_matmul"], warmup=False))
@@ -646,7 +777,8 @@ def main() -> int:
     engine = full_width_engine(torch, quantize="q4_k")
     bursts.append(serving_phase(
         torch, K, "serve_q4k", engine, n_requests=N_REQUESTS, n_slots=N_SLOTS, max_new=MAX_NEW,
-        required=attention + ["q4k_matmul", "q4k_dense_experts", "q8_dense_experts_perx"]))
+        required=attention + ["q4k_matmul", "q4k_dense_experts", "q8_dense_experts_perx"],
+        profile=True))
     bursts.append(serving_phase(
         torch, K, "serve_q4k_gather", engine, n_requests=4, n_slots=4, max_new=32,
         required=["q4k_gather_matmul", "q8_gather_matmul"], warmup=False))

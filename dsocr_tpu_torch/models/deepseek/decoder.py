@@ -48,7 +48,7 @@ from ...ops import (
     slot_kv_write_attend,
 )
 from ...ops.kernels import flash_prefill_attention
-from ...ops.linear import HOLDERS, Packed, packed_matmul
+from ...ops.linear import HOLDERS, Packed
 from ...ops.moe import dequant_stack, is_quantized, moe_apply_quant_fused
 from .config import DeepseekV2Config
 from .quantize import packed_kind
@@ -271,7 +271,7 @@ class DeepseekDecoder(nn.Module):
         else:
             x_last = x[torch.arange(x.shape[0], device=x.device), last_index]
         if isinstance(self.lm_head, Packed):
-            return packed_matmul(x_last.contiguous(), self.lm_head)
+            return self.lm_head.matmul(x_last.contiguous())
         return torch.matmul(x_last.float(), self.lm_head.float())
 
     # -- modes ----------------------------------------------------------------

@@ -1,6 +1,7 @@
 """Mixture-of-experts routing, the fused float expert tiers and the packed
 decode tiers (dsocr_tpu/ops/moe.py: moe_router, moe_apply_fused,
-dequant_stack, moe_apply_q8_fused and moe_apply_quant_fused).
+dequant_stack, moe_apply_q8_fused and moe_apply_quant_fused; the port has
+no megafused Q8_0 branch, so one function serves both of the latter).
 
 Expert stacks keep the reference layout: gate+up fused along the output
 dim, [E, hidden, 2*inter], and down [E, inter, hidden]. Three tiers by
@@ -17,8 +18,8 @@ Packed stacks (ops.linear.PackedQ8 / PackedQ4K, in-major) run at decode
 through the kernels: the gather tier while N·top_k ≤ E, the dense
 all-expert sweep above that. Each projection runs its own format's
 kernel, because a group may be mixed: Q4_K gate+up with a Q8_0 down
-whose in dim misses the 256-value super-block (DeepSeek's 896). Prefill
-dequantizes them to bf16 for the grouped tier.
+whose in dim misses the 256-value super-block (DeepSeek's 896); the
+holder runs it. Prefill dequantizes them to bf16 for the grouped tier.
 """
 
 from __future__ import annotations
@@ -28,18 +29,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..dsq.serve_quant import Q8_BLOCK
 from .activations import silu
-from .kernels import (
-    q4k_dense_experts,
-    q4k_dense_experts_perx,
-    q4k_gather_matmul,
-    q8_dense_experts,
-    q8_dense_experts_perx,
-    q8_gather_matmul,
-)
-from .kernels.kquant_matmul import dequant_q4k
-from .linear import Packed, PackedQ4K, PackedQ8
+from .linear import Packed
 
 
 @dataclasses.dataclass
@@ -154,93 +145,31 @@ def is_quantized(q) -> bool:
     return isinstance(q, Packed)
 
 
-def dequant_q8_stack(q: PackedQ8) -> torch.Tensor:
-    """In-major {codes [E, in, out], scales [E, in/32, out]} → bf16
-    [E, in, out]: bf16(f32(code) · scale), the prefill path's weights."""
-    full = q.scales.repeat_interleave(Q8_BLOCK, dim=-2)
-    return (q.codes.float() * full).to(torch.bfloat16)
-
-
-def dequant_q4k_stack(q: PackedQ4K) -> torch.Tensor:
-    """In-major {codes [E, in/2, out], scales, mins [E, in/32, out]} →
-    bf16 [E, in, out]: bf16(f32(q) · s − b), the prefill path's weights."""
-    return dequant_q4k(q.codes, q.scales, q.mins, -2)
-
-
 def dequant_stack(q) -> torch.Tensor:
-    """A packed stack of any format dequantized to bf16; a float stack as
-    it is."""
-    if isinstance(q, PackedQ4K):
-        return dequant_q4k_stack(q)
-    return dequant_q8_stack(q) if is_quantized(q) else q
-
-
-def moe_apply_q8_fused(tokens, topk_weights, topk_indices, gateup_q: PackedQ8, down_q: PackedQ8):
-    """Decode MoE straight from packed Q8_0 stacks → [N, hidden] in
-    tokens.dtype. N·top_k ≤ E: the gather kernel reads only the selected
-    experts, one row per selection. Above: every expert once (dense
-    sweep), then the selected outputs. The combine is the reference's:
-    f32 outputs times f32 weights, summed over k, then cast."""
-    n, k = topk_indices.shape
-    hidden = tokens.shape[1]
-    if n * k > gateup_q.codes.shape[0]:
-        gus = q8_dense_experts(tokens, gateup_q.codes, gateup_q.scales)  # [E, N, 2I]
-        gates, ups = _split_gateup(gus)
-        inter = (silu(gates) * ups).to(tokens.dtype)
-        outs = q8_dense_experts_perx(inter, down_q.codes, down_q.scales)  # [E, N, H]
-        n_idx = torch.arange(n, device=tokens.device)[:, None]
-        sel = outs[topk_indices, n_idx]  # [N, K, H]
-    else:
-        flat_idx = topk_indices.reshape(n * k).to(torch.int32)
-        flat_x = tokens.repeat_interleave(k, dim=0)  # slot s uses token s // k
-        gus = q8_gather_matmul(flat_x, gateup_q.codes, gateup_q.scales, flat_idx)
-        gates, ups = _split_gateup(gus)
-        inter = (silu(gates) * ups).to(tokens.dtype)
-        outs = q8_gather_matmul(inter, down_q.codes, down_q.scales, flat_idx)
-        sel = outs.reshape(n, k, hidden)
-    return (sel * topk_weights[..., None]).sum(dim=1).to(tokens.dtype)
-
-
-def _gather_any(x, q: Packed, idx):
-    """out[n] = x[n] @ W[idx[n]] through the stack's own gather kernel."""
-    if isinstance(q, PackedQ4K):
-        return q4k_gather_matmul(x, q.codes, q.scales, q.mins, idx)
-    return q8_gather_matmul(x, q.codes, q.scales, idx)
-
-
-def _dense_any(x, q: Packed):
-    """out[e] = x @ W[e] → [E, N, M], the stack's own dense kernel."""
-    if isinstance(q, PackedQ4K):
-        return q4k_dense_experts(x, q.codes, q.scales, q.mins)
-    return q8_dense_experts(x, q.codes, q.scales)
-
-
-def _dense_perx_any(x, q: Packed):
-    """out[e] = x[e] @ W[e] → [E, N, M], the stack's own kernel."""
-    if isinstance(q, PackedQ4K):
-        return q4k_dense_experts_perx(x, q.codes, q.scales, q.mins)
-    return q8_dense_experts_perx(x, q.codes, q.scales)
+    """A packed stack of any format dequantized to bf16 [E, in, out]; a
+    float stack as it is."""
+    return q.dequant() if is_quantized(q) else q
 
 
 def moe_apply_quant_fused(tokens, topk_weights, topk_indices, gateup_q: Packed, down_q: Packed):
-    """Decode MoE from packed stacks of any format → [N, hidden] in
-    tokens.dtype. All Q8_0: moe_apply_q8_fused. Otherwise the same tiers,
-    each projection through its own format's kernel: N·top_k > E sweeps
-    every expert once, else the gather kernels read the selected ones."""
-    if isinstance(gateup_q, PackedQ8) and isinstance(down_q, PackedQ8):
-        return moe_apply_q8_fused(tokens, topk_weights, topk_indices, gateup_q, down_q)
+    """Decode MoE straight from packed stacks → [N, hidden] in
+    tokens.dtype, each projection through its own format's kernel.
+    N·top_k ≤ E: the gather kernels read only the selected experts, one
+    row per selection. Above: every expert once (dense sweep), then the
+    selected outputs. The combine is the reference's: f32 outputs times
+    f32 weights, summed over k, then cast."""
     n, k = topk_indices.shape
     hidden = tokens.shape[1]
     if n * k > gateup_q.codes.shape[0]:
-        gates, ups = _split_gateup(_dense_any(tokens, gateup_q))  # [E, N, I] each
+        gates, ups = _split_gateup(gateup_q.dense(tokens))  # [E, N, I] each
         inter = (silu(gates) * ups).to(tokens.dtype)
-        outs = _dense_perx_any(inter, down_q)  # [E, N, H]
+        outs = down_q.dense_perx(inter)  # [E, N, H]
         n_idx = torch.arange(n, device=tokens.device)[:, None]
         sel = outs[topk_indices, n_idx]  # [N, K, H]
     else:
         flat_idx = topk_indices.reshape(n * k).to(torch.int32)
         flat_x = tokens.repeat_interleave(k, dim=0)  # slot s uses token s // k
-        gates, ups = _split_gateup(_gather_any(flat_x, gateup_q, flat_idx))
+        gates, ups = _split_gateup(gateup_q.gather(flat_x, flat_idx))
         inter = (silu(gates) * ups).to(tokens.dtype)
-        sel = _gather_any(inter, down_q, flat_idx).reshape(n, k, hidden)
+        sel = down_q.gather(inter, flat_idx).reshape(n, k, hidden)
     return (sel * topk_weights[..., None]).sum(dim=1).to(tokens.dtype)

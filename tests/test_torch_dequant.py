@@ -5,8 +5,9 @@ CPU, with inputs from numpy.random.default_rng fed to both packages:
   dsocr_tpu.dsq.serve_quant, including all-zero blocks and exact ties;
 - each kernel twin (ops/kernels/dequant_matmul.py) matches the Pallas
   functions it replaces, run in interpret mode, in both weight layouts;
-- dequant_q8_stack, project over a packed weight and both decode tiers
-  of moe_apply_q8_fused match the reference's;
+- PackedQ8.dequant, project over a packed weight and both decode tiers
+  of moe_apply_quant_fused over Q8_0 stacks match the reference's
+  (dequant_q8_stack and moe_apply_q8_fused);
 - a CPU tensor never reaches the CUDA library;
 - the engine's random init packs the float model's weights, and it
   refuses Q6_K (not ported yet) and unknown formats.
@@ -28,7 +29,7 @@ from dsocr_tpu.ops.pallas import dequant_matmul as jax_dq
 from dsocr_tpu_torch.dsq import serve_quant as sq
 from dsocr_tpu_torch.ops import kernels as K
 from dsocr_tpu_torch.ops.linear import PackedQ8, project
-from dsocr_tpu_torch.ops.moe import dequant_q8_stack, moe_apply_q8_fused
+from dsocr_tpu_torch.ops.moe import moe_apply_quant_fused
 
 
 def _t(x):
@@ -242,7 +243,7 @@ def test_dequant_q8_stack_bit_exact():
     p = _packed(np.random.default_rng(4), (1, 3), 64, 40, True)
     holder = PackedQ8(_t(p["codes"][0]), _t(p["scales"][0]), in_major=True)
     want = jax_moe.dequant_q8_stack({"codes": jnp.asarray(p["codes"][0]), "scales": jnp.asarray(p["scales"][0])})
-    got = dequant_q8_stack(holder)
+    got = holder.dequant()
     assert got.dtype == torch.bfloat16
     np.testing.assert_array_equal(got.float().numpy(), np.asarray(want.astype(jnp.float32)))
 
@@ -262,8 +263,9 @@ def test_project_over_packed_weight_matches_reference(lead):
 
 @pytest.mark.parametrize("n,tier", [(2, "gather"), (5, "dense"), (1, "gather")])
 def test_moe_apply_q8_fused_matches_reference(n, tier, monkeypatch):
-    """E = 4 experts at top-2: N·k ≤ 4 gathers, above that the dense sweep."""
-    import dsocr_tpu_torch.ops.moe as port_moe
+    """E = 4 experts at top-2: N·k ≤ 4 gathers, above that the dense sweep;
+    the reference's all-Q8_0 branch against the port's one function."""
+    import dsocr_tpu_torch.ops.linear as port_linear
 
     rng = np.random.default_rng(n)
     E, k, H, I = 4, 2, 64, 32
@@ -280,9 +282,9 @@ def test_moe_apply_q8_fused_matches_reference(n, tier, monkeypatch):
     )
     ran = []
     for name in ("q8_gather_matmul", "q8_dense_experts"):
-        orig = getattr(port_moe, name)
-        monkeypatch.setattr(port_moe, name, lambda *a, _o=orig, _n=name: ran.append(_n) or _o(*a))
-    got = moe_apply_q8_fused(
+        orig = getattr(port_linear, name)
+        monkeypatch.setattr(port_linear, name, lambda *a, _o=orig, _n=name: ran.append(_n) or _o(*a))
+    got = moe_apply_quant_fused(
         _t(tokens), _t(weights), _t(idx).long(),
         PackedQ8(_t(gu["codes"][layer]), _t(gu["scales"][layer]), in_major=True),
         PackedQ8(_t(dn["codes"][layer]), _t(dn["scales"][layer]), in_major=True),

@@ -11,7 +11,7 @@ CPU, with inputs from numpy.random.default_rng fed to both packages:
 - each kernel twin (ops/kernels/kquant_matmul.py) matches the Pallas
   functions it replaces, run in interpret mode: plain and ``_layered``,
   row and in-major, f32 and bf16 x;
-- dequant_q4k_stack, project over a PackedQ4K and both decode tiers of
+- PackedQ4K.dequant, project over a PackedQ4K and both decode tiers of
   moe_apply_quant_fused (a mixed Q4_K / Q8_0 group and an all-Q4_K one)
   match the reference's, and run the kernels of each projection's format;
 - a CPU tensor never reaches the CUDA library;
@@ -40,7 +40,7 @@ from dsocr_tpu_torch.dsq import serve_quant as sq
 from dsocr_tpu_torch.dsq.quant import q4k_rows
 from dsocr_tpu_torch.ops import kernels as K
 from dsocr_tpu_torch.ops.linear import PackedQ4K, PackedQ8, project
-from dsocr_tpu_torch.ops.moe import dequant_q4k_stack, moe_apply_quant_fused
+from dsocr_tpu_torch.ops.moe import moe_apply_quant_fused
 
 
 @pytest.fixture(autouse=True)
@@ -314,7 +314,7 @@ def test_dequant_q4k_stack_bit_exact():
     p = sq.quantize_expert_stack(_t(w[0]), "q4_k")
     holder = PackedQ4K(p["codes"], p["scales"], p["mins"], in_major=True)
     want = jax_kq.dequant_q4k_planes(planes, axis=-2)
-    got = dequant_q4k_stack(holder)
+    got = holder.dequant()
     assert got.dtype == torch.bfloat16 and got.shape == (3, 512, 40)
     np.testing.assert_array_equal(got.float().numpy(), np.asarray(want.astype(jnp.float32)))
 
@@ -361,7 +361,7 @@ def _stack(rng, k, m):
 def test_moe_apply_quant_fused_matches_reference(inter, n, kernels, monkeypatch):
     """E = 4 experts at top-2: N·k ≤ 4 gathers, above that the dense sweep.
     inter 32: Q4_K gate+up with a Q8_0 down (in dim 32 misses 256)."""
-    import dsocr_tpu_torch.ops.moe as port_moe
+    import dsocr_tpu_torch.ops.linear as port_linear
 
     rng = np.random.default_rng(n + inter)
     E, k, H = 4, 2, 256
@@ -374,8 +374,8 @@ def test_moe_apply_quant_fused_matches_reference(inter, n, kernels, monkeypatch)
                                          gu_ref, dn_ref)
     ran = []
     for name in _EXPERT_KERNELS:
-        orig = getattr(port_moe, name)
-        monkeypatch.setattr(port_moe, name, lambda *a, _o=orig, _n=name: ran.append(_n) or _o(*a))
+        orig = getattr(port_linear, name)
+        monkeypatch.setattr(port_linear, name, lambda *a, _o=orig, _n=name: ran.append(_n) or _o(*a))
     got = moe_apply_quant_fused(_t(tokens), _t(weights), _t(idx).long(), gu, dn)
     assert set(ran) == kernels
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)

@@ -185,15 +185,15 @@ def _port_q8(jax_engine, kv_quant):
 @pytest.mark.parametrize("n_slots,tier", [(2, "q8_gather_matmul"), (4, "q8_dense_experts")])
 @pytest.mark.parametrize("kv_quant", [None, "int8"])
 def test_q8_greedy_tokens_match_reference_scheduler(jax_q8_engines, kv_quant, n_slots, tier, monkeypatch):
-    import dsocr_tpu_torch.ops.moe as port_moe
+    import dsocr_tpu_torch.ops.linear as port_linear
 
     jax_engine = jax_q8_engines[kv_quant]
     want = _serve(JaxScheduler(jax_engine, _Tok(), n_slots=n_slots, max_len=256, chunk_steps=4),
                   JaxParams, JaxVision(64, 64, False))
     ran = []
     for name in ("q8_gather_matmul", "q8_dense_experts"):
-        orig = getattr(port_moe, name)
-        monkeypatch.setattr(port_moe, name, lambda *a, _o=orig, _n=name: ran.append(_n) or _o(*a))
+        orig = getattr(port_linear, name)
+        monkeypatch.setattr(port_linear, name, lambda *a, _o=orig, _n=name: ran.append(_n) or _o(*a))
     sched = ContinuousScheduler(_port_q8(jax_engine, kv_quant), _Tok(), n_slots=n_slots,
                                 max_len=256, chunk_steps=4)
     got = _serve(sched, DecodeParameters, VisionSettings(64, 64, False))
@@ -281,15 +281,15 @@ def test_q4k_greedy_tokens_match_reference_scheduler(jax_q4k_engines, moe_inter,
                                                      kernels, monkeypatch):
     """moe_inter 32: Q4_K gate+up with a Q8_0 down; 256: all Q4_K. Two
     slots gather (N·top_k ≤ 4 experts), four sweep every expert."""
-    import dsocr_tpu_torch.ops.moe as port_moe
+    import dsocr_tpu_torch.ops.linear as port_linear
 
     jax_engine = jax_q4k_engines[moe_inter, kv_quant]
     want = _serve(JaxScheduler(jax_engine, _Tok(), n_slots=n_slots, max_len=256, chunk_steps=4),
                   JaxParams, JaxVision(64, 64, False))
     ran = []
     for name in _EXPERT_KERNELS:
-        orig = getattr(port_moe, name)
-        monkeypatch.setattr(port_moe, name, lambda *a, _o=orig, _n=name: ran.append(_n) or _o(*a))
+        orig = getattr(port_linear, name)
+        monkeypatch.setattr(port_linear, name, lambda *a, _o=orig, _n=name: ran.append(_n) or _o(*a))
     sched = ContinuousScheduler(_port_q4k(jax_engine, moe_inter, kv_quant), _Tok(), n_slots=n_slots,
                                 max_len=256, chunk_steps=4)
     got = _serve(sched, DecodeParameters, VisionSettings(64, 64, False))
