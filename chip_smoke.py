@@ -10,14 +10,15 @@ non-zero (nothing is caught):
 2. build    nvcc of dsocr_tpu_torch/csrc/*.cu into one shared library;
 3. kernels  each hand-written kernel against its plain PyTorch twin at
             the main path's shapes: max abs error against the stated
-            tolerance, median kernel, plain and library milliseconds (CUDA
-            events; the library call is one PyTorch call computing the
+            tolerance, kernel, plain and library device milliseconds per
+            call (CUDA events around 10 calls queued behind a GPU sleep,
+            median of 3; the library call is one PyTorch call computing the
             same function, timed here and used nowhere in the port), and
             the bound: the larger of the bytes the call must move over
             3.35 TB/s and its operations over the peak rate of their type;
             the Q8_0 quantizer on the card bit for bit against its CPU run
-            on a full-width expert stack, and the Q4_K quantizer on 8
-            experts of one;
+            on a full-width expert stack, and the Q4_K and Q6_K quantizers
+            on 8 experts of one;
 4. serve    DeepSeek-OCR v1 at full width (DeepseekOcrConfig(), bf16
             weights from a seeded torch.Generator, int8 KV): 16 requests
             of 128 new tokens through ContinuousScheduler.submit over 16
@@ -43,17 +44,25 @@ non-zero (nothing is caught):
             launch; then its profile;
 4e. serve_q4k_gather the same Q4_K engine, 4 requests × 32 tokens over 4
             slots: q4k_gather_matmul and q8_gather_matmul must launch;
+4f. serve_q6k        packed Q6_K decoder weights from the same seed (the
+            experts' down projection again Q8_0): 16 requests × 128 tokens
+            over 16 slots, the dense tier: q6k_matmul, q6k_dense_experts
+            and q8_dense_experts_perx must launch; then its profile;
+4g. serve_q6k_gather the same Q6_K engine, 4 requests × 32 tokens over 4
+            slots: q6k_gather_matmul and q8_gather_matmul must launch;
 5. parity   the tiny config in f32 with one set of weights, served on the
             card (kernels) and on the CPU (twins): greedy tokens must match;
-            again with Q8_0 weights (moe_intermediate_size 32) and with
-            Q4_K weights (hidden 256, moe_intermediate_size 32: Q4_K
-            gate+up, Q8_0 down), each at 2 slots (gather tier) and 4 slots
-            (dense tier); and all-Q4_K experts (moe_intermediate_size 256)
-            at 4 slots, the path that reaches q4k_dense_experts_perx
-            (DeepSeek's full-width down projection is Q8_0).
+            again with Q8_0 weights (moe_intermediate_size 32), and with
+            Q4_K and with Q6_K weights (hidden 256, moe_intermediate_size
+            32: K-quant gate+up, Q8_0 down), each at 2 slots (gather tier)
+            and 4 slots (dense tier), f32 and int8 KV; and all-Q4_K and
+            all-Q6_K experts (moe_intermediate_size 256) at 4 slots, the
+            path that reaches q4k_/q6k_dense_experts_perx (DeepSeek's
+            full-width down projection is Q8_0).
 
-Then a {"kernels": [...]} summary line (launches: the sum over the five
-serving bursts), the nvidia-smi line, and last
+Then a line with the script's total seconds, a {"kernels": [...]} summary
+line (launches: the sum over the seven serving bursts), the nvidia-smi
+line, and last
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
 dsocr_tpu_torch package beside this file, it exits non-zero and prints
 no result.
@@ -78,6 +87,12 @@ N_SLOTS = 16
 CHUNK = 128
 PROFILE_ROWS, PROFILE_WAVE, PROFILE_WINDOW = 16, 1024, 16  # rows, positions per row, steps
 PROMPT = "<image>\nFree OCR."
+PARITY_SEED = 7
+# Seed 7's Q6_K weights put a greedy near-tie in the int8-KV runs: summing
+# the same bf16 products in another order flips a token, on the CPU as on
+# the card. The Q6_K parity engines draw from seed 8, which
+# tests/test_torch_q6k.py holds clear of such ties.
+Q6K_PARITY_SEED = 8
 IMAGE_TOKEN_ID = 128815  # the DeepSeek tokenizer's <image> id
 
 
@@ -123,21 +138,37 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median milliseconds of fn() over reps, by CUDA events."""
+def device_us(event) -> float:
+    """A torch.profiler event's own device microseconds."""
+    value = getattr(event, "self_device_time_total", None)
+    return float(value if value is not None else event.self_cuda_time_total)
+
+
+def time_ms(fn, reps: int = 10, batches: int = 3) -> float:
+    """Device milliseconds per fn() call: CUDA events around reps calls
+    launched back to back behind a GPU sleep that outlasts their launching,
+    so the host's time in a kernel wrapper (30-75 us a call, most of a small
+    decode kernel's) is not counted; the median over batches, after a
+    warm-up batch that also times the launching."""
     import torch
 
-    for _ in range(warmup):
-        fn()
-    times = []
+    t0 = time.perf_counter()
     for _ in range(reps):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cycles = int(host_s * 2e9 * 2) + 10 ** 6  # twice the launch time at <= 2 GHz
+    times = []
+    for _ in range(batches):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -278,13 +309,19 @@ def check_expert_kernels(torch, record, randn, fmt, gather, gather_plain, dense,
            bound(nbytes(xe, out, *packed), 2 * E * 16 * k * m, "bf16"))
 
 
-def check_q4k_kernels(torch, K, record, randn):
-    """Phase 3, Q4_K: the four wrappers against their twins at the main
-    path's shapes (the per-expert sweep at a stand-in shape: DeepSeek's
-    down projection is Q8_0), and the quantizer on the card against its
-    CPU run on 8 experts of a full-width gate+up stack."""
+def check_kquant_kernels(torch, K, record, randn, method):
+    """Phase 3, Q4_K or Q6_K: the four wrappers of the format against their
+    twins at the main path's shapes (the per-expert sweep at a stand-in
+    shape: DeepSeek's down projection is Q8_0), and the quantizer on the
+    card against its CPU run on 8 experts of a full-width gate+up stack."""
     from dsocr_tpu_torch.dsq.serve_quant import quantize_expert_stack, quantize_plain
-    from dsocr_tpu_torch.ops.kernels.kquant_matmul import dequant_q4k
+    from dsocr_tpu_torch.ops.kernels import kquant_matmul
+
+    fmt = method.replace("_", "")  # q4k, q6k
+    parts = kquant_matmul.Q4K_PARTS if method == "q4_k" else kquant_matmul.Q6K_PARTS
+    keys = tuple(name for name, _, _ in parts)
+    dequant = getattr(kquant_matmul, f"dequant_{fmt}")
+    matmul, matmul_plain = getattr(K, f"{fmt}_matmul"), getattr(K, f"{fmt}_matmul_plain")
 
     def bf16_abs(x):
         return x.to(torch.bfloat16).float().abs()
@@ -292,18 +329,18 @@ def check_q4k_kernels(torch, K, record, randn):
     # lm_head at N = 16; qkv at decode and prefill; shared down (K 1792) at decode
     for case, n, k, m in (("lm_head", 16, 1280, 129280), ("qkv", 16, 1280, 3840),
                           ("qkv", 16384, 1280, 3840), ("shared_down", 16, 1792, 1280)):
-        p = quantize_plain(randn(k, m, dtype=torch.bfloat16, std=k ** -0.5), "q4_k")
-        packed = (p["codes"], p["scales"], p["mins"])
+        p = quantize_plain(randn(k, m, dtype=torch.bfloat16, std=k ** -0.5), method)
+        packed = tuple(p[key] for key in keys)
         x = randn(n, k, dtype=torch.bfloat16)
-        out = K.q4k_matmul(x, *packed)
-        ref = K.q4k_matmul_plain(x, *packed)
-        w = dequant_q4k(*packed, -1).float()
+        out = matmul(x, *packed)
+        ref = matmul_plain(x, *packed)
+        w = dequant(*packed, -1).float()
         tol = q8_tol(torch.matmul(bf16_abs(x), w.abs().t()))
         wt = w.to(torch.bfloat16).t()
         del w
-        record("q4k_matmul", f"{case} N={n} K={k} M={m}", float((out - ref).abs().max()), tol,
-               time_ms(lambda: K.q4k_matmul(x, *packed)),
-               time_ms(lambda: K.q4k_matmul_plain(x, *packed)),
+        record(f"{fmt}_matmul", f"{case} N={n} K={k} M={m}", float((out - ref).abs().max()), tol,
+               time_ms(lambda: matmul(x, *packed)),
+               time_ms(lambda: matmul_plain(x, *packed)),
                time_ms(lambda: torch.matmul(x, wt)),
                bound(nbytes(x, out, *packed), 2 * n * k * m, "bf16"))
         del out, ref, wt
@@ -311,25 +348,26 @@ def check_q4k_kernels(torch, K, record, randn):
     w8 = randn(8, 1280, 1792, dtype=torch.bfloat16, std=1280 ** -0.5)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    card = quantize_expert_stack(w8, "q4_k")
+    card = quantize_expert_stack(w8, method)
     torch.cuda.synchronize()
     quant_ms = (time.perf_counter() - t0) * 1e3
-    twin = quantize_expert_stack(w8.cpu(), "q4_k")
-    same = all(torch.equal(card[key].cpu(), twin[key]) for key in ("codes", "scales", "mins"))
-    emit({"phase": "kernels", "kernel": "quantize_expert_stack", "case": "q4_k E=8 K=1280 M=1792 bf16",
+    twin = quantize_expert_stack(w8.cpu(), method)
+    same = all(torch.equal(card[key].cpu(), twin[key]) for key in keys)
+    emit({"phase": "kernels", "kernel": "quantize_expert_stack", "case": f"{method} E=8 K=1280 M=1792 bf16",
           "bit_exact": same, "ms": quant_ms})
-    require(same, "the Q4_K quantizer on the card differs from its CPU run")
+    require(same, f"the {method} quantizer on the card differs from its CPU run")
     del w8, card, twin
 
-    gu = quantize_expert_stack(randn(64, 1280, 1792, dtype=torch.bfloat16, std=1280 ** -0.5), "q4_k")
-    dn = quantize_expert_stack(randn(64, 1792, 1280, dtype=torch.bfloat16, std=1792 ** -0.5), "q4_k")
+    gu = quantize_expert_stack(randn(64, 1280, 1792, dtype=torch.bfloat16, std=1280 ** -0.5), method)
+    dn = quantize_expert_stack(randn(64, 1792, 1280, dtype=torch.bfloat16, std=1792 ** -0.5), method)
 
     def deq(p):
-        return dequant_q4k(p["codes"], p["scales"], p["mins"], -2).float()
+        return dequant(*(p[key] for key in keys), -2).float()
 
-    check_expert_kernels(torch, record, randn, "q4k", K.q4k_gather_matmul, K.q4k_gather_matmul_plain,
-                         K.q4k_dense_experts, K.q4k_dense_experts_plain, K.q4k_dense_experts_perx,
-                         K.q4k_dense_experts_perx_plain, gu, dn, deq, ("codes", "scales", "mins"))
+    kernels = [getattr(K, f"{fmt}_{name}{suffix}") for name in ("gather_matmul", "dense_experts",
+                                                                "dense_experts_perx")
+               for suffix in ("", "_plain")]
+    check_expert_kernels(torch, record, randn, fmt, *kernels, gu, dn, deq, keys)
 
 
 def check_kernels(torch, K):
@@ -442,8 +480,9 @@ def check_kernels(torch, K):
     del k_all, v_all, ks_all, vs_all, caches, twins
     check_q8_kernels(torch, K, record, randn)
     torch.cuda.empty_cache()
-    check_q4k_kernels(torch, K, record, randn)
-    torch.cuda.empty_cache()
+    for method in ("q4_k", "q6_k"):
+        check_kquant_kernels(torch, K, record, randn, method)
+        torch.cuda.empty_cache()
     return cases
 
 
@@ -462,7 +501,7 @@ def serve(engine, tokenizer, images, vision, params, *, n_slots, max_len, chunk)
 
 def serving_phase(torch, K, phase, engine, *, n_requests, n_slots, max_new, required,
                   warmup=True, profile=False):
-    """Phases 4-4e: n_requests requests of max_new tokens through
+    """Phases 4-4g: n_requests requests of max_new tokens through
     ContinuousScheduler over n_slots; the launch counters are zeroed just
     before and read just after, and every kernel in `required` must have
     launched. With `profile`, profile_phase follows on the page's packet."""
@@ -560,10 +599,6 @@ def traced(torch, fn, n_calls: int):
     profiler slows; the 4 largest kernels [name, launches, ms] per call)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    def device_us(e):
-        value = getattr(e, "self_device_time_total", None)
-        return float(value if value is not None else e.self_cuda_time_total)
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -674,7 +709,7 @@ def parity_phase(torch):
     images = [rng.integers(0, 256, size=(60, 60, 3), dtype=np.uint8) for _ in range(3)]
     params = DecodeParameters(max_new_tokens=16, no_repeat_ngram_size=None)
     vision = VisionSettings(64, 64, False)
-    cpu = DeepseekOcrEngine(cfg, dtype=torch.float32, device="cpu", max_seq_len=512, seed=7)
+    cpu = DeepseekOcrEngine(cfg, dtype=torch.float32, device="cpu", max_seq_len=512, seed=PARITY_SEED)
     state = cpu.model.state_dict()
     result = {"phase": "parity"}
     for kv_quant in (None, "int8"):
@@ -689,26 +724,28 @@ def parity_phase(torch):
         result[f"{key}_equal"] = tokens["cpu"] == tokens["cuda"]
         result[f"{key}_tokens_cuda"] = tokens["cuda"]
     # Q8_0: every contraction dim % 32, so the routed experts pack too.
-    # Q4_K: hidden 256 puts the projections' in dims on the 256-value
+    # K-quants: hidden 256 puts the projections' in dims on the 256-value
     # super-block; the down projections (in dim 32) pack as Q8_0, a mixed
     # expert group as at full width.
     from dsocr_tpu_torch.ops import kernels as K
 
     lang32 = dataclasses.replace(cfg.language, moe_intermediate_size=32)
-    # moe_intermediate_size 256 packs the down projections as Q4_K too: the
-    # one served path that reaches q4k_dense_experts_perx.
+    # moe_intermediate_size 256 packs the down projections as the K-quant
+    # too: the one served path that reaches q4k_/q6k_dense_experts_perx.
     def kq(inter):
         lang = dataclasses.replace(cfg.language, hidden_size=256, moe_intermediate_size=inter)
         return dataclasses.replace(cfg, projector_n_embed=256, language=lang)
 
     formats = (
-        ("q8_0", "q8", dataclasses.replace(cfg, language=lang32),
+        ("q8_0", "q8", dataclasses.replace(cfg, language=lang32), PARITY_SEED,
          ((2, "q8_gather_matmul"), (4, "q8_dense_experts"))),
-        ("q4_k", "q4k", kq(32), ((2, "q4k_gather_matmul"), (4, "q4k_dense_experts"))),
-        ("q4_k", "q4k_all", kq(256), ((4, "q4k_dense_experts_perx"),)),
+        ("q4_k", "q4k", kq(32), PARITY_SEED, ((2, "q4k_gather_matmul"), (4, "q4k_dense_experts"))),
+        ("q4_k", "q4k_all", kq(256), PARITY_SEED, ((4, "q4k_dense_experts_perx"),)),
+        ("q6_k", "q6k", kq(32), Q6K_PARITY_SEED, ((2, "q6k_gather_matmul"), (4, "q6k_dense_experts"))),
+        ("q6_k", "q6k_all", kq(256), Q6K_PARITY_SEED, ((4, "q6k_dense_experts_perx"),)),
     )
-    for method, tag, qcfg, tiers in formats:
-        cpu = DeepseekOcrEngine(qcfg, dtype=torch.float32, device="cpu", max_seq_len=512, seed=7,
+    for method, tag, qcfg, seed, tiers in formats:
+        cpu = DeepseekOcrEngine(qcfg, dtype=torch.float32, device="cpu", max_seq_len=512, seed=seed,
                                 quantize=method)
         state = cpu.model.state_dict()
         for n_slots, tier in tiers:
@@ -734,6 +771,7 @@ def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "dsocr_tpu_torch")):
         print("chip_smoke: the dsocr_tpu_torch package is not beside this script", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -785,6 +823,17 @@ def main() -> int:
     del engine
     gc.collect()
     torch.cuda.empty_cache()
+    engine = full_width_engine(torch, quantize="q6_k")
+    bursts.append(serving_phase(
+        torch, K, "serve_q6k", engine, n_requests=N_REQUESTS, n_slots=N_SLOTS, max_new=MAX_NEW,
+        required=attention + ["q6k_matmul", "q6k_dense_experts", "q8_dense_experts_perx"],
+        profile=True))
+    bursts.append(serving_phase(
+        torch, K, "serve_q6k_gather", engine, n_requests=4, n_slots=4, max_new=32,
+        required=["q6k_gather_matmul", "q8_gather_matmul"], warmup=False))
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
     launches = {name: sum(b[name] for b in bursts) for name in bursts[0]}
     parity_phase(torch)
 
@@ -798,6 +847,7 @@ def main() -> int:
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             **{key: mine[0][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         })
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

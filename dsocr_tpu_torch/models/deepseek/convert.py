@@ -14,7 +14,13 @@ reference's plane dicts (``packed``, ``s_lo``, ``s_hi``, ``b_lo``,
 ``b_hi``: the low nibble is K-index j, the high one j + K/2, along the
 last axis in row layout and the second-to-last in expert stacks); each is
 turned into the port's ``codes``/``scales``/``mins`` (adjacent K values
-per byte, dsq/serve_quant.py) before it is split per layer.
+per byte, dsq/serve_quant.py) before it is split per layer. A Q6_K
+engine's tree holds quarter-plane dicts (``ql_a``, ``ql_b``, ``qh``,
+``s0``..``s3``: K split into quarters Q0..Q3 along the same axis, ``ql_a``
+holding Q0 in the low nibble and Q2 in the high one, ``ql_b`` Q1 and Q3,
+``qh`` the 2-bit high parts of Q0..Q3 at bits 0, 2, 4 and 6, ``s_i``
+quarter i's scales); each becomes the port's ``codes``/``highs``/
+``scales`` the same way.
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from ...dsq.serve_quant import pack_nibbles
+from ...dsq.serve_quant import pack_bits
 from .decoder import fuse_decoder_params
 from .quantize import EXPERT_KEYS
 
@@ -49,10 +55,36 @@ def _q4k_from_planes(planes: Dict[str, Any], in_major: bool) -> Dict[str, np.nda
     packed = np.asarray(planes["packed"])
     codes = np.concatenate([packed & 0xF, packed >> 4], axis=axis)  # K-index order
     return {
-        "codes": pack_nibbles(torch.from_numpy(codes), axis).numpy(),
+        "codes": pack_bits(torch.from_numpy(codes), axis, 4).numpy(),
         "scales": np.concatenate([np.asarray(planes["s_lo"]), np.asarray(planes["s_hi"])], axis=axis),
         "mins": np.concatenate([np.asarray(planes["b_lo"]), np.asarray(planes["b_hi"])], axis=axis),
     }
+
+
+def _q6k_from_planes(planes: Dict[str, Any], in_major: bool) -> Dict[str, np.ndarray]:
+    """The reference's Q6_K quarter-plane dict → {codes, highs, scales} in
+    the port's layout; `in_major` for expert stacks ([.., K/4, M])."""
+    axis = -2 if in_major else -1
+    a, b, h = (np.asarray(planes[key]) for key in ("ql_a", "ql_b", "qh"))
+    quarters = [a & 0xF, b & 0xF, a >> 4, b >> 4]
+    codes = np.concatenate([q | (((h >> (2 * i)) & 3) << 4) for i, q in enumerate(quarters)],
+                           axis=axis)  # K-index order, 0..63
+    codes = torch.from_numpy(codes)
+    return {
+        "codes": pack_bits(codes & 0xF, axis, 4).numpy(),
+        "highs": pack_bits(codes >> 4, axis, 2).numpy(),
+        "scales": np.concatenate([np.asarray(planes[f"s{i}"]) for i in range(4)], axis=axis),
+    }
+
+
+def _from_planes(node: Any, in_major: bool) -> Any:
+    """A reference K-quant plane dict in the port's layout; anything else
+    as it is."""
+    if isinstance(node, dict) and "packed" in node:
+        return _q4k_from_planes(node, in_major)
+    if isinstance(node, dict) and "ql_a" in node:
+        return _q6k_from_planes(node, in_major)
+    return node
 
 
 def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -61,12 +93,11 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     for part in ("sam", "clip", "projector"):
         _flatten(part, tree[part], flat)
     decoder = fuse_decoder_params(tree["decoder"])
-    if isinstance(decoder.get("lm_head"), dict) and "packed" in decoder["lm_head"]:
-        decoder["lm_head"] = _q4k_from_planes(decoder["lm_head"], in_major=False)
+    if "lm_head" in decoder:
+        decoder["lm_head"] = _from_planes(decoder["lm_head"], in_major=False)
     for group in _STACKED:
         for key, stack in (decoder.pop(group, None) or {}).items():
-            if isinstance(stack, dict) and "packed" in stack:
-                stack = _q4k_from_planes(stack, in_major=key in EXPERT_KEYS)
+            stack = _from_planes(stack, in_major=key in EXPERT_KEYS)
             parts = stack.items() if isinstance(stack, dict) else [("", stack)]
             for part, arr in parts:
                 arr = np.asarray(arr)

@@ -9,9 +9,10 @@ reference.
 Weights are the reference's FUSED layout (fuse_decoder_params): qkv_proj,
 gateup_proj, shared_gateup and experts_gateup concatenated along their
 output dims, [in, out] matrices, one module per layer (the reference's
-[L, ...] stacks split). With ``quantize="q8_0"`` or ``"q4_k"`` the
-eligible weights (quantize.packed_kind) are PackedQ8 / PackedQ4K holders
-instead, each weight in the format it packs with, and the layers
+[L, ...] stacks split). With ``quantize="q8_0"``, ``"q4_k"`` or
+``"q6_k"`` the eligible weights (quantize.packed_kind) are packed holders
+instead (ops.linear.HOLDERS), each weight in the format it packs with
+(a K-quant's fallback is Q8_0), and the layers
 dispatch as the reference does (decoder.py:481-507, :567-585): the
 routed experts run the packed decode kernels when B·S ≤ 32 and both
 stacks are packed (moe_apply_quant_fused, each projection its own
@@ -96,7 +97,7 @@ def fuse_decoder_params(params: Dict) -> Dict:
 
 def _weight(name: str, shape, dtype, device, quantize: Optional[str]):
     """A float parameter, or the holder of the format `quantize` packs it
-    with (a Q8_0 fallback under Q4_K where the in dim misses 256)."""
+    with (a Q8_0 fallback under a K-quant where the in dim misses 256)."""
     found = packed_kind(name, shape[-2], quantize) if quantize else None
     if found is None:
         return param(*shape, dtype=dtype, device=device)

@@ -6,8 +6,8 @@ the prompt rows → slot decode under runtime.slots.SlotRunner.
 Only the continuous-batching surface is ported: prepare_vision_input,
 compute_image_embedding, build_prompt_tokens, slot_step_fn,
 new_slot_cache, make_slot_runner, prefill_for_slot and
-prefill_for_slots. ``quantize="q8_0"`` or ``"q4_k"`` serves packed decoder
-weights (models/deepseek/quantize.py), packed on the device. Views are
+prefill_for_slots. ``quantize="q8_0"``, ``"q4_k"`` or ``"q6_k"`` serves
+packed decoder weights (models/deepseek/quantize.py), packed on the device. Views are
 batched through the towers (4 global views or 16 tiles per call) the way
 the reference batches them; the reference's host-link tricks (sparse or
 content-only upload, a transfer pool, streamed prep) are not carried
@@ -93,21 +93,20 @@ class DeepseekOcrEngine:
         """Random weights from `seed` on the device, or `state` (a
         state_dict, e.g. convert.params_from_jax of a reference engine).
 
-        quantize="q8_0" or "q4_k" packs the decoder's eligible weights
-        (under Q4_K, those whose in dim misses 256 as Q8_0): random init
+        quantize="q8_0", "q4_k" or "q6_k" packs the decoder's eligible
+        weights (under a K-quant, those whose in dim misses 256 as Q8_0):
+        random init
         draws each float weight on the device from the float model's
         seed and packs it there (one float weight alive at a time, so peak
         memory is not float plus packed); a `state` may hold packed
-        entries (``.codes``/``.scales``/``.mins``) or float ones, which
-        are packed on load. `device` None means the CUDA card; the CPU
+        entries (``.codes``/``.scales``, ``.mins`` for Q4_K, ``.highs``
+        for Q6_K) or float ones, which are packed on load. `device` None means the CUDA card; the CPU
         runs only when asked for by name."""
         if cfg.variant != "ocr1" or cfg.clip is None:
             raise NotImplementedError("the port serves DeepSeek-OCR v1 (SAM + CLIP) only")
         if kv_quant not in (None, "int8"):
             raise ValueError(f"unsupported kv_quant {kv_quant!r}")
-        if quantize == "q6_k":
-            raise NotImplementedError("q6_k serving is not ported yet (ROADMAP Queue 1)")
-        if quantize not in (None, "q8_0", "q4_k"):
+        if quantize not in (None, "q8_0", "q4_k", "q6_k"):
             raise ValueError(f"unsupported quantize {quantize!r}")
         self.cfg = cfg
         self.dtype = dtype

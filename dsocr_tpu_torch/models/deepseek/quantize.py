@@ -1,13 +1,14 @@
-"""Runtime Q8_0 / Q4_K quantization of the DeepSeek decoder
+"""Runtime Q8_0 / Q4_K / Q6_K quantization of the DeepSeek decoder
 (dsocr_tpu/models/deepseek/quantize.py).
 
 Key selection is the reference's: attention q/k/v/o (fused qkv_proj),
 shared experts, routed experts and the lm_head. The router, norms and
 embeddings stay float, and so does the dense-prefix MLP
 (gateup_proj/down_proj, intermediate 6848). A weight whose in dim misses
-the 32-value block stays float too; under Q4_K one whose in dim misses
-the 256-value super-block packs as Q8_0 (dsq/serve_quant.py), so at full
-width the routed experts' down projection (in dim 896) is Q8_0.
+the 32-value block stays float too; under a K-quant (Q4_K, Q6_K) one
+whose in dim misses the 256-value super-block packs as Q8_0
+(dsq/serve_quant.py), so at full width the routed experts' down
+projection (in dim 896) is Q8_0.
 """
 
 from __future__ import annotations
@@ -49,8 +50,9 @@ def packed_kind(name: str, in_dim: int, method: str = "q8_0") -> Optional[Tuple[
 def quantize_decoder_params(state: Dict[str, torch.Tensor], method: str = "q8_0") -> Dict[str, torch.Tensor]:
     """A copy of a model state_dict whose eligible float decoder weights
     (``decoder.lm_head``, ``decoder.{group}.{i}.{key}``) are replaced by
-    ``.codes``/``.scales`` entries (and ``.mins`` for Q4_K); packed
-    entries pass through."""
+    ``.codes``/``.scales`` entries (Q8_0, and a K-quant's Q8_0 fallbacks),
+    ``.codes``/``.scales``/``.mins`` (Q4_K) or ``.codes``/``.highs``/
+    ``.scales`` (Q6_K); packed entries pass through."""
     if method not in METHODS:
         raise NotImplementedError(f"runtime quantization `{method}` not supported")
     out = {}

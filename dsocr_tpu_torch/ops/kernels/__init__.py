@@ -26,6 +26,14 @@ from .kquant_matmul import (
     q4k_gather_matmul_plain,
     q4k_matmul,
     q4k_matmul_plain,
+    q6k_dense_experts,
+    q6k_dense_experts_perx,
+    q6k_dense_experts_perx_plain,
+    q6k_dense_experts_plain,
+    q6k_gather_matmul,
+    q6k_gather_matmul_plain,
+    q6k_matmul,
+    q6k_matmul_plain,
 )
 from .prefill_attention import flash_prefill_attention, flash_prefill_attention_plain
 from .sam_attention import sam_flash_attention, sam_flash_attention_plain
@@ -65,6 +73,14 @@ KERNELS = (
      f"{_KQ}:844 (q4k_dense_experts_layered)"),
     (q4k_dense_experts_perx, "dsocr_tpu_torch/csrc/kquant_matmul.cu",
      f"{_KQ}:908 (q4k_dense_experts_perx_layered)"),
+    (q6k_matmul, "dsocr_tpu_torch/csrc/kquant_matmul.cu",
+     f"{_KQ}:294 (q6k_matmul), {_KQ}:430 (q6k_matmul_layered)"),
+    (q6k_gather_matmul, "dsocr_tpu_torch/csrc/kquant_matmul.cu",
+     f"{_KQ}:729 (q6k_gather_matmul), {_KQ}:770 (q6k_gather_matmul_layered)"),
+    (q6k_dense_experts, "dsocr_tpu_torch/csrc/kquant_matmul.cu",
+     f"{_KQ}:982 (q6k_dense_experts_layered)"),
+    (q6k_dense_experts_perx, "dsocr_tpu_torch/csrc/kquant_matmul.cu",
+     f"{_KQ}:1025 (q6k_dense_experts_perx_layered)"),
 )
 
 
@@ -90,6 +106,14 @@ __all__ = [
     "q4k_gather_matmul_plain",
     "q4k_matmul",
     "q4k_matmul_plain",
+    "q6k_dense_experts",
+    "q6k_dense_experts_perx",
+    "q6k_dense_experts_perx_plain",
+    "q6k_dense_experts_plain",
+    "q6k_gather_matmul",
+    "q6k_gather_matmul_plain",
+    "q6k_matmul",
+    "q6k_matmul_plain",
     "q8_dense_experts",
     "q8_dense_experts_perx",
     "q8_dense_experts_perx_plain",

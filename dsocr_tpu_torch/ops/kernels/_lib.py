@@ -48,6 +48,8 @@ _SIGNATURES = {
     "dsocr_q8_expert_matmul": [_P] * 5 + [_I] * 5 + [_L, _I, _P],
     "dsocr_q4k_matmul": [_P] * 5 + [_I] * 4 + [_P],
     "dsocr_q4k_expert_matmul": [_P] * 6 + [_I] * 5 + [_L, _I, _P],
+    "dsocr_q6k_matmul": [_P] * 5 + [_I] * 4 + [_P],
+    "dsocr_q6k_expert_matmul": [_P] * 6 + [_I] * 5 + [_L, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -1,62 +1,77 @@
-"""Fused dequantize-matmul over packed Q4_K weights.
+"""Fused dequantize-matmul over packed Q4_K and Q6_K weights.
 
-Four wrappers over two CUDA kernels (csrc/kquant_matmul.cu) serve the six
-Q4_K Pallas functions of dsocr_tpu/ops/pallas/kquant_matmul.py that the
+For each format, four wrappers over two CUDA kernels
+(csrc/kquant_matmul.cu; one template body serves both formats) serve the
+six Pallas functions of dsocr_tpu/ops/pallas/kquant_matmul.py that the
 packed serving path reaches (a torch view of ``W[layer]`` costs no copy,
 so one kernel serves a function and its ``_layered`` twin):
 
-- ``q4k_matmul`` ← q4k_matmul (:210) and q4k_matmul_layered (:334). Row
+- ``q4k_matmul`` ← q4k_matmul (:210) and q4k_matmul_layered (:334);
+  ``q6k_matmul`` ← q6k_matmul (:278) and q6k_matmul_layered (:403). Row
   layout: the plain projections (qkv 1280→3840, o 1280→1280, shared
   gate+up 1280→3584, shared down 1792→1280) at N = 16 rows per decode
   step and up to 16 × 1024 rows per prefill wave, and the lm_head
   (1280→129280).
 - ``q4k_gather_matmul`` ← q4k_gather_matmul (:568) and
-  q4k_gather_matmul_layered (:609): ``out[n] = x[n] @ W[idx[n]]``,
-  in-major; the routed experts' gate+up while N·top_k ≤ E.
-- ``q4k_dense_experts`` ← q4k_dense_experts_layered (:821):
+  q4k_gather_matmul_layered (:609); ``q6k_gather_matmul`` ←
+  q6k_gather_matmul (:706) and q6k_gather_matmul_layered (:746):
+  ``out[n] = x[n] @ W[idx[n]]``, in-major; the routed experts' gate+up
+  while N·top_k ≤ E.
+- ``q4k_dense_experts`` ← q4k_dense_experts_layered (:821);
+  ``q6k_dense_experts`` ← q6k_dense_experts_layered (:959):
   ``out[e] = x @ W[e]`` → [E, N, M]; expert gate+up once N·top_k > E.
-- ``q4k_dense_experts_perx`` ← q4k_dense_experts_perx_layered (:885):
+- ``q4k_dense_experts_perx`` ← q4k_dense_experts_perx_layered (:885);
+  ``q6k_dense_experts_perx`` ← q6k_dense_experts_perx_layered (:1002):
   ``out[e] = x[e] @ W[e]``. DeepSeek's full-width down projection (in
-  dim 896) is Q8_0 and never reaches it; an expert intermediate that is
+  dim 896) is Q8_0 and never reaches them; an expert intermediate that is
   a multiple of 256 does.
 
-Layout (dsq/serve_quant.py packs it; not the reference's plane split):
-two 4-bit codes per byte, adjacent K values, the even k in the low
-nibble; per 32 K values an f32 scale s = d·sc and an f32 min b = dmin·m.
-Row layout codes [M, K/2] uint8, scales and mins [M, K/32]; in-major
-codes [E, K/2, M], scales and mins [E, K/32, M]. 0.75 bytes per weight,
-as the reference's. K is a multiple of 256 (a Q4_K super-block).
+Layouts (dsq/serve_quant.py packs them; not the reference's plane
+splits): adjacent K values per byte, the first in the low bits. Q4_K:
+4-bit codes, per 32 K values an f32 scale s = d·sc and an f32 min
+b = dmin·m; row layout codes [M, K/2] uint8, scales and mins [M, K/32];
+in-major codes [E, K/2, M], scales and mins [E, K/32, M]; 0.75 bytes per
+weight. Q6_K: the low 4 bits of the 6-bit codes as Q4_K's codes, the
+2-bit high parts four per byte, per 16 K values an f32 scale s = d·sc;
+row layout codes [M, K/2], highs [M, K/4], scales [M, K/16]; in-major
+[E, K/2, M], [E, K/4, M], [E, K/16, M]; 1.0 byte per weight, as the
+reference's. K is a multiple of 256 (a super-block).
 
-Numerics are the reference's: the weight is bf16(f32(q) · s − b), rounded
-once per element (q · s is exact in f32); the activation is bf16(x)
-whatever the model dtype; products accumulate in f32. A bf16 × bf16
-product is exact in f32, so the kernels' sums differ from the twins only
-in order.
+Numerics are the reference's: the weight is bf16(f32(q) · s − b) (Q4_K,
+q · s exact in f32) or bf16(f32(q − 32) · s) (Q6_K: one rounded product;
+(q − 32) · s may need 25 bits), rounded once per element; the activation
+is bf16(x) whatever the model dtype; products accumulate in f32. A bf16 ×
+bf16 product is exact in f32, so the kernels' sums differ from the twins
+only in order.
 
 What bounds them on the H100, and what the design does about it:
 - decode (N ≤ 16) is device-memory bytes: expert gate+up of one layer is
-  110 MB of codes, scales and mins, ≥ 0.033 ms at 3.35 TB/s; the lm_head
-  124 MB, ≥ 0.037 ms. The expert kernel grids over (M tile of 128, group),
-  keeps the group's x rows as bf16 in shared memory, dequantizes one
-  32-value sub-block of the W tile into shared memory per step (a scale
-  and a min per column) and prefetches the next sub-block's codes,
-  scales and mins into registers while the tensor cores (WMMA bf16, f32
-  accumulate) run the current one; codes come in as one 4-byte vector
-  per thread and byte row, 128 contiguous bytes per warp.
+  110 MB in Q4_K (≥ 0.033 ms at 3.35 TB/s) and 146.8 MB in Q6_K (≥ 0.044
+  ms); the lm_head 124 MB (≥ 0.037 ms) and 165.5 MB (≥ 0.049 ms). The
+  expert kernel grids over (M tile of 128, group), keeps the group's x
+  rows as bf16 in shared memory, dequantizes one 32-K-row step of the W
+  tile into shared memory (a scale and a min per column, or two scale rows
+  per column) and prefetches the next step into registers while the
+  tensor cores (WMMA bf16, f32 accumulate) run the current one; codes come
+  in as one 4-byte vector per thread and byte row, 128 contiguous bytes
+  per warp.
 - prefill (N = 16384) is tensor-core work: qkv is 161 GFLOP, ≥ 0.16 ms
-  at 989 TFLOP/s. ``q4k_matmul`` tiles 64 × 64 outputs per block (16 × 64
+  at 989 TFLOP/s. The row kernel tiles 64 × 64 outputs per block (16 × 64
   for N ≤ 16) and stages bf16(x) and the dequantized W tile in shared
-  memory 64 K values at a time: each thread loads one whole sub-block of
-  codes as a 16-byte vector, and the next step's while WMMA runs.
+  memory 64 K values at a time: each thread loads 32 values of one row
+  (Q4_K a 16-byte vector of codes, a scale and a min; Q6_K 16 bytes of
+  codes, 8 of highs and two scales), and the next step's while WMMA runs.
 Neither uses wgmma or TMA yet (ROADMAP Queue 4).
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple, Tuple
+
 import torch
 
-from ...dsq.quant import Q4K_SUB, QK_K
-from ...dsq.serve_quant import unpack_nibbles
+from ...dsq.quant import Q4K_SUB, Q6K_SUB, QK_K
+from ...dsq.serve_quant import unpack_bits
 from . import _lib
 
 
@@ -71,8 +86,19 @@ def dequant_q4k(codes: torch.Tensor, scales: torch.Tensor, mins: torch.Tensor,
     and mins broadcast over their 32 values instead of being repeated, and
     the product and difference run in place: one f32 weight is the peak."""
     dim %= codes.dim()
-    w = unpack_nibbles(codes, dim).unflatten(dim, (-1, Q4K_SUB)).float()
+    w = unpack_bits(codes, dim, 4).unflatten(dim, (-1, Q4K_SUB)).float()
     w.mul_(scales.unsqueeze(dim + 1)).sub_(mins.unsqueeze(dim + 1))
+    return w.flatten(dim, dim + 1).to(torch.bfloat16)
+
+
+def dequant_q6k(codes: torch.Tensor, highs: torch.Tensor, scales: torch.Tensor,
+                dim: int) -> torch.Tensor:
+    """Packed low nibbles (K/2 bytes along `dim`) and highs (K/4 bytes) →
+    bf16(f32(q − 32) · s) with K values along `dim`, in place as above."""
+    dim %= codes.dim()
+    q = unpack_bits(codes, dim, 4) | (unpack_bits(highs, dim, 2) << 4)
+    w = q.unflatten(dim, (-1, Q6K_SUB)).float().sub_(32.0)
+    w.mul_(scales.unsqueeze(dim + 1))
     return w.flatten(dim, dim + 1).to(torch.bfloat16)
 
 
@@ -94,6 +120,44 @@ def q4k_dense_experts_perx_plain(x, codes, scales, mins):
     return torch.matmul(_bf16(x), dequant_q4k(codes, scales, mins, -2).float())
 
 
+def q6k_matmul_plain(x, codes, highs, scales):
+    return torch.matmul(_bf16(x), dequant_q6k(codes, highs, scales, -1).float().t())
+
+
+def q6k_gather_matmul_plain(x, codes, highs, scales, idx):
+    idx = idx.long()
+    w = dequant_q6k(codes[idx], highs[idx], scales[idx], -2).float()  # [N, K, M]
+    return torch.bmm(_bf16(x)[:, None, :], w)[:, 0]
+
+
+def q6k_dense_experts_plain(x, codes, highs, scales):
+    return torch.matmul(_bf16(x)[None], dequant_q6k(codes, highs, scales, -2).float())
+
+
+def q6k_dense_experts_perx_plain(x, codes, highs, scales):
+    return torch.matmul(_bf16(x), dequant_q6k(codes, highs, scales, -2).float())
+
+
+# A format's buffers in argument order: (name, dtype, K values per element
+# along K). ops/linear.py's holders register the same buffers.
+Q4K_PARTS = (("codes", torch.uint8, 2), ("scales", torch.float32, Q4K_SUB),
+             ("mins", torch.float32, Q4K_SUB))
+Q6K_PARTS = (("codes", torch.uint8, 2), ("highs", torch.uint8, 4), ("scales", torch.float32, Q6K_SUB))
+
+
+class _Format(NamedTuple):
+    """A packed format as the kernels take it: its buffers and its two C
+    entry points."""
+
+    parts: Tuple[Tuple[str, torch.dtype, int], ...]
+    row_fn: str
+    expert_fn: str
+
+
+_Q4K = _Format(Q4K_PARTS, "dsocr_q4k_matmul", "dsocr_q4k_expert_matmul")
+_Q6K = _Format(Q6K_PARTS, "dsocr_q6k_matmul", "dsocr_q6k_expert_matmul")
+
+
 def _check_x(name, x, K):
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{name}: x must be f32 or bf16, got {x.dtype}")
@@ -101,64 +165,102 @@ def _check_x(name, x, K):
         raise ValueError(f"{name}: x {tuple(x.shape)} does not match K = {K} (a multiple of {QK_K})")
 
 
-def _check_packed(name, codes, scales, mins, c_shape, s_shape):
-    if codes.dtype != torch.uint8 or scales.dtype != torch.float32 or mins.dtype != torch.float32:
-        raise ValueError(f"{name}: codes must be uint8, scales and mins f32")
-    shapes = tuple(codes.shape), tuple(scales.shape), tuple(mins.shape)
-    if shapes != (c_shape, s_shape, s_shape):
-        raise ValueError(f"{name}: codes / scales / mins {shapes}, expected "
-                         f"{c_shape} / {s_shape} / {s_shape}")
-    if codes.data_ptr() % 16 or scales.data_ptr() % 16 or mins.data_ptr() % 16:
-        raise ValueError(f"{name}: codes, scales and mins must be 16-byte aligned")
+def _check_packed(name, fmt: _Format, packed, K, in_major):
+    """Dtypes, shapes and 16-byte alignment of the packed buffers for a
+    K-deep weight: row layout [M, K/d], in-major [E, K/d, M]."""
+    lead = packed[0].shape[:1] if in_major else packed[0].shape[:-1]
+    tail = packed[0].shape[-1:] if in_major else ()
+    for t, (part, dtype, per) in zip(packed, fmt.parts):
+        want = (*lead, K // per, *tail)
+        if t.dtype != dtype or tuple(t.shape) != want:
+            raise ValueError(f"{name}: {part} {t.dtype} {tuple(t.shape)}, expected {dtype} {want}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {part} must be 16-byte aligned")
 
 
-def q4k_matmul(x, codes, scales, mins):
-    """x [N, K] (f32 or bf16) @ dequant(W)ᵀ → [N, M] f32, with W in row
-    layout: codes [M, K/2] uint8, scales and mins [M, K/32] f32. CPU
-    tensors run the plain version; CUDA tensors launch the kernel."""
-    if x.device.type == "cpu":
-        return q4k_matmul_plain(x, codes, scales, mins)
-    name = "q4k_matmul"
-    _lib.require_cuda(name, x, codes, scales, mins)
+def _row_launch(wrapper, fmt: _Format, x, *packed):
+    """One launch of the row kernel: x [N, K] @ dequant(W [M, K])ᵀ."""
+    name = wrapper.__name__
+    _lib.require_cuda(name, x, *packed)
     N, K = x.shape
-    M = codes.shape[0]
+    M = packed[0].shape[0]
     _check_x(name, x, K)
-    _check_packed(name, codes, scales, mins, (M, K // 2), (M, K // Q4K_SUB))
+    _check_packed(name, fmt, packed, K, in_major=False)
     out = torch.empty((N, M), dtype=torch.float32, device=x.device)
     if N == 0 or M == 0:
         return out
-    err = _lib.lib().dsocr_q4k_matmul(
-        x.data_ptr(), codes.data_ptr(), scales.data_ptr(), mins.data_ptr(), out.data_ptr(),
-        N, K, M, _lib.DTYPE_CODES[x.dtype], _lib.stream_ptr(x),
-    )
-    _lib.check(err, name)
-    _lib.count_launch(q4k_matmul)
-    return out
-
-
-q4k_matmul.launches = 0
-
-
-def _expert_launch(name, wrapper, x, codes, scales, mins, idx, groups, rows, x_group_stride, out):
-    """One launch of the in-major expert kernel: group g multiplies
-    `rows` rows of x (from x + g * x_group_stride) by expert idx[g] (or
-    expert g when idx is None) into out[g]."""
-    E, K2, M = codes.shape
-    K = 2 * K2
-    _check_x(name, x, K)
-    _check_packed(name, codes, scales, mins, (E, K2, M), (E, K // Q4K_SUB, M))
-    if M % 4:
-        raise ValueError(f"{name}: M = {M} must be a multiple of 4")
-    if groups == 0 or rows == 0 or M == 0:
-        return out
-    err = _lib.lib().dsocr_q4k_expert_matmul(
-        x.data_ptr(), codes.data_ptr(), scales.data_ptr(), mins.data_ptr(), _lib.ptr(idx),
-        out.data_ptr(), groups, rows, K, M, E, x_group_stride, _lib.DTYPE_CODES[x.dtype],
-        _lib.stream_ptr(x),
+    err = getattr(_lib.lib(), fmt.row_fn)(
+        x.data_ptr(), *(t.data_ptr() for t in packed), out.data_ptr(), N, K, M,
+        _lib.DTYPE_CODES[x.dtype], _lib.stream_ptr(x),
     )
     _lib.check(err, name)
     _lib.count_launch(wrapper)
     return out
+
+
+def _expert_launch(wrapper, fmt: _Format, x, packed, idx, groups, rows, x_group_stride, out):
+    """One launch of the in-major expert kernel: group g multiplies
+    `rows` rows of x (from x + g * x_group_stride) by expert idx[g] (or
+    expert g when idx is None) into out[g]."""
+    name = wrapper.__name__
+    E, K2, M = packed[0].shape
+    K = 2 * K2
+    _check_x(name, x, K)
+    _check_packed(name, fmt, packed, K, in_major=True)
+    if M % 4:
+        raise ValueError(f"{name}: M = {M} must be a multiple of 4")
+    if groups == 0 or rows == 0 or M == 0:
+        return out
+    err = getattr(_lib.lib(), fmt.expert_fn)(
+        x.data_ptr(), *(t.data_ptr() for t in packed), _lib.ptr(idx), out.data_ptr(), groups, rows,
+        K, M, E, x_group_stride, _lib.DTYPE_CODES[x.dtype], _lib.stream_ptr(x),
+    )
+    _lib.check(err, name)
+    _lib.count_launch(wrapper)
+    return out
+
+
+def _gather(wrapper, fmt, x, packed, idx):
+    name = wrapper.__name__
+    _lib.require_cuda(name, x, *packed, idx)
+    N = x.shape[0]
+    if x.dim() != 2 or idx.shape != (N,) or idx.dtype != torch.int32:
+        raise ValueError(f"{name}: x must be [N, K] and idx [N] int32")
+    out = torch.empty((N, packed[0].shape[-1]), dtype=torch.float32, device=x.device)
+    return _expert_launch(wrapper, fmt, x, packed, idx, N, 1, x.shape[1], out)
+
+
+def _dense(wrapper, fmt, x, packed):
+    name = wrapper.__name__
+    _lib.require_cuda(name, x, *packed)
+    if x.dim() != 2:
+        raise ValueError(f"{name}: x must be [N, K]")
+    E, _, M = packed[0].shape
+    out = torch.empty((E, x.shape[0], M), dtype=torch.float32, device=x.device)
+    return _expert_launch(wrapper, fmt, x, packed, None, E, x.shape[0], 0, out)
+
+
+def _dense_perx(wrapper, fmt, x, packed):
+    name = wrapper.__name__
+    _lib.require_cuda(name, x, *packed)
+    E, _, M = packed[0].shape
+    if x.dim() != 3 or x.shape[0] != E:
+        raise ValueError(f"{name}: x must be [E, N, K] with E = {E}")
+    N, K = x.shape[1], x.shape[2]
+    out = torch.empty((E, N, M), dtype=torch.float32, device=x.device)
+    return _expert_launch(wrapper, fmt, x, packed, None, E, N, N * K, out)
+
+
+# Each wrapper runs its twin on a CPU tensor and launches its kernel on a
+# CUDA tensor (raising on what the kernel does not take).
+
+
+def q4k_matmul(x, codes, scales, mins):
+    """x [N, K] (f32 or bf16) @ dequant(W)ᵀ → [N, M] f32, with W in row
+    layout: codes [M, K/2] uint8, scales and mins [M, K/32] f32."""
+    if x.device.type == "cpu":
+        return q4k_matmul_plain(x, codes, scales, mins)
+    return _row_launch(q4k_matmul, _Q4K, x, codes, scales, mins)
 
 
 def q4k_gather_matmul(x, codes, scales, mins, idx):
@@ -167,17 +269,7 @@ def q4k_gather_matmul(x, codes, scales, mins, idx):
     idx [N] int32 (an index outside [0, E) gives a zero row on the card)."""
     if x.device.type == "cpu":
         return q4k_gather_matmul_plain(x, codes, scales, mins, idx)
-    name = "q4k_gather_matmul"
-    _lib.require_cuda(name, x, codes, scales, mins, idx)
-    N = x.shape[0]
-    if x.dim() != 2 or idx.shape != (N,) or idx.dtype != torch.int32:
-        raise ValueError(f"{name}: x must be [N, K] and idx [N] int32")
-    out = torch.empty((N, codes.shape[-1]), dtype=torch.float32, device=x.device)
-    return _expert_launch(name, q4k_gather_matmul, x, codes, scales, mins, idx, N, 1,
-                          x.shape[1], out)
-
-
-q4k_gather_matmul.launches = 0
+    return _gather(q4k_gather_matmul, _Q4K, x, (codes, scales, mins), idx)
 
 
 def q4k_dense_experts(x, codes, scales, mins):
@@ -185,32 +277,48 @@ def q4k_dense_experts(x, codes, scales, mins):
     every expert, in-major codes [E, K/2, M], scales and mins [E, K/32, M]."""
     if x.device.type == "cpu":
         return q4k_dense_experts_plain(x, codes, scales, mins)
-    name = "q4k_dense_experts"
-    _lib.require_cuda(name, x, codes, scales, mins)
-    if x.dim() != 2:
-        raise ValueError(f"{name}: x must be [N, K]")
-    E, _, M = codes.shape
-    N = x.shape[0]
-    out = torch.empty((E, N, M), dtype=torch.float32, device=x.device)
-    return _expert_launch(name, q4k_dense_experts, x, codes, scales, mins, None, E, N, 0, out)
-
-
-q4k_dense_experts.launches = 0
+    return _dense(q4k_dense_experts, _Q4K, x, (codes, scales, mins))
 
 
 def q4k_dense_experts_perx(x, codes, scales, mins):
     """out[e] = bf16(x[e]) @ dequant(W[e]) → [E, N, M] f32; x [E, N, K]."""
     if x.device.type == "cpu":
         return q4k_dense_experts_perx_plain(x, codes, scales, mins)
-    name = "q4k_dense_experts_perx"
-    _lib.require_cuda(name, x, codes, scales, mins)
-    E, _, M = codes.shape
-    if x.dim() != 3 or x.shape[0] != E:
-        raise ValueError(f"{name}: x must be [E, N, K] with E = {E}")
-    N, K = x.shape[1], x.shape[2]
-    out = torch.empty((E, N, M), dtype=torch.float32, device=x.device)
-    return _expert_launch(name, q4k_dense_experts_perx, x, codes, scales, mins, None, E, N,
-                          N * K, out)
+    return _dense_perx(q4k_dense_experts_perx, _Q4K, x, (codes, scales, mins))
 
 
-q4k_dense_experts_perx.launches = 0
+def q6k_matmul(x, codes, highs, scales):
+    """x [N, K] (f32 or bf16) @ dequant(W)ᵀ → [N, M] f32, with W in row
+    layout: codes [M, K/2] and highs [M, K/4] uint8, scales [M, K/16] f32."""
+    if x.device.type == "cpu":
+        return q6k_matmul_plain(x, codes, highs, scales)
+    return _row_launch(q6k_matmul, _Q6K, x, codes, highs, scales)
+
+
+def q6k_gather_matmul(x, codes, highs, scales, idx):
+    """out[n] = bf16(x[n]) @ dequant(W[idx[n]]) → [N, M] f32; x [N, K],
+    in-major codes [E, K/2, M] and highs [E, K/4, M] uint8, scales
+    [E, K/16, M] f32, idx [N] int32 (outside [0, E): a zero row on the card)."""
+    if x.device.type == "cpu":
+        return q6k_gather_matmul_plain(x, codes, highs, scales, idx)
+    return _gather(q6k_gather_matmul, _Q6K, x, (codes, highs, scales), idx)
+
+
+def q6k_dense_experts(x, codes, highs, scales):
+    """out[e] = bf16(x) @ dequant(W[e]) → [E, N, M] f32; x [N, K] shared by
+    every expert, in-major as q6k_gather_matmul."""
+    if x.device.type == "cpu":
+        return q6k_dense_experts_plain(x, codes, highs, scales)
+    return _dense(q6k_dense_experts, _Q6K, x, (codes, highs, scales))
+
+
+def q6k_dense_experts_perx(x, codes, highs, scales):
+    """out[e] = bf16(x[e]) @ dequant(W[e]) → [E, N, M] f32; x [E, N, K]."""
+    if x.device.type == "cpu":
+        return q6k_dense_experts_perx_plain(x, codes, highs, scales)
+    return _dense_perx(q6k_dense_experts_perx, _Q6K, x, (codes, highs, scales))
+
+
+for _fn in (q4k_matmul, q4k_gather_matmul, q4k_dense_experts, q4k_dense_experts_perx,
+            q6k_matmul, q6k_gather_matmul, q6k_dense_experts, q6k_dense_experts_perx):
+    _fn.launches = 0

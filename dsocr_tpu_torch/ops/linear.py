@@ -1,11 +1,12 @@
-"""Linear projection over float or packed Q8_0 / Q4_K weights
-(dsocr_tpu/ops/linear.py: the float, q8_0 and q4_k branches of ``project``).
+"""Linear projection over float or packed Q8_0 / Q4_K / Q6_K weights
+(dsocr_tpu/ops/linear.py: the float, q8_0 and k-quant branches of ``project``).
 
 Float weights keep the reference's [in, out] layout. A packed weight is a
 holder whose buffers keep the packed layouts of dsq/serve_quant.py:
-:class:`PackedQ8` (``codes``/``scales``) or :class:`PackedQ4K`
-(``codes``/``scales``/``mins``), so state_dict names read
-``...qkv_proj.codes`` and ``...qkv_proj.mins``. Each holder runs its own
+:class:`PackedQ8` (``codes``/``scales``), :class:`PackedQ4K`
+(``codes``/``scales``/``mins``) or :class:`PackedQ6K`
+(``codes``/``highs``/``scales``), so state_dict names read
+``...qkv_proj.codes`` and ``...qkv_proj.highs``. Each holder runs its own
 format's kernels (``matmul`` on the row layout; ``gather``, ``dense``,
 ``dense_perx`` and ``dequant`` on in-major expert stacks), so callers never
 ask which format a weight has. One holder per layer: a torch tensor of
@@ -20,27 +21,31 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 
-from ..dsq.quant import Q4K_SUB
 from ..dsq.serve_quant import Q8_BLOCK, quantize_expert_stack, quantize_plain
 from .kernels import (
     q4k_dense_experts,
     q4k_dense_experts_perx,
     q4k_gather_matmul,
     q4k_matmul,
+    q6k_dense_experts,
+    q6k_dense_experts_perx,
+    q6k_gather_matmul,
+    q6k_matmul,
     q8_dense_experts,
     q8_dense_experts_perx,
     q8_gather_matmul,
     q8_matmul,
 )
-from .kernels.kquant_matmul import dequant_q4k
+from .kernels.kquant_matmul import Q4K_PARTS, Q6K_PARTS, dequant_q4k, dequant_q6k
 
 
 class Packed(nn.Module):
     """A packed weight that stands for a float [.., in, out] matrix. Row
-    layout (``in_major=False``, plain linears and the lm_head): scales
-    [.., out, in/32]. In-major layout (``in_major=True``, expert stacks):
-    scales [.., in/32, out]. Subclasses name the method and the buffers,
-    and run their format's kernels:
+    layout (``in_major=False``, plain linears and the lm_head): each buffer
+    [.., out, in/d]. In-major layout (``in_major=True``, expert stacks):
+    [.., in/d, out]. Subclasses name the method, the buffers in argument
+    order as ``PARTS`` (name, dtype, d: in values per element), and run
+    their format's kernels:
 
     - ``matmul(x [N, in])`` → [N, out] f32 (row layout);
     - ``gather(x [N, in], idx [N] int32)`` → out[n] = x[n] @ W[idx[n]];
@@ -50,17 +55,27 @@ class Packed(nn.Module):
     """
 
     method = ""
+    PARTS: tuple = ()
 
-    def __init__(self, *, in_major: bool, **buffers: torch.Tensor):
+    def __init__(self, *buffers: torch.Tensor, in_major: bool):
         super().__init__()
         self.in_major = in_major
-        for name, t in buffers.items():
+        for (name, _, _), t in zip(self.PARTS, buffers, strict=True):
             self.register_buffer(name, t)
+
+    @classmethod
+    def empty(cls, float_shape: Sequence[int], *, in_major: bool, device=None) -> "Packed":
+        """Zeroed buffers for a float [.., in, out] weight."""
+        *lead, i, o = float_shape
+        shape = (lambda d: (*lead, i // d, o)) if in_major else (lambda d: (*lead, o, i // d))
+        return cls(*(torch.zeros(shape(d), dtype=dtype, device=device) for _, dtype, d in cls.PARTS),
+                   in_major=in_major)
 
     @property
     def float_shape(self):
-        *lead, a, b = self.scales.shape  # 32 values per scale in both formats
-        return (*lead, a * 32, b) if self.in_major else (*lead, b * 32, a)
+        name, _, d = self.PARTS[0]
+        *lead, a, b = getattr(self, name).shape
+        return (*lead, a * d, b) if self.in_major else (*lead, b * d, a)
 
     @torch.no_grad()
     def pack_(self, w: torch.Tensor) -> None:
@@ -74,19 +89,7 @@ class PackedQ8(Packed):
     """Q8_0: codes int8 [.., out, in] (row) or [.., in, out] (in-major)."""
 
     method = "q8_0"
-
-    def __init__(self, codes: torch.Tensor, scales: torch.Tensor, *, in_major: bool):
-        super().__init__(in_major=in_major, codes=codes, scales=scales)
-
-    @classmethod
-    def empty(cls, float_shape: Sequence[int], *, in_major: bool, device=None) -> "PackedQ8":
-        *lead, i, o = float_shape
-        if in_major:
-            c_shape, s_shape = (*lead, i, o), (*lead, i // Q8_BLOCK, o)
-        else:
-            c_shape, s_shape = (*lead, o, i), (*lead, o, i // Q8_BLOCK)
-        return cls(torch.zeros(c_shape, dtype=torch.int8, device=device),
-                   torch.zeros(s_shape, dtype=torch.float32, device=device), in_major=in_major)
+    PARTS = (("codes", torch.int8, 1), ("scales", torch.float32, Q8_BLOCK))
 
     def matmul(self, x):
         return q8_matmul(x, self.codes, self.scales)
@@ -112,21 +115,7 @@ class PackedQ4K(Packed):
     (in-major); scales and mins f32 per 32 values; w = q·scale − min."""
 
     method = "q4_k"
-
-    def __init__(self, codes: torch.Tensor, scales: torch.Tensor, mins: torch.Tensor, *,
-                 in_major: bool):
-        super().__init__(in_major=in_major, codes=codes, scales=scales, mins=mins)
-
-    @classmethod
-    def empty(cls, float_shape: Sequence[int], *, in_major: bool, device=None) -> "PackedQ4K":
-        *lead, i, o = float_shape
-        if in_major:
-            c_shape, s_shape = (*lead, i // 2, o), (*lead, i // Q4K_SUB, o)
-        else:
-            c_shape, s_shape = (*lead, o, i // 2), (*lead, o, i // Q4K_SUB)
-        return cls(torch.zeros(c_shape, dtype=torch.uint8, device=device),
-                   torch.zeros(s_shape, dtype=torch.float32, device=device),
-                   torch.zeros(s_shape, dtype=torch.float32, device=device), in_major=in_major)
+    PARTS = Q4K_PARTS
 
     def matmul(self, x):
         return q4k_matmul(x, self.codes, self.scales, self.mins)
@@ -146,7 +135,34 @@ class PackedQ4K(Packed):
         return dequant_q4k(self.codes, self.scales, self.mins, -2)
 
 
-HOLDERS = {"q8_0": PackedQ8, "q4_k": PackedQ4K}
+class PackedQ6K(Packed):
+    """Q6_K: the low 4 bits of the 6-bit codes as Q4_K keeps its codes
+    (codes uint8 [.., out, in/2] or [.., in/2, out]), the 2-bit high parts
+    four per byte (highs [.., out, in/4] or [.., in/4, out]), scales f32
+    per 16 values; w = (q − 32)·scale."""
+
+    method = "q6_k"
+    PARTS = Q6K_PARTS
+
+    def matmul(self, x):
+        return q6k_matmul(x, self.codes, self.highs, self.scales)
+
+    def gather(self, x, idx):
+        return q6k_gather_matmul(x, self.codes, self.highs, self.scales, idx)
+
+    def dense(self, x):
+        return q6k_dense_experts(x, self.codes, self.highs, self.scales)
+
+    def dense_perx(self, x):
+        return q6k_dense_experts_perx(x, self.codes, self.highs, self.scales)
+
+    def dequant(self) -> torch.Tensor:
+        """bf16(f32(q − 32) · s), the prefill path's weights (the
+        reference's dequant_q6k_planes)."""
+        return dequant_q6k(self.codes, self.highs, self.scales, -2)
+
+
+HOLDERS = {"q8_0": PackedQ8, "q4_k": PackedQ4K, "q6_k": PackedQ6K}
 
 
 def project(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None) -> torch.Tensor:

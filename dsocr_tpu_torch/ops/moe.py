@@ -14,12 +14,12 @@ token count N, as in the reference:
   torch.matmul per expert on its contiguous slice — the product that the
   reference leaves to XLA's ragged_dot.
 
-Packed stacks (ops.linear.PackedQ8 / PackedQ4K, in-major) run at decode
-through the kernels: the gather tier while N·top_k ≤ E, the dense
-all-expert sweep above that. Each projection runs its own format's
-kernel, because a group may be mixed: Q4_K gate+up with a Q8_0 down
-whose in dim misses the 256-value super-block (DeepSeek's 896); the
-holder runs it. Prefill dequantizes them to bf16 for the grouped tier.
+Packed stacks (ops.linear's PackedQ8 / PackedQ4K / PackedQ6K, in-major)
+run at decode through the kernels: the gather tier while N·top_k ≤ E, the
+dense all-expert sweep above that. Each projection runs its own format's
+kernel, because a group may be mixed: K-quant (Q4_K or Q6_K) gate+up
+with a Q8_0 down whose in dim misses the 256-value super-block
+(DeepSeek's 896); the holder runs it. Prefill dequantizes them to bf16 for the grouped tier.
 """
 
 from __future__ import annotations

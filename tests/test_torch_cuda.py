@@ -10,9 +10,9 @@ on a machine that has only PyTorch and the CUDA toolkit:
 
 Tolerances: f32 outputs atol = rtol = 1e-4 (the kernels sum in another
 order than cuBLAS); bf16 outputs one bf16 ulp at the largest magnitude;
-the KV write is bit-exact. The Q8_0 and Q4_K matmuls: 1e-5 · max(|bf16 x|
-@ |W|), f32 reassociation of exact bf16 products; both quantizers are
-bit-exact with their CPU runs.
+the KV write is bit-exact. The Q8_0, Q4_K and Q6_K matmuls: 1e-5 ·
+max(|bf16 x| @ |W|), f32 reassociation of exact bf16 products; the three
+quantizers are bit-exact with their CPU runs.
 """
 
 import numpy as np
@@ -286,4 +286,93 @@ def test_q4k_quantizer_on_card_is_bit_exact_with_cpu(dev):
         got = pack(w.to(dev), "q4_k")
         want = pack(w, "q4_k")
         for key in ("codes", "scales", "mins"):
+            assert torch.equal(got[key].cpu(), want[key]), key
+
+
+# -- Q6_K dequantize-matmul ------------------------------------------------------
+
+
+def _q6k_weights(rng, lead, k, m, in_major, dev):
+    """Packed weights of a random float [*lead, k, m] stack, packed on the
+    card: (codes, highs, scales)."""
+    from dsocr_tpu_torch.dsq.serve_quant import quantize_expert_stack, quantize_plain
+
+    w = _randn(rng, *lead, k, m, std=k ** -0.5).to(dev)
+    packed = (quantize_expert_stack if in_major else quantize_plain)(w, "q6_k")
+    return packed["codes"], packed["highs"], packed["scales"]
+
+
+def _q6k_deq(packed, dim):
+    from dsocr_tpu_torch.ops.kernels.kquant_matmul import dequant_q6k
+
+    return dequant_q6k(*packed, dim).float()
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,k,m", [(16, 1280, 3840), (3, 256, 96), (300, 512, 200), (17, 1792, 1280)])
+def test_q6k_matmul_kernel_matches_twin(dev, x_dtype, n, k, m):
+    rng = np.random.default_rng(n + k + m)
+    packed = _q6k_weights(rng, (), k, m, False, dev)
+    x = _randn(rng, n, k).to(dev, x_dtype)
+    before = K.q6k_matmul.launches
+    got = K.q6k_matmul(x, *packed)
+    assert K.q6k_matmul.launches == before + 1
+    _q8_close(got, K.q6k_matmul_plain(x, *packed), _abs_bound(x, _q6k_deq(packed, -1).t()))
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,n,k,m", [(64, 60, 1280, 1792), (4, 5, 256, 64), (3, 7, 512, 36)])
+def test_q6k_gather_kernel_matches_twin(dev, x_dtype, e, n, k, m):
+    rng = np.random.default_rng(e + n + k)
+    packed = _q6k_weights(rng, (e,), k, m, True, dev)
+    x = _randn(rng, n, k).to(dev, x_dtype)
+    idx = torch.from_numpy(rng.integers(0, e, size=n).astype(np.int32)).to(dev)
+    before = K.q6k_gather_matmul.launches
+    got = K.q6k_gather_matmul(x, *packed, idx)
+    assert K.q6k_gather_matmul.launches == before + 1
+    w = _q6k_deq(packed, -2)[idx.long()]
+    bound = torch.bmm(x.to(torch.bfloat16).float().abs()[:, None], w.abs())[:, 0]
+    _q8_close(got, K.q6k_gather_matmul_plain(x, *packed, idx), bound)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,n,k,m", [(64, 16, 1280, 1792), (64, 16, 1792, 1280), (4, 3, 256, 64), (5, 20, 512, 36)])
+def test_q6k_dense_expert_kernels_match_twins(dev, x_dtype, e, n, k, m):
+    rng = np.random.default_rng(e * n + k)
+    packed = _q6k_weights(rng, (e,), k, m, True, dev)
+    w = _q6k_deq(packed, -2)
+    x = _randn(rng, n, k).to(dev, x_dtype)
+    before = K.q6k_dense_experts.launches
+    got = K.q6k_dense_experts(x, *packed)
+    assert K.q6k_dense_experts.launches == before + 1
+    _q8_close(got, K.q6k_dense_experts_plain(x, *packed), _abs_bound(x[None], w))
+    xe = _randn(rng, e, n, k).to(dev, x_dtype)
+    before = K.q6k_dense_experts_perx.launches
+    got = K.q6k_dense_experts_perx(xe, *packed)
+    assert K.q6k_dense_experts_perx.launches == before + 1
+    _q8_close(got, K.q6k_dense_experts_perx_plain(xe, *packed), _abs_bound(xe, w))
+
+
+def test_q6k_wrappers_raise_on_bad_shapes(dev):
+    packed = _q6k_weights(np.random.default_rng(1), (2,), 256, 64, True, dev)
+    with pytest.raises(ValueError):  # K misses a 256-value super-block
+        K.q6k_dense_experts(torch.zeros((3, 128), device=dev), *packed)
+    with pytest.raises(ValueError):  # highs in the place of scales
+        K.q6k_dense_experts(torch.zeros((3, 256), device=dev), packed[0], packed[2], packed[1])
+    with pytest.raises(ValueError):  # int64 idx
+        K.q6k_gather_matmul(torch.zeros((3, 256), device=dev), *packed,
+                            torch.zeros(3, dtype=torch.int64, device=dev))
+
+
+def test_q6k_quantizer_on_card_is_bit_exact_with_cpu(dev):
+    from dsocr_tpu_torch.dsq.serve_quant import quantize_expert_stack, quantize_plain
+
+    rng = np.random.default_rng(9)
+    w = _randn(rng, 8, 1280, 1792, std=1280 ** -0.5).to(torch.bfloat16)
+    w[0, :256, :5] = 0.0  # dead super-blocks
+    w[1, :16, :3] = 1e-20  # near-zero sub-blocks: their 8-bit scales round to 0
+    for pack in (quantize_expert_stack, quantize_plain):
+        got = pack(w.to(dev), "q6_k")
+        want = pack(w, "q6_k")
+        for key in ("codes", "highs", "scales"):
             assert torch.equal(got[key].cpu(), want[key]), key

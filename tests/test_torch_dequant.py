@@ -99,16 +99,19 @@ def test_quantize_expert_stack_bit_exact(shape):
 
 @pytest.mark.parametrize("packer", ["plain", "experts"])
 def test_k_quants_raise(packer):
-    """Q6_K is not ported yet: both packers raise at in % 256 == 0 and
-    fall back to Q8_0 below it, as the reference does."""
+    """Both packers pack Q6_K at in % 256 == 0 (codes, highs, scales; the
+    values in tests/test_torch_q6k.py) and fall back to Q8_0 below it, as
+    the reference does; a method the port does not serve still raises."""
     method = "q6_k"
     pack = sq.quantize_plain if packer == "plain" else sq.quantize_expert_stack
     lead = () if packer == "plain" else (2,)
     assert sq.effective_method(method, 256) == jax_sq.effective_method(method, 256) == method
     assert sq.effective_method(method, 96) == jax_sq.effective_method(method, 96) == "q8_0"
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        pack(torch.zeros((*lead, 256, 8)), method)
+    got = pack(torch.zeros((*lead, 256, 8)), method)
+    assert set(got) == {"codes", "highs", "scales"} and got["highs"].dtype == torch.uint8
     assert pack(torch.zeros((*lead, 96, 8)), method)["codes"].dtype == torch.int8
+    with pytest.raises(NotImplementedError):
+        pack(torch.zeros((*lead, 256, 8)), "int4")
 
 
 # -- the kernel twins against the Pallas kernels ---------------------------------------
@@ -333,11 +336,15 @@ def test_q8_engine_packs_the_float_models_weights(init):
 
 
 def test_engine_accepts_q8_0_only():
-    """Of the K-quants only Q4_K is served (tests/test_torch_kquant.py);
-    Q6_K raises until its kernels are ported."""
+    """Q8_0 and both K-quants are served (Q4_K: tests/test_torch_kquant.py,
+    Q6_K: tests/test_torch_q6k.py): a Q6_K engine at this config (in dims
+    below 256) packs every eligible weight as Q8_0; other methods raise."""
     from dsocr_tpu_torch.models.deepseek import DeepseekOcrEngine
+    from dsocr_tpu_torch.ops.linear import PackedQ8
 
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        DeepseekOcrEngine(_q8_tiny(), dtype=torch.float32, device="cpu", quantize="q6_k")
+    engine = DeepseekOcrEngine(_q8_tiny(), dtype=torch.float32, device="cpu", max_seq_len=64,
+                               quantize="q6_k")
+    assert engine.quantize == "q6_k"
+    assert isinstance(engine.model.decoder.moe_layers[0].experts_gateup, PackedQ8)
     with pytest.raises(ValueError):
         DeepseekOcrEngine(_q8_tiny(), dtype=torch.float32, device="cpu", quantize="int4")

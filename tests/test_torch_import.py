@@ -105,6 +105,17 @@ _MISPLACED_CALLS = {
         _meta(4, 256), _meta(3, 128, 64, dtype=torch.uint8), _meta(3, 8, 64), _meta(3, 8, 64)),
     "q4k_dense_experts_perx": lambda K: K.q4k_dense_experts_perx(
         _meta(3, 4, 256), _meta(3, 128, 64, dtype=torch.uint8), _meta(3, 8, 64), _meta(3, 8, 64)),
+    "q6k_matmul": lambda K: K.q6k_matmul(
+        _meta(4, 256), _meta(64, 128, dtype=torch.uint8), _meta(64, 64, dtype=torch.uint8), _meta(64, 16)),
+    "q6k_gather_matmul": lambda K: K.q6k_gather_matmul(
+        _meta(4, 256), _meta(3, 128, 64, dtype=torch.uint8), _meta(3, 64, 64, dtype=torch.uint8),
+        _meta(3, 16, 64), _meta(4, dtype=torch.int32)),
+    "q6k_dense_experts": lambda K: K.q6k_dense_experts(
+        _meta(4, 256), _meta(3, 128, 64, dtype=torch.uint8), _meta(3, 64, 64, dtype=torch.uint8),
+        _meta(3, 16, 64)),
+    "q6k_dense_experts_perx": lambda K: K.q6k_dense_experts_perx(
+        _meta(3, 4, 256), _meta(3, 128, 64, dtype=torch.uint8), _meta(3, 64, 64, dtype=torch.uint8),
+        _meta(3, 16, 64)),
 }
 
 

@@ -48,6 +48,16 @@ def _numpy_quantizer(monkeypatch):
     monkeypatch.setenv("DSOCR_NO_NATIVE", "1")
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The tensors here are small: one intra-op thread per test process
+    keeps several test processes from oversubscribing the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _t(x):
     return torch.from_numpy(np.array(x))
 
@@ -123,7 +133,7 @@ def _assert_packed_equal(got, want, axis):
     assert all(t.is_contiguous() for t in got.values())  # the kernels take dense layouts
     assert got["codes"].dtype == torch.uint8
     assert got["codes"].shape[axis] * 2 == codes.shape[axis]
-    np.testing.assert_array_equal(sq.unpack_nibbles(got["codes"], axis).numpy(), codes)
+    np.testing.assert_array_equal(sq.unpack_bits(got["codes"], axis, 4).numpy(), codes)
     np.testing.assert_array_equal(got["scales"].numpy(), s)
     np.testing.assert_array_equal(got["mins"].numpy(), b)
 
@@ -169,10 +179,10 @@ def test_params_from_jax_planes_equal_the_port_packer(in_major):
 def test_nibble_packing_round_trips():
     codes = torch.from_numpy(np.random.default_rng(0).integers(0, 16, size=(4, 8, 6)).astype(np.uint8))
     for dim in (-1, -2, 0):
-        packed = sq.pack_nibbles(codes, dim)
+        packed = sq.pack_bits(codes, dim, 4)
         assert packed.shape[dim] * 2 == codes.shape[dim]
-        assert torch.equal(sq.unpack_nibbles(packed, dim), codes)
-    assert int(sq.pack_nibbles(torch.tensor([3, 12], dtype=torch.uint8), 0)[0]) == 3 | (12 << 4)
+        assert torch.equal(sq.unpack_bits(packed, dim, 4), codes)
+    assert int(sq.pack_bits(torch.tensor([3, 12], dtype=torch.uint8), 0, 4)[0]) == 3 | (12 << 4)
 
 
 # -- the kernel twins against the Pallas kernels ---------------------------------------

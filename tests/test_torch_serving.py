@@ -1,7 +1,8 @@
 """Continuous-batching serving through the port's ContinuousScheduler
 against the reference's, on the same weights (tiny config, f32, 2 slots):
 greedy tokens must be identical with a model-dtype and an int8 KV cache,
-including a request that joins while another row is mid-generation. (The
+including a request that joins while another row is mid-generation (the
+test orders the prefill and decode threads so that it does). (The
 model-dtype cache is bf16 on the card; here it is f32, because XLA's CPU
 backend cannot run the reference engine in bf16.)
 Also the join_many retry path: a failed batched join leaves the state
@@ -17,10 +18,13 @@ Packed Q4_K serving, at hidden 256 (K-quants need in dims % 256): the same
 against the reference's Q4_K engine at 2 and 4 slots, f32 and int8 KV, on
 a mixed group (Q4_K gate+up, Q8_0 down, as at full width) and, at 2 and 4
 slots with f32 KV, on an all-Q4_K group; each decode tier runs the
-kernels of each projection's own format."""
+kernels of each projection's own format. Packed Q6_K serving: the same
+against the reference's Q6_K engine, mixed (Q6_K gate+up, Q8_0 down) and
+all-Q6_K groups."""
 
 import asyncio
 import dataclasses
+import time
 
 import jax
 import jax.numpy as jnp
@@ -84,6 +88,41 @@ def _port(jax_engine, kv_quant):
                              max_seq_len=512, kv_quant=kv_quant, state=state)
 
 
+def _admit_after_second_wave(monkeypatch, timeout=120.0):
+    """Order the scheduler's threads. With 2 slots, requests 1 and 2 form
+    the first prefill wave and request 3 the second, which is prepared on
+    an executor thread while decode chunks run on another. Request 1 (3
+    tokens) leaves after the first chunk of 4 steps, request 2 (10 tokens)
+    in the third. The admission that follows request 1's release waits
+    until the second wave's packet is queued, so request 3 joins while
+    request 2 decodes however the host schedules the threads. A packet
+    that is not queued within `timeout` seconds fails every request."""
+    released = []
+    orig_release = SlotRunner.release
+
+    def release(self, state, row):
+        released.append(row)
+        return orig_release(self, state, row)
+
+    held = []
+    orig_admit = ContinuousScheduler._admit_ready
+
+    async def admit_ready(self, loop):
+        if released and not held:
+            held.append(released[0])
+            deadline = time.monotonic() + timeout
+            while self._ready_q.empty() and not self._deferred:
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"the second prefill wave was not queued within {timeout} s "
+                                         f"of row {held[0]}'s release")
+                await asyncio.sleep(0.005)
+        return await orig_admit(self, loop)
+
+    monkeypatch.setattr(SlotRunner, "release", release)
+    monkeypatch.setattr(ContinuousScheduler, "_admit_ready", admit_ready)
+    return held
+
+
 @pytest.mark.parametrize("kv_quant", [None, "int8"])
 def test_greedy_tokens_match_reference_scheduler(jax_engines, kv_quant, monkeypatch):
     jax_engine = jax_engines[kv_quant]
@@ -99,11 +138,13 @@ def test_greedy_tokens_match_reference_scheduler(jax_engines, kv_quant, monkeypa
             return _orig(self, state, *args, **kw)
 
         monkeypatch.setattr(SlotRunner, name, spy)
+    held = _admit_after_second_wave(monkeypatch)
     sched = ContinuousScheduler(_port(jax_engine, kv_quant), _Tok(), n_slots=2, max_len=256,
                                 chunk_steps=4)
     got = _serve(sched, DecodeParameters, VisionSettings(64, 64, False))
     assert [len(t) for t in got] == BUDGETS
     assert got == want
+    assert held, "no request left its slot while others waited"
     assert any(busy_joins), "no request joined while another was decoding"
     assert len(sched.ttft_samples) == len(BUDGETS)
 
@@ -225,48 +266,76 @@ def test_q8_prefill_dequant_path_matches_deepseek_forward(jax_q8_engines, monkey
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=1e-4)
 
 
-# -- packed Q4_K --------------------------------------------------------------------
+# -- packed K-quants (Q4_K, Q6_K) ------------------------------------------------------
 
 
 def _kq_cfg(cfg, moe_inter):
     """K-quant super-blocks need in dims % 256: hidden 256 (the reference's
     own K-quant engine test, tests/test_kquant_matmul.py). moe_inter 32
     leaves the routed and shared down projections to Q8_0, a mixed group
-    as at full width; 256 packs every projection as Q4_K."""
+    as at full width; 256 packs every projection as the K-quant."""
     lang = dataclasses.replace(cfg.language, hidden_size=256, moe_intermediate_size=moe_inter)
     return dataclasses.replace(cfg, projector_n_embed=256, language=lang)
 
 
+# At moe_inter 256, seed 0's weights end a row on EOS at once; seed 3's
+# rows reach their budgets.
+_KQ_SEEDS = {32: 0, 256: 3}
+
+
 @pytest.fixture(scope="module")
-def jax_q4k_engines():
-    """The reference's Q4_K engines (NumPy quantizer), quantized from one
-    float engine per config. At moe_inter 256, seed 0's weights end a row
-    on EOS at once; seed 3's rows reach their budgets."""
-    engines = {}
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("DSOCR_NO_NATIVE", "1")
-        for inter, seed in ((32, 0), (256, 3)):
-            cfg = _kq_cfg(jax_tiny(), inter)
-            float_engine = JaxEngine(cfg, dtype=jnp.float32, max_seq_len=512, seed=seed)
-            for kvq in (None, "int8"):
-                engines[inter, kvq] = JaxEngine(
-                    cfg, params=jax.tree_util.tree_map(lambda x: x, float_engine.params),
-                    dtype=jnp.float32, max_seq_len=512, kv_quant=kvq, quantize="q4_k")
-    return engines
+def jax_kq_engines():
+    """(method, moe_inter, kv_quant) → the reference's K-quant engine (NumPy
+    quantizer), quantized from one float engine per config, built on first
+    use."""
+    floats, engines = {}, {}
+
+    def get(method, moe_inter, kv_quant):
+        key = (method, moe_inter, kv_quant)
+        if key not in engines:
+            cfg = _kq_cfg(jax_tiny(), moe_inter)
+            if moe_inter not in floats:
+                floats[moe_inter] = JaxEngine(cfg, dtype=jnp.float32, max_seq_len=512,
+                                              seed=_KQ_SEEDS[moe_inter])
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setenv("DSOCR_NO_NATIVE", "1")
+                engines[key] = JaxEngine(
+                    cfg, params=jax.tree_util.tree_map(lambda x: x, floats[moe_inter].params),
+                    dtype=jnp.float32, max_seq_len=512, kv_quant=kv_quant, quantize=method)
+        return engines[key]
+
+    return get
 
 
-def _port_q4k(jax_engine, moe_inter, kv_quant):
+def _port_kq(jax_engine, method, moe_inter, kv_quant):
     state = params_from_jax(jax.device_get(jax_engine.params))
     port = DeepseekOcrEngine(_kq_cfg(tiny_deepseek_config(), moe_inter), dtype=torch.float32,
                              device="cpu", max_seq_len=512, kv_quant=kv_quant, state=state,
-                             quantize="q4_k")
+                             quantize=method)
     assert set(state) == set(port.model.state_dict())
     assert state["decoder.moe_layers.0.experts_gateup.codes"].dtype == torch.uint8
     return port
 
 
-_EXPERT_KERNELS = ("q4k_gather_matmul", "q4k_dense_experts", "q4k_dense_experts_perx",
-                   "q8_gather_matmul", "q8_dense_experts", "q8_dense_experts_perx")
+def _kq_greedy_tokens_match(get, method, moe_inter, n_slots, kv_quant, kernels, monkeypatch):
+    import dsocr_tpu_torch.ops.linear as port_linear
+
+    jax_engine = get(method, moe_inter, kv_quant)
+    want = _serve(JaxScheduler(jax_engine, _Tok(), n_slots=n_slots, max_len=256, chunk_steps=4),
+                  JaxParams, JaxVision(64, 64, False))
+    fmt = method.replace("_", "")  # q4k, q6k
+    ran = []
+    for name in ("gather_matmul", "dense_experts", "dense_experts_perx"):
+        for prefix in (fmt, "q8"):
+            orig = getattr(port_linear, f"{prefix}_{name}")
+            monkeypatch.setattr(port_linear, f"{prefix}_{name}",
+                                lambda *a, _o=orig, _n=f"{prefix}_{name}": ran.append(_n) or _o(*a))
+    sched = ContinuousScheduler(_port_kq(jax_engine, method, moe_inter, kv_quant), _Tok(),
+                                n_slots=n_slots, max_len=256, chunk_steps=4)
+    got = _serve(sched, DecodeParameters, VisionSettings(64, 64, False))
+    assert [len(t) for t in got] == BUDGETS
+    assert got == want
+    assert set(ran) == kernels, f"decode ran {set(ran)}, expected {kernels}"
 
 
 @pytest.mark.parametrize("moe_inter,n_slots,kv_quant,kernels", [
@@ -277,22 +346,23 @@ _EXPERT_KERNELS = ("q4k_gather_matmul", "q4k_dense_experts", "q4k_dense_experts_
     (256, 2, None, {"q4k_gather_matmul"}),
     (256, 4, None, {"q4k_dense_experts", "q4k_dense_experts_perx"}),
 ])
-def test_q4k_greedy_tokens_match_reference_scheduler(jax_q4k_engines, moe_inter, n_slots, kv_quant,
+def test_q4k_greedy_tokens_match_reference_scheduler(jax_kq_engines, moe_inter, n_slots, kv_quant,
                                                      kernels, monkeypatch):
     """moe_inter 32: Q4_K gate+up with a Q8_0 down; 256: all Q4_K. Two
     slots gather (N·top_k ≤ 4 experts), four sweep every expert."""
-    import dsocr_tpu_torch.ops.linear as port_linear
+    _kq_greedy_tokens_match(jax_kq_engines, "q4_k", moe_inter, n_slots, kv_quant, kernels, monkeypatch)
 
-    jax_engine = jax_q4k_engines[moe_inter, kv_quant]
-    want = _serve(JaxScheduler(jax_engine, _Tok(), n_slots=n_slots, max_len=256, chunk_steps=4),
-                  JaxParams, JaxVision(64, 64, False))
-    ran = []
-    for name in _EXPERT_KERNELS:
-        orig = getattr(port_linear, name)
-        monkeypatch.setattr(port_linear, name, lambda *a, _o=orig, _n=name: ran.append(_n) or _o(*a))
-    sched = ContinuousScheduler(_port_q4k(jax_engine, moe_inter, kv_quant), _Tok(), n_slots=n_slots,
-                                max_len=256, chunk_steps=4)
-    got = _serve(sched, DecodeParameters, VisionSettings(64, 64, False))
-    assert [len(t) for t in got] == BUDGETS
-    assert got == want
-    assert set(ran) == kernels, f"decode ran {set(ran)}, expected {kernels}"
+
+@pytest.mark.parametrize("moe_inter,n_slots,kv_quant,kernels", [
+    (32, 2, None, {"q6k_gather_matmul", "q8_gather_matmul"}),
+    (32, 2, "int8", {"q6k_gather_matmul", "q8_gather_matmul"}),
+    (32, 4, None, {"q6k_dense_experts", "q8_dense_experts_perx"}),
+    (32, 4, "int8", {"q6k_dense_experts", "q8_dense_experts_perx"}),
+    (256, 2, None, {"q6k_gather_matmul"}),
+    (256, 4, None, {"q6k_dense_experts", "q6k_dense_experts_perx"}),
+])
+def test_q6k_greedy_tokens_match_reference_scheduler(jax_kq_engines, moe_inter, n_slots, kv_quant,
+                                                     kernels, monkeypatch):
+    """moe_inter 32: Q6_K gate+up with a Q8_0 down, as at full width; 256:
+    all Q6_K, the path that reaches q6k_dense_experts_perx."""
+    _kq_greedy_tokens_match(jax_kq_engines, "q6_k", moe_inter, n_slots, kv_quant, kernels, monkeypatch)
