@@ -18,7 +18,12 @@ non-zero (nothing is caught):
             3.35 TB/s and its operations over the peak rate of their type;
             the Q8_0 quantizer on the card bit for bit against its CPU run
             on a full-width expert stack, and the Q4_K and Q6_K quantizers
-            on 8 experts of one;
+            on 8 experts of one; the paged KV write and attend (16 rows of
+            ~968 tokens in 9 pages of 128 each, int8 and bf16 pools; the
+            library time of the attend is SDPA over the rows' pages gathered
+            outside the timing) and the megafused Q8_0 chain (one MoE layer
+            at 16 rows, tolerance megafused_tol per element, two launches
+            bit-equal, beside it the two-kernel sweep it replaces);
 4. serve    DeepSeek-OCR v1 at full width (DeepseekOcrConfig(), bf16
             weights from a seeded torch.Generator, int8 KV): 16 requests
             of 128 new tokens through ContinuousScheduler.submit over 16
@@ -50,6 +55,16 @@ non-zero (nothing is caught):
             and q8_dense_experts_perx must launch; then its profile;
 4g. serve_q6k_gather the same Q6_K engine, 4 requests × 32 tokens over 4
             slots: q6k_gather_matmul and q8_gather_matmul must launch;
+4h. serve_q8_paged   the Q8_0 engine of 4b with DSOCR_PAGED_KV=1,
+            DSOCR_Q8_MEGAFUSED=1 and DSOCR_POOL_PAGES=108: 16 requests × 128
+            tokens over 16 slots from a pool that holds 12 rows (9 pages of
+            128 each), so 4 requests wait for pages. paged_kv_update,
+            paged_decode_attention, q8_moe_megafused and q8_matmul must
+            launch, the slot kernels and the two-kernel sweep must not; the
+            line gives the pool's pages and bytes against the contiguous
+            cache's, the occupancy, and how many requests' tokens equal 4b's
+            (not required: megafused sums the experts in another order);
+            then its profile, with a paged runner;
 5. parity   the tiny config in f32 with one set of weights, served on the
             card (kernels) and on the CPU (twins): greedy tokens must match;
             again with Q8_0 weights (moe_intermediate_size 32), and with
@@ -58,10 +73,12 @@ non-zero (nothing is caught):
             and 4 slots (dense tier), f32 and int8 KV; and all-Q4_K and
             all-Q6_K experts (moe_intermediate_size 256) at 4 slots, the
             path that reaches q4k_/q6k_dense_experts_perx (DeepSeek's
-            full-width down projection is Q8_0).
+            full-width down projection is Q8_0); and the Q8_0 config at 4
+            slots with paged KV and the megafused chain, f32 and int8 KV,
+            and with a pool of 2 pages, so that a request waits for pages.
 
 Then a line with the script's total seconds, a {"kernels": [...]} summary
-line (launches: the sum over the seven serving bursts), the nvidia-smi
+line (launches: the sum over the eight serving bursts), the nvidia-smi
 line, and last
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
 dsocr_tpu_torch package beside this file, it exits non-zero and prints
@@ -71,6 +88,7 @@ no result.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import dataclasses
 import gc
 import json
@@ -118,6 +136,21 @@ class TinyTokenizer:
 
     def token_to_id(self, token):
         return 127 if token == "<image>" else None
+
+
+@contextlib.contextmanager
+def environ(**values):
+    """Set environment variables for the block, then restore them."""
+    old = {key: os.environ.get(key) for key in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for key, value in old.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
 
 
 def require(cond, message: str) -> None:
@@ -202,6 +235,36 @@ def q8_tol(bound) -> float:
     return float(bound.max()) * 1e-5
 
 
+def megafused_tol(torch, x, weights, gu_codes, gu_scales, dn_codes, dn_scales):
+    """Per-element tolerance of q8_moe_megafused [N, H] against another
+    summation order of the same chain. In the down product and the combine,
+    1e-5 of the sum of term magnitudes, as for the other Q8_0 kernels. In
+    gate+up the sums (exact bf16 products, f32 adds) move by far less,
+    ~1e-7 of it at these depths (3.3e-6 at H 768 on the CPU): what matters
+    is whether that, allowed 1e-6 of the sum of magnitudes, and silu's own
+    rounding, allowed 1e-6, can flip the bf16 rounding of an inter element.
+    Where it can, the element may differ by one bf16 ulp, which |w|·|Wd|
+    carries to the output."""
+    import torch.nn.functional as F
+
+    bf16 = torch.bfloat16
+
+    def deq(codes, scales):  # in-major [E, K, M] → f32 of bf16(code · scale)
+        return (codes.float() * scales.repeat_interleave(32, dim=-2)).to(bf16).float()
+
+    xb = x.to(bf16).float()[None]
+    wgu = deq(gu_codes, gu_scales)
+    gate, up = torch.chunk(torch.matmul(xb, wgu), 2, dim=-1)
+    d_gate, d_up = torch.chunk(1e-6 * torch.matmul(xb.abs(), wgu.abs()), 2, dim=-1)
+    del wgu
+    act = F.silu(gate)
+    pre = act * up
+    slack = 1.1 * up.abs() * d_gate + act.abs() * d_up + 1e-6 * pre.abs()  # |silu'| < 1.1
+    flips = ((pre + slack).to(bf16).float() - (pre - slack).to(bf16).float()).abs()
+    terms = flips + 1e-5 * pre.to(bf16).float().abs()
+    return (weights.abs()[:, :, None] * torch.matmul(terms, deq(dn_codes, dn_scales).abs())).sum(0) + 1e-6
+
+
 def check_q8_kernels(torch, K, record, randn):
     """Phase 3, Q8_0: the four dequant-matmul wrappers against their twins
     at the main path's shapes, and the quantizer on the card against its
@@ -250,6 +313,42 @@ def check_q8_kernels(torch, K, record, randn):
     check_expert_kernels(torch, record, randn, "q8", K.q8_gather_matmul, K.q8_gather_matmul_plain,
                          K.q8_dense_experts, K.q8_dense_experts_plain, K.q8_dense_experts_perx,
                          K.q8_dense_experts_perx_plain, gu, dn, deq, ("codes", "scales"))
+    check_megafused(torch, K, record, randn, gu, dn)
+
+
+def check_megafused(torch, K, record, randn, gu, dn):
+    """q8_moe_megafused on one full-width MoE layer at 16 rows, routed
+    top-6 by a seeded softmax router: per-element tolerance megafused_tol,
+    two launches bit-equal; beside it the two-kernel sweep it replaces
+    (q8_dense_experts, silu·up, q8_dense_experts_perx, the combine). No
+    single PyTorch call computes the chain: no library time."""
+    import torch.nn.functional as F
+
+    E, N, topk = gu["codes"].shape[0], 16, 6
+    x = randn(N, gu["codes"].shape[1], dtype=torch.bfloat16)
+    weights, idx = torch.topk(torch.softmax(randn(N, E), dim=-1), topk, dim=-1)
+    w = torch.zeros((E, N), device=x.device).index_put_(
+        (idx.reshape(-1), torch.arange(N, device=x.device).repeat_interleave(topk)),
+        weights.reshape(-1), accumulate=True)
+    args = (x, w, gu["codes"], gu["scales"], dn["codes"], dn["scales"])
+    out = K.q8_moe_megafused(*args)
+    again = K.q8_moe_megafused(*args)
+    require(torch.equal(out, again), "q8_moe_megafused: two launches on the same inputs differ")
+    ref = K.q8_moe_megafused_plain(*args)
+    tol = megafused_tol(torch, *args)
+    require(bool(((out - ref).abs() <= tol).all()), "q8_moe_megafused: outside the per-element tolerance")
+
+    def sweep():
+        gates, ups = torch.chunk(K.q8_dense_experts(x, gu["codes"], gu["scales"]), 2, dim=-1)
+        outs = K.q8_dense_experts_perx((F.silu(gates) * ups).to(x.dtype), dn["codes"], dn["scales"])
+        sel = outs[idx, torch.arange(N, device=x.device)[:, None]]
+        return (sel * weights[..., None]).sum(dim=1)
+
+    record("q8_moe_megafused", f"N={N} E={E} H=1280 MI=896 top-{topk}", float((out - ref).abs().max()),
+           float(tol.max()), time_ms(lambda: K.q8_moe_megafused(*args)),
+           time_ms(lambda: K.q8_moe_megafused_plain(*args)), None,
+           bound(nbytes(*args, out), 2 * E * N * (1280 * 1792 + 896 * 1280), "bf16"),
+           sweep_ms=time_ms(sweep), deterministic=True)
 
 
 def check_expert_kernels(torch, record, randn, fmt, gather, gather_plain, dense, dense_plain, perx,
@@ -382,10 +481,10 @@ def check_kernels(torch, K):
 
     cases = []
 
-    def record(kernel, case, err, tol, ms, plain_ms, library_ms, bnd):
+    def record(kernel, case, err, tol, ms, plain_ms, library_ms, bnd, **extra):
         line = {"phase": "kernels", "kernel": kernel, "case": case, "max_abs_err": err,
                 "tol": tol, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                "bound_ms": bnd[0], "bound_by": bnd[1]}
+                "bound_ms": bnd[0], "bound_by": bnd[1], **extra}
         emit(line)
         require(err <= tol, f"{kernel} {case}: max abs err {err} > tol {tol}")
         cases.append(line)
@@ -478,12 +577,78 @@ def check_kernels(torch, K):
                time_ms(lambda: K.slot_decode_attention_plain(q, *caches, layer, lengths, scale=scale)),
                library, bound(nbytes(q, lengths, out) + kv_bytes, 4 * 10 * D * used, "bf16"))
     del k_all, v_all, ks_all, vs_all, caches, twins
+    check_paged_kernels(torch, K, record, randn, gen)
     check_q8_kernels(torch, K, record, randn)
     torch.cuda.empty_cache()
     for method in ("q4_k", "q6_k"):
         check_kquant_kernels(torch, K, record, randn, method)
         torch.cuda.empty_cache()
     return cases
+
+
+def check_paged_kernels(torch, K, record, randn, gen):
+    """Phase 3, paged KV: the write and the attend at the main path's
+    shapes, 16 rows of the page's packet (904 prompt tokens, up to 128 new)
+    holding 9 pages of 128 each in a pool of 144 (L 12, NKV 10, D 128),
+    with int8 and bf16 pools. The library time of the bf16 attend is SDPA
+    over each row's pages gathered contiguously outside the timing."""
+    import torch.nn.functional as F
+
+    dev = "cuda"
+    L, B, NKV, D, page, P_max, per_row = 12, 16, 10, 128, 128, 12, 9
+    P = B * per_row
+    tables = torch.full((B, P_max), -1, dtype=torch.int32, device=dev)
+    tables[:, :per_row] = torch.randperm(P, generator=gen, device=dev).reshape(B, per_row).int()
+    lengths = torch.randint(904, 904 + 128, (B,), generator=gen, device=dev, dtype=torch.int32)
+    layer = 5
+    used = int((lengths.long() + 1).sum())  # positions the attend reads: [0, lengths[b]]
+    for quant in (True, False):
+        kind = "int8" if quant else "bf16"
+        if quant:
+            def codes(*shape):
+                return torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+
+            pools = [codes(L, P, NKV, page, D), codes(L, P, NKV, page, D),
+                     randn(L, P, NKV, page).abs() * 0.02, randn(L, P, NKV, page).abs() * 0.02]
+            new = (codes(B, NKV, D), codes(B, NKV, D), randn(B, NKV).abs() * 0.02,
+                   randn(B, NKV).abs() * 0.02)
+        else:
+            pools = [randn(L, P, NKV, page, D, dtype=torch.bfloat16),
+                     randn(L, P, NKV, page, D, dtype=torch.bfloat16), None, None]
+            new = (randn(B, NKV, D, dtype=torch.bfloat16), randn(B, NKV, D, dtype=torch.bfloat16),
+                   None, None)
+        twins = [None if t is None else t.clone() for t in pools]
+        K.paged_kv_update(*pools, *new, tables, lengths, layer)
+        K.paged_kv_update_plain(*twins, *new, tables, lengths, layer)
+        same = all(a is None or torch.equal(a, b) for a, b in zip(pools, twins))
+        del twins
+        # no single PyTorch call writes the four planes through a table: no library time
+        record("paged_kv_update", f"{kind} B={B} P={P} page={page}", 0.0 if same else float("inf"),
+               0.0, time_ms(lambda: K.paged_kv_update(*pools, *new, tables, lengths, layer)),
+               time_ms(lambda: K.paged_kv_update_plain(*pools, *new, tables, lengths, layer)),
+               None, bound(2 * nbytes(*new) + nbytes(tables, lengths), 0, "bf16"))
+
+        q = randn(B, 10, D)
+        scale = D ** -0.5
+        out = K.paged_decode_attention(q, *pools, tables, lengths, layer, scale=scale)
+        ref = K.paged_decode_attention_plain(q, *pools, tables, lengths, layer, scale=scale)
+        kv_bytes = used * NKV * D * pools[0].element_size() * 2 + (used * NKV * 4 * 2 if quant else 0)
+        library = None  # SDPA takes no int8 cache
+        if not quant:
+            ids = tables.long().clamp(min=0)
+            rows = [pools[i][layer][ids].transpose(1, 2).reshape(B, NKV, P_max * page, D) for i in (0, 1)]
+            live = (torch.arange(P_max * page, device=dev)[None, :] <= lengths.long()[:, None])[:, None, None, :]
+            qb = q.to(torch.bfloat16)[:, :, None]
+            library = time_ms(lambda: F.scaled_dot_product_attention(qb, *rows, attn_mask=live, scale=scale))
+            del rows
+        # f32 throughout: reassociation, the online rescaling and expf
+        record("paged_decode_attention", f"{kind} B={B} ~{used // B} tokens/row", float((out - ref).abs().max()),
+               float(ref.abs().max()) * 1e-4 + 1e-6,
+               time_ms(lambda: K.paged_decode_attention(q, *pools, tables, lengths, layer, scale=scale)),
+               time_ms(lambda: K.paged_decode_attention_plain(q, *pools, tables, lengths, layer, scale=scale)),
+               library, bound(nbytes(q, tables, lengths, out) + kv_bytes, 4 * 10 * D * used, "f32"))
+        del pools, new
+        torch.cuda.empty_cache()
 
 
 def serve(engine, tokenizer, images, vision, params, *, n_slots, max_len, chunk):
@@ -500,14 +665,18 @@ def serve(engine, tokenizer, images, vision, params, *, n_slots, max_len, chunk)
 
 
 def serving_phase(torch, K, phase, engine, *, n_requests, n_slots, max_new, required,
-                  warmup=True, profile=False):
-    """Phases 4-4g: n_requests requests of max_new tokens through
+                  warmup=True, profile=False, unused=(), same_as=None):
+    """Phases 4-4h: n_requests requests of max_new tokens through
     ContinuousScheduler over n_slots; the launch counters are zeroed just
-    before and read just after, and every kernel in `required` must have
-    launched. With `profile`, profile_phase follows on the page's packet."""
+    before and read just after, every kernel in `required` must have
+    launched and none in `unused`. A paged burst also reports its pool and,
+    against `same_as` (another burst's tokens), how many requests gave the
+    same tokens. With `profile`, profile_phase follows on the page's packet.
+    → (launch counts, tokens per request)."""
     import numpy as np
 
     from dsocr_tpu_torch.core import DecodeParameters, VisionSettings
+    from dsocr_tpu_torch.runtime.paged import PagedSlotCache
 
     # the benchmark page: a seeded random page at sample_1.png's size
     image = np.random.default_rng(0).integers(0, 256, size=(1756, 2852, 3), dtype=np.uint8)
@@ -546,6 +715,23 @@ def serving_phase(torch, K, phase, engine, *, n_requests, n_slots, max_new, requ
         "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
         "occupancy_per_chunk": sched.batch_sizes, "launches": launches,
     }
+    cache = sched._state.cache
+    if isinstance(cache, PagedSlotCache):
+        lang = engine.cfg.language
+        per_token = lang.num_hidden_layers * lang.resolved_kv_heads * (
+            (lang.head_dim + lang.resolved_v_head_dim) * cache.k.element_size()
+            + (8 if cache.k_scale is not None else 0))
+        pages_per_row = -(-max(s_pad, len(tokens) + max_new) // cache.page_size)
+        line.update(pool_pages=cache.n_pages, page_size=cache.page_size,
+                    pool_bytes=nbytes(cache.k, cache.v, cache.k_scale, cache.v_scale),
+                    contiguous_cache_bytes=n_slots * max_len * per_token,
+                    rows_the_pool_holds=cache.n_pages // pages_per_row,
+                    max_occupancy=max(sched.batch_sizes),
+                    pages_free_after=sched._runner.allocator.free_count)
+        require(line["max_occupancy"] <= line["rows_the_pool_holds"], "more rows than the pool holds")
+        require(line["pages_free_after"] == cache.n_pages, "pages were not returned")
+    if same_as is not None:
+        line["requests_equal_to_contiguous_burst"] = sum(a == b for a, b in zip(generated, same_as))
     # one more prefill to read the logits of the path (outside the window)
     pre = engine.prefill_for_slot(tok, PROMPT, [image], vision)
     line["logits_finite"] = bool(torch.isfinite(pre["logits"]).all())
@@ -558,9 +744,11 @@ def serving_phase(torch, K, phase, engine, *, n_requests, n_slots, max_new, requ
     require(line["logits_finite"], "non-finite logits")
     for name in required:
         require(launches[name] > 0, f"kernel {name} was not launched in the {phase} burst")
+    for name in unused:
+        require(launches[name] == 0, f"kernel {name} was launched in the {phase} burst")
     if profile:
-        profile_phase(torch, K, engine, pre)
-    return launches
+        profile_phase(torch, K, engine, pre, paged=isinstance(cache, PagedSlotCache))
+    return launches, generated
 
 
 def wrapper_host_ms(K, fn) -> float:
@@ -612,12 +800,13 @@ def traced(torch, fn, n_calls: int):
             [[e.key[:60], e.count / n_calls, device_us(e) / 1e3 / n_calls] for e in top])
 
 
-def profile_phase(torch, K, engine, pre):
+def profile_phase(torch, K, engine, pre, paged=False):
     """Where the time goes at 16 rows in the engine's weight format:
     a prefill wave (16 rows × 1024 seeded embeddings through the decoder,
     host clock around synchronized work, median of 3 after a warm-up) and
     decode steps (the page's packet joined into 16 slots that never end,
-    SlotRunner.run_chunk, greedy with the 20-gram ban: host ms per step,
+    SlotRunner.run_chunk, or with `paged` a PagedSlotRunner over a pool
+    of 16 × 12 pages, greedy with the 20-gram ban: host ms per step,
     median of 4 windows of 16 steps). Then one wave and 8 steps under
     torch.profiler (device ms, busy share, largest kernels), and 16 steps
     with every kernel wrapper timed on the host: the host ms per step
@@ -650,16 +839,21 @@ def profile_phase(torch, K, engine, pre):
         return (time.perf_counter() - t0) * 1e3 / n_calls
 
     wave()
-    line = {"phase": "profile", "quantize": engine.quantize,
+    line = {"phase": "profile", "quantize": engine.quantize, "paged": paged,
             "prefill_wave_ms": statistics.median(host_ms(wave, 1) for _ in range(3))}
     line["prefill_device_ms"], _, line["prefill_top"] = traced(torch, wave, 1)
     del embeds
 
     context = 1536  # the 904-token prompt and every step below
-    runner = SlotRunner(engine.slot_step_fn, eos_ids=())
-    state = runner.init_state(engine.new_slot_cache(rows, context), context)
+    if paged:
+        runner, cache = engine.make_paged_slot_runner(rows, context, n_pages=rows * context // 128)
+        runner.eos_ids = ()
+    else:
+        runner, cache = SlotRunner(engine.slot_step_fn, eos_ids=()), engine.new_slot_cache(rows, context)
+    state = runner.init_state(cache, context)
+    budget = context - len(pre["prompt_ids"])  # more than the steps below take
     runner.join_many(state, list(range(rows)), [pre] * rows, [DecodeParameters()] * rows,
-                     [10 ** 6] * rows, [None] * rows)
+                     [budget] * rows, [None] * rows)
     chunk = lambda n: runner.run_chunk(dec, state, n)  # noqa: E731
     chunk(8)
     windows = [host_ms(lambda: chunk(window), window) for _ in range(4)]
@@ -763,6 +957,31 @@ def parity_phase(torch):
                 result[f"{key}_{tier}_launches"] = K.launch_counts()[tier]
                 result[f"{key}_tokens_per_request"] = [len(t) for t in tokens["cuda"]]
                 require(K.launch_counts()[tier] > 0, f"{key}: the {tier} tier did not run on the card")
+    # paged KV + the megafused chain on the Q8_0 config at 4 slots (the
+    # dense tier); a pool of 2 pages holds 2 of the 4 rows, so the third
+    # request waits for pages on the card as on the CPU
+    qcfg = dataclasses.replace(cfg, language=lang32)
+    state = DeepseekOcrEngine(qcfg, dtype=torch.float32, device="cpu", max_seq_len=512,
+                              seed=PARITY_SEED, quantize="q8_0").model.state_dict()
+    for kv_quant, pool in ((None, None), ("int8", None), (None, "2")):
+        pool_env = {"DSOCR_POOL_PAGES": pool} if pool else {}
+        with environ(DSOCR_PAGED_KV="1", DSOCR_Q8_MEGAFUSED="1", **pool_env):
+            tokens = {}
+            for device in ("cpu", "cuda"):
+                eng = DeepseekOcrEngine(qcfg, dtype=torch.float32, device=device, max_seq_len=512,
+                                        kv_quant=kv_quant, state=state, quantize="q8_0")
+                K.reset_launches()
+                outs, sched = serve(eng, TinyTokenizer(), images, vision, params,
+                                    n_slots=4, max_len=256, chunk=8)
+                tokens[device] = [o.generated_tokens for o in outs]
+        key = f"q8_paged_4slots_{kv_quant or 'f32'}" + (f"_pool{pool}" if pool else "")
+        counts = K.launch_counts()
+        result[f"{key}_equal"] = tokens["cpu"] == tokens["cuda"]
+        result[f"{key}_launches"] = {name: counts[name] for name in
+                                     ("q8_moe_megafused", "paged_kv_update", "paged_decode_attention")}
+        result[f"{key}_max_occupancy"] = max(sched.batch_sizes)
+        require(all(result[f"{key}_launches"].values()), f"{key}: a paged or megafused kernel did not run")
+        require(not pool or max(sched.batch_sizes) <= int(pool), f"{key}: more rows than the pool holds")
     emit(result)
     require(all(v for k, v in result.items() if k.endswith("_equal")), "CUDA and CPU greedy tokens differ")
 
@@ -793,22 +1012,31 @@ def main() -> int:
           "load_s": time.perf_counter() - t0, "library": os.path.relpath(_lib.build_info["path"], HERE)})
 
     cases = check_kernels(torch, K)
-    attention = ["sam_flash_attention", "flash_prefill_attention", "slot_kv_update",
-                 "slot_decode_attention"]
+    slot = ["slot_kv_update", "slot_decode_attention"]
+    attention = ["sam_flash_attention", "flash_prefill_attention"] + slot
     engine = full_width_engine(torch)
     bursts = [serving_phase(torch, K, "serve", engine, n_requests=N_REQUESTS, n_slots=N_SLOTS,
-                            max_new=MAX_NEW, required=attention, profile=True)]
+                            max_new=MAX_NEW, required=attention, profile=True)[0]]
     del engine
     gc.collect()
     torch.cuda.empty_cache()
     engine = full_width_engine(torch, quantize="q8_0")
-    bursts.append(serving_phase(
+    sweep = ["q8_dense_experts", "q8_dense_experts_perx"]
+    launches, q8_tokens = serving_phase(
         torch, K, "serve_q8", engine, n_requests=N_REQUESTS, n_slots=N_SLOTS, max_new=MAX_NEW,
-        required=attention + ["q8_matmul", "q8_dense_experts", "q8_dense_experts_perx"],
-        profile=True))
+        required=attention + ["q8_matmul"] + sweep, profile=True)
+    bursts.append(launches)
     bursts.append(serving_phase(
         torch, K, "serve_q8_gather", engine, n_requests=4, n_slots=4, max_new=32,
-        required=["q8_gather_matmul"], warmup=False))
+        required=["q8_gather_matmul"], warmup=False)[0])
+    # the same engine with a shared page pool that holds 12 of the 16 rows
+    # (9 pages each of 108) and the megafused expert chain
+    with environ(DSOCR_PAGED_KV="1", DSOCR_Q8_MEGAFUSED="1", DSOCR_POOL_PAGES="108"):
+        bursts.append(serving_phase(
+            torch, K, "serve_q8_paged", engine, n_requests=N_REQUESTS, n_slots=N_SLOTS,
+            max_new=MAX_NEW, required=["paged_kv_update", "paged_decode_attention",
+                                       "q8_moe_megafused", "q8_matmul"],
+            unused=slot + sweep, warmup=False, profile=True, same_as=q8_tokens)[0])
     del engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -816,10 +1044,10 @@ def main() -> int:
     bursts.append(serving_phase(
         torch, K, "serve_q4k", engine, n_requests=N_REQUESTS, n_slots=N_SLOTS, max_new=MAX_NEW,
         required=attention + ["q4k_matmul", "q4k_dense_experts", "q8_dense_experts_perx"],
-        profile=True))
+        profile=True)[0])
     bursts.append(serving_phase(
         torch, K, "serve_q4k_gather", engine, n_requests=4, n_slots=4, max_new=32,
-        required=["q4k_gather_matmul", "q8_gather_matmul"], warmup=False))
+        required=["q4k_gather_matmul", "q8_gather_matmul"], warmup=False)[0])
     del engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -827,10 +1055,10 @@ def main() -> int:
     bursts.append(serving_phase(
         torch, K, "serve_q6k", engine, n_requests=N_REQUESTS, n_slots=N_SLOTS, max_new=MAX_NEW,
         required=attention + ["q6k_matmul", "q6k_dense_experts", "q8_dense_experts_perx"],
-        profile=True))
+        profile=True)[0])
     bursts.append(serving_phase(
         torch, K, "serve_q6k_gather", engine, n_requests=4, n_slots=4, max_new=32,
-        required=["q6k_gather_matmul", "q8_gather_matmul"], warmup=False))
+        required=["q6k_gather_matmul", "q8_gather_matmul"], warmup=False)[0])
     del engine
     gc.collect()
     torch.cuda.empty_cache()

@@ -25,8 +25,12 @@ Two modes, as the slice needs:
   prompt's own K/V through ``flash_prefill_attention``; returns the
   last-position logits and the [L, B, NKV, S, D] K/V stacks.
 - ``slot_step``: one token per row; row r's K/V is written at
-  ``row_lengths[r]`` of the slot cache (in place) and attends
-  ``[0, row_lengths[r]]`` through the slot kernels.
+  ``row_lengths[r]`` of the cache (in place) and attends
+  ``[0, row_lengths[r]]``: through the slot kernels on a contiguous
+  SlotCache, through the paged kernels and the row's page table on a
+  PagedSlotCache (the reference's ``page_tables`` branch, decoder.py
+  :244-252, :324-381, :403-429: the new token quantized for an int8
+  pool, q attending in f32).
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from ...ops import (
     MoeConfig,
     moe_apply_fused,
     moe_router,
+    paged_kv_write_attend,
     partial_rope,
     project,
     rms_norm,
@@ -51,6 +56,7 @@ from ...ops import (
 from ...ops.kernels import flash_prefill_attention
 from ...ops.linear import HOLDERS, Packed
 from ...ops.moe import dequant_stack, is_quantized, moe_apply_quant_fused
+from ...runtime.paged import PagedSlotCache
 from .config import DeepseekV2Config
 from .quantize import packed_kind
 from .sam import normal_, param
@@ -314,19 +320,26 @@ class DeepseekDecoder(nn.Module):
         embeds: torch.Tensor,  # [B, 1, H]
         positions: torch.Tensor,  # [B, 1]
         rope: Tuple[torch.Tensor, torch.Tensor],
-        cache,  # SlotCache: k/v [L, B, NKV, S_max, D], optional scales — updated in place
+        cache,  # SlotCache or PagedSlotCache, optional scales — updated in place
     ) -> torch.Tensor:
         """One token per row → logits [B, V] f32; row r's K/V lands at
         cache.lengths[r] (lengths are NOT bumped here)."""
         cos = rope[0][positions][:, None]
         sin = rope[1][positions][:, None]
         scale = self.cfg.head_dim ** -0.5
+        paged = isinstance(cache, PagedSlotCache)
         x = embeds
         for li, layer in enumerate(self.layers()):
             q, k, v = self._qkv(x, layer, cos, sin)
-            attn = slot_kv_write_attend(
-                q, k, v, cache.k, cache.v, cache.k_scale, cache.v_scale, li,
-                cache.lengths, scale,
-            )
+            if paged:
+                attn = paged_kv_write_attend(
+                    q, k, v, cache.k, cache.v, cache.k_scale, cache.v_scale, cache.tables, li,
+                    cache.lengths, scale,
+                )
+            else:
+                attn = slot_kv_write_attend(
+                    q, k, v, cache.k, cache.v, cache.k_scale, cache.v_scale, li,
+                    cache.lengths, scale,
+                )
             x = self._mlp(self._residual_attn(x, attn, layer), layer)
         return self._logits(x, None)

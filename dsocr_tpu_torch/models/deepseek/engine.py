@@ -5,8 +5,9 @@ the prompt rows → slot decode under runtime.slots.SlotRunner.
 
 Only the continuous-batching surface is ported: prepare_vision_input,
 compute_image_embedding, build_prompt_tokens, slot_step_fn,
-new_slot_cache, make_slot_runner, prefill_for_slot and
-prefill_for_slots. ``quantize="q8_0"``, ``"q4_k"`` or ``"q6_k"`` serves
+new_slot_cache, make_slot_runner, the paged pair slot_step_fn_paged and
+make_paged_slot_runner (a shared KV page pool; no mesh branch),
+prefill_for_slot and prefill_for_slots. ``quantize="q8_0"``, ``"q4_k"`` or ``"q6_k"`` serves
 packed decoder weights (models/deepseek/quantize.py), packed on the device. Views are
 batched through the towers (4 global views or 16 tiles per call) the way
 the reference batches them; the reference's host-link tricks (sparse or
@@ -17,6 +18,7 @@ over.
 from __future__ import annotations
 
 import dataclasses
+import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -27,6 +29,7 @@ import torch.nn as nn
 from ...core.device import select_device
 from ...image import PreprocessParams, build_global_view_with_box, dynamic_preprocess
 from ...ops.rope import build_rope_tables
+from ...runtime.paged import PageAllocator, PagedSlotCache, PagedSlotRunner, new_page_pool
 from ...runtime.slots import SlotCache, SlotRunner, alloc_slot_cache
 from .clip import ClipEncoder
 from .config import DeepseekOcrConfig
@@ -238,6 +241,34 @@ class DeepseekOcrEngine:
     def make_slot_runner(self) -> SlotRunner:
         eos = self.cfg.language.eos_token_id
         return SlotRunner(self.slot_step_fn, eos_ids=(eos,) if eos is not None else ())
+
+    # -- paged slot surface (a shared page pool instead of per-slot rows) -------
+
+    # the decoder's slot step branches on the cache type, so the paged step
+    # is the same function
+    slot_step_fn_paged = slot_step_fn
+
+    def make_paged_slot_runner(self, n_slots: int, max_len: int, page_size: Optional[int] = None,
+                               n_pages: Optional[int] = None
+                               ) -> Tuple[PagedSlotRunner, PagedSlotCache]:
+        """(runner, cache) for paged continuous batching. The page size
+        defaults to DSOCR_PAGE_SIZE (128), the pool to DSOCR_POOL_PAGES
+        (n_slots × ceil(max_len / page), the worst case); a smaller pool
+        holds fewer rows at once, and the allocator refuses a join that
+        would not fit (MemoryError)."""
+        lang = self.cfg.language
+        page_size = page_size or int(os.environ.get("DSOCR_PAGE_SIZE", "128"))
+        p_max = -(-max_len // page_size)
+        n_pages = n_pages or int(os.environ.get("DSOCR_POOL_PAGES", str(n_slots * p_max)))
+        cache = new_page_pool(
+            lang.num_hidden_layers, n_pages, lang.resolved_kv_heads, lang.head_dim,
+            lang.resolved_v_head_dim, page_size, n_slots, p_max, self.dtype, self.kv_quant,
+            self.device,
+        )
+        eos = lang.eos_token_id
+        runner = PagedSlotRunner(self.slot_step_fn_paged, eos_ids=(eos,) if eos is not None else (),
+                                 allocator=PageAllocator(n_pages))
+        return runner, cache
 
     def prefill_for_slot(self, tokenizer, prompt, images, vision) -> dict:
         """Vision + prompt + one-row prefill → a join packet."""

@@ -11,6 +11,7 @@ from .attention import (
     attention,
     attention_kv_int8,
     causal_mask,
+    paged_kv_write_attend,
     quantize_kv_int8,
     repeat_kv,
     slot_kv_write_attend,
@@ -34,6 +35,7 @@ __all__ = [
     "mla_interleave_regroup",
     "moe_apply_fused",
     "moe_router",
+    "paged_kv_write_attend",
     "partial_rope",
     "project",
     "quantize_kv_int8",

@@ -1,5 +1,7 @@
 """Scaled dot-product attention with GQA, the int8 KV quantizer, and the
-slot-mode KV write + attend (dsocr_tpu/ops/attention.py).
+slot-mode KV write + attend over the contiguous slot cache or the paged
+pool (dsocr_tpu/ops/attention.py; the paged branch of
+dsocr_tpu/models/deepseek/decoder.py).
 
 Scores and softmax run in f32 and the value sum accumulates in f32; the
 output is cast to q's dtype.
@@ -86,6 +88,18 @@ def attention_kv_int8(
     return out.reshape(B, NH, Sq, Dv).transpose(1, 2).reshape(B, Sq, NH * Dv).to(q.dtype)
 
 
+def _new_kv(k: torch.Tensor, v: torch.Tensor, kv_dtype: torch.dtype, quant: bool):
+    """The new token's (k, v, k scale, v scale) as the cache stores them:
+    [B, H_kv, D] codes and [B, H_kv] scales for an int8 cache, else the
+    cache dtype and no scales."""
+    if quant:
+        k_q, k_s = quantize_kv_int8(k)
+        v_q, v_s = quantize_kv_int8(v)
+        return (k_q[:, :, 0].contiguous(), v_q[:, :, 0].contiguous(),
+                k_s[:, :, 0].contiguous(), v_s[:, :, 0].contiguous())
+    return k[:, :, 0].to(kv_dtype).contiguous(), v[:, :, 0].to(kv_dtype).contiguous(), None, None
+
+
 def slot_kv_write_attend(
     q: torch.Tensor,  # [B, NH, 1, D]
     k: torch.Tensor,  # [B, H_kv, 1, D] new token K (model dtype)
@@ -109,22 +123,35 @@ def slot_kv_write_attend(
 
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
-    if ks_all is not None:
-        k_q, k_s = quantize_kv_int8(k)
-        v_q, v_s = quantize_kv_int8(v)
-        slot_kv_update(
-            k_all, v_all, ks_all, vs_all,
-            k_q[:, :, 0].contiguous(), v_q[:, :, 0].contiguous(),
-            k_s[:, :, 0].contiguous(), v_s[:, :, 0].contiguous(),
-            layer, row_lengths,
-        )
-    else:
-        slot_kv_update(
-            k_all, v_all, None, None,
-            k[:, :, 0].to(k_all.dtype).contiguous(),
-            v[:, :, 0].to(v_all.dtype).contiguous(),
-            None, None, layer, row_lengths,
-        )
+    new = _new_kv(k, v, k_all.dtype, ks_all is not None)
+    slot_kv_update(k_all, v_all, ks_all, vs_all, *new, layer, row_lengths)
     return slot_decode_attention(
         q.contiguous(), k_all, v_all, ks_all, vs_all, layer, row_lengths, scale=scale
     )
+
+
+def paged_kv_write_attend(
+    q: torch.Tensor,  # [B, NH, 1, D]
+    k: torch.Tensor,  # [B, H_kv, 1, D] new token K (model dtype)
+    v: torch.Tensor,  # [B, H_kv, 1, Dv]
+    k_pool: torch.Tensor,  # [L, P, H_kv, page, D] int8 codes or model dtype
+    v_pool: torch.Tensor,
+    ks_pool: Optional[torch.Tensor],  # [L, P, H_kv, page] f32 scales or None
+    vs_pool: Optional[torch.Tensor],
+    tables: torch.Tensor,  # [B, P_max] int32 page ids
+    layer: int,
+    row_lengths: torch.Tensor,  # [B] int32 per-row write positions
+    scale: float,
+) -> torch.Tensor:
+    """The paged counterpart of slot_kv_write_attend: write row r's new K/V
+    at position row_lengths[r] through its page table (in place), then
+    attend [0, row_lengths[r]] → [B, 1, NH*Dv] in q's dtype. As in the
+    reference, the attend takes q in f32 and returns f32. Both steps go
+    through the paged kernels (ops/kernels/paged_attention.py)."""
+    from .kernels import paged_decode_attention, paged_kv_update
+
+    new = _new_kv(k, v, k_pool.dtype, ks_pool is not None)
+    paged_kv_update(k_pool, v_pool, ks_pool, vs_pool, *new, tables, row_lengths, layer)
+    ctx = paged_decode_attention(q[:, :, 0].float().contiguous(), k_pool, v_pool, ks_pool,
+                                 vs_pool, tables, row_lengths, layer, scale=scale)
+    return ctx[:, None].to(q.dtype)

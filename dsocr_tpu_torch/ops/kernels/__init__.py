@@ -16,6 +16,8 @@ from .dequant_matmul import (
     q8_gather_matmul_plain,
     q8_matmul,
     q8_matmul_plain,
+    q8_moe_megafused,
+    q8_moe_megafused_plain,
 )
 from .kquant_matmul import (
     q4k_dense_experts,
@@ -35,6 +37,12 @@ from .kquant_matmul import (
     q6k_matmul,
     q6k_matmul_plain,
 )
+from .paged_attention import (
+    paged_decode_attention,
+    paged_decode_attention_plain,
+    paged_kv_update,
+    paged_kv_update_plain,
+)
 from .prefill_attention import flash_prefill_attention, flash_prefill_attention_plain
 from .sam_attention import sam_flash_attention, sam_flash_attention_plain
 from .slot_attention import (
@@ -46,6 +54,7 @@ from .slot_attention import (
 
 _DQ = "dsocr_tpu/ops/pallas/dequant_matmul.py"
 _KQ = "dsocr_tpu/ops/pallas/kquant_matmul.py"
+_PA = "dsocr_tpu/ops/pallas/paged_attention.py"
 
 # (wrapper, source, replaced TPU kernels' pallas_call sites)
 KERNELS = (
@@ -81,6 +90,10 @@ KERNELS = (
      f"{_KQ}:982 (q6k_dense_experts_layered)"),
     (q6k_dense_experts_perx, "dsocr_tpu_torch/csrc/kquant_matmul.cu",
      f"{_KQ}:1025 (q6k_dense_experts_perx_layered)"),
+    (q8_moe_megafused, "dsocr_tpu_torch/csrc/moe_megafused.cu",
+     f"{_DQ}:669 (q8_moe_megafused_layered)"),
+    (paged_kv_update, "dsocr_tpu_torch/csrc/paged_attention.cu", f"{_PA}:312"),
+    (paged_decode_attention, "dsocr_tpu_torch/csrc/paged_attention.cu", f"{_PA}:158"),
 )
 
 
@@ -98,6 +111,10 @@ __all__ = [
     "flash_prefill_attention",
     "flash_prefill_attention_plain",
     "launch_counts",
+    "paged_decode_attention",
+    "paged_decode_attention_plain",
+    "paged_kv_update",
+    "paged_kv_update_plain",
     "q4k_dense_experts",
     "q4k_dense_experts_perx",
     "q4k_dense_experts_perx_plain",
@@ -122,6 +139,8 @@ __all__ = [
     "q8_gather_matmul_plain",
     "q8_matmul",
     "q8_matmul_plain",
+    "q8_moe_megafused",
+    "q8_moe_megafused_plain",
     "reset_launches",
     "sam_flash_attention",
     "sam_flash_attention_plain",

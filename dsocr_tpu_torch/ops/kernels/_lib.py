@@ -1,7 +1,8 @@
 """Build and bind the hand-written CUDA kernels (``csrc/*.cu``).
 
-All sources compile with nvcc into ONE shared library with a plain C
-interface, at first use, into ``dsocr_tpu_torch/_build/`` (git-ignored).
+Each source compiles with its own nvcc, all started together, and the
+objects link into ONE shared library with a plain C interface, at first
+use, into ``dsocr_tpu_torch/_build/`` (git-ignored).
 The file name carries a hash of the sources and flags, so an edited
 source rebuilds and an unchanged one loads the cached library. The
 library is bound with ctypes: every pointer and the stream travel as
@@ -32,7 +33,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 # dtype codes shared with csrc/common.cuh
@@ -44,8 +45,11 @@ _SIGNATURES = {
     "dsocr_flash_prefill_attention": [_P] * 5 + [_I] * 6 + [_F, _I, _P],
     "dsocr_slot_kv_update": [_P] * 9 + [_I] * 6 + [_P],
     "dsocr_slot_decode_attention": [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P],
+    "dsocr_paged_kv_update": [_P] * 10 + [_I] * 8 + [_P],
+    "dsocr_paged_decode_attention": [_P] * 8 + [_I] * 8 + [_F, _I, _P],
     "dsocr_q8_matmul": [_P] * 4 + [_I] * 4 + [_P],
     "dsocr_q8_expert_matmul": [_P] * 5 + [_I] * 5 + [_L, _I, _P],
+    "dsocr_q8_moe_megafused": [_P] * 8 + [_I] * 5 + [_P],
     "dsocr_q4k_matmul": [_P] * 5 + [_I] * 4 + [_P],
     "dsocr_q4k_expert_matmul": [_P] * 6 + [_I] * 5 + [_L, _I, _P],
     "dsocr_q6k_matmul": [_P] * 5 + [_I] * 4 + [_P],
@@ -91,15 +95,40 @@ def build() -> pathlib.Path:
             build_info.update(path=str(out), nvcc_s=0.0)
             return out
         cu, _ = _sources()
+        nvcc = _nvcc()
         tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
+        objs = [out.with_suffix(f".{src.stem}.tmp{os.getpid()}.o") for src in cu]
+        # a log file per nvcc (no pipe to fill), beside the objects
+        logs = [open(obj.with_suffix(".log"), "w+") for obj in objs]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                             stdout=log, stderr=subprocess.STDOUT)
+            for src, obj, log in zip(cu, objs, logs)
+        ]
+        try:
+            failed = []
+            for src, proc, log in zip(cu, procs, logs):
+                if proc.wait() != 0:
+                    log.seek(0)
+                    failed.append(f"{src.name} ({proc.returncode}):\n{log.read()}")
+            if failed:
+                raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+            link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                                  capture_output=True, text=True)
+            if link.returncode != 0:
+                raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}{link.stderr}")
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            for obj, log in zip(objs, logs):
+                obj.unlink(missing_ok=True)
+                log.close()
+                os.unlink(log.name)
         os.replace(tmp, out)
-        build_info.update(path=str(out), nvcc_s=seconds)
+        build_info.update(path=str(out), nvcc_s=time.perf_counter() - t0)
         return out
 
 

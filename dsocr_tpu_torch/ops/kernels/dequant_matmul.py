@@ -1,9 +1,10 @@
 """Fused dequantize-matmul over packed Q8_0 weights.
 
-Four wrappers over two CUDA kernels (csrc/dequant_matmul.cu) serve the
-six Q8_0 Pallas functions of dsocr_tpu/ops/pallas/dequant_matmul.py that
-the packed serving path reaches (a torch view of ``W[layer]`` costs no
-copy, so one kernel serves a function and its ``_layered`` twin):
+Five wrappers over the CUDA kernels of csrc/dequant_matmul.cu and
+csrc/moe_megafused.cu serve the seven Q8_0 Pallas functions of
+dsocr_tpu/ops/pallas/dequant_matmul.py that the packed serving path
+reaches (a torch view of ``W[layer]`` costs no copy, so one kernel serves
+a function and its ``_layered`` twin):
 
 - ``q8_matmul`` ← q8_matmul (:151) and q8_matmul_layered (:282). Row
   layout, codes [M, K], scales [M, K/32]: the plain projections (qkv
@@ -18,6 +19,10 @@ copy, so one kernel serves a function and its ``_layered`` twin):
   ``out[e] = x @ W[e]`` → [E, N, M]; expert gate+up once N·top_k > E.
 - ``q8_dense_experts_perx`` ← q8_dense_experts_perx_layered (:495):
   ``out[e] = x[e] @ W[e]``; the down projection of that sweep.
+- ``q8_moe_megafused`` ← q8_moe_megafused_layered (:629), in
+  csrc/moe_megafused.cu: the dense tier's whole expert chain in one
+  kernel, ``out[n] = Σ_e w[e, n] · (silu(x@Wg[e]) · (x@Wu[e])) @ Wd[e]``,
+  under ``DSOCR_Q8_MEGAFUSED=1`` (ops/moe.py).
 
 Numerics are the reference's ("fast" expand mode): the weight is
 bf16(f32(code) · scale), rounded once per element; the activation is
@@ -38,12 +43,23 @@ What bounds them on the H100:
   ``q8_matmul`` tiles 64 × 64 outputs per block, stages bf16(x) and the
   dequantized W tile in shared memory 64 K-values (two Q8 blocks) at a
   time and multiplies them with WMMA; a 16-row tile serves N ≤ 16.
+- the megafused chain is device-memory bytes too: one MoE layer's
+  gate+up and down codes and scales, 146.8 + 18.4 + 73.4 + 9.2 ≈ 248 MB,
+  ≥ 0.074 ms at 3.35 TB/s, against the two-kernel sweep's extra [E, N,
+  2·MI] and [E, N, H] f32 round trips and its combine. A cluster of two
+  blocks serves one expert (128 blocks on 132 SMs); each streams 64-row
+  code tiles through a 5-stage cp.async ring, so one block keeps ~45 KB
+  in flight, and the pair trades its halves of inter through distributed
+  shared memory. Per-expert f32 partials [E, N, H] (5.2 MB at full width)
+  are summed in expert order by a second small kernel: two launches on the
+  same inputs give the same bits.
 Neither uses wgmma or TMA yet (ROADMAP Queue 4).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ...dsq.serve_quant import Q8_BLOCK
 from . import _lib
@@ -79,6 +95,19 @@ def q8_dense_experts_plain(x, codes, scales):
 
 def q8_dense_experts_perx_plain(x, codes, scales):
     return torch.matmul(_bf16(x), _dequant_inmajor(codes, scales))
+
+
+def q8_moe_megafused_plain(x, weights, gu_codes, gu_scales, dn_codes, dn_scales):
+    """The reference's chain and roundings: bf16(x), f32 gate+up, bf16
+    inter, f32 down, weighted and summed over experts in expert order."""
+    gus = torch.matmul(_bf16(x)[None], _dequant_inmajor(gu_codes, gu_scales))  # [E, N, 2MI]
+    gate, up = torch.chunk(gus, 2, dim=-1)
+    inter = _bf16(F.silu(gate) * up)
+    dn = torch.matmul(inter, _dequant_inmajor(dn_codes, dn_scales))  # [E, N, H]
+    out = torch.zeros_like(dn[0])
+    for e in range(dn.shape[0]):
+        out = out + weights[e][:, None].float() * dn[e]
+    return out
 
 
 def _check_x(name, x, K):
@@ -196,3 +225,44 @@ def q8_dense_experts_perx(x, codes, scales):
 
 
 q8_dense_experts_perx.launches = 0
+
+
+def q8_moe_megafused(x, weights, gu_codes, gu_scales, dn_codes, dn_scales):
+    """out[n] = Σ_e weights[e, n] · (silu(x@Wg[e]) · (x@Wu[e])) @ Wd[e] →
+    [N, H] f32. x [N, H] (f32 or bf16, rounded to bf16), weights [E, N]
+    f32 (0 where unrouted), gate+up codes [E, H, 2·MI] int8 and scales
+    [E, H/32, 2·MI] f32 (gate columns first), down codes [E, MI, H] and
+    scales [E, MI/32, H]; N ≤ 32."""
+    if x.device.type == "cpu":
+        return q8_moe_megafused_plain(x, weights, gu_codes, gu_scales, dn_codes, dn_scales)
+    name = "q8_moe_megafused"
+    _lib.require_cuda(name, x, weights, gu_codes, gu_scales, dn_codes, dn_scales)
+    if x.dim() != 2 or gu_codes.dim() != 3:
+        raise ValueError(f"{name}: x must be [N, H] and the stacks [E, K, M]")
+    N, H = x.shape
+    E, _, MI2 = gu_codes.shape
+    MI = MI2 // 2
+    _check_x(name, x, H)
+    _check_packed(name, gu_codes, gu_scales, (E, H, MI2), (E, H // Q8_BLOCK, MI2))
+    if MI2 % 2 or MI % Q8_BLOCK:
+        raise ValueError(f"{name}: the intermediate size {MI} must be a multiple of 32")
+    _check_packed(name, dn_codes, dn_scales, (E, MI, H), (E, MI // Q8_BLOCK, H))
+    if weights.shape != (E, N) or weights.dtype != torch.float32:
+        raise ValueError(f"{name}: weights must be [E, N] = [{E}, {N}] f32")
+    if N > 32:
+        raise ValueError(f"{name}: N = {N} rows; the kernel takes at most 32")
+    out = torch.empty((N, H), dtype=torch.float32, device=x.device)
+    if N == 0:
+        return out
+    partial = torch.empty((E, N, H), dtype=torch.float32, device=x.device)
+    err = _lib.lib().dsocr_q8_moe_megafused(
+        x.data_ptr(), weights.data_ptr(), gu_codes.data_ptr(), gu_scales.data_ptr(),
+        dn_codes.data_ptr(), dn_scales.data_ptr(), partial.data_ptr(), out.data_ptr(),
+        N, H, MI, E, _lib.DTYPE_CODES[x.dtype], _lib.stream_ptr(x),
+    )
+    _lib.check(err, name)
+    _lib.count_launch(q8_moe_megafused)
+    return out
+
+
+q8_moe_megafused.launches = 0

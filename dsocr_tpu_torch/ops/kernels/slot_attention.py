@@ -12,7 +12,9 @@ attend reads each row's used K/V once and does 4 FLOPs per byte of bf16
 (2 per byte of int8): at 16 rows × ~1.8k tokens it reads ~74 MB of int8
 KV per layer, ~22 µs at the card's 3.35 TB/s.
 
-What the design does (csrc/slot_attention.cu):
+What the design does (csrc/slot_attention.cu over the bodies in
+csrc/kv_attention.cuh, which the paged kernels share; only the map from a
+row's position to a cache row differs):
 
 - ``slot_kv_update``: grid (B, NKV), one thread per element of D,
   writes row b's token at ``lengths[b]`` of the layer IN PLACE on the

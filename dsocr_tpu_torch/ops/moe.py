@@ -1,7 +1,7 @@
 """Mixture-of-experts routing, the fused float expert tiers and the packed
 decode tiers (dsocr_tpu/ops/moe.py: moe_router, moe_apply_fused,
-dequant_stack, moe_apply_q8_fused and moe_apply_quant_fused; the port has
-no megafused Q8_0 branch, so one function serves both of the latter).
+dequant_stack, moe_apply_q8_fused with its megafused branch, and
+moe_apply_quant_fused; one function serves both of the latter).
 
 Expert stacks keep the reference layout: gate+up fused along the output
 dim, [E, hidden, 2*inter], and down [E, inter, hidden]. Three tiers by
@@ -19,18 +19,23 @@ run at decode through the kernels: the gather tier while N·top_k ≤ E, the
 dense all-expert sweep above that. Each projection runs its own format's
 kernel, because a group may be mixed: K-quant (Q4_K or Q6_K) gate+up
 with a Q8_0 down whose in dim misses the 256-value super-block
-(DeepSeek's 896); the holder runs it. Prefill dequantizes them to bf16 for the grouped tier.
+(DeepSeek's 896); the holder runs it. With ``DSOCR_Q8_MEGAFUSED=1`` (off
+by default, as in the reference) an all-Q8_0 group's dense tier is one
+``q8_moe_megafused`` call instead; mixed groups keep the sweep. Prefill
+dequantizes the stacks to bf16 for the grouped tier.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional, Tuple
 
 import torch
 
 from .activations import silu
-from .linear import Packed
+from .kernels import q8_moe_megafused
+from .linear import Packed, PackedQ8
 
 
 @dataclasses.dataclass
@@ -157,10 +162,23 @@ def moe_apply_quant_fused(tokens, topk_weights, topk_indices, gateup_q: Packed, 
     N·top_k ≤ E: the gather kernels read only the selected experts, one
     row per selection. Above: every expert once (dense sweep), then the
     selected outputs. The combine is the reference's: f32 outputs times
-    f32 weights, summed over k, then cast."""
+    f32 weights, summed over k, then cast. Under DSOCR_Q8_MEGAFUSED=1 the
+    dense tier of an all-Q8_0 group is the megafused chain, combined over
+    experts by a dense [E, N] routing map (a scatter-add: an expert chosen
+    twice for a token adds its weights)."""
     n, k = topk_indices.shape
     hidden = tokens.shape[1]
-    if n * k > gateup_q.codes.shape[0]:
+    E = gateup_q.codes.shape[0]
+    if (n * k > E and isinstance(gateup_q, PackedQ8) and isinstance(down_q, PackedQ8)
+            and os.environ.get("DSOCR_Q8_MEGAFUSED", "0") == "1"):
+        rows = torch.arange(n, device=tokens.device)[:, None].expand(n, k)
+        w_dense = torch.zeros((E, n), dtype=torch.float32, device=tokens.device)
+        w_dense.index_put_((topk_indices.reshape(-1), rows.reshape(-1)),
+                           topk_weights.reshape(-1).float(), accumulate=True)
+        out = q8_moe_megafused(tokens, w_dense, gateup_q.codes, gateup_q.scales,
+                               down_q.codes, down_q.scales)
+        return out.to(tokens.dtype)
+    if n * k > E:
         gates, ups = _split_gateup(gateup_q.dense(tokens))  # [E, N, I] each
         inter = (silu(gates) * ups).to(tokens.dtype)
         outs = down_q.dense_perx(inter)  # [E, N, H]

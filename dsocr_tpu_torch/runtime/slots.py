@@ -215,10 +215,10 @@ class SlotRunner:
         if row_v.shape[:4] != row_k.shape[:4] or row_k.shape[3] > cache.max_len:
             raise ValueError(f"row KV blocks {tuple(row_k.shape)} exceed slot length {cache.max_len}")
 
-    def _insert(self, state: SlotState, row: int, pre: dict, params, first: int,
-                active: bool, budget: int) -> None:
-        cache = state.cache
-        row_k, row_v = pre["row_k"][:, 0], pre["row_v"][:, 0]  # [L, H, s_pad, D]
+    def _write_row_kv(self, cache: SlotCache, row: int, row_k: torch.Tensor,
+                      row_v: torch.Tensor) -> None:
+        """Copy a prefilled [L, H, s_pad, D] K/V block into row `row`
+        (quantized first for an int8 cache)."""
         s_pad = row_k.shape[2]
         if cache.k_scale is not None:  # int8 cache: quantize the prefilled row
             row_k, k_scale = quantize_kv_int8(row_k)
@@ -227,6 +227,11 @@ class SlotRunner:
             cache.v_scale[:, row, :, :s_pad] = v_scale
         cache.k[:, row, :, :s_pad] = row_k.to(cache.k.dtype)
         cache.v[:, row, :, :s_pad] = row_v.to(cache.v.dtype)
+
+    def _insert(self, state: SlotState, row: int, pre: dict, params, first: int,
+                active: bool, budget: int) -> None:
+        cache = state.cache
+        self._write_row_kv(cache, row, pre["row_k"][:, 0], pre["row_v"][:, 0])
         n = len(pre["prompt_ids"])
         prompt_row = np.zeros(state.context.shape[1], np.int64)
         prompt_row[:n] = pre["prompt_ids"]

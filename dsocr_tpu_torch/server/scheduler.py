@@ -12,14 +12,21 @@ prefill_for_slots):
   row, or one join_many for several), runs a decode chunk, harvests, and
   releases finished rows, resolving their futures.
 
+With ``DSOCR_PAGED_KV=1`` the KV cache is a shared page pool
+(engine.make_paged_slot_runner, runtime/paged.py): a join that finds too
+few free pages while other rows are live waits for their release, as one
+that runs out of device memory does.
+
 Left out against the reference: the prefix cache, device-fault recovery,
-load shedding, speculative chunk dispatch, paged KV and streaming.
+load shedding, speculative chunk dispatch and streaming.
 
 Two faults of the reference are not carried over: a failed join_many
 leaves the slot state untouched (runtime/slots.py), so the per-row retry
 runs against valid state; and an admission that must pause (a join that
 ran out of device memory while other rows are live) keeps every untried
-packet queued, in the batched path as in the per-row path.
+packet queued, in the batched path as in the per-row path (a paged
+join_many that finds too few pages raises before it takes any, so the
+per-row retry admits the rows that fit and defers the rest).
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import collections
 import dataclasses
 import functools
 import logging
+import os
 import time
 from typing import Any, List, Optional, Tuple
 
@@ -136,11 +144,17 @@ class ContinuousScheduler:
             self._worker_task = loop.create_task(self._worker())
 
     def _ensure_state(self) -> None:
-        if self._runner is None:
-            self._runner = self.engine.make_slot_runner()
-        if self._state is None:
+        if self._runner is not None:
+            return
+        if os.environ.get("DSOCR_PAGED_KV") == "1":
+            # a shared page pool + per-row page tables: rows hold pages
+            # for prompt + budget instead of a worst-case [max_len] row
+            runner, cache = self.engine.make_paged_slot_runner(self.n_slots, self.max_len)
+        else:
+            runner = self.engine.make_slot_runner()
             cache = self.engine.new_slot_cache(self.n_slots, self.max_len)
-            self._state = self._runner.init_state(cache, context_len=self.max_len)
+        self._state = runner.init_state(cache, context_len=self.max_len)
+        self._runner = runner
 
     def _free_rows(self) -> List[int]:
         return [r for r, job in enumerate(self._rows) if job is None]
@@ -267,14 +281,16 @@ class ContinuousScheduler:
 
     async def _admit_one(self, loop, row: int, job: _SlotJob, pre: dict) -> bool:
         """Admit one packet into `row`. False means admission must pause:
-        the join ran out of device memory while other rows are live (their
-        release will free it), and the packet was re-deferred."""
+        the join ran out of device memory, or of pool pages, while other
+        rows are live (their release will free it), and the packet was
+        re-deferred. With no row live, nothing will free it: the request
+        fails."""
         try:
             _, finished, _ = await loop.run_in_executor(
                 None, functools.partial(self._runner.join, self._state, row, pre,
                                         job.params, job.max_new, first=job.first)
             )
-        except torch.cuda.OutOfMemoryError as err:
+        except (torch.cuda.OutOfMemoryError, MemoryError) as err:
             if any(j is not None for j in self._rows):
                 self._deferred.append((job, pre))
                 return False
@@ -305,6 +321,10 @@ class ContinuousScheduler:
                     None, self._runner.join_many, self._state, rows, [pre for _, pre in items],
                     [j.params for j in jobs], [j.max_new for j in jobs], [j.first for j in jobs],
                 )
+            except MemoryError as err:
+                # too few pool pages for every row: the per-row joins below
+                # admit the rows that fit and defer the rest
+                logger.info("join of %d rows: %s; admitting per row", len(rows), err)
             except Exception:
                 # join_many raises before touching the state, so each row
                 # can be retried alone: only the bad packet fails

@@ -10,9 +10,12 @@ on a machine that has only PyTorch and the CUDA toolkit:
 
 Tolerances: f32 outputs atol = rtol = 1e-4 (the kernels sum in another
 order than cuBLAS); bf16 outputs one bf16 ulp at the largest magnitude;
-the KV write is bit-exact. The Q8_0, Q4_K and Q6_K matmuls: 1e-5 ·
+the KV writes are bit-exact. The Q8_0, Q4_K and Q6_K matmuls: 1e-5 ·
 max(|bf16 x| @ |W|), f32 reassociation of exact bf16 products; the three
-quantizers are bit-exact with their CPU runs.
+quantizers are bit-exact with their CPU runs. The megafused Q8_0 chain:
+chip_smoke.megafused_tol per element (reassociation, and one bf16 ulp of
+an inter element whose rounding another order could flip), and two
+launches give the same bits.
 """
 
 import numpy as np
@@ -376,3 +379,92 @@ def test_q6k_quantizer_on_card_is_bit_exact_with_cpu(dev):
         want = pack(w, "q6_k")
         for key in ("codes", "highs", "scales"):
             assert torch.equal(got[key].cpu(), want[key]), key
+
+
+# -- paged KV and the megafused Q8_0 expert chain ------------------------------------
+
+
+def _paged_pools(rng, L, P, NKV, page, D, kind, dev):
+    return _slot_caches(rng, L, P, NKV, page, D, kind, dev)  # [L, P, NKV, page(, D)]
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+def test_paged_kv_update_kernel_bit_exact(dev, kind):
+    rng = np.random.default_rng(7)
+    L, P, NKV, page, D, P_max = 3, 9, 2, 16, 128, 2
+    pools = _paged_pools(rng, L, P, NKV, page, D, kind, dev)
+    twins = [None if c is None else c.clone() for c in pools]
+    new = [None if c is None else c[0, :5, :, 3].contiguous() for c in pools]  # [B = 5, NKV(, D)]
+    tables = torch.tensor([[4, 1], [0, 7], [-1, -1], [2, -1], [8, 3]], dtype=torch.int32, device=dev)
+    # a page, the second page, no page, one past the last page, past the table
+    lengths = torch.tensor([3, page + 5, 0, page, page * P_max], dtype=torch.int32, device=dev)
+    before = K.paged_kv_update.launches
+    K.paged_kv_update(*pools, *new, tables, lengths, 1)
+    assert K.paged_kv_update.launches == before + 1
+    K.paged_kv_update_plain(*twins, *new, tables, lengths, 1)
+    for got, want in zip(pools, twins):
+        assert got is None or torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("B,NH,NKV,D,page,P_max", [(5, 10, 10, 128, 128, 3), (4, 8, 2, 16, 8, 5)])
+def test_paged_decode_kernel_matches_twin(dev, kind, B, NH, NKV, D, page, P_max):
+    rng = np.random.default_rng(B * 7 + D)
+    P = B * P_max + 2
+    pools = _paged_pools(rng, 2, P, NKV, page, D, kind, dev)
+    tables = torch.from_numpy(rng.permutation(P)[: B * P_max].reshape(B, P_max).astype(np.int32))
+    tables[1] = -1  # a row that holds no page: zeros
+    lengths = torch.from_numpy(rng.integers(0, page * P_max, size=B).astype(np.int32))
+    lengths[0], lengths[-1] = page * P_max - 1, 0
+    tables, lengths = tables.to(dev), lengths.to(dev)
+    if kind != "int8":  # what no row attends must not reach the output
+        used = torch.zeros(P, page, dtype=torch.bool)
+        for b in range(B):
+            for t in range(int(lengths[b]) + 1):
+                if tables[b, t // page] >= 0:
+                    used[tables[b, t // page], t % page] = True
+        for pool in pools[:2]:
+            pool[1].transpose(1, 2)[~used.to(dev)] = float("nan")  # [P, page, NKV, D]
+    q = _randn(rng, B, NH, D).to(dev)
+    got = K.paged_decode_attention(q, *pools, tables, lengths, 1, scale=D ** -0.5)
+    assert got.dtype == torch.float32 and got.shape == (B, NH * D)
+    assert torch.isfinite(got).all() and torch.equal(got[1], torch.zeros_like(got[1]))
+    _close(got, K.paged_decode_attention_plain(q, *pools, tables, lengths, 1, scale=D ** -0.5))
+
+
+def _megafused_close(got, want, x, w, gu, dn):
+    import chip_smoke
+
+    tol = chip_smoke.megafused_tol(torch, x, w, *gu, *dn)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert bool(((got - want).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,n,h,mi", [(64, 16, 1280, 896), (4, 16, 768, 256), (4, 4, 32, 32),
+                                      (5, 20, 64, 96)])
+def test_q8_megafused_kernel_matches_twin_and_repeats(dev, x_dtype, e, n, h, mi):
+    rng = np.random.default_rng(e + n + h + mi)
+    gu = tuple(t.to(dev) for t in _q8_weights(rng, (e,), h, 2 * mi, True))
+    dn = tuple(t.to(dev) for t in _q8_weights(rng, (e,), mi, h, True))
+    x = _randn(rng, n, h).to(dev, x_dtype)
+    w = torch.from_numpy(rng.random((e, n)).astype(np.float32) * (rng.random((e, n)) < 0.4)).to(dev)
+    before = K.q8_moe_megafused.launches
+    got = K.q8_moe_megafused(x, w, *gu, *dn)
+    again = K.q8_moe_megafused(x, w, *gu, *dn)
+    assert K.q8_moe_megafused.launches == before + 2
+    assert torch.equal(got, again)  # expert order fixed: the same bits every launch
+    _megafused_close(got, K.q8_moe_megafused_plain(x, w, *gu, *dn), x, w, gu, dn)
+
+
+def test_new_wrappers_raise_on_bad_inputs(dev):
+    x = torch.zeros((40, 64), device=dev)  # N > 32
+    gu = tuple(t.to(dev) for t in _q8_weights(np.random.default_rng(0), (2,), 64, 64, True))
+    dn = tuple(t.to(dev) for t in _q8_weights(np.random.default_rng(1), (2,), 32, 64, True))
+    with pytest.raises(ValueError):
+        K.q8_moe_megafused(x, torch.zeros((2, 40), device=dev), *gu, *dn)
+    pools = _paged_pools(np.random.default_rng(2), 1, 3, 2, 8, 16, "f32", dev)
+    q = torch.zeros((2, 4, 16), device=dev, dtype=torch.bfloat16)  # the attend takes f32 q
+    tables = torch.zeros((2, 1), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        K.paged_decode_attention(q, *pools, tables, tables[:, 0], 0, scale=1.0)

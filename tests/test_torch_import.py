@@ -31,6 +31,7 @@ SLICE_MODULES = [
     "dsocr_tpu_torch.ops.kernels.slot_attention",
     "dsocr_tpu_torch.ops.kernels.dequant_matmul",
     "dsocr_tpu_torch.ops.kernels.kquant_matmul",
+    "dsocr_tpu_torch.ops.kernels.paged_attention",
     "dsocr_tpu_torch.dsq",
     "dsocr_tpu_torch.dsq.quant",
     "dsocr_tpu_torch.dsq.serve_quant",
@@ -45,6 +46,7 @@ SLICE_MODULES = [
     "dsocr_tpu_torch.models.deepseek.convert",
     "dsocr_tpu_torch.models.deepseek.quantize",
     "dsocr_tpu_torch.runtime.slots",
+    "dsocr_tpu_torch.runtime.paged",
     "dsocr_tpu_torch.server.scheduler",
 ]
 FORBIDDEN = ["jax", "PIL", "safetensors", "ml_dtypes", "tokenizers", "aiohttp", "triton"]
@@ -116,6 +118,15 @@ _MISPLACED_CALLS = {
     "q6k_dense_experts_perx": lambda K: K.q6k_dense_experts_perx(
         _meta(3, 4, 256), _meta(3, 128, 64, dtype=torch.uint8), _meta(3, 64, 64, dtype=torch.uint8),
         _meta(3, 16, 64)),
+    "q8_moe_megafused": lambda K: K.q8_moe_megafused(
+        _meta(4, 32), _meta(3, 4), _meta(3, 32, 64, dtype=torch.int8), _meta(3, 1, 64),
+        _meta(3, 32, 32, dtype=torch.int8), _meta(3, 1, 32)),
+    "paged_kv_update": lambda K: K.paged_kv_update(
+        _meta(2, 5, 2, 8, 16), _meta(2, 5, 2, 8, 16), None, None, _meta(3, 2, 16), _meta(3, 2, 16),
+        None, None, _meta(3, 2, dtype=torch.int32), _meta(3, dtype=torch.int32), 0),
+    "paged_decode_attention": lambda K: K.paged_decode_attention(
+        _meta(3, 4, 16), _meta(2, 5, 2, 8, 16), _meta(2, 5, 2, 8, 16), None, None,
+        _meta(3, 2, dtype=torch.int32), _meta(3, dtype=torch.int32), 0, scale=0.25),
 }
 
 
