@@ -21,19 +21,36 @@ non-zero (nothing is caught):
             on 8 experts of one; the paged KV write and attend (16 rows of
             ~968 tokens in 9 pages of 128 each, int8 and bf16 pools; the
             library time of the attend is SDPA over the rows' pages gathered
-            outside the timing) and the megafused Q8_0 chain (one MoE layer
+            outside the timing), the megafused Q8_0 chain (one MoE layer
             at 16 rows, tolerance megafused_tol per element, two launches
-            bit-equal, beside it the two-kernel sweep it replaces);
+            bit-equal, beside it the two-kernel sweep it replaces) and
+            gather_matmul (the split layout's expert gather, gate/up and
+            down stacks at 96 and 12 rows, bf16 and f32, two launches
+            bit-equal; library time index_select + bmm);
 4. serve    DeepSeek-OCR v1 at full width (DeepseekOcrConfig(), bf16
             weights from a seeded torch.Generator, int8 KV): 16 requests
             of 128 new tokens through ContinuousScheduler.submit over 16
             slots, 128-step chunks, on a seeded 1756×2852 page in 1024/640
-            crop mode. The launch counters are zeroed just before and read
+            crop mode, after a warm-up of 2 requests × 8 tokens (the
+            process's one: later bursts, each engine's first included, run
+            warm). The launch counters are zeroed just before and read
             just after; every kernel of the bf16 path must have launched.
             Then the profile of that engine at 16 rows (profile_phase):
             a prefill wave and decode steps, their host and device time,
             the largest kernels, and the host time spent in the kernel
             wrappers against the rest of the step;
+    split   the same engine's decoder in the reference's split layout (its
+            state split; fusing it gives the engine's weights) over a
+            contiguous KVCache: the page's 904-token packet prefilled, then
+            32 greedy steps fed the fused decoder's tokens: logits
+            bit-equal to the fused decoder's and the same greedy tokens;
+            then moe_apply(gather_threshold=N), N = 2, 4, 16, at
+            layer 1's experts against the same call on the CPU:
+            gather_matmul must launch;
+    decode  single-request decode, engine.decode of the page with 128 new
+            greedy tokens: prompt tokens, prefill seconds, ms per step,
+            tok/s, peak memory, with the card's name and power limit; for
+            this bf16 engine, and again after 4c for the Q8_0 one;
 4b. serve_q8         the same with packed Q8_0 decoder weights (quantized
             on the card from the same seed): 16 requests × 128 tokens over
             16 slots, 16·6 = 96 selections > 64 experts, so decode runs the
@@ -75,10 +92,16 @@ non-zero (nothing is caught):
             path that reaches q4k_/q6k_dense_experts_perx (DeepSeek's
             full-width down projection is Q8_0); and the Q8_0 config at 4
             slots with paged KV and the megafused chain, f32 and int8 KV,
-            and with a pool of 2 pages, so that a request waits for pages.
+            and with a pool of 2 pages, so that a request waits for pages;
+            and engine.decode with and without the cache, f32 and Q8_0.
+
+Every phase line carries t_s, the script's seconds when it was printed.
+The seeded page's host prep (page_packet) runs once for the script;
+outside the bursts' windows each phase reuses it.
 
 Then a line with the script's total seconds, a {"kernels": [...]} summary
-line (launches: the sum over the eight serving bursts), the nvidia-smi
+line (launches: the sum over the eight serving bursts, the split phase
+and the two decode phases), the nvidia-smi
 line, and last
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
 dsocr_tpu_torch package beside this file, it exits non-zero and prints
@@ -99,6 +122,7 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()
 MAX_NEW = 128
 N_REQUESTS = 16
 N_SLOTS = 16
@@ -160,6 +184,10 @@ def require(cond, message: str) -> None:
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase's line also gets t_s, the script's seconds
+    when it was printed."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -577,6 +605,7 @@ def check_kernels(torch, K):
                time_ms(lambda: K.slot_decode_attention_plain(q, *caches, layer, lengths, scale=scale)),
                library, bound(nbytes(q, lengths, out) + kv_bytes, 4 * 10 * D * used, "bf16"))
     del k_all, v_all, ks_all, vs_all, caches, twins
+    check_gather_matmul(torch, K, record, randn, gen)
     check_paged_kernels(torch, K, record, randn, gen)
     check_q8_kernels(torch, K, record, randn)
     torch.cuda.empty_cache()
@@ -584,6 +613,48 @@ def check_kernels(torch, K):
         check_kquant_kernels(torch, K, record, randn, method)
         torch.cuda.empty_cache()
     return cases
+
+
+def check_gather_matmul(torch, K, record, randn, gen):
+    """Phase 3, gather_matmul: the split layout's expert gather at full
+    width, gate/up [N·6, 1280] × [64, 1280, 896] and down [N·6, 896] ×
+    [64, 896, 1280], for 16 and 2 tokens at top-6 (96 and 12 rows, experts
+    repeated across tokens), bf16 and f32 stacks. Tolerance 1e-5 ·
+    max(|x| @ |W|) (f32 sums in another order); two launches bit-equal.
+    Bound: the distinct selected experts' slabs, each read once, over
+    3.35 TB/s (the line gives the per-row bytes too); library: index_select
+    of the selected slabs and one bmm, which the port never calls."""
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        stacks = {"gateup": randn(64, 1280, 896, dtype=dtype, std=1280 ** -0.5),
+                  "down": randn(64, 896, 1280, dtype=dtype, std=896 ** -0.5)}
+        for rows in (96, 12):
+            logits = randn(rows // 6, 64)
+            idx = torch.topk(logits, 6, dim=-1).indices.reshape(-1).to(torch.int32)
+            for case, w in stacks.items():
+                cases.append((dtype, rows, case, w, idx))
+    for dtype, rows, case, w, idx in cases:
+        E, H, I = w.shape
+        x = randn(rows, H, dtype=dtype)
+        out = K.gather_matmul(x, w, idx)
+        require(torch.equal(out, K.gather_matmul(x, w, idx)),
+                "gather_matmul: two launches on the same inputs differ")
+        ref = K.gather_matmul_plain(x, w, idx)
+        tol = q8_tol(torch.bmm(x.float().abs()[:, None], w[idx.long()].float().abs()))
+        distinct = torch.unique(idx).numel()
+        slab = H * I * w.element_size()
+        record("gather_matmul", f"{case} {rows} rows E={E} H={H} I={I} {str(dtype)[6:]}",
+               float((out - ref).abs().max()), tol,
+               time_ms(lambda: K.gather_matmul(x, w, idx)),
+               time_ms(lambda: K.gather_matmul_plain(x, w, idx)),
+               time_ms(lambda: torch.bmm(x[:, None], w.index_select(0, idx))),
+               bound(nbytes(x, idx, out) + distinct * slab, 2 * rows * H * I,
+                     "bf16" if dtype == torch.bfloat16 else "f32"),
+               distinct_experts=distinct, bytes_per_row_slabs=rows * slab,
+               bytes_distinct_slabs=distinct * slab, deterministic=True)
+        del out, ref
+    del cases, stacks
+    torch.cuda.empty_cache()
 
 
 def check_paged_kernels(torch, K, record, randn, gen):
@@ -651,6 +722,188 @@ def check_paged_kernels(torch, K, record, randn, gen):
         torch.cuda.empty_cache()
 
 
+def seeded_page():
+    """The benchmark page: a seeded random page at sample_1.png's size, in
+    1024/640 crop mode (904 prompt tokens)."""
+    import numpy as np
+
+    from dsocr_tpu_torch.core import VisionSettings
+
+    image = np.random.default_rng(0).integers(0, 256, size=(1756, 2852, 3), dtype=np.uint8)
+    return image, VisionSettings(base_size=1024, image_size=640, crop_mode=True)
+
+
+_PAGE_INPUT = []
+
+
+def page_packet(engine):
+    """The seeded page through `engine` outside a measured window → (image,
+    vision, tokens, image mask, image embedding). The host prep (about 4 s
+    a page) does not depend on the engine, so it runs once per script."""
+    image, vision = seeded_page()
+    if not _PAGE_INPUT:
+        _PAGE_INPUT.append(engine.prepare_vision_input(image, vision))
+    vin = _PAGE_INPUT[0]
+    emb = engine.compute_image_embedding(vin)
+    tokens, mask = engine.build_prompt_tokens(BenchTokenizer(), PROMPT, [vin], [emb], vision)
+    return image, vision, tokens, mask, emb
+
+
+def split_state(torch, state, lang):
+    """The fused decoder state_dict split into the reference's split layout
+    (q/k/v, gate/up, shared gate/up, expert gate/up): fusing it gives
+    `state` back."""
+    NH, NKV, D, DV = lang.num_attention_heads, lang.resolved_kv_heads, lang.head_dim, lang.resolved_v_head_dim
+    parts = {"qkv_proj": (("q_proj", "k_proj", "v_proj"), (NH * D, NKV * D, NKV * DV)),
+             "gateup_proj": (("gate_proj", "up_proj"), None),
+             "shared_gateup": (("shared_gate", "shared_up"), None),
+             "experts_gateup": (("experts_gate", "experts_up"), None)}
+    out = {}
+    for key, value in state.items():
+        head, _, name = key.rpartition(".")
+        if name not in parts:
+            out[key] = value
+            continue
+        names, sizes = parts[name]
+        pieces = torch.split(value, sizes or value.shape[-1] // 2, dim=-1)
+        out.update({f"{head}.{n}": p.contiguous() for n, p in zip(names, pieces)})
+    return out
+
+
+def split_phase(torch, K, engine, steps=32):
+    """The decoder's split layout at full width on the card: the bf16 split
+    tree of phase 4's engine (fusing it gives the engine's weights) over a
+    contiguous KVCache, prefill of the page's packet (the grouped MoE tier)
+    and `steps` greedy steps (the single tier), fed the fused engine's
+    tokens so that each step's logits compare; then moe_apply with
+    gather_threshold=N for N in (2, 4, 16) at layer 1's experts through
+    gather_matmul, held to the same call on the CPU. Tolerances: logits
+    bit-equal and tokens equal (both layouts run the same column products
+    through the same kernels; every run on the H100 read 0.0); moe_apply
+    2^-6 of its largest output (f32 sums in another order can move an inter
+    element's bf16 rounding, then the output's, by one ulp)."""
+    from dsocr_tpu_torch.models.deepseek.decoder import DeepseekDecoder
+    from dsocr_tpu_torch.ops import moe
+    from dsocr_tpu_torch.runtime.kv_cache import bump_length
+
+    lang = engine.cfg.language
+    fused = engine.model.decoder
+    t0 = time.perf_counter()
+    split = DeepseekDecoder.from_state(lang, split_state(torch, fused.state_dict(), lang),
+                                       engine.dtype, engine.device)
+    require(split.moe_layers[0].split, "the split state built a fused decoder")
+    build_s = time.perf_counter() - t0
+    _, _, tokens, mask, emb = page_packet(engine)
+    s_pad = -(-len(tokens) // 128) * 128
+    embeds = engine._row_embeds(tokens, mask, [emb], s_pad)[None]
+    lens = torch.tensor([len(tokens)], device="cuda")
+
+    K.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runs = {}
+    for name, dec in (("fused", fused), ("split", split)):
+        with torch.no_grad():
+            logits, cache = dec(embeds, torch.arange(s_pad, device="cuda")[None],
+                                engine.new_kv_cache(1, s_pad + steps + 8), engine._rope,
+                                last_index=lens - 1, flash_prefill=True)
+        runs[name] = (logits, bump_length(cache, len(tokens)))
+    fed, errs, split_tokens, fused_tokens = None, [], [], []
+    scale = float(runs["fused"][0].abs().max())
+    for step in range(steps + 1):
+        (lf, cf), (ls, cs) = runs["fused"], runs["split"]
+        errs.append(float((lf - ls).abs().max()))
+        scale = max(scale, float(lf.abs().max()))
+        fed = lf.argmax(dim=-1)
+        fused_tokens.append(int(fed))
+        split_tokens.append(int(ls.argmax(dim=-1)))
+        if step == steps:
+            break
+        with torch.no_grad():
+            runs = {"fused": engine._step_fn(fused, fed, cf, None)[:2],
+                    "split": engine._step_fn(split, fed, cs, None)[:2]}
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t0
+    launches = K.launch_counts()
+    differ = [[i, a, b] for i, (a, b) in enumerate(zip(fused_tokens, split_tokens)) if a != b]
+    line = {"phase": "split", "prompt_tokens": len(tokens), "steps": steps, "build_s": build_s,
+            "forward_s": forward_s, "max_abs_logit_err": max(errs), "max_abs_logit": scale,
+            "tokens_equal": not differ, "differing_tokens": differ,
+            "flash_prefill_launches": launches["flash_prefill_attention"]}
+    del runs, embeds
+
+    layer = split.moe_layers[0]
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    cpu_stacks = [w.cpu() for w in (layer.experts_gate, layer.experts_up, layer.experts_down)]
+    checks = []
+    K.reset_launches()
+    for n in (2, 4, 16):
+        x = (torch.randn((n, lang.hidden_size), generator=gen, device="cuda")).to(engine.dtype)
+        weights, idx = moe.moe_router(x, layer.gate_weight, split.moe_cfg)
+        out = moe.moe_apply(x, weights, idx, layer.experts_gate, layer.experts_up, layer.experts_down,
+                            gather_threshold=n)
+        ref = moe.moe_apply(x.cpu(), weights.cpu(), idx.cpu(), *cpu_stacks, gather_threshold=n)
+        err = float((out.float().cpu() - ref.float()).abs().max())
+        tol = float(ref.float().abs().max()) * 2.0 ** -6
+        checks.append({"n": n, "max_abs_err": err, "tol": tol})
+        require(err <= tol, f"moe_apply(gather_threshold={n}): max abs err {err} > tol {tol}")
+    gather_launches = K.launch_counts()
+    line.update(moe_apply_gather=checks, gather_matmul_launches=gather_launches["gather_matmul"])
+    emit(line)
+    require(line["max_abs_logit_err"] == 0.0,
+            f"split vs fused logits differ by up to {line['max_abs_logit_err']}")
+    require(not differ, f"split vs fused greedy tokens differ at [step, fused, split] {differ}")
+    require(gather_launches["gather_matmul"] > 0, "moe_apply's gather tier did not launch gather_matmul")
+    del split, cpu_stacks
+    gc.collect()
+    torch.cuda.empty_cache()
+    return gather_launches
+
+
+def decode_phase(torch, K, engine, smi, required, max_new=MAX_NEW):
+    """Single-request decode at full width: engine.decode on the seeded page,
+    max_new greedy tokens (after a warm-up prefill and 4 steps of the same
+    path), the launch counters zeroed just before and read just after;
+    every kernel in `required` must have launched."""
+    from dsocr_tpu_torch.core import DecodeParameters
+    from dsocr_tpu_torch.runtime.kv_cache import bump_length
+
+    image, vision, tokens, mask, emb = page_packet(engine)
+    s_pad = -(-len(tokens) // 128) * 128
+    with torch.no_grad():
+        logits, cache = engine._prefill(engine._row_embeds(tokens, mask, [emb], s_pad)[None],
+                                        engine.new_kv_cache(1, s_pad + 8),
+                                        torch.tensor([len(tokens)], device="cuda"))
+        cache = bump_length(cache, len(tokens))
+        for _ in range(4):
+            logits, cache, _ = engine._step_fn(engine.model.decoder, logits.argmax(dim=-1), cache, None)
+    del logits, cache, emb
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    out = engine.decode(BenchTokenizer(), PROMPT, [image], vision, DecodeParameters(max_new_tokens=max_new))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = K.launch_counts()
+    st = engine.decode_stages
+    eos = engine.cfg.language.eos_token_id
+    line = {"phase": "decode", "quantize": engine.quantize, "nvidia_smi": smi,
+            "prompt_tokens": out.prompt_tokens, "response_tokens": out.response_tokens,
+            "truncated": out.truncated, "wall_s": wall, "stages_s": st,
+            "prefill_s": st["decode.prefill"],
+            "decode_ms_per_step": st["decode.generate"] * 1e3 / max(st["decode.steps"], 1),
+            "decode_tok_per_s": out.response_tokens / st["decode.generate"],
+            "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches": {k: v for k, v in launches.items() if v}}
+    emit(line)
+    require(out.response_tokens == max_new or (eos not in out.generated_tokens and not out.truncated),
+            f"decode returned {out.response_tokens} of {max_new} tokens without EOS")
+    for name in required:
+        require(launches[name] > 0, f"kernel {name} was not launched in the decode phase")
+    return launches
+
+
 def serve(engine, tokenizer, images, vision, params, *, n_slots, max_len, chunk):
     """One request per image, all submitted at once; (outcomes, scheduler)."""
     from dsocr_tpu_torch.server.scheduler import ContinuousScheduler
@@ -673,25 +926,17 @@ def serving_phase(torch, K, phase, engine, *, n_requests, n_slots, max_new, requ
     against `same_as` (another burst's tokens), how many requests gave the
     same tokens. With `profile`, profile_phase follows on the page's packet.
     → (launch counts, tokens per request)."""
-    import numpy as np
-
-    from dsocr_tpu_torch.core import DecodeParameters, VisionSettings
+    from dsocr_tpu_torch.core import DecodeParameters
     from dsocr_tpu_torch.runtime.paged import PagedSlotCache
 
-    # the benchmark page: a seeded random page at sample_1.png's size
-    image = np.random.default_rng(0).integers(0, 256, size=(1756, 2852, 3), dtype=np.uint8)
-    vision = VisionSettings(base_size=1024, image_size=640, crop_mode=True)
+    image, vision, tokens, mask, emb = page_packet(engine)
     params = DecodeParameters(max_new_tokens=max_new)  # greedy, no-repeat-ngram 20
     tok = BenchTokenizer()
-
-    vin = engine.prepare_vision_input(image, vision)
-    emb = engine.compute_image_embedding(vin)
-    tokens, _ = engine.build_prompt_tokens(tok, PROMPT, [vin], [emb], vision)
     s_pad = -(-len(tokens) // 128) * 128
     max_len = min(engine.max_seq_len, -(-(s_pad + max_new) // 512) * 512)
-    del emb
     if warmup:  # cuBLAS/cuDNN handles, allocator pools; not measured
-        serve(engine, tok, [image] * 2, vision, params, n_slots=n_slots, max_len=max_len, chunk=CHUNK)
+        serve(engine, tok, [image] * 2, vision, DecodeParameters(max_new_tokens=8),
+              n_slots=n_slots, max_len=max_len, chunk=CHUNK)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -732,8 +977,10 @@ def serving_phase(torch, K, phase, engine, *, n_requests, n_slots, max_new, requ
         require(line["pages_free_after"] == cache.n_pages, "pages were not returned")
     if same_as is not None:
         line["requests_equal_to_contiguous_burst"] = sum(a == b for a, b in zip(generated, same_as))
-    # one more prefill to read the logits of the path (outside the window)
-    pre = engine.prefill_for_slot(tok, PROMPT, [image], vision)
+    # one more prefill of the page's packet (the join packet that
+    # prefill_for_slot makes, outside the window) to read the logits of the path
+    pre = engine._prefill_rows([(tokens, mask, [emb])])[0]
+    del emb
     line["logits_finite"] = bool(torch.isfinite(pre["logits"]).all())
     emit(line)
     require(len(outs) == n_requests, "not every request completed")
@@ -807,10 +1054,11 @@ def profile_phase(torch, K, engine, pre, paged=False):
     decode steps (the page's packet joined into 16 slots that never end,
     SlotRunner.run_chunk, or with `paged` a PagedSlotRunner over a pool
     of 16 × 12 pages, greedy with the 20-gram ban: host ms per step,
-    median of 4 windows of 16 steps). Then one wave and 8 steps under
+    median of 4 windows of 16 steps). Then one wave and 4 steps under
     torch.profiler (device ms, busy share, largest kernels), and 16 steps
     with every kernel wrapper timed on the host: the host ms per step
-    inside the wrappers against the rest of the step."""
+    inside the wrappers against the rest of the step. `seconds` gives the
+    wall seconds of each part."""
     from dsocr_tpu_torch.core import DecodeParameters
     from dsocr_tpu_torch.ops.rope import build_rope_tables
     from dsocr_tpu_torch.runtime.slots import SlotRunner
@@ -838,10 +1086,13 @@ def profile_phase(torch, K, engine, pre, paged=False):
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3 / n_calls
 
+    t0 = time.perf_counter()
     wave()
     line = {"phase": "profile", "quantize": engine.quantize, "paged": paged,
             "prefill_wave_ms": statistics.median(host_ms(wave, 1) for _ in range(3))}
+    t1 = time.perf_counter()
     line["prefill_device_ms"], _, line["prefill_top"] = traced(torch, wave, 1)
+    seconds = {"waves": t1 - t0, "traced_wave": time.perf_counter() - t1}
     del embeds
 
     context = 1536  # the 904-token prompt and every step below
@@ -850,6 +1101,7 @@ def profile_phase(torch, K, engine, pre, paged=False):
         runner.eos_ids = ()
     else:
         runner, cache = SlotRunner(engine.slot_step_fn, eos_ids=()), engine.new_slot_cache(rows, context)
+    t0 = time.perf_counter()
     state = runner.init_state(cache, context)
     budget = context - len(pre["prompt_ids"])  # more than the steps below take
     runner.join_many(state, list(range(rows)), [pre] * rows, [DecodeParameters()] * rows,
@@ -858,14 +1110,18 @@ def profile_phase(torch, K, engine, pre, paged=False):
     chunk(8)
     windows = [host_ms(lambda: chunk(window), window) for _ in range(4)]
     line["decode_step_ms"], line["decode_step_ms_windows"] = statistics.median(windows), windows
-    line["step_device_ms"], traced_ms, line["step_top"] = traced(torch, lambda: chunk(8), 8)
+    t1 = time.perf_counter()
+    line["step_device_ms"], traced_ms, line["step_top"] = traced(torch, lambda: chunk(4), 4)
     line["step_busy_share"] = line["step_device_ms"] / traced_ms
+    seconds.update(join_and_steps=t1 - t0, traced_steps=time.perf_counter() - t1)
+    t1 = time.perf_counter()
     K.reset_launches()
     spent = []
     step_ms = host_ms(lambda: spent.append(wrapper_host_ms(K, lambda: chunk(window))), window)
     line["wrapper_calls_per_step"] = sum(K.launch_counts().values()) / window
     line["wrapper_host_ms_per_step"] = spent[0] / window
     line["rest_host_ms_per_step"] = step_ms - spent[0] / window
+    line["seconds"] = {**seconds, "wrapper_steps": time.perf_counter() - t1}
     line["expert_bytes_per_dense_step"] = sum(
         sum(t.numel() * t.element_size() for t in (w.buffers() if isinstance(w, torch.nn.Module) else [w]))
         for layer in dec.moe_layers for w in (layer.experts_gateup, layer.experts_down))
@@ -982,6 +1238,23 @@ def parity_phase(torch):
         result[f"{key}_max_occupancy"] = max(sched.batch_sizes)
         require(all(result[f"{key}_launches"].values()), f"{key}: a paged or megafused kernel did not run")
         require(not pool or max(sched.batch_sizes) <= int(pool), f"{key}: more rows than the pool holds")
+    # single-request decode (engine.decode over a contiguous KV cache), with
+    # and without the cache, f32 and Q8_0 weights (the gather tier at N = 1)
+    for tag, qcfg, method in (("f32", cfg, None), ("q8", dataclasses.replace(cfg, language=lang32), "q8_0")):
+        state = DeepseekOcrEngine(qcfg, dtype=torch.float32, device="cpu", max_seq_len=512,
+                                  seed=PARITY_SEED, quantize=method).model.state_dict()
+        for use_cache in (True, False):
+            tokens = {}
+            for device in ("cpu", "cuda"):
+                eng = DeepseekOcrEngine(qcfg, dtype=torch.float32, device=device, max_seq_len=512,
+                                        state=state, quantize=method)
+                out = eng.decode(TinyTokenizer(), PROMPT, images[:1], vision,
+                                 DecodeParameters(max_new_tokens=16 if use_cache else 6,
+                                                  use_cache=use_cache))
+                tokens[device] = out.generated_tokens
+            key = f"decode_{tag}_{'cache' if use_cache else 'nocache'}"
+            result[f"{key}_equal"] = tokens["cpu"] == tokens["cuda"]
+            result[f"{key}_tokens_cuda"] = tokens["cuda"]
     emit(result)
     require(all(v for k, v in result.items() if k.endswith("_equal")), "CUDA and CPU greedy tokens differ")
 
@@ -1017,6 +1290,9 @@ def main() -> int:
     engine = full_width_engine(torch)
     bursts = [serving_phase(torch, K, "serve", engine, n_requests=N_REQUESTS, n_slots=N_SLOTS,
                             max_new=MAX_NEW, required=attention, profile=True)[0]]
+    bursts.append(split_phase(torch, K, engine))
+    prefill = ["sam_flash_attention", "flash_prefill_attention"]
+    bursts.append(decode_phase(torch, K, engine, smi, required=prefill))
     del engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -1024,11 +1300,13 @@ def main() -> int:
     sweep = ["q8_dense_experts", "q8_dense_experts_perx"]
     launches, q8_tokens = serving_phase(
         torch, K, "serve_q8", engine, n_requests=N_REQUESTS, n_slots=N_SLOTS, max_new=MAX_NEW,
-        required=attention + ["q8_matmul"] + sweep, profile=True)
+        required=attention + ["q8_matmul"] + sweep, warmup=False, profile=True)
     bursts.append(launches)
     bursts.append(serving_phase(
         torch, K, "serve_q8_gather", engine, n_requests=4, n_slots=4, max_new=32,
         required=["q8_gather_matmul"], warmup=False)[0])
+    bursts.append(decode_phase(torch, K, engine, smi,
+                               required=prefill + ["q8_matmul", "q8_gather_matmul"]))
     # the same engine with a shared page pool that holds 12 of the 16 rows
     # (9 pages each of 108) and the megafused expert chain
     with environ(DSOCR_PAGED_KV="1", DSOCR_Q8_MEGAFUSED="1", DSOCR_POOL_PAGES="108"):
@@ -1044,7 +1322,7 @@ def main() -> int:
     bursts.append(serving_phase(
         torch, K, "serve_q4k", engine, n_requests=N_REQUESTS, n_slots=N_SLOTS, max_new=MAX_NEW,
         required=attention + ["q4k_matmul", "q4k_dense_experts", "q8_dense_experts_perx"],
-        profile=True)[0])
+        warmup=False, profile=True)[0])
     bursts.append(serving_phase(
         torch, K, "serve_q4k_gather", engine, n_requests=4, n_slots=4, max_new=32,
         required=["q4k_gather_matmul", "q8_gather_matmul"], warmup=False)[0])
@@ -1055,7 +1333,7 @@ def main() -> int:
     bursts.append(serving_phase(
         torch, K, "serve_q6k", engine, n_requests=N_REQUESTS, n_slots=N_SLOTS, max_new=MAX_NEW,
         required=attention + ["q6k_matmul", "q6k_dense_experts", "q8_dense_experts_perx"],
-        profile=True)[0])
+        warmup=False, profile=True)[0])
     bursts.append(serving_phase(
         torch, K, "serve_q6k_gather", engine, n_requests=4, n_slots=4, max_new=32,
         required=["q6k_gather_matmul", "q8_gather_matmul"], warmup=False)[0])

@@ -1,11 +1,17 @@
 """Load the reference engine's parameters into the port's modules.
 
 ``params_from_jax(tree)`` takes the JAX engine's parameter tree as NumPy
-arrays — ``jax.device_get(engine.params)``, whose decoder is already fused
-(an unfused decoder tree is fused here) — and returns a state_dict for
+arrays — ``jax.device_get(engine.params)`` — and returns a state_dict for
 ``engine.DeepseekOcrModel``, so both packages compute the same function.
-The reference's layouts are kept: [in, out] linears, OIHW convs, and each
-[L, ...] decoder stack split into one entry per layer. A Q8_0 engine's
+The reference's layouts are kept: [in, out] linears, OIHW convs, each
+[L, ...] decoder stack split into one entry per layer, and the decoder's
+weight layout: an engine's tree is fused, a tree of the reference's
+``init_deepseek_params`` or loader is split (``q_proj``, ``experts_gate``,
+...), and so is one packed by its ``quantize_decoder_params`` without
+fusion. The port's engine fuses a split state at init, as the
+reference's does (decoder.fuse_decoder_params);
+``decoder_state_from_jax`` converts a decoder tree alone for
+``DeepseekDecoder.from_state``, which keeps either layout. A Q8_0 engine's
 tree (``quantize="q8_0"``) holds packed ``{codes, scales}`` dicts: each
 is split per layer the same way (``...qkv_proj.codes``), int8 codes stay
 int8 and scales f32, and a packed lm_head becomes
@@ -31,7 +37,6 @@ import numpy as np
 import torch
 
 from ...dsq.serve_quant import pack_bits
-from .decoder import fuse_decoder_params
 from .quantize import EXPERT_KEYS
 
 _STACKED = ("dense_layers", "moe_layers")
@@ -87,12 +92,8 @@ def _from_planes(node: Any, in_major: bool) -> Any:
     return node
 
 
-def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """{"sam", "clip", "projector", "decoder"} NumPy tree → state_dict."""
-    flat: Dict[str, np.ndarray] = {}
-    for part in ("sam", "clip", "projector"):
-        _flatten(part, tree[part], flat)
-    decoder = fuse_decoder_params(tree["decoder"])
+def _decoder_arrays(decoder: Dict[str, Any], prefix: str, flat: Dict[str, np.ndarray]) -> None:
+    decoder = dict(decoder)
     if "lm_head" in decoder:
         decoder["lm_head"] = _from_planes(decoder["lm_head"], in_major=False)
     for group in _STACKED:
@@ -103,11 +104,31 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
                 arr = np.asarray(arr)
                 suffix = f".{part}" if part else ""
                 for i in range(arr.shape[0]):
-                    flat[f"decoder.{group}.{i}.{key}{suffix}"] = arr[i]
-    _flatten("decoder", decoder, flat)
+                    flat[f"{prefix}{group}.{i}.{key}{suffix}"] = arr[i]
+    _flatten(prefix.rstrip("."), decoder, flat)
+
+
+def _tensors(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return {
         key: torch.from_numpy(np.ascontiguousarray(value.astype(np.float32)))
         if value.dtype.kind == "f" or value.dtype.name == "bfloat16"
         else torch.from_numpy(np.array(value))  # a writable copy (int8 codes)
         for key, value in flat.items()
     }
+
+
+def decoder_state_from_jax(decoder: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A reference decoder tree (NumPy, fused or split, float or packed) →
+    a DeepseekDecoder state_dict in the same layout."""
+    flat: Dict[str, np.ndarray] = {}
+    _decoder_arrays(decoder, "", flat)
+    return _tensors(flat)
+
+
+def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """{"sam", "clip", "projector", "decoder"} NumPy tree → state_dict."""
+    flat: Dict[str, np.ndarray] = {}
+    for part in ("sam", "clip", "projector"):
+        _flatten(part, tree[part], flat)
+    _decoder_arrays(tree["decoder"], "decoder.", flat)
+    return _tensors(flat)

@@ -6,24 +6,39 @@ MoE (f32 gating, greedy top-k, shared experts) → residual; final RMSNorm;
 f32 lm_head. Residuals are `(x.f32 + y.f32).to(x.dtype)`, as in the
 reference.
 
-Weights are the reference's FUSED layout (fuse_decoder_params): qkv_proj,
-gateup_proj, shared_gateup and experts_gateup concatenated along their
-output dims, [in, out] matrices, one module per layer (the reference's
-[L, ...] stacks split). With ``quantize="q8_0"``, ``"q4_k"`` or
-``"q6_k"`` the eligible weights (quantize.packed_kind) are packed holders
-instead (ops.linear.HOLDERS), each weight in the format it packs with
-(a K-quant's fallback is Q8_0), and the layers
-dispatch as the reference does (decoder.py:481-507, :567-585): the
-routed experts run the packed decode kernels when B·S ≤ 32 and both
-stacks are packed (moe_apply_quant_fused, each projection its own
-format's kernel), else dequantize to bf16 for the float tiers; a packed
-lm_head runs its format's matmul kernel.
+A decoder holds one of the reference's two weight layouts, [in, out]
+matrices, one module per layer (the reference's [L, ...] stacks split):
 
-Two modes, as the slice needs:
+- fused (fuse_decoder_params; what the engine serves): qkv_proj,
+  gateup_proj, shared_gateup and experts_gateup concatenated along their
+  output dims;
+- split (what the reference's init and loader produce; a decoder built by
+  ``from_state`` on a split state): q_proj/k_proj/v_proj,
+  gate_proj/up_proj, shared_gate/shared_up and experts_gate/experts_up.
 
-- ``prefill``: S > 1 tokens from an empty cache; attention over the
-  prompt's own K/V through ``flash_prefill_attention``; returns the
-  last-position logits and the [L, B, NKV, S, D] K/V stacks.
+The blocks branch on the layout as the reference's do (decoder.py
+:483-545). With ``quantize="q8_0"``, ``"q4_k"`` or ``"q6_k"`` the
+eligible weights (quantize.packed_kind) are packed holders instead
+(ops.linear.HOLDERS), each weight in the format it packs with (a
+K-quant's fallback is Q8_0), and the layers dispatch as the reference
+does (decoder.py:481-545, :567-585): the routed experts run the packed
+decode kernels when B·S ≤ 32 and every stack is packed
+(moe_apply_quant_fused or moe_apply_quant, each projection its own
+format's kernel), else dequantize to bf16 for the float tiers (a mixed
+group, where one projection's in dim misses the block size, too); a
+packed lm_head runs its format's matmul kernel.
+
+One layer body serves three modes, which differ only in how a layer's
+attention reads and writes K/V:
+
+- ``forward``: the reference's deepseek_forward over a contiguous
+  KVCache (runtime/kv_cache.py): S tokens written at ``cache.length``;
+  at S > 1 from an empty cache with ``flash_prefill``, attention over the
+  tokens' own K/V through ``flash_prefill_attention``, else over the
+  cache under a causal (and left-pad) mask in plain torch, as the
+  reference attends there without a Pallas kernel;
+- ``prefill``: a forward over a fresh cache of S positions, returning
+  the [L, B, NKV, S, D] K/V stacks (the slot join packets);
 - ``slot_step``: one token per row; row r's K/V is written at
   ``row_lengths[r]`` of the cache (in place) and attends
   ``[0, row_lengths[r]]``: through the slot kernels on a contiguous
@@ -38,12 +53,13 @@ from __future__ import annotations
 import time
 from typing import Dict, Optional, Tuple
 
-import numpy as np
 import torch
 import torch.nn as nn
 
 from ...ops import (
     MoeConfig,
+    attention,
+    causal_mask,
     moe_apply_fused,
     moe_router,
     paged_kv_write_attend,
@@ -55,10 +71,11 @@ from ...ops import (
 )
 from ...ops.kernels import flash_prefill_attention
 from ...ops.linear import HOLDERS, Packed
-from ...ops.moe import dequant_stack, is_quantized, moe_apply_quant_fused
+from ...ops.moe import dequant_stack, is_quantized, moe_apply, moe_apply_quant, moe_apply_quant_fused
+from ...runtime.kv_cache import KVCache, init_kv_cache, layer_kv, write_kv
 from ...runtime.paged import PagedSlotCache
 from .config import DeepseekV2Config
-from .quantize import packed_kind
+from .quantize import EXPERT_KEYS, packed_kind
 from .sam import normal_, param
 
 
@@ -79,25 +96,32 @@ _FUSED = (
 )
 
 
-def fuse_decoder_params(params: Dict) -> Dict:
+_PACKED_PARTS = ("codes", "scales", "mins", "highs")
+
+
+def fuse_decoder_params(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Concatenate column-independent projections along their output dims
-    (dsocr_tpu/models/deepseek/decoder.py:150): q/k/v → qkv_proj, gate/up →
-    gateup_proj, shared gate/up → shared_gateup, expert gate/up →
-    experts_gateup — the layout this decoder's layers hold. Takes NumPy
-    arrays or tensors; a tree that is already fused passes through."""
-    out = dict(params)
-    for group in ("dense_layers", "moe_layers"):
-        if group not in out:
-            continue
-        grp = dict(out[group])
-        for keys, fused in _FUSED:
-            if all(k in grp for k in keys):
-                parts = [grp.pop(k) for k in keys]
-                if all(isinstance(p, torch.Tensor) for p in parts):
-                    grp[fused] = torch.cat(parts, dim=-1)
-                else:
-                    grp[fused] = np.concatenate([np.asarray(p) for p in parts], axis=-1)
-        out[group] = grp
+    (dsocr_tpu/models/deepseek/decoder.py:150) in a state_dict
+    (``...{group}.{i}.{key}``, or ``...{key}.{part}`` for a packed one): q/k/v
+    → qkv_proj, gate/up → gateup_proj, shared gate/up → shared_gateup,
+    expert gate/up → experts_gateup. A packed weight concatenates part by
+    part along its out axis (last in-major, second to last in the row
+    layout): every Q8_0 / K-quant block lies within one output column, so
+    this equals packing the fused weight. A fused state passes through."""
+    out = dict(state)
+    for key in state:
+        head, _, name = key.rpartition(".")
+        part = ""
+        if name in _PACKED_PARTS:
+            part = "." + name
+            head, _, name = head.rpartition(".")
+        if head.split(".")[-2:-1] not in (["dense_layers"], ["moe_layers"]):
+            continue  # only the decoder's layers fuse
+        for names, fused in _FUSED:
+            srcs = [f"{head}.{n}{part}" for n in names]
+            if name == names[0] and all(src in out for src in srcs):
+                axis = -2 if part and fused not in EXPERT_KEYS else -1
+                out[f"{head}.{fused}{part}"] = torch.cat([out.pop(src) for src in srcs], dim=axis)
     return out
 
 
@@ -130,40 +154,51 @@ def _fill_(w, std: float, gen: torch.Generator, dtype) -> float:
     return time.perf_counter() - t0
 
 
-# a layer's weights in registration order (the order random init draws them)
+# a layer's weights in registration order (the order random init draws
+# them); a layer holds the fused or the split names of each group
 _LAYER_WEIGHTS = (
-    "input_layernorm", "post_attention_layernorm", "qkv_proj", "o_proj", "gate_weight",
-    "experts_gateup", "experts_down", "shared_gateup", "shared_down", "gateup_proj", "down_proj",
+    "input_layernorm", "post_attention_layernorm", "qkv_proj", "q_proj", "k_proj", "v_proj",
+    "o_proj", "gate_weight", "experts_gateup", "experts_gate", "experts_up", "experts_down",
+    "shared_gateup", "shared_gate", "shared_up", "shared_down", "gateup_proj", "gate_proj",
+    "up_proj", "down_proj",
 )
 
 
 class DecoderLayer(nn.Module):
     def __init__(self, cfg: DeepseekV2Config, moe: bool, dtype, device,
-                 quantize: Optional[str] = None):
+                 quantize: Optional[str] = None, split: bool = False):
         super().__init__()
         H, D, DV = cfg.hidden_size, cfg.head_dim, cfg.resolved_v_head_dim
         NH, NKV = cfg.num_attention_heads, cfg.resolved_kv_heads
         self.moe = moe
-        p = lambda *s: param(*s, dtype=dtype, device=device)  # noqa: E731
-        w = lambda name, *s: _weight(name, s, dtype, device, quantize)  # noqa: E731
-        self.input_layernorm = p(H)
-        self.post_attention_layernorm = p(H)
-        self.qkv_proj = w("qkv_proj", H, NH * D + NKV * D + NKV * DV)
-        self.o_proj = w("o_proj", NH * DV, H)
+        self.split = split
+
+        def weights(fused: str, names, *shape_in, outs):
+            """One fused weight, or one weight per part (split layout)."""
+            if split:
+                for name, o in zip(names, outs, strict=True):
+                    setattr(self, name, _weight(name, (*shape_in, o), dtype, device, quantize))
+            else:
+                setattr(self, fused, _weight(fused, (*shape_in, sum(outs)), dtype, device, quantize))
+
+        self.input_layernorm = param(H, dtype=dtype, device=device)
+        self.post_attention_layernorm = param(H, dtype=dtype, device=device)
+        weights("qkv_proj", ("q_proj", "k_proj", "v_proj"), H, outs=(NH * D, NKV * D, NKV * DV))
+        self.o_proj = _weight("o_proj", (NH * DV, H), dtype, device, quantize)
         if moe:
             E = cfg.n_routed_experts
             MI = cfg.moe_intermediate_size or cfg.intermediate_size
-            self.gate_weight = p(E, H)
-            self.experts_gateup = w("experts_gateup", E, H, 2 * MI)
-            self.experts_down = w("experts_down", E, MI, H)
+            self.gate_weight = param(E, H, dtype=dtype, device=device)
+            weights("experts_gateup", ("experts_gate", "experts_up"), E, H, outs=(MI, MI))
+            self.experts_down = _weight("experts_down", (E, MI, H), dtype, device, quantize)
             SI = MI * (cfg.n_shared_experts or 0)
             if SI:
-                self.shared_gateup = w("shared_gateup", H, 2 * SI)
-                self.shared_down = w("shared_down", SI, H)
+                weights("shared_gateup", ("shared_gate", "shared_up"), H, outs=(SI, SI))
+                self.shared_down = _weight("shared_down", (SI, H), dtype, device, quantize)
         else:
             I = cfg.intermediate_size  # noqa: E741
-            self.gateup_proj = p(H, 2 * I)
-            self.down_proj = p(I, H)
+            weights("gateup_proj", ("gate_proj", "up_proj"), H, outs=(I, I))
+            self.down_proj = param(I, H, dtype=dtype, device=device)
 
     @torch.no_grad()
     def reset_(self, gen: torch.Generator) -> float:
@@ -189,7 +224,9 @@ class DecoderLayer(nn.Module):
 
 class DeepseekDecoder(nn.Module):
     def __init__(self, cfg: DeepseekV2Config, dtype=torch.bfloat16, device=None,
-                 quantize: Optional[str] = None):
+                 quantize: Optional[str] = None, *, split: bool = False):
+        """The fused layout; ``split`` builds the split one (what
+        ``from_state`` does for a split state)."""
         super().__init__()
         self.cfg = cfg
         num_dense, num_moe = split_layers(cfg)
@@ -198,10 +235,10 @@ class DeepseekDecoder(nn.Module):
         self.norm = param(H, dtype=dtype, device=device)
         self.lm_head = _weight("lm_head", (H, V), dtype, device, quantize)
         self.dense_layers = nn.ModuleList(
-            DecoderLayer(cfg, False, dtype, device, quantize) for _ in range(num_dense)
+            DecoderLayer(cfg, False, dtype, device, quantize, split) for _ in range(num_dense)
         )
         self.moe_layers = nn.ModuleList(
-            DecoderLayer(cfg, True, dtype, device, quantize) for _ in range(num_moe)
+            DecoderLayer(cfg, True, dtype, device, quantize, split) for _ in range(num_moe)
         )
         self.quantize_s = 0.0  # seconds spent packing at random init (reset_)
         self.moe_cfg = MoeConfig(
@@ -211,6 +248,21 @@ class DeepseekDecoder(nn.Module):
             norm_topk_prob=cfg.norm_topk_prob,
             routed_scaling_factor=cfg.routed_scaling_factor,
         )
+
+    @classmethod
+    def from_state(cls, cfg: DeepseekV2Config, state: Dict[str, torch.Tensor],
+                   dtype=torch.bfloat16, device=None) -> "DeepseekDecoder":
+        """A decoder in the layout of `state` (this module's state_dict
+        names: the split layout where it holds ``q_proj``, else the fused
+        one), its packed entries in holders of their format, loaded with
+        `state`."""
+        parts = {key.rsplit(".", 1)[-1] for key in state}
+        quantize = ("q4_k" if "mins" in parts else "q6_k" if "highs" in parts
+                    else "q8_0" if "codes" in parts else None)
+        split = any(key.endswith(".q_proj") or ".q_proj." in key for key in state)
+        decoder = cls(cfg, dtype, device, quantize, split=split)
+        decoder.load_state_dict(state)
+        return decoder
 
     @property
     def dtype(self) -> torch.dtype:
@@ -235,8 +287,10 @@ class DeepseekDecoder(nn.Module):
         B, S, _ = x.shape
         NH, NKV, D, DV = cfg.num_attention_heads, cfg.resolved_kv_heads, cfg.head_dim, cfg.resolved_v_head_dim
         normed = rms_norm(x, layer.input_layernorm, cfg.rms_norm_eps)
-        qkv = project(normed, layer.qkv_proj)
-        q, k, v = torch.split(qkv, [NH * D, NKV * D, NKV * DV], dim=-1)
+        if layer.split:
+            q, k, v = (project(normed, w) for w in (layer.q_proj, layer.k_proj, layer.v_proj))
+        else:
+            q, k, v = torch.split(project(normed, layer.qkv_proj), [NH * D, NKV * D, NKV * DV], dim=-1)
         q = q.reshape(B, S, NH, D).transpose(1, 2)
         k = k.reshape(B, S, NKV, D).transpose(1, 2)
         v = v.reshape(B, S, NKV, DV).transpose(1, 2)
@@ -244,44 +298,119 @@ class DeepseekDecoder(nn.Module):
         k = partial_rope(k, cos, sin, cfg.rope_dim, cfg.use_mla)
         return q, k, v
 
+    @staticmethod
+    def _swiglu(x, normed, layer, fused: str, names, down) -> torch.Tensor:
+        """silu(gate) · up in f32 from the fused projection or the split
+        pair, cast to x's dtype, through `down`."""
+        if layer.split:
+            gate, up = (project(normed, getattr(layer, n)).float() for n in names)
+        else:
+            gate, up = torch.chunk(project(normed, getattr(layer, fused)).float(), 2, dim=-1)
+        return project((silu(gate) * up).to(x.dtype), down)
+
     def _mlp(self, x, layer):
         cfg = self.cfg
         B, S, H = x.shape
         normed = rms_norm(x, layer.post_attention_layernorm, cfg.rms_norm_eps)
         if not layer.moe:
-            gate, up = torch.chunk(project(normed, layer.gateup_proj).float(), 2, dim=-1)
-            mlp = project((silu(gate) * up).to(x.dtype), layer.down_proj)
+            mlp = self._swiglu(x, normed, layer, "gateup_proj", ("gate_proj", "up_proj"),
+                               layer.down_proj)
             return (x.float() + mlp.float()).to(x.dtype)
         tokens = normed.reshape(B * S, H)
         weights, indices = moe_router(tokens, layer.gate_weight, self.moe_cfg)
-        egu, ed = layer.experts_gateup, layer.experts_down
-        if is_quantized(egu) and is_quantized(ed) and B * S <= 32:
-            routed = moe_apply_quant_fused(tokens, weights, indices, egu, ed)
-        else:  # float stacks, or prefill of packed ones: bf16 weights, grouped tier
-            routed = moe_apply_fused(tokens, weights, indices,
-                                     dequant_stack(egu).to(x.dtype), dequant_stack(ed).to(x.dtype))
+        gate_up = ((layer.experts_gate, layer.experts_up) if layer.split
+                   else (layer.experts_gateup,))
+        stacks = (*gate_up, layer.experts_down)
+        if all(map(is_quantized, stacks)) and B * S <= 32:
+            apply = moe_apply_quant if layer.split else moe_apply_quant_fused
+            routed = apply(tokens, weights, indices, *stacks)
+        else:  # float stacks, or prefill of packed (or mixed) ones: bf16 weights
+            apply = moe_apply if layer.split else moe_apply_fused
+            routed = apply(tokens, weights, indices, *(dequant_stack(w).to(x.dtype) for w in stacks))
         out = routed.float()
-        if hasattr(layer, "shared_gateup"):
-            sg, su = torch.chunk(project(normed, layer.shared_gateup).float(), 2, dim=-1)
-            shared = project((silu(sg) * su).to(x.dtype), layer.shared_down)
+        if hasattr(layer, "shared_down"):
+            shared = self._swiglu(x, normed, layer, "shared_gateup", ("shared_gate", "shared_up"),
+                                  layer.shared_down)
             out = out + shared.reshape(B * S, H).float()
         return (x.float() + out.reshape(B, S, H)).to(x.dtype)
 
-    def _residual_attn(self, x, attn, layer):
-        attn = project(attn, layer.o_proj)
-        return (x.float() + attn.float()).to(x.dtype)
+    def _layers(self, x, positions, rope, attend):
+        """Every layer over x [B, S, H] at `positions` [B, S]; `attend(li,
+        q, k, v)` writes layer li's K/V where the mode keeps it and
+        returns the attention [B, S, NH*DV]."""
+        cos = rope[0][positions][:, None]
+        sin = rope[1][positions][:, None]
+        for li, layer in enumerate(self.layers()):
+            q, k, v = self._qkv(x, layer, cos, sin)
+            attn = project(attend(li, q, k, v), layer.o_proj)
+            x = self._mlp((x.float() + attn.float()).to(x.dtype), layer)
+        return x
 
-    def _logits(self, x, last_index: Optional[torch.Tensor]) -> torch.Tensor:
+    def _logits(self, x, last_index: Optional[torch.Tensor], full_logits: bool = False) -> torch.Tensor:
+        """f32 logits at every position ([B, S, V]) or at last_index ([B, V],
+        default the last position)."""
         x = rms_norm(x, self.norm, self.cfg.rms_norm_eps)
-        if last_index is None:
-            x_last = x[:, -1]
+        if full_logits:
+            rows = x.reshape(-1, x.shape[-1])
+        elif last_index is None:
+            rows = x[:, -1]
         else:
-            x_last = x[torch.arange(x.shape[0], device=x.device), last_index]
+            rows = x[torch.arange(x.shape[0], device=x.device), last_index]
         if isinstance(self.lm_head, Packed):
-            return self.lm_head.matmul(x_last.contiguous())
-        return torch.matmul(x_last.float(), self.lm_head.float())
+            logits = self.lm_head.matmul(rows.contiguous())
+        else:
+            logits = torch.matmul(rows.float(), self.lm_head.float())
+        return logits.reshape(*x.shape[:2], -1) if full_logits else logits
 
     # -- modes ----------------------------------------------------------------
+
+    def forward(
+        self,
+        embeds: torch.Tensor,  # [B, S, H]
+        positions: torch.Tensor,  # [B, S] absolute positions
+        cache: KVCache,  # written in place at [length, length + S)
+        rope: Tuple[torch.Tensor, torch.Tensor],
+        *,
+        full_logits: bool = False,
+        last_index: Optional[torch.Tensor] = None,  # [B]
+        pad_start: Optional[torch.Tensor] = None,  # [B] left-pad boundary
+        flash_prefill: bool = False,
+    ) -> Tuple[torch.Tensor, KVCache]:
+        """The reference's deepseek_forward over a contiguous KVCache →
+        (logits, cache); the cache's length is NOT bumped. Attention: S > 1
+        with `flash_prefill` (from an empty cache, the reference's engine
+        invariant) through flash_prefill_attention on the tokens' own K/V;
+        otherwise plain torch over the whole cache, query i attending
+        positions ≤ length + i (and ≥ pad_start[b])."""
+        if cache.k_scale is not None:
+            raise ValueError("int8 KV cache supports single-token slot steps only")
+        B, S, _ = embeds.shape
+        dev = embeds.device
+        start = cache.length
+        scale = self.cfg.head_dim ** -0.5
+        flash = flash_prefill and S > 1
+        if flash:
+            if start != 0:
+                raise ValueError(f"flash prefill starts from an empty cache, not at {start}")
+            pad = pad_start if pad_start is not None else torch.zeros((B,), dtype=torch.int32, device=dev)
+        else:
+            mask = causal_mask(S, cache.max_len, start, dev)[None, None]
+            if pad_start is not None:
+                kv_pos = torch.arange(cache.max_len, device=dev)
+                mask = mask & (kv_pos[None, None, None, :] >= pad_start[:, None, None, None])
+
+        def attend(li, q, k, v):
+            write_kv(cache, li, k, v, start)
+            if flash:
+                return flash_prefill_attention(
+                    q.contiguous(), k.to(q.dtype).contiguous(), v.to(q.dtype).contiguous(), pad,
+                    scale=scale,
+                )
+            k_layer, v_layer = layer_kv(cache, li)
+            return attention(q, k_layer.to(q.dtype), v_layer.to(q.dtype), mask, scale)
+
+        x = self._layers(embeds, positions, rope, attend)
+        return self._logits(x, last_index, full_logits), cache
 
     def prefill(
         self,
@@ -291,29 +420,17 @@ class DeepseekDecoder(nn.Module):
         *,
         last_index: Optional[torch.Tensor] = None,  # [B]
     ):
-        """→ (logits [B, V] f32 at last_index, k [L, B, NKV, S, D], v).
-        Rows are right-padded, so no query is masked out entirely."""
+        """→ (logits [B, V] f32 at last_index, k [L, B, NKV, S, D], v): a
+        forward over a fresh cache of S positions, through
+        flash_prefill_attention. Rows are right-padded, so no query is
+        masked out entirely."""
         cfg = self.cfg
         B, S, _ = embeds.shape
-        dev = embeds.device
-        cos = rope[0][positions][:, None]
-        sin = rope[1][positions][:, None]
-        pad_start = torch.zeros((B,), dtype=torch.int32, device=dev)
-        L, NKV = cfg.num_hidden_layers, cfg.resolved_kv_heads
-        k_all = torch.empty((L, B, NKV, S, cfg.head_dim), dtype=embeds.dtype, device=dev)
-        v_all = torch.empty((L, B, NKV, S, cfg.resolved_v_head_dim), dtype=embeds.dtype, device=dev)
-        scale = cfg.head_dim ** -0.5
-        x = embeds
-        for li, layer in enumerate(self.layers()):
-            q, k, v = self._qkv(x, layer, cos, sin)
-            k_all[li] = k
-            v_all[li] = v
-            attn = flash_prefill_attention(
-                q.contiguous(), k.to(q.dtype).contiguous(), v.to(q.dtype).contiguous(),
-                pad_start, scale=scale,
-            )
-            x = self._mlp(self._residual_attn(x, attn, layer), layer)
-        return self._logits(x, last_index), k_all, v_all
+        cache = init_kv_cache(cfg.num_hidden_layers, B, cfg.resolved_kv_heads, S, cfg.head_dim,
+                              cfg.resolved_v_head_dim, embeds.dtype, embeds.device)
+        logits, cache = self.forward(embeds, positions, cache, rope, last_index=last_index,
+                                     flash_prefill=True)
+        return logits, cache.k, cache.v
 
     def slot_step(
         self,
@@ -324,22 +441,17 @@ class DeepseekDecoder(nn.Module):
     ) -> torch.Tensor:
         """One token per row → logits [B, V] f32; row r's K/V lands at
         cache.lengths[r] (lengths are NOT bumped here)."""
-        cos = rope[0][positions][:, None]
-        sin = rope[1][positions][:, None]
         scale = self.cfg.head_dim ** -0.5
         paged = isinstance(cache, PagedSlotCache)
-        x = embeds
-        for li, layer in enumerate(self.layers()):
-            q, k, v = self._qkv(x, layer, cos, sin)
+
+        def attend(li, q, k, v):
             if paged:
-                attn = paged_kv_write_attend(
+                return paged_kv_write_attend(
                     q, k, v, cache.k, cache.v, cache.k_scale, cache.v_scale, cache.tables, li,
                     cache.lengths, scale,
                 )
-            else:
-                attn = slot_kv_write_attend(
-                    q, k, v, cache.k, cache.v, cache.k_scale, cache.v_scale, li,
-                    cache.lengths, scale,
-                )
-            x = self._mlp(self._residual_attn(x, attn, layer), layer)
-        return self._logits(x, None)
+            return slot_kv_write_attend(
+                q, k, v, cache.k, cache.v, cache.k_scale, cache.v_scale, li, cache.lengths, scale,
+            )
+
+        return self._logits(self._layers(embeds, positions, rope, attend), None)

@@ -1,24 +1,36 @@
-"""DeepSeek-OCR engine, serving slice (dsocr_tpu/models/deepseek/engine.py):
+"""DeepSeek-OCR engine (dsocr_tpu/models/deepseek/engine.py):
 global-view letterbox + crop tiles → SAM → CLIP-on-SAM → projector with
-newline/separator assembly → placeholder prompt (BOS = 0) → prefill of
-the prompt rows → slot decode under runtime.slots.SlotRunner.
+newline/separator assembly → placeholder prompt (BOS = 0) → prefill →
+decode.
 
-Only the continuous-batching surface is ported: prepare_vision_input,
-compute_image_embedding, build_prompt_tokens, slot_step_fn,
-new_slot_cache, make_slot_runner, the paged pair slot_step_fn_paged and
-make_paged_slot_runner (a shared KV page pool; no mesh branch),
-prefill_for_slot and prefill_for_slots. ``quantize="q8_0"``, ``"q4_k"`` or ``"q6_k"`` serves
-packed decoder weights (models/deepseek/quantize.py), packed on the device. Views are
-batched through the towers (4 global views or 16 tiles per call) the way
-the reference batches them; the reference's host-link tricks (sparse or
-content-only upload, a transfer pool, streamed prep) are not carried
-over.
+Two surfaces are ported:
+
+- single-request decode, ``decode`` (the reference's CLI path): prefill of
+  the prompt into a contiguous KVCache, then runtime.generate's Generator
+  over ``_step_fn``; ``use_cache=False`` recomputes the prefix every step
+  (``_decode_without_cache``);
+- continuous batching: prepare_vision_input, compute_image_embedding,
+  build_prompt_tokens, slot_step_fn, new_slot_cache, make_slot_runner,
+  the paged pair slot_step_fn_paged and make_paged_slot_runner (a shared
+  KV page pool; no mesh branch), prefill_for_slot and prefill_for_slots.
+
+The engine serves the decoder's fused layout: a split state (the
+reference's init or loader layout) is fused at init, as the reference's
+engine does without a mesh. ``quantize="q8_0"``, ``"q4_k"`` or
+``"q6_k"`` serves packed decoder weights (models/deepseek/quantize.py),
+packed on the device. Prefill attends through flash_prefill_attention
+unless DSOCR_FLASH_PREFILL=0, the reference's switch. Views are batched
+through the towers (4 global views or 16 tiles per call) the way the
+reference batches them; the reference's host-link tricks (sparse or
+content-only upload, a transfer pool, streamed prep), decode_batch and
+the mesh path are not carried over.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -27,13 +39,17 @@ import torch
 import torch.nn as nn
 
 from ...core.device import select_device
+from ...core.params import DecodeOutcome, DecodeParameters, VisionSettings, normalize_text
+from ...core.sampling import select_token_id_host
 from ...image import PreprocessParams, build_global_view_with_box, dynamic_preprocess
 from ...ops.rope import build_rope_tables
+from ...runtime.generate import GenerateParams, Generator, clamp_new_tokens
+from ...runtime.kv_cache import KVCache, bump_length, init_kv_cache
 from ...runtime.paged import PageAllocator, PagedSlotCache, PagedSlotRunner, new_page_pool
 from ...runtime.slots import SlotCache, SlotRunner, alloc_slot_cache
 from .clip import ClipEncoder
 from .config import DeepseekOcrConfig
-from .decoder import DeepseekDecoder
+from .decoder import DeepseekDecoder, fuse_decoder_params
 from .fusion import (
     Projector,
     assemble_image_tokens,
@@ -94,7 +110,8 @@ class DeepseekOcrEngine:
         quantize: Optional[str] = None,
     ):
         """Random weights from `seed` on the device, or `state` (a
-        state_dict, e.g. convert.params_from_jax of a reference engine).
+        state_dict, e.g. convert.params_from_jax of a reference engine or
+        of a split decoder tree, which is fused here).
 
         quantize="q8_0", "q4_k" or "q6_k" packs the decoder's eligible
         weights (under a K-quant, those whose in dim misses 256 as Q8_0):
@@ -121,6 +138,7 @@ class DeepseekOcrEngine:
         if state is None:
             self.model.reset_(torch.Generator(device=self.device).manual_seed(seed))
         else:
+            state = fuse_decoder_params(state)
             if quantize:
                 state = quantize_decoder_params(state, quantize)
             self.model.load_state_dict(state)
@@ -128,6 +146,9 @@ class DeepseekOcrEngine:
         self.params = self.model.decoder  # what SlotRunner hands to slot_step_fn
         lang = cfg.language
         self._rope = build_rope_tables(max_seq_len, lang.rope_dim, lang.rope_theta, self.device)
+        self._flash_prefill = os.environ.get("DSOCR_FLASH_PREFILL", "1") != "0"
+        # seconds of each stage of the last decode() (the reference's Timer names)
+        self.decode_stages: Dict[str, float] = {}
 
     # -- vision -----------------------------------------------------------------
 
@@ -305,27 +326,147 @@ class DeepseekOcrEngine:
                 out[i] = pkt
         return out
 
-    @torch.no_grad()
     def _prefill_rows(self, rows) -> List[dict]:
         """rows = [(tokens, image_mask, embeddings)] sharing one s_pad
         bucket; right-padded to it (pad keys are causally unreachable from
         real queries, and decode overwrites their KV)."""
         s_pad = round_up(len(rows[0][0]), 128)
-        B = len(rows)
-        tokens = np.zeros((B, s_pad), np.int64)
-        for r, (toks, _, _) in enumerate(rows):
-            tokens[r, : len(toks)] = toks
-        decoder = self.model.decoder
-        embeds = decoder.embed_tokens[torch.from_numpy(tokens).to(self.device)].to(self.dtype)
-        for r, (_, mask, embs) in enumerate(rows):
-            if embs:
-                idx = torch.from_numpy(np.nonzero(np.asarray(mask, bool))[0]).to(self.device)
-                embeds[r, idx] = torch.cat(embs).to(self.dtype)
+        embeds = torch.stack([self._row_embeds(t, m, e, s_pad) for t, m, e in rows])
+        return self._prefill_packets([t for t, _, _ in rows], embeds)
+
+    # -- single-request decode ----------------------------------------------------
+
+    def new_kv_cache(self, batch: int, max_len: int) -> KVCache:
+        lang = self.cfg.language
+        return init_kv_cache(lang.num_hidden_layers, batch, lang.resolved_kv_heads, max_len,
+                             lang.head_dim, lang.resolved_v_head_dim, self.dtype, self.device)
+
+    @torch.no_grad()
+    def _row_embeds(self, tokens, image_mask, embeddings, s_pad: int) -> torch.Tensor:
+        """[s_pad, H]: the tokens' embeddings, zero-token padded, with the
+        image embeddings at the mask's positions (a context longer than
+        the mask is text past it)."""
+        padded = np.zeros(s_pad, np.int64)
+        padded[: len(tokens)] = tokens
+        out = self.model.decoder.embed_tokens[torch.from_numpy(padded).to(self.device)].to(self.dtype)
+        if embeddings:
+            idx = np.nonzero(np.asarray(image_mask, bool))[0]
+            out[torch.from_numpy(idx).to(self.device)] = torch.cat(embeddings).to(self.dtype)
+        return out
+
+    @torch.no_grad()
+    def _prefill(self, embeds: torch.Tensor, cache: KVCache, true_lens: torch.Tensor):
+        """Rows [B, s_pad, H] from position 0 into `cache` → (logits [B, V]
+        at each row's last true token, cache; its length not bumped)."""
+        B, s_pad, _ = embeds.shape
         positions = torch.arange(s_pad, device=self.device)[None].expand(B, s_pad)
-        true_lens = torch.tensor([len(t) for t, _, _ in rows], device=self.device)
-        logits, k, v = decoder.prefill(embeds, positions, self._rope, last_index=true_lens - 1)
+        return self.model.decoder(embeds, positions, cache, self._rope, last_index=true_lens - 1,
+                                  flash_prefill=self._flash_prefill)
+
+    def _prefill_packets(self, token_lists, embeds: torch.Tensor) -> List[dict]:
+        """One join packet per row of embeds [B, s_pad, H]: a prefill into a
+        fresh cache of s_pad positions."""
+        B, s_pad, _ = embeds.shape
+        lens = torch.tensor([len(t) for t in token_lists], device=self.device)
+        logits, cache = self._prefill(embeds, self.new_kv_cache(B, s_pad), lens)
         return [
-            dict(prompt_ids=list(toks), row_k=k[:, i : i + 1], row_v=v[:, i : i + 1],
+            dict(prompt_ids=list(toks), row_k=cache.k[:, i : i + 1], row_v=cache.v[:, i : i + 1],
                  logits=logits[i], pos0=len(toks))
-            for i, (toks, _, _) in enumerate(rows)
+            for i, toks in enumerate(token_lists)
         ]
+
+    def _prefill_single(self, tokens, embeds: torch.Tensor) -> dict:
+        """The join packet of one row, embeds [s_pad, H]."""
+        return self._prefill_packets([tokens], embeds[None])[0]
+
+    def _step_fn(self, decoder, token_ids, cache: KVCache, pos_state):
+        """One token per row at position cache.length → (logits, cache
+        bumped by one, pos_state)."""
+        embeds = decoder.embed_tokens[token_ids][:, None, :].to(self.dtype)
+        positions = torch.full((token_ids.shape[0], 1), cache.length, device=token_ids.device)
+        logits, cache = decoder(embeds, positions, cache, self._rope)
+        return logits, bump_length(cache, 1), pos_state
+
+    def _stage(self, name: str, t0: float, sync: Optional[torch.Tensor] = None) -> float:
+        """Record the seconds since t0 under `name` (after reading `sync`
+        back, so the device work is done); → now."""
+        if sync is not None:
+            sync.reshape(-1)[:1].cpu()
+        now = time.perf_counter()
+        self.decode_stages[name] = now - t0
+        return now
+
+    @torch.no_grad()
+    def decode(self, tokenizer, prompt: str, images: Sequence[np.ndarray], vision: VisionSettings,
+               params: DecodeParameters, stream=None) -> DecodeOutcome:
+        """One request: vision, prompt, prefill to s_pad = round_up(len,
+        128) into a cache of the clamped budget, then greedy or sampled
+        generation (EOS never emitted). ``stream(steps, tokens)`` gets the
+        tokens after every 16-step chunk. ``decode_stages`` keeps the
+        seconds of each stage."""
+        self.decode_stages = {}
+        t0 = time.perf_counter()
+        vision_inputs = [self.prepare_vision_input(np.asarray(img), vision) for img in images]
+        t0 = self._stage("vision.prepare_inputs", t0)
+        embeddings = self._compute_image_embeddings_batched(vision_inputs)
+        t0 = self._stage("vision.compute_embeddings", t0, embeddings[0] if embeddings else None)
+        tokens, image_mask = self.build_prompt_tokens(tokenizer, prompt, vision_inputs, embeddings,
+                                                      vision)
+        prompt_len = len(tokens)
+
+        def build_embeds(context, s_pad):
+            return self._row_embeds(context, image_mask, embeddings, s_pad)
+
+        if not params.use_cache:
+            return self._decode_without_cache(tokenizer, tokens, build_embeds, params, stream)
+        s_pad = round_up(prompt_len, 128)
+        max_new = clamp_new_tokens(s_pad, params.max_new_tokens, self.max_seq_len)
+        max_len = min(self.max_seq_len, round_up(s_pad + max_new + 8, 128))
+        t0 = time.perf_counter()
+        logits, cache = self._prefill(build_embeds(tokens, s_pad)[None], self.new_kv_cache(1, max_len),
+                                      torch.tensor([prompt_len], device=self.device))
+        cache = bump_length(cache, prompt_len)
+        t0 = self._stage("decode.prefill", t0, logits)
+        eos = self.cfg.language.eos_token_id
+        gen_params = GenerateParams(
+            max_new_tokens=max_new, do_sample=params.do_sample, temperature=params.temperature,
+            top_p=params.top_p, top_k=params.top_k, repetition_penalty=params.repetition_penalty,
+            no_repeat_ngram_size=params.no_repeat_ngram_size,
+            eos_ids=(eos,) if eos is not None else (), emit_eos=False,
+            chunk_size=16 if stream is not None else 64,
+        )
+        result = Generator(self._step_fn, gen_params).generate(
+            self.model.decoder, logits, cache, None, [tokens],
+            generator=torch.Generator(device=self.device).manual_seed(params.seed or 0),
+            stream_callback=stream,
+        )
+        self._stage("decode.generate", t0)
+        self.decode_stages["decode.steps"] = result.steps
+        generated = result.tokens[0]
+        return DecodeOutcome(
+            text=normalize_text(tokenizer.decode(generated, skip_special_tokens=True)),
+            prompt_tokens=prompt_len, response_tokens=len(generated), generated_tokens=generated,
+            truncated=max_new < params.max_new_tokens,
+        )
+
+    def _decode_without_cache(self, tokenizer, tokens, embeds_fn, params: DecodeParameters,
+                              stream) -> DecodeOutcome:
+        """The debug path: recompute the whole prefix every step, the
+        selection on the host (the reference's generate_without_cache)."""
+        context = list(tokens)
+        generated: List[int] = []
+        rng = np.random.default_rng(params.seed or 0)
+        eos = self.cfg.language.eos_token_id
+        for _ in range(params.max_new_tokens):
+            pre = self._prefill_single(context, embeds_fn(context, round_up(len(context), 128)))
+            current = select_token_id_host(pre["logits"].float().cpu().numpy(), params, context, rng)
+            if eos is not None and current == eos:
+                break
+            context.append(current)
+            generated.append(current)
+            if stream is not None:
+                stream(len(generated), generated)
+        return DecodeOutcome(
+            text=normalize_text(tokenizer.decode(generated, skip_special_tokens=True)),
+            prompt_tokens=len(tokens), response_tokens=len(generated), generated_tokens=generated,
+        )

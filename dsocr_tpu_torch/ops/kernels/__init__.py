@@ -19,6 +19,7 @@ from .dequant_matmul import (
     q8_moe_megafused,
     q8_moe_megafused_plain,
 )
+from .gather_matmul import gather_matmul, gather_matmul_plain
 from .kquant_matmul import (
     q4k_dense_experts,
     q4k_dense_experts_perx,
@@ -94,6 +95,8 @@ KERNELS = (
      f"{_DQ}:669 (q8_moe_megafused_layered)"),
     (paged_kv_update, "dsocr_tpu_torch/csrc/paged_attention.cu", f"{_PA}:312"),
     (paged_decode_attention, "dsocr_tpu_torch/csrc/paged_attention.cu", f"{_PA}:158"),
+    (gather_matmul, "dsocr_tpu_torch/csrc/gather_matmul.cu",
+     "dsocr_tpu/ops/pallas/gather_matmul.py:86"),
 )
 
 
@@ -110,6 +113,8 @@ __all__ = [
     "KERNELS",
     "flash_prefill_attention",
     "flash_prefill_attention_plain",
+    "gather_matmul",
+    "gather_matmul_plain",
     "launch_counts",
     "paged_decode_attention",
     "paged_decode_attention_plain",

@@ -54,6 +54,7 @@ _SIGNATURES = {
     "dsocr_q4k_expert_matmul": [_P] * 6 + [_I] * 5 + [_L, _I, _P],
     "dsocr_q6k_matmul": [_P] * 5 + [_I] * 4 + [_P],
     "dsocr_q6k_expert_matmul": [_P] * 6 + [_I] * 5 + [_L, _I, _P],
+    "dsocr_gather_matmul": [_P] * 4 + [_I] * 6 + [_P],
 }
 
 _lock = threading.Lock()

@@ -23,7 +23,6 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
-from ..ops.attention import quantize_kv_int8
 from .slots import SlotRunner, SlotState
 
 NO_PAGE = -1
@@ -123,9 +122,10 @@ class PagedSlotRunner(SlotRunner):
 
     join() allocates ceil(max(s_pad, n + max_new) / page) pages, copies the
     prefilled row into them (quantized first for an int8 pool) and installs
-    the row's table; join_many() allocates every row's pages before it
-    touches the state, so a pool that cannot hold them all raises
-    MemoryError with the state and the free list unchanged; release()
+    the row's table; join() and join_many() allocate every row's pages
+    before they touch the state, so a pool that cannot hold them all raises
+    MemoryError with the state and the free list unchanged, and any later
+    failure gives the pages back and the rows as they were; release()
     returns the row's pages and leaves it holding none. The decode chunk is
     inherited: the decoder's slot step reads and writes through the tables.
     Not thread-safe, like SlotRunner."""
@@ -169,26 +169,39 @@ class PagedSlotRunner(SlotRunner):
         for pages in reversed(granted):
             self.allocator.release(pages[::-1])
 
-    def _write_row_kv(self, cache: PagedSlotCache, row: int, row_k: torch.Tensor,
-                      row_v: torch.Tensor) -> None:
-        pages = self._row_pages[row]
+    def _kv_blocks(self, cache: PagedSlotCache, row_k: torch.Tensor, row_v: torch.Tensor):
+        """The prefilled row in the pool's page layout: [(pool, blocks [L,
+        n_blk, H, page, ...])], zero past s_pad."""
         page = cache.page_size
         L, H, s_pad = row_k.shape[:3]
         n_blk = -(-s_pad // page)
-        ids = torch.tensor(pages[:n_blk], dtype=torch.long, device=cache.k.device)
-        planes = [(cache.k, row_k), (cache.v, row_v)]
-        if cache.k_scale is not None:  # int8 pool: quantize the prefilled row
-            (row_k, k_scale), (row_v, v_scale) = quantize_kv_int8(row_k), quantize_kv_int8(row_v)
-            planes = [(cache.k, row_k), (cache.v, row_v), (cache.k_scale, k_scale),
-                      (cache.v_scale, v_scale)]
-        for pool, x in planes:  # x [L, H, s_pad, ...] → pages [L, n_blk, H, page, ...]
+        out = []
+        for pool, x in super()._kv_blocks(cache, row_k, row_v):
             blocks = torch.zeros((L, H, n_blk * page, *x.shape[3:]), dtype=pool.dtype,
                                  device=pool.device)
             blocks[:, :, :s_pad] = x
-            pool[:, ids] = blocks.reshape(L, H, n_blk, page, *x.shape[3:]).transpose(1, 2)
-        cache.tables[row] = NO_PAGE
-        cache.tables[row, : len(pages)] = torch.tensor(pages, dtype=torch.int32,
-                                                       device=cache.tables.device)
+            out.append((pool, blocks.reshape(L, H, n_blk, page, *x.shape[3:]).transpose(1, 2)))
+        return out
+
+    def _prepare(self, state: SlotState, row: int, pre: dict, params) -> dict:
+        """The slot runner's inputs, and the row's page ids and table."""
+        prep = super()._prepare(state, row, pre, params)
+        cache = state.cache
+        pages = self._row_pages[row]
+        table = torch.full((cache.tables.shape[1],), NO_PAGE, dtype=torch.int32)
+        table[: len(pages)] = torch.tensor(pages, dtype=torch.int32)
+        n_blk = prep["kv"][0][1].shape[1]
+        prep.update(ids=torch.tensor(pages[:n_blk], dtype=torch.long, device=cache.k.device),
+                    table=table.to(cache.tables.device))
+        return prep
+
+    def _write_row_kv(self, cache: PagedSlotCache, row: int, prep: dict) -> None:
+        for pool, blocks in prep["kv"]:
+            pool[:, prep["ids"]] = blocks
+        cache.tables[row] = prep["table"]
+
+    def _row_tensors(self, state: SlotState) -> List[torch.Tensor]:
+        return [*super()._row_tensors(state), state.cache.tables]
 
     def _free_row(self, state: SlotState, row: int) -> None:
         pages = self._row_pages.pop(row, None)
@@ -196,30 +209,19 @@ class PagedSlotRunner(SlotRunner):
             self.allocator.release(pages)
         state.cache.tables[row] = NO_PAGE
 
-    @torch.no_grad()
-    def join(self, state: SlotState, row: int, pre: dict, params, max_new: int,
-             first: Optional[int] = None):
-        self._check_packet(state, pre)
-        self._grant(state, [row], [pre], [max_new])
-        try:
-            state, finished, first = super().join(state, row, pre, params, max_new, first)
-        except BaseException:
-            self._give_back([self._row_pages.pop(row)])
-            raise
-        if finished:  # the row never decodes: its pages go back at once
-            self._free_row(state, row)
-        return state, finished, first
-
-    @torch.no_grad()
-    def join_many(self, state: SlotState, rows: Sequence[int], packets: Sequence[dict],
-                  params_list: Sequence, max_news: Sequence[int],
-                  firsts: Sequence[Optional[int]]):
+    def _join_rows(self, state: SlotState, rows: Sequence[int], packets: Sequence[dict],
+                   params_list: Sequence, max_news: Sequence[int],
+                   firsts: Sequence[Optional[int]]):
+        """Every row's pages first, or none; then the slot runner's all or
+        nothing join, whose failure gives the pages back in reverse (the
+        free list as it was). A row that finishes at once returns its
+        pages."""
         for pre in packets:
             self._check_packet(state, pre)
         self._grant(state, rows, packets, max_news)
         try:
-            state, finished, firsts_out = super().join_many(state, rows, packets, params_list,
-                                                            max_news, firsts)
+            state, finished, firsts_out = super()._join_rows(state, rows, packets, params_list,
+                                                             max_news, firsts)
         except BaseException:
             self._give_back([self._row_pages.pop(row) for row in rows])
             raise

@@ -13,9 +13,15 @@ A persistent B-slot decode loop over one shared KV cache:
 The reference's jitted, donated graphs become in-place updates of the
 state's tensors: ``run_chunk`` runs its steps with no device→host sync
 per token — the "every row finished" early exit is read once every
-``CHECK_EVERY`` steps — and ``join``/``release`` overwrite one row. A
-failed ``join_many`` raises before it touches the state, so a caller may
-retry the same rows one by one on the same state.
+``CHECK_EVERY`` steps — and ``join``/``release`` overwrite one row. A join
+is all or nothing, as the reference's functional one is: every row's
+inputs (first token, sampling row, KV blocks quantized for an int8
+cache, pages) are built before the first write, and a failure after it
+puts the rows already written back as they were (a free row: ``active``
+False, length 0, no pages) before it re-raises. A failed ``join`` or
+``join_many`` therefore leaves the state as it was — only the K/V past a
+free row's length 0, which nothing reads — so a caller may retry the same
+rows one by one on the same state.
 """
 
 from __future__ import annotations
@@ -215,39 +221,76 @@ class SlotRunner:
         if row_v.shape[:4] != row_k.shape[:4] or row_k.shape[3] > cache.max_len:
             raise ValueError(f"row KV blocks {tuple(row_k.shape)} exceed slot length {cache.max_len}")
 
-    def _write_row_kv(self, cache: SlotCache, row: int, row_k: torch.Tensor,
-                      row_v: torch.Tensor) -> None:
-        """Copy a prefilled [L, H, s_pad, D] K/V block into row `row`
-        (quantized first for an int8 cache)."""
-        s_pad = row_k.shape[2]
-        if cache.k_scale is not None:  # int8 cache: quantize the prefilled row
-            row_k, k_scale = quantize_kv_int8(row_k)
-            row_v, v_scale = quantize_kv_int8(row_v)
-            cache.k_scale[:, row, :, :s_pad] = k_scale
-            cache.v_scale[:, row, :, :s_pad] = v_scale
-        cache.k[:, row, :, :s_pad] = row_k.to(cache.k.dtype)
-        cache.v[:, row, :, :s_pad] = row_v.to(cache.v.dtype)
+    def _kv_blocks(self, cache: SlotCache, row_k: torch.Tensor, row_v: torch.Tensor):
+        """A prefilled [L, H, s_pad, D] K/V block as the cache stores it:
+        [(plane, block)], quantized first for an int8 cache."""
+        if cache.k_scale is None:
+            return [(cache.k, row_k.to(cache.k.dtype)), (cache.v, row_v.to(cache.v.dtype))]
+        (k, k_scale), (v, v_scale) = quantize_kv_int8(row_k), quantize_kv_int8(row_v)
+        return [(cache.k, k), (cache.v, v), (cache.k_scale, k_scale), (cache.v_scale, v_scale)]
 
-    def _insert(self, state: SlotState, row: int, pre: dict, params, first: int,
-                active: bool, budget: int) -> None:
-        cache = state.cache
-        self._write_row_kv(cache, row, pre["row_k"][:, 0], pre["row_v"][:, 0])
+    def _prepare(self, state: SlotState, row: int, pre: dict, params) -> dict:
+        """Everything a row's join writes, built before any write."""
+        dev = state.context.device
         n = len(pre["prompt_ids"])
         prompt_row = np.zeros(state.context.shape[1], np.int64)
         prompt_row[:n] = pre["prompt_ids"]
-        state.context[row] = torch.from_numpy(prompt_row).to(state.context.device)
-        cache.lengths[row] = n
+        pos0 = pre.get("pos0")
+        return dict(kv=self._kv_blocks(state.cache, pre["row_k"][:, 0], pre["row_v"][:, 0]),
+                    prompt=torch.from_numpy(prompt_row).to(dev), n=n,
+                    pos=n if pos0 is None else pos0,
+                    sampling=SlotSamplingParams.full(1, params, dev), samples=samples(params))
+
+    def _write_row_kv(self, cache: SlotCache, row: int, prep: dict) -> None:
+        for plane, block in prep["kv"]:
+            plane[:, row, :, : block.shape[2]] = block
+
+    def _row_tensors(self, state: SlotState) -> List[torch.Tensor]:
+        """The state tensors indexed by row that a join writes."""
+        return [state.cache.lengths, state.context, state.ctx_len, state.prompt_len, state.pos,
+                state.current, state.active, state.budget, *state.sampling]
+
+    def _insert(self, state: SlotState, row: int, prep: dict, first: int, active: bool,
+                budget: int) -> None:
+        self._write_row_kv(state.cache, row, prep)
+        state.context[row] = prep["prompt"]
+        n = prep["n"]
+        state.cache.lengths[row] = n
         state.ctx_len[row] = n
         state.prompt_len[row] = n
-        pos0 = pre.get("pos0")
-        state.pos[row] = n if pos0 is None else pos0
+        state.pos[row] = prep["pos"]
         state.current[row] = first
-        state.active[row] = active
         state.budget[row] = budget
-        one = SlotSamplingParams.full(1, params, state.context.device)
-        for buf, val in zip(state.sampling, one):
+        for buf, val in zip(state.sampling, prep["sampling"]):
             buf[row] = val[0]
-        state.row_samples[row] = samples(params)
+        state.row_samples[row] = prep["samples"]
+        state.active[row] = active  # last: the row is live from here
+
+    def _join_rows(self, state: SlotState, rows: Sequence[int], packets: Sequence[dict],
+                   params_list: Sequence[Any], max_news: Sequence[int],
+                   firsts: Sequence[Optional[int]]) -> Tuple[SlotState, List[bool], List[int]]:
+        """Insert packets all or nothing (the module docstring)."""
+        for pre in packets:
+            self._check_packet(state, pre)
+        firsts_out = [
+            int(self._first_host(pre, p) if f is None else f)
+            for pre, p, f in zip(packets, params_list, firsts)
+        ]
+        finished = [f in self.eos_ids or m <= 0 for f, m in zip(firsts_out, max_news)]
+        preps = [self._prepare(state, row, pre, p) for row, pre, p in zip(rows, packets, params_list)]
+        saved = []
+        try:
+            for row, prep, f, fin, m in zip(rows, preps, firsts_out, finished, max_news):
+                saved.append((row, [t[row].clone() for t in self._row_tensors(state)],
+                              state.row_samples[row]))
+                self._insert(state, row, prep, f, not fin, m)
+        except BaseException:
+            for row, values, flag in reversed(saved):
+                for t, value in zip(self._row_tensors(state), values):
+                    t[row] = value
+                state.row_samples[row] = flag
+            raise
+        return state, finished, firsts_out
 
     @torch.no_grad()
     def join(self, state: SlotState, row: int, pre: dict, params, max_new: int,
@@ -256,30 +299,16 @@ class SlotRunner:
         s_pad, D], logits [V], pos0) into slot `row`. The first token comes
         precomputed (`first`) or is selected here with the host spec.
         Returns (state, finished, first_token)."""
-        self._check_packet(state, pre)
-        if first is None:
-            first = self._first_host(pre, params)
-        finished = first in self.eos_ids or max_new <= 0
-        self._insert(state, row, pre, params, int(first), not finished, max_new)
-        return state, finished, int(first)
+        state, finished, firsts = self._join_rows(state, [row], [pre], [params], [max_new], [first])
+        return state, finished[0], firsts[0]
 
     @torch.no_grad()
     def join_many(self, state: SlotState, rows: Sequence[int], packets: Sequence[dict],
                   params_list: Sequence[Any], max_news: Sequence[int],
                   firsts: Sequence[Optional[int]]) -> Tuple[SlotState, List[bool], List[int]]:
-        """Insert several packets. Every packet is checked and every first
-        token selected before the state is touched: a bad packet raises
-        with the state unchanged, so the caller can retry row by row."""
-        for pre in packets:
-            self._check_packet(state, pre)
-        firsts_out = [
-            int(self._first_host(pre, p) if f is None else f)
-            for pre, p, f in zip(packets, params_list, firsts)
-        ]
-        finished = [f in self.eos_ids or m <= 0 for f, m in zip(firsts_out, max_news)]
-        for row, pre, p, f, fin, m in zip(rows, packets, params_list, firsts_out, finished, max_news):
-            self._insert(state, row, pre, p, f, not fin, m)
-        return state, finished, firsts_out
+        """Insert several packets, all or nothing: a bad packet raises with
+        the state as it was, so the caller can retry row by row."""
+        return self._join_rows(state, rows, packets, params_list, max_news, firsts)
 
     @torch.no_grad()
     def select_first_tokens(self, packets: Sequence[dict], params_list: Sequence[Any]) -> List[int]:

@@ -7,7 +7,9 @@ prefill_for_slots):
 
 - the PREFILL worker takes waves of queued requests and runs vision +
   prompt prefill for the wave on an executor thread, then selects every
-  packet's first token in one batched device call;
+  packet's first token in one batched device call (should that fail, as
+  one request's bad knobs make it, each join selects on the host and only
+  the bad request's join fails, as in the reference);
 - the DECODE worker admits ready packets into free slots (one join per
   row, or one join_many for several), runs a decode chunk, harvests, and
   releases finished rows, resolving their futures.
@@ -20,9 +22,9 @@ that runs out of device memory does.
 Left out against the reference: the prefix cache, device-fault recovery,
 load shedding, speculative chunk dispatch and streaming.
 
-Two faults of the reference are not carried over: a failed join_many
-leaves the slot state untouched (runtime/slots.py), so the per-row retry
-runs against valid state; and an admission that must pause (a join that
+Two faults of the reference are not carried over: a failed join or
+join_many leaves the slot state as it was (runtime/slots.py), so the
+per-row retry runs against valid state; and an admission that must pause (a join that
 ran out of device memory while other rows are live) keeps every untried
 packet queued, in the batched path as in the per-row path (a paged
 join_many that finds too few pages raises before it takes any, so the
@@ -43,6 +45,7 @@ from typing import Any, List, Optional, Tuple
 import torch
 
 from ..core.params import DecodeOutcome, DecodeParameters, VisionSettings, normalize_text
+from ..runtime.generate import clamp_new_tokens
 from ..runtime.slots import NGRAM_MAX
 
 logger = logging.getLogger("dsocr_torch.scheduler")
@@ -50,18 +53,6 @@ logger = logging.getLogger("dsocr_torch.scheduler")
 # a cold pipeline's first wave runs with nothing to overlap; a smaller one
 # starts decode sooner
 FIRST_WAVE = 4
-
-
-def clamp_new_tokens(prompt_pad: int, requested: int, max_seq_len: int) -> int:
-    """max_new_tokens that fits a [*, max_seq_len] KV budget after a
-    prompt of prompt_pad tokens (dsocr_tpu/runtime/generate.py:77)."""
-    capacity = max_seq_len - prompt_pad
-    if capacity <= 0:
-        raise ValueError(
-            f"prompt ({prompt_pad} padded tokens) leaves no KV-cache room "
-            f"to generate within max_seq_len={max_seq_len}"
-        )
-    return min(requested, capacity)
 
 
 @dataclasses.dataclass
@@ -220,11 +211,17 @@ class ContinuousScheduler:
                     packets[i] = err
         ok = [i for i, p in enumerate(packets) if isinstance(p, dict)]
         if ok:
-            firsts = self._runner.select_first_tokens(
-                [packets[i] for i in ok], [jobs[i].params for i in ok]
-            )
-            for i, tok in zip(ok, firsts):
-                jobs[i].first = tok
+            try:
+                firsts = self._runner.select_first_tokens(
+                    [packets[i] for i in ok], [jobs[i].params for i in ok]
+                )
+                for i, tok in zip(ok, firsts):
+                    jobs[i].first = tok
+            except Exception:
+                # one request's knobs can fail the wave's selection: each
+                # join then selects on the host, and only a bad row fails
+                logger.warning("wave first-token selection failed; join will select host-side",
+                               exc_info=True)
         return packets
 
     def _grab_wave(self) -> List[_SlotJob]:

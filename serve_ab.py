@@ -1,0 +1,86 @@
+"""Serving bursts of two trees of the PyTorch port on one card, alternated.
+
+    python3 serve_ab.py PARENT_ROOT . . PARENT_ROOT
+
+Each argument is the root of a tree that holds a ``dsocr_tpu_torch/``
+package. The trees run one after another in the order given, each in a
+process of its own, so that they share the card and the host's load;
+name them parent, change, change, parent. Every process builds its tree's
+kernels, then runs the bf16 and the Q6_K serving bursts of this file's
+``chip_smoke.py`` on that tree's package: 16 requests of 128 greedy tokens
+over 16 slots on the seeded page, after a 2-request warm-up, each followed
+by its profile (prefill wave and decode steps, host and device time).
+Every line it prints is ``chip_smoke.py``'s, with ``"tree"`` added. It
+exits non-zero if any run fails, and needs one CUDA card.
+"""
+
+from __future__ import annotations
+
+import gc
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def run_tree(root: str) -> int:
+    """The bursts on the package under `root`, measured by this file's
+    chip_smoke.py."""
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("serve_ab: no CUDA device", file=sys.stderr)
+        return 1
+    import dsocr_tpu_torch
+    from dsocr_tpu_torch.core.device import set_f32_precision
+    from dsocr_tpu_torch.ops import kernels as K
+    from dsocr_tpu_torch.ops.kernels import _lib
+
+    cs.require(os.path.dirname(os.path.abspath(dsocr_tpu_torch.__file__)) ==
+               os.path.join(root, "dsocr_tpu_torch"), f"the package was not imported from {root}")
+    emit = cs.emit
+    cs.emit = lambda obj: emit({**obj, "tree": root})
+    set_f32_precision()
+    _lib.lib()
+    attention = ["sam_flash_attention", "flash_prefill_attention", "slot_kv_update", "slot_decode_attention"]
+    for quantize, phase, kernels in ((None, "serve", []),
+                                     ("q6_k", "serve_q6k", ["q6k_matmul", "q6k_dense_experts"])):
+        engine = cs.full_width_engine(torch, quantize=quantize)
+        cs.serving_phase(torch, K, phase, engine, n_requests=cs.N_REQUESTS, n_slots=cs.N_SLOTS,
+                         max_new=cs.MAX_NEW, required=attention + kernels, profile=True)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    return 0
+
+
+def main(argv) -> int:
+    if len(argv) >= 2 and argv[0] == "--tree":
+        return run_tree(argv[1])
+    if not argv:
+        print(__doc__, file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    print(json.dumps({"nvidia_smi": smi.stdout.strip(), "order": argv}), flush=True)
+    failed = []
+    for root in argv:
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--tree", root], timeout=600)
+        if proc.returncode:
+            failed.append((root, proc.returncode))
+    if failed:
+        print(f"serve_ab: failed runs {failed}", file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -15,7 +15,8 @@ max(|bf16 x| @ |W|), f32 reassociation of exact bf16 products; the three
 quantizers are bit-exact with their CPU runs. The megafused Q8_0 chain:
 chip_smoke.megafused_tol per element (reassociation, and one bf16 ulp of
 an inter element whose rounding another order could flip), and two
-launches give the same bits.
+launches give the same bits. gather_matmul: 1e-5 · max(|x| @ |W|), f32
+sums in another order, and two launches give the same bits.
 """
 
 import numpy as np
@@ -468,3 +469,40 @@ def test_new_wrappers_raise_on_bad_inputs(dev):
     tables = torch.zeros((2, 1), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):
         K.paged_decode_attention(q, *pools, tables, tables[:, 0], 0, scale=1.0)
+
+
+# -- gather_matmul (the split layout's expert gather) ---------------------------------
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,n,h,i", [(64, 12, 1280, 896), (64, 96, 896, 1280), (8, 7, 64, 48),
+                                     (3, 5, 3000, 130)])
+def test_gather_matmul_kernel_matches_twin_and_repeats(dev, x_dtype, w_dtype, e, n, h, i):
+    """Repeated experts, an I that is no multiple of 128, an H longer than
+    the kernel's x staging, and an index outside [0, E): a zero row.
+    Tolerance 1e-5 · max(|x| @ |W|): f32 sums in another order."""
+    rng = np.random.default_rng(e + n + h + i)
+    x = _randn(rng, n, h).to(dev, x_dtype)
+    w = _randn(rng, e, h, i, std=h ** -0.5).to(dev, w_dtype)
+    idx = torch.from_numpy(rng.integers(0, min(e, 5), size=n).astype(np.int32)).to(dev)
+    idx[-1] = e  # outside the stack
+    before = K.gather_matmul.launches
+    got = K.gather_matmul(x, w, idx)
+    again = K.gather_matmul(x, w, idx)
+    assert K.gather_matmul.launches == before + 2
+    assert torch.equal(got, again)  # a fixed summation order: the same bits every launch
+    want = K.gather_matmul_plain(x, w, idx)
+    assert torch.equal(got[-1], torch.zeros_like(got[-1]))
+    bound = torch.bmm(x.float().abs()[:, None], w[idx.long().clamp(max=e - 1)].float().abs())[:, 0]
+    assert float((got - want).abs().max()) <= 1e-5 * float(bound.max())
+
+
+def test_gather_matmul_raises_on_bad_inputs(dev):
+    x = torch.zeros((4, 32), device=dev)
+    w = torch.zeros((3, 32, 48), device=dev)
+    idx = torch.zeros((4,), dtype=torch.int32, device=dev)
+    for bad in ((x[:, :16], w, idx), (x, w, idx.long()), (x, w.to(torch.float16), idx),
+                (x, w.transpose(1, 2), idx), (x, w[0], idx)):
+        with pytest.raises(ValueError):
+            K.gather_matmul(*bad)

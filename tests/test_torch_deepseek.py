@@ -60,12 +60,17 @@ def test_params_from_jax_covers_every_parameter(engines):
 
 
 def test_unfused_decoder_tree_is_fused_like_the_reference(engines):
+    """params_from_jax keeps a split tree split; the port's state fuser (what
+    the engine applies at init) gives the reference's fused tree."""
     from dsocr_tpu.models.deepseek.decoder import fuse_decoder_params, init_deepseek_params
+    from dsocr_tpu_torch.models.deepseek.decoder import fuse_decoder_params as fuse_state
 
     tree = dict(jax.device_get(engines[0].params))
     unfused = init_deepseek_params(engines[0].cfg.language, jax.random.PRNGKey(5), jnp.float32)
     unfused = jax.device_get(unfused)
-    got = params_from_jax(dict(tree, decoder=unfused))
+    split = params_from_jax(dict(tree, decoder=unfused))
+    assert "decoder.moe_layers.0.experts_gate" in split and "decoder.dense_layers.0.q_proj" in split
+    got = fuse_state(split)
     want = params_from_jax(dict(tree, decoder=jax.device_get(fuse_decoder_params(unfused))))
     assert set(got) == set(want)
     for key in want:

@@ -32,6 +32,7 @@ SLICE_MODULES = [
     "dsocr_tpu_torch.ops.kernels.dequant_matmul",
     "dsocr_tpu_torch.ops.kernels.kquant_matmul",
     "dsocr_tpu_torch.ops.kernels.paged_attention",
+    "dsocr_tpu_torch.ops.kernels.gather_matmul",
     "dsocr_tpu_torch.dsq",
     "dsocr_tpu_torch.dsq.quant",
     "dsocr_tpu_torch.dsq.serve_quant",
@@ -45,6 +46,8 @@ SLICE_MODULES = [
     "dsocr_tpu_torch.models.deepseek.engine",
     "dsocr_tpu_torch.models.deepseek.convert",
     "dsocr_tpu_torch.models.deepseek.quantize",
+    "dsocr_tpu_torch.runtime.kv_cache",
+    "dsocr_tpu_torch.runtime.generate",
     "dsocr_tpu_torch.runtime.slots",
     "dsocr_tpu_torch.runtime.paged",
     "dsocr_tpu_torch.server.scheduler",
@@ -124,6 +127,8 @@ _MISPLACED_CALLS = {
     "paged_kv_update": lambda K: K.paged_kv_update(
         _meta(2, 5, 2, 8, 16), _meta(2, 5, 2, 8, 16), None, None, _meta(3, 2, 16), _meta(3, 2, 16),
         None, None, _meta(3, 2, dtype=torch.int32), _meta(3, dtype=torch.int32), 0),
+    "gather_matmul": lambda K: K.gather_matmul(
+        _meta(4, 32), _meta(3, 32, 48), _meta(4, dtype=torch.int32)),
     "paged_decode_attention": lambda K: K.paged_decode_attention(
         _meta(3, 4, 16), _meta(2, 5, 2, 8, 16), _meta(2, 5, 2, 8, 16), None, None,
         _meta(3, 2, dtype=torch.int32), _meta(3, dtype=torch.int32), 0, scale=0.25),
