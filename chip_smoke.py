@@ -16,6 +16,13 @@ non-zero (nothing is caught):
             same function, timed here and used nowhere in the port), and
             the bound: the larger of the bytes the call must move over
             3.35 TB/s and its operations over the peak rate of their type;
+            flash_prefill_attention also at the profile's wave (B 16, S
+            1024, no pads) and with pads at the tile boundaries 63/64/65,
+            slot_decode_attention also at the serving step (16 rows of
+            904-1031 positions in a 1536-position cache) and with rows
+            ending on either side of a split boundary, bf16 and int8; two
+            launches of either attention, and of the paged attend, must
+            give the same bits;
             the Q8_0 quantizer on the card bit for bit against its CPU run
             on a full-width expert stack, and the Q4_K and Q6_K quantizers
             on 8 experts of one; the paged KV write and attend (16 rows of
@@ -501,6 +508,8 @@ def check_kernels(torch, K):
     """Phase 3: every kernel against its twin at main-path shapes."""
     import torch.nn.functional as F
 
+    from dsocr_tpu_torch.ops.kernels import _lib
+
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -535,13 +544,17 @@ def check_kernels(torch, K):
                bound(nbytes(*args, out), 4 * bh * s * s * 64, "f32"))
         del bias
 
-    # decoder prefill: 10 heads of 128, S = 1792, bf16, with left padding
-    for b, pads in ((1, [0]), (4, [0, 300, 7, 1000])):
-        s = 1792
+    # decoder prefill: 10 heads of 128, bf16: S = 1792 with left padding;
+    # the profile's wave (16 rows of 1024, no padding); pads at the tile
+    # boundaries 63, 64, 65. Two launches must give the same bits.
+    for b, pads, s in ((1, [0], 1792), (4, [0, 300, 7, 1000], 1792), (16, [0] * 16, 1024),
+                       (3, [63, 64, 65], 256)):
         q, k, v = (randn(b, 10, s, 128, dtype=torch.bfloat16) for _ in range(3))
         pad = torch.tensor(pads, dtype=torch.int32, device=dev)
         scale = 128 ** -0.5
         out = K.flash_prefill_attention(q, k, v, pad, scale=scale)
+        require(torch.equal(out, K.flash_prefill_attention(q, k, v, pad, scale=scale)),
+                "flash_prefill_attention: two launches on the same inputs differ")
         ref = K.flash_prefill_attention_plain(q, k, v, pad, scale=scale)
         err = float((out.float() - ref.float()).abs().max())
         pos = torch.arange(s, device=dev)
@@ -549,12 +562,13 @@ def check_kernels(torch, K):
             pos[None, None, None, :] >= pad[:, None, None, None])
         # a live query attends keys pad..i; a fully padded one averages all S
         keys = sum(p * s + (s - p) * (s - p + 1) // 2 for p in pads)
-        record("flash_prefill_attention", f"B={b} S={s} pad_start={pads}", err, bf16_tol(ref),
+        label = f"pad_start={pads}" if any(pads) else "no pads"
+        record("flash_prefill_attention", f"B={b} S={s} {label}", err, bf16_tol(ref),
                time_ms(lambda: K.flash_prefill_attention(q, k, v, pad, scale=scale)),
                time_ms(lambda: K.flash_prefill_attention_plain(q, k, v, pad, scale=scale)),
                time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)),
-               bound(nbytes(q, k, v, pad, out), 4 * 10 * 128 * keys, "bf16"))
-        del mask
+               bound(nbytes(q, k, v, pad, out), 4 * 10 * 128 * keys, "bf16"), deterministic=True)
+        del mask, q, k, v, out, ref
 
     # slot caches: L = 12, B = 16, NKV = 10, D = 128, S_max = 2560
     L, B, NKV, S, D = 12, 16, 10, 2560, 128
@@ -589,22 +603,33 @@ def check_kernels(torch, K):
                time_ms(lambda: K.slot_kv_update_plain(*twins, *new, layer, lengths)),
                None, bound(2 * nbytes(*new) + nbytes(lengths), 0, "bf16"))
 
-        q = randn(B, 10, 1, D, dtype=torch.bfloat16)
-        scale = D ** -0.5
-        out = K.slot_decode_attention(q, *caches, layer, lengths, scale=scale)
-        ref = K.slot_decode_attention_plain(q, *caches, layer, lengths, scale=scale)
-        err = float((out.float() - ref.float()).abs().max())
-        kv_bytes = used * NKV * D * k_all.element_size() * 2 + (used * NKV * 4 * 2 if quant else 0)
-        library = None  # SDPA takes no int8 cache
-        if not quant:
-            live = (torch.arange(S, device=dev)[None, :] <= lengths.long()[:, None])[:, None, None, :]
-            kl, vl = k_all[layer], v_all[layer]
-            library = time_ms(lambda: F.scaled_dot_product_attention(q, kl, vl, attn_mask=live, scale=scale))
-        record("slot_decode_attention", f"{kind} B={B} S={S}", err, bf16_tol(ref),
-               time_ms(lambda: K.slot_decode_attention(q, *caches, layer, lengths, scale=scale)),
-               time_ms(lambda: K.slot_decode_attention_plain(q, *caches, layer, lengths, scale=scale)),
-               library, bound(nbytes(q, lengths, out) + kv_bytes, 4 * 10 * D * used, "bf16"))
+        check_slot_attend(torch, K, record, randn, q=randn(B, 10, 1, D, dtype=torch.bfloat16),
+                          caches=caches, layer=layer, lengths=lengths, case=f"{kind} B={B} S={S}")
     del k_all, v_all, ks_all, vs_all, caches, twins
+    # the serving step (16 rows of the page's packet, 904 prompt tokens and
+    # up to 128 new, in a 1536-position slot cache), then rows that end on
+    # either side of a split boundary, and a row of one position
+    split = _lib.DECODE_SPLIT
+    edges = [0, split - 2, split - 1, split, split + 1, 2 * split - 1, 2 * split, 2 * split + 1]
+    for case, lengths in (("serving", torch.randint(904, 904 + 128, (B,), generator=gen, device=dev,
+                                                    dtype=torch.int32)),
+                          ("split edges", torch.tensor(edges * 2, dtype=torch.int32, device=dev))):
+        S = 1536
+        for quant in (False, True):
+            if quant:
+                caches = (torch.randint(-127, 128, (1, B, NKV, S, D), generator=gen, device=dev,
+                                        dtype=torch.int8),
+                          torch.randint(-127, 128, (1, B, NKV, S, D), generator=gen, device=dev,
+                                        dtype=torch.int8),
+                          randn(1, B, NKV, S).abs() * 0.02, randn(1, B, NKV, S).abs() * 0.02)
+            else:
+                caches = (randn(1, B, NKV, S, D, dtype=torch.bfloat16),
+                          randn(1, B, NKV, S, D, dtype=torch.bfloat16), None, None)
+            check_slot_attend(torch, K, record, randn, q=randn(B, 10, 1, D, dtype=torch.bfloat16),
+                              caches=caches, layer=0, lengths=lengths,
+                              case=f"{'int8' if quant else 'bf16'} B={B} S={S} {case} "
+                                   f"lengths {int(lengths.min())}-{int(lengths.max())}")
+            del caches
     check_gather_matmul(torch, K, record, randn, gen)
     check_paged_kernels(torch, K, record, randn, gen)
     check_q8_kernels(torch, K, record, randn)
@@ -613,6 +638,38 @@ def check_kernels(torch, K):
         check_kquant_kernels(torch, K, record, randn, method)
         torch.cuda.empty_cache()
     return cases
+
+
+def check_slot_attend(torch, K, record, randn, *, q, caches, layer, lengths, case):
+    """slot_decode_attention on one layer of `caches` against its twin
+    (tolerance bf16_tol), two launches bit-equal; library time SDPA over
+    the whole bf16 row under the length mask (none for int8: SDPA takes no
+    int8 cache); bound: the K/V rows [0, lengths[b]] (and their int8
+    scales) read once."""
+    import torch.nn.functional as F
+
+    k_all, v_all, ks_all, vs_all = caches
+    B, NH, _, D = q.shape
+    NKV, S = k_all.shape[2], k_all.shape[3]
+    scale = D ** -0.5
+    out = K.slot_decode_attention(q, *caches, layer, lengths, scale=scale)
+    require(torch.equal(out, K.slot_decode_attention(q, *caches, layer, lengths, scale=scale)),
+            f"slot_decode_attention {case}: two launches on the same inputs differ")
+    ref = K.slot_decode_attention_plain(q, *caches, layer, lengths, scale=scale)
+    err = float((out.float() - ref.float()).abs().max())
+    used = int((lengths.long() + 1).sum())  # positions the attend reads: [0, lengths[b]]
+    quant = ks_all is not None
+    kv_bytes = used * NKV * D * k_all.element_size() * 2 + (used * NKV * 4 * 2 if quant else 0)
+    library = None
+    if not quant:
+        live = (torch.arange(S, device=q.device)[None, :] <= lengths.long()[:, None])[:, None, None, :]
+        kl, vl = k_all[layer], v_all[layer]
+        library = time_ms(lambda: F.scaled_dot_product_attention(q, kl, vl, attn_mask=live, scale=scale))
+    record("slot_decode_attention", case, err, bf16_tol(ref),
+           time_ms(lambda: K.slot_decode_attention(q, *caches, layer, lengths, scale=scale)),
+           time_ms(lambda: K.slot_decode_attention_plain(q, *caches, layer, lengths, scale=scale)),
+           library, bound(nbytes(q, lengths, out) + kv_bytes, 4 * NH * D * used, "bf16"),
+           deterministic=True)
 
 
 def check_gather_matmul(torch, K, record, randn, gen):
@@ -702,6 +759,8 @@ def check_paged_kernels(torch, K, record, randn, gen):
         q = randn(B, 10, D)
         scale = D ** -0.5
         out = K.paged_decode_attention(q, *pools, tables, lengths, layer, scale=scale)
+        require(torch.equal(out, K.paged_decode_attention(q, *pools, tables, lengths, layer, scale=scale)),
+                "paged_decode_attention: two launches on the same inputs differ")
         ref = K.paged_decode_attention_plain(q, *pools, tables, lengths, layer, scale=scale)
         kv_bytes = used * NKV * D * pools[0].element_size() * 2 + (used * NKV * 4 * 2 if quant else 0)
         library = None  # SDPA takes no int8 cache
@@ -717,7 +776,8 @@ def check_paged_kernels(torch, K, record, randn, gen):
                float(ref.abs().max()) * 1e-4 + 1e-6,
                time_ms(lambda: K.paged_decode_attention(q, *pools, tables, lengths, layer, scale=scale)),
                time_ms(lambda: K.paged_decode_attention_plain(q, *pools, tables, lengths, layer, scale=scale)),
-               library, bound(nbytes(q, tables, lengths, out) + kv_bytes, 4 * 10 * D * used, "f32"))
+               library, bound(nbytes(q, tables, lengths, out) + kv_bytes, 4 * 10 * D * used, "f32"),
+               deterministic=True)
         del pools, new
         torch.cuda.empty_cache()
 

@@ -23,16 +23,19 @@ extern "C" int dsocr_paged_kv_update(void* k, void* v, void* ks, void* vs, const
 }
 
 // q f32 [B, NH, D] → out f32 [B, NH * Dv], as the reference's attend.
+// part: scratch of B · NKV · splits · G · (Dv + 2) floats, splits =
+// ceil(P_max · page / DA_CHUNK) (kv_attention.cuh)
 extern "C" int dsocr_paged_decode_attention(const void* q, const void* k, const void* v,
                                             const void* ks, const void* vs, const void* tables,
-                                            const void* lengths, void* out, int B, int NH,
-                                            int NKV, int P, int page, int P_max, int D, int Dv,
-                                            float scale, int kv_dtype, void* stream) {
+                                            const void* lengths, void* part, void* out, int B,
+                                            int NH, int NKV, int P, int page, int P_max, int D,
+                                            int Dv, float scale, int splits, int kv_dtype,
+                                            void* stream) {
   using namespace dsocr;
   if (page <= 0 || P_max <= 0) return (int)cudaErrorInvalidValue;
   const PagedRows map{static_cast<const int32_t*>(lengths), static_cast<const int32_t*>(tables),
                       NKV, P, page, P_max};
-  return (int)dispatch_decode_attention<float, float>(kv_dtype, q, k, v, ks, vs, out, B, NH, NKV,
-                                                      D, Dv, scale, map,
-                                                      static_cast<cudaStream_t>(stream));
+  return (int)dispatch_decode_attention<float, float>(
+      kv_dtype, q, k, v, ks, vs, part, out, B, NH, NKV, D, Dv, scale, splits,
+      (long long)P_max * page, map, static_cast<cudaStream_t>(stream));
 }

@@ -18,21 +18,24 @@ extern "C" int dsocr_slot_kv_update(void* k, void* v, void* ks, void* vs, const 
                               static_cast<cudaStream_t>(stream));
 }
 
+// part: scratch of B · NKV · splits · G · (Dv + 2) floats, splits =
+// ceil(S / DA_CHUNK) (kv_attention.cuh)
 extern "C" int dsocr_slot_decode_attention(const void* q, const void* k, const void* v,
                                            const void* ks, const void* vs,
-                                           const void* lengths, void* out, int B, int NH,
-                                           int NKV, int S, int D, int Dv, float scale,
-                                           int q_dtype, int kv_dtype, void* stream) {
+                                           const void* lengths, void* part, void* out, int B,
+                                           int NH, int NKV, int S, int D, int Dv, float scale,
+                                           int splits, int q_dtype, int kv_dtype, void* stream) {
   using namespace dsocr;
   const SlotRows map{static_cast<const int32_t*>(lengths), NKV, S};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (q_dtype) {  // the output takes q's type
     case kF32:
-      return (int)dispatch_decode_attention<float, float>(kv_dtype, q, k, v, ks, vs, out, B, NH,
-                                                          NKV, D, Dv, scale, map, st);
+      return (int)dispatch_decode_attention<float, float>(kv_dtype, q, k, v, ks, vs, part, out, B,
+                                                          NH, NKV, D, Dv, scale, splits, S, map,
+                                                          st);
     case kBF16:
       return (int)dispatch_decode_attention<__nv_bfloat16, __nv_bfloat16>(
-          kv_dtype, q, k, v, ks, vs, out, B, NH, NKV, D, Dv, scale, map, st);
+          kv_dtype, q, k, v, ks, vs, part, out, B, NH, NKV, D, Dv, scale, splits, S, map, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

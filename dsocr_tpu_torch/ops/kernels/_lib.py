@@ -38,15 +38,17 @@ NVCC_FLAGS = (
 
 # dtype codes shared with csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# positions per split of the decode attend (csrc/kv_attention.cuh: DA_CHUNK)
+DECODE_SPLIT = 256
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {
     "dsocr_sam_flash_attention": [_P] * 6 + [_I] * 6 + [_P],
     "dsocr_flash_prefill_attention": [_P] * 5 + [_I] * 6 + [_F, _I, _P],
     "dsocr_slot_kv_update": [_P] * 9 + [_I] * 6 + [_P],
-    "dsocr_slot_decode_attention": [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P],
+    "dsocr_slot_decode_attention": [_P] * 8 + [_I] * 6 + [_F, _I, _I, _I, _P],
     "dsocr_paged_kv_update": [_P] * 10 + [_I] * 8 + [_P],
-    "dsocr_paged_decode_attention": [_P] * 8 + [_I] * 8 + [_F, _I, _P],
+    "dsocr_paged_decode_attention": [_P] * 9 + [_I] * 8 + [_F, _I, _I, _P],
     "dsocr_q8_matmul": [_P] * 4 + [_I] * 4 + [_P],
     "dsocr_q8_expert_matmul": [_P] * 5 + [_I] * 5 + [_L, _I, _P],
     "dsocr_q8_moe_megafused": [_P] * 8 + [_I] * 5 + [_P],
@@ -165,6 +167,15 @@ def stream_ptr(t: torch.Tensor) -> int:
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
+
+
+def decode_partials(B: int, NKV: int, capacity: int, G: int, Dv: int, device):
+    """(splits, scratch) of the split-K decode attend: one split per
+    DECODE_SPLIT positions of the cache's capacity, and per (row, KV head,
+    split, query head) its running max, sum and value sum (Dv + 2 f32)."""
+    splits = -(-capacity // DECODE_SPLIT)
+    part = torch.empty(B * NKV * splits * G * (Dv + 2), dtype=torch.float32, device=device)
+    return splits, part
 
 
 def require_cuda(name: str, *tensors: Optional[torch.Tensor]) -> None:

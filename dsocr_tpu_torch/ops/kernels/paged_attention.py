@@ -28,12 +28,13 @@ address mapping is the one difference from ops/kernels/slot_attention.py.
   finished row one past its last page) writes nothing: the reference
   instead writes idle rows' token 0 through a stale table into page
   ``tables[r][0]``, which a live row may own.
-- ``paged_decode_attention``: grid (B, NKV); a block walks positions
-  [0, lengths[b]] in tiles of 64, looks up each position's page, and runs
-  the slot kernel's f32 online softmax with the int8 scales folded in. It
-  reads only pages ≤ lengths[b] // page and only positions ≤ lengths[b],
-  so what the rest of a page holds (NaN included) never reaches the
-  product. A position on no page is left out; a row with none gets zeros.
+- ``paged_decode_attention``: the slot attend's split-K body (256
+  positions a block, four warps streaming tiles of 16 positions, partials
+  merged in split order by a second kernel), with each tile ending at a
+  page boundary and looked up in the row's table. It reads only pages ≤
+  lengths[b] // page and only positions ≤ lengths[b], so what the rest of
+  a page holds (NaN included) never reaches the product. A position on no
+  page is left out; a row with none gets zeros.
 """
 
 from __future__ import annotations
@@ -176,12 +177,14 @@ def paged_decode_attention(q, k_pool, v_pool, ks_pool, vs_pool, tables, lengths,
     if lengths.dtype != torch.int32 or tables.dtype != torch.int32 or not 0 <= layer < L:
         raise ValueError(f"{name}: lengths and tables must be int32 and layer in range")
     out = torch.empty((B, NH * Dv), dtype=torch.float32, device=q.device)
+    splits, part = _lib.decode_partials(B, NKV, P_max * page, NH // NKV, Dv, q.device)
     err = _lib.lib().dsocr_paged_decode_attention(
         q.data_ptr(), k_pool[layer].data_ptr(), v_pool[layer].data_ptr(),
         ks_pool[layer].data_ptr() if quant else None,
         vs_pool[layer].data_ptr() if quant else None,
-        tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, NH, NKV, P, page, P_max, D, Dv,
-        float(scale), _lib.DTYPE_CODES[k_pool.dtype], _lib.stream_ptr(q),
+        tables.data_ptr(), lengths.data_ptr(), part.data_ptr(), out.data_ptr(), B, NH, NKV, P,
+        page, P_max, D, Dv, float(scale), splits, _lib.DTYPE_CODES[k_pool.dtype],
+        _lib.stream_ptr(q),
     )
     _lib.check(err, name)
     _lib.count_launch(paged_decode_attention)

@@ -7,21 +7,30 @@ Mask ``kv <= q and kv >= pad_start[b]``; GQA takes KV head
 ``h // (H / H_kv)``; scores and softmax in f32 with the finite -1e30 fill,
 so a fully masked (left-pad) query row comes out as the uniform mean of v
 over all S keys, exactly as in the reference. Main path: q [B, 10, S,
-128] bf16 with S the prompt padded to a multiple of 128 (~1.8k tokens
-for a crop-mode page), output [B, S, 1280] in q's dtype.
+128] bf16 with S the prompt padded to a multiple of 128 (1024 for the
+904-token crop-mode page the serving benchmarks use), output [B, S, 1280]
+in q's dtype.
 
-What bounds it on the H100: arithmetic — 4·S²·D FLOPs per (row, head),
-~1.6 GFLOP at S = 1792, on O(S·D) bytes. The plain version writes and
-re-reads an [B, H, S, S] f32 score tensor (2 GiB for a 16-row wave).
+What bounds it on the H100: under the causal mask a (row, head) does
+2·S²·D FLOPs (two products over the lower triangle) on 4·S·D elements,
+~256 FLOPs per byte at S = 1024, near the card's ridge of ~295: the bf16
+tensor cores and the memory bound it about alike there, the tensor cores
+at longer prompts. The plain
+version writes and re-reads an [B, H, S, S] f32 score tensor (0.6 GiB
+for a 16-row wave of 1024).
 
-What the design does (csrc/prefill_attention.cu over
-csrc/flash_tile.cuh): one block per 64 queries of one (row, head), f32
-online softmax over key tiles staged in shared memory; the score tile
-never leaves shared memory. It visits EVERY key tile, including those
-above the diagonal, because left-padded rows must see all S keys to
-reproduce the reference's uniform mean. f32 CUDA-core math; tensor-core
-(wgmma) tiles and skipping the dead tiles of unpadded rows are later
-work.
+What the design does (csrc/prefill_attention.cu): bf16 inputs run a
+Hopper kernel, 128 queries of one (row, head) a block in two warpgroups
+that share its K/V tiles, with both products on wgmma (Q and P from
+registers, K and V read by the tensor cores from 128-byte-swizzled shared
+memory), the online softmax in registers, a three-stage cp.async ring of
+K/V tiles, and only the key tiles a warpgroup's rows need: from the pad's
+tile to their diagonal, or all S keys for rows among which a fully masked
+(left-pad) one is. f32 inputs (the
+tiny parity configs) run the CUDA-core f32 body of csrc/flash_tile.cuh,
+which the SAM kernel shares: TF32 would not meet the f32 tolerance. Both
+are kernels written for this card; a CUDA tensor of any other dtype
+raises.
 """
 
 from __future__ import annotations
@@ -45,7 +54,8 @@ def flash_prefill_attention_plain(q, k, v, pad_start, *, scale: float):
 def flash_prefill_attention(q, k, v, pad_start, *, scale: float):
     """q [B, H, S, D], k [B, H_kv, S, D], v [B, H_kv, S, Dv] (one dtype,
     f32 or bf16), pad_start [B] int32 → [B, S, H·Dv] in q's dtype. CPU
-    tensors run the plain version; CUDA tensors launch the kernel."""
+    tensors run the plain version; CUDA tensors launch the kernel for
+    their dtype (bf16: tensor cores; f32: CUDA cores)."""
     if q.device.type == "cpu":
         return flash_prefill_attention_plain(q, k, v, pad_start, scale=scale)
     name = "flash_prefill_attention"

@@ -9,8 +9,9 @@ without scales. Main path: L = 12, B = 16, NKV = 10, D = 128, S = 2560.
 What bounds them on the H100: device-memory bytes. The write moves one
 token per (row, head), a few KB per call, so it is launch latency. The
 attend reads each row's used K/V once and does 4 FLOPs per byte of bf16
-(2 per byte of int8): at 16 rows × ~1.8k tokens it reads ~74 MB of int8
-KV per layer, ~22 µs at the card's 3.35 TB/s.
+(2 per byte of int8): at the serving step's 16 rows × ~968 positions it
+reads ~40 MB of bf16 K/V per layer (~20 MB int8), 12 (6) µs at the
+card's 3.35 TB/s.
 
 What the design does (csrc/slot_attention.cu over the bodies in
 csrc/kv_attention.cuh, which the paged kernels share; only the map from a
@@ -22,14 +23,15 @@ row's position to a cache row differs):
   its buffers instead). The layer is a Python int: the wrapper passes
   the pointer of ``cache[layer]``, a view that costs no copy. Rows with
   ``lengths[b] >= S`` write nothing.
-- ``slot_decode_attention``: grid (B, NKV); a block walks positions
-  [0, lengths[b]] in tiles of 64, so it reads only the used length of
-  each row (the point of the TPU kernel) — f32 scores against a K tile
-  staged in shared memory, an f32 online softmax from m = -1e30, and int8
-  scales folded in as the reference does (k scale after ``* scale``,
-  v scale into p after ``l`` has accumulated p). One block per (row,
-  head) is 160 blocks at the main path: too few to fill 132 SMs deeply;
-  split-K over the length is later work.
+- ``slot_decode_attention``: split-K over positions. A block owns 256
+  positions (``_lib.DECODE_SPLIT``) of one (row, KV head), so the step's
+  grid grows with the cache's capacity (S) and never reads ``lengths``
+  back; its four warps each stream tiles of 16 positions through a
+  two-stage cp.async ring, reading only positions [0, lengths[b]], and
+  keep f32 online-softmax partials that a second small kernel merges in
+  split order (deterministic; no atomics). int8 scales fold in as the
+  reference does (k scale after ``* scale``, v scale into p after ``l``
+  has accumulated p). The wrapper allocates the partials' scratch.
 """
 
 from __future__ import annotations
@@ -132,12 +134,13 @@ def slot_decode_attention(q, k_all, v_all, ks_all, vs_all, layer: int, lengths,
     if lengths.dtype != torch.int32 or not 0 <= layer < L:
         raise ValueError(f"{name}: lengths must be int32 and layer in range")
     out = torch.empty((B, 1, NH * Dv), dtype=q.dtype, device=q.device)
+    splits, part = _lib.decode_partials(B, NKV, S, NH // NKV, Dv, q.device)
     err = _lib.lib().dsocr_slot_decode_attention(
         q.data_ptr(), k_all[layer].data_ptr(), v_all[layer].data_ptr(),
         ks_all[layer].data_ptr() if quant else None,
         vs_all[layer].data_ptr() if quant else None,
-        lengths.data_ptr(), out.data_ptr(), B, NH, NKV, S, D, Dv, float(scale),
-        _lib.DTYPE_CODES[q.dtype], _lib.DTYPE_CODES[k_all.dtype],
+        lengths.data_ptr(), part.data_ptr(), out.data_ptr(), B, NH, NKV, S, D, Dv,
+        float(scale), splits, _lib.DTYPE_CODES[q.dtype], _lib.DTYPE_CODES[k_all.dtype],
         _lib.stream_ptr(q),
     )
     _lib.check(err, name)

@@ -1,0 +1,153 @@
+#!/usr/bin/env python3
+"""Time variants of the attention kernels' sources on one CUDA card.
+
+    python3 kernel_variants.py '{"base": [], "two_stages": [["constexpr int PF_STAGES = 3;",
+                                                 "constexpr int PF_STAGES = 2;"]]}' [prefill|decode]
+
+Each variant is a list of text substitutions applied to a copy of
+dsocr_tpu_torch/csrc/ under dsocr_tpu_torch/_build/variants/<name>/ (an
+empty list is the checkout's own sources); a substitution whose old text
+is "DA_CHUNK" sets the decode attend's split size to the new text, in the
+source and in the wrapper. Each variant builds its own kernel library, and
+every variant runs the same inputs: flash_prefill_attention at phase 3's
+shapes (B 1 and B 4 at S 1792, the profile's 16 × 1024 wave) and
+slot_decode_attention with bf16 and int8 caches (rows ending at split
+edges, the serving step's 904-1031 positions, phase 3's S 2560 rows).
+Times are chip_smoke.time_ms's (device milliseconds per call, CUDA
+events); SDPA's time is printed once per slot case, and the decode
+attend's two kernels are timed apart by torch.profiler. Every variant is
+timed twice, all variants in turn, and each line carries the round.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import pathlib
+import shutil
+import sys
+
+HERE = pathlib.Path(__file__).resolve().parent
+
+
+def cases(torch, K, F, which):
+    """(name, call, reference output) for the chosen kernels, plus SDPA lines."""
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    out = []
+    if which in ("all", "prefill"):
+        for b, pads, s in ((1, [0], 1792), (4, [0, 300, 7, 1000], 1792), (16, [0] * 16, 1024)):
+            q, k, v = (randn(b, 10, s, 128, dtype=torch.bfloat16) for _ in range(3))
+            pad = torch.tensor(pads, dtype=torch.int32, device=dev)
+            ref = K.flash_prefill_attention_plain(q, k, v, pad, scale=128 ** -0.5)
+            out.append((f"prefill B{b} S{s}",
+                        lambda q=q, k=k, v=v, pad=pad: K.flash_prefill_attention(q, k, v, pad, scale=128 ** -0.5),
+                        ref))
+    if which in ("all", "decode"):
+        B, NKV, D = 16, 10, 128
+        for name, S, lengths in (
+                ("edges", 1536, torch.tensor([0, 254, 255, 256, 257, 511, 512, 513] * 2, dtype=torch.int32, device=dev)),
+                ("serving", 1536, torch.randint(904, 1032, (B,), generator=gen, device=dev, dtype=torch.int32)),
+                ("S2560", 2560, torch.randint(0, 2560, (B,), generator=gen, device=dev, dtype=torch.int32))):
+            for quant in (False, True):
+                if quant:
+                    def codes():
+                        return torch.randint(-127, 128, (1, B, NKV, S, D), generator=gen, device=dev, dtype=torch.int8)
+
+                    c = (codes(), codes(), randn(1, B, NKV, S).abs() * 0.02, randn(1, B, NKV, S).abs() * 0.02)
+                else:
+                    c = (randn(1, B, NKV, S, D, dtype=torch.bfloat16), randn(1, B, NKV, S, D, dtype=torch.bfloat16),
+                         None, None)
+                q = randn(B, 10, 1, D, dtype=torch.bfloat16)
+                ref = K.slot_decode_attention_plain(q, *c, 0, lengths, scale=D ** -0.5)
+                out.append((f"slot {name} {'int8' if quant else 'bf16'}",
+                            lambda q=q, c=c, lengths=lengths: K.slot_decode_attention(q, *c, 0, lengths, scale=D ** -0.5),
+                            ref))
+                if not quant:
+                    live = (torch.arange(S, device=dev)[None, :] <= lengths.long()[:, None])[:, None, None, :]
+                    out.append((f"sdpa {name}",
+                                lambda q=q, c=c, live=live: F.scaled_dot_product_attention(
+                                    q, c[0][0], c[1][0], attn_mask=live, scale=D ** -0.5),
+                                None))
+    return out
+
+
+def main() -> int:
+    if len(sys.argv) not in (2, 3):
+        print(__doc__, file=sys.stderr)
+        return 2
+    variants = json.loads(sys.argv[1])
+    which = sys.argv[2] if len(sys.argv) == 3 else "all"
+    import torch
+    import torch.nn.functional as F
+
+    if not torch.cuda.is_available():
+        print("kernel_variants: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(HERE))
+    import chip_smoke
+    from dsocr_tpu_torch.core.device import set_f32_precision
+    from dsocr_tpu_torch.ops import kernels as K
+    from dsocr_tpu_torch.ops.kernels import _lib
+
+    set_f32_precision()
+    print(chip_smoke.smi_line(), flush=True)
+    todo = cases(torch, K, F, which)
+    src = HERE / "dsocr_tpu_torch" / "csrc"
+    root = HERE / "dsocr_tpu_torch" / "_build" / "variants"
+    for name, subs in variants.items():
+        d = root / name
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.copytree(src, d / "csrc")
+        for f in (d / "csrc").iterdir():
+            text = f.read_text()
+            for old, new in subs:
+                if old == "DA_CHUNK":
+                    old, new = "constexpr int DA_CHUNK = 256;", f"constexpr int DA_CHUNK = {new};"
+                text = text.replace(old, new)
+            f.write_text(text)
+    for rnd in range(2):
+        for name, subs in variants.items():
+            d = root / name
+            _lib.CSRC_DIR, _lib.BUILD_DIR, _lib._lib = d / "csrc", d / "build", None
+            _lib.DECODE_SPLIT = int(dict(subs).get("DA_CHUNK", 256))
+            _lib.lib()
+            for case, fn, ref in todo:
+                line = {"variant": name, "round": rnd, "case": case, "ms": chip_smoke.time_ms(fn)}
+                if ref is not None:
+                    line["max_abs_err"] = float((fn().float() - ref.float()).abs().max())
+                    line["tol"] = chip_smoke.bf16_tol(ref)
+                print(json.dumps(line), flush=True)
+            if rnd == 1 and which in ("all", "decode"):
+                profile_decode(torch, name, todo)
+    return 0
+
+
+def profile_decode(torch, name, todo):
+    """Device microseconds per call of the decode attend's split and merge
+    kernels (torch.profiler over 10 calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for case, fn, ref in todo:
+        if not case.startswith("slot"):
+            continue
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+        for ev in prof.key_averages():
+            us = getattr(ev, "self_device_time_total", 0)
+            if us and "decode_" in ev.key:
+                kernel = "split" if "split" in ev.key else "merge"
+                print(json.dumps({"variant": name, "profile": case, "kernel": kernel,
+                                  "us_per_call": us / 10}), flush=True)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

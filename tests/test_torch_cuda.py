@@ -76,6 +76,32 @@ def test_prefill_kernel_matches_twin(dev, dtype, B, H, Hkv, S, D, pads):
     _close(got, K.flash_prefill_attention_plain(q, k, v, pad, scale=D ** -0.5))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,S,D,Dv,pads", [
+    (3, 4, 4, 130, 16, 16, [63, 64, 65]),  # pads at the tile boundaries, S not a multiple of 64
+    (2, 6, 2, 97, 8, 8, [0, 96]),  # GQA, D 8 padded to the tensor-core depth
+    (1, 2, 1, 1, 128, 128, [0]),  # one position
+    (2, 10, 10, 320, 128, 128, [0, 129]),
+    (2, 4, 2, 200, 128, 64, [0, 70]),  # Dv below D
+])
+def test_prefill_kernel_edges_and_repeats(dev, dtype, B, H, Hkv, S, D, Dv, pads):
+    """The bf16 kernel's tile schedule at its edges (dead tiles skipped from
+    the pad's tile, full walks for fully masked rows, ragged tiles, padded
+    head dims), the f32 body at the same shapes; two launches bit-equal."""
+    rng = np.random.default_rng(S + D + Dv)
+    q = _randn(rng, B, H, S, D, std=0.5).to(dev, dtype)
+    k = _randn(rng, B, Hkv, S, D, std=0.5).to(dev, dtype)
+    v = _randn(rng, B, Hkv, S, Dv).to(dev, dtype)
+    pad = torch.tensor(pads, dtype=torch.int32, device=dev)
+    before = K.flash_prefill_attention.launches
+    got = K.flash_prefill_attention(q, k, v, pad, scale=D ** -0.5)
+    again = K.flash_prefill_attention(q, k, v, pad, scale=D ** -0.5)
+    assert K.flash_prefill_attention.launches == before + 2
+    assert got.dtype == dtype and got.shape == (B, S, H * Dv)
+    assert torch.equal(got, again)
+    _close(got, K.flash_prefill_attention_plain(q, k, v, pad, scale=D ** -0.5))
+
+
 def _slot_caches(rng, L, B, NKV, S, D, kind, dev):
     if kind == "int8":
         codes = lambda: torch.from_numpy(rng.integers(-127, 128, size=(L, B, NKV, S, D)).astype(np.int8))  # noqa: E731
@@ -98,6 +124,31 @@ def test_slot_decode_kernel_matches_twin(dev, kind, B, NH, NKV, S, D):
         q = _randn(rng, B, NH, 1, D).to(dev, q_dtype)
         got = K.slot_decode_attention(q, *caches, 1, lengths, scale=D ** -0.5)
         assert got.dtype == q_dtype
+        _close(got, K.slot_decode_attention_plain(q, *caches, 1, lengths, scale=D ** -0.5))
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("NH,NKV,D", [(10, 10, 128), (8, 2, 16), (4, 4, 8)])
+def test_slot_decode_kernel_split_edges_and_repeats(dev, kind, NH, NKV, D):
+    """Rows that end on either side of a split boundary (splits of
+    _lib.DECODE_SPLIT positions), a row of one position, a full row; two
+    launches bit-equal."""
+    from dsocr_tpu_torch.ops.kernels import _lib
+
+    n = _lib.DECODE_SPLIT
+    rng = np.random.default_rng(NH + D)
+    S = 2 * n + 88
+    lengths = torch.tensor([0, n - 2, n - 1, n, n + 1, 2 * n - 1, 2 * n, S - 1], dtype=torch.int32)
+    B = len(lengths)
+    caches = _slot_caches(rng, 2, B, NKV, S, D, kind, dev)
+    lengths = lengths.to(dev)
+    for q_dtype in (torch.float32, torch.bfloat16):
+        q = _randn(rng, B, NH, 1, D).to(dev, q_dtype)
+        before = K.slot_decode_attention.launches
+        got = K.slot_decode_attention(q, *caches, 1, lengths, scale=D ** -0.5)
+        again = K.slot_decode_attention(q, *caches, 1, lengths, scale=D ** -0.5)
+        assert K.slot_decode_attention.launches == before + 2
+        assert got.dtype == q_dtype and torch.equal(got, again)
         _close(got, K.slot_decode_attention_plain(q, *caches, 1, lengths, scale=D ** -0.5))
 
 
@@ -430,6 +481,33 @@ def test_paged_decode_kernel_matches_twin(dev, kind, B, NH, NKV, D, page, P_max)
     got = K.paged_decode_attention(q, *pools, tables, lengths, 1, scale=D ** -0.5)
     assert got.dtype == torch.float32 and got.shape == (B, NH * D)
     assert torch.isfinite(got).all() and torch.equal(got[1], torch.zeros_like(got[1]))
+    _close(got, K.paged_decode_attention_plain(q, *pools, tables, lengths, 1, scale=D ** -0.5))
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("page,NH,NKV,D", [(8, 4, 2, 16), (16, 10, 10, 128), (128, 4, 4, 8)])
+def test_paged_decode_kernel_split_edges_and_repeats(dev, kind, page, NH, NKV, D):
+    """Pages smaller than a split (a split's tiles end at page boundaries),
+    rows ending on either side of a split boundary, a page missing in the
+    middle of a row; two launches bit-equal."""
+    from dsocr_tpu_torch.ops.kernels import _lib
+
+    n = _lib.DECODE_SPLIT
+    rng = np.random.default_rng(page + D)
+    P_max = -(-(2 * n + 100) // page)
+    lengths = torch.tensor([0, n - 2, n - 1, n, n + 1, P_max * page - 1], dtype=torch.int32)
+    B = len(lengths)
+    P = B * P_max
+    pools = _paged_pools(rng, 2, P, NKV, page, D, kind, dev)
+    tables = torch.from_numpy(rng.permutation(P).reshape(B, P_max).astype(np.int32))
+    tables[5, 1] = -1  # no page holds positions [page, 2 page) of the last row
+    tables, lengths = tables.to(dev), lengths.to(dev)
+    q = _randn(rng, B, NH, D).to(dev)
+    before = K.paged_decode_attention.launches
+    got = K.paged_decode_attention(q, *pools, tables, lengths, 1, scale=D ** -0.5)
+    again = K.paged_decode_attention(q, *pools, tables, lengths, 1, scale=D ** -0.5)
+    assert K.paged_decode_attention.launches == before + 2
+    assert torch.equal(got, again)
     _close(got, K.paged_decode_attention_plain(q, *pools, tables, lengths, 1, scale=D ** -0.5))
 
 

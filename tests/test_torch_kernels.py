@@ -88,6 +88,32 @@ def test_prefill_twin_matches_pallas_and_oracle(B, H, Hkv, S, D, pads):
         np.testing.assert_allclose(got[-1, 0].reshape(H, D), mean_v, **TOL)
 
 
+@pytest.mark.parametrize("B,H,Hkv,S,D,pads", [
+    (3, 2, 1, 130, 8, [63, 64, 65]),  # pads at the CUDA kernel's 64-wide tile boundaries
+    (2, 2, 2, 1, 8, [0, 1]),  # one position: one live key, or none (the mean of v)
+])
+def test_prefill_twin_at_tile_edges_matches_pallas_and_oracle(B, H, Hkv, S, D, pads):
+    """The edges of the CUDA kernel's schedule (key tiles from the pad's
+    tile on, full walks for tiles that hold fully masked rows, a ragged
+    last tile), pinned on the function both implement."""
+    q, k, v = _prefill_case(B * 17 + S, B, H, Hkv, S, D)
+    pad = np.asarray(pads, np.int32)
+    scale = D ** -0.5
+    got = K.flash_prefill_attention(_t(q), _t(k), _t(v), _t(pad), scale=scale).numpy()
+    pallas = np.asarray(jax_prefill(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(pad),
+        scale=scale, block_q=16, interpret=True,
+    ))
+    mask = np.asarray(jax_causal_mask(S, S, 0))[None, None] & (
+        np.arange(S)[None, None, None, :] >= pad[:, None, None, None]
+    )
+    oracle = np.asarray(jax_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(mask), scale
+    ))
+    np.testing.assert_allclose(got, pallas, **TOL)
+    np.testing.assert_allclose(got, oracle, **TOL)
+
+
 # -- slot caches ------------------------------------------------------------------
 
 
@@ -157,6 +183,35 @@ def test_slot_decode_twin_matches_pallas_and_oracle(kind, B, NH, NKV, S, D):
             )
         np.testing.assert_allclose(got, pallas, **TOL)
         np.testing.assert_allclose(got, np.asarray(oracle), **TOL)
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+def test_slot_decode_twin_at_split_edges_matches_pallas_and_oracle(kind):
+    """Rows that attend up to either side of a 256-position split boundary
+    of the CUDA attend (lengths 255, 256, 257: 256, 257, 258 positions),
+    a row of one position, and GQA."""
+    B, NH, NKV, S, D = 5, 4, 2, 300, 16
+    q, k_all, v_all, ks, vs, _ = _slot_case(21, B, NH, NKV, S, D, kind, L=2)
+    lengths = np.asarray([255, 256, 257, 0, S - 1], np.int32)
+    scale = D ** -0.5
+    got = K.slot_decode_attention(
+        _t(q), _cache_t(k_all, kind), _cache_t(v_all, kind), _opt(_t, ks), _opt(_t, vs),
+        1, _t(lengths), scale=scale,
+    ).numpy()
+    pallas = np.asarray(jax_slot_decode(
+        jnp.asarray(q), _cache_j(k_all, kind), _cache_j(v_all, kind), _opt(jnp.asarray, ks),
+        _opt(jnp.asarray, vs), jnp.int32(1), jnp.asarray(lengths), scale=scale, interpret=True,
+    ))
+    mask = jnp.asarray(np.arange(S)[None, None, None, :] <= lengths[:, None, None, None])
+    if kind == "int8":
+        oracle = jax_attention_kv_int8(
+            jnp.asarray(q), jnp.asarray(k_all[1]), jnp.asarray(ks[1]), jnp.asarray(v_all[1]),
+            jnp.asarray(vs[1]), mask, scale,
+        )
+    else:
+        oracle = jax_attention(jnp.asarray(q), jnp.asarray(k_all[1]), jnp.asarray(v_all[1]), mask, scale)
+    np.testing.assert_allclose(got, pallas, **TOL)
+    np.testing.assert_allclose(got, np.asarray(oracle), **TOL)
 
 
 @pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
