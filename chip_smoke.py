@@ -23,6 +23,11 @@ non-zero (nothing is caught):
             ending on either side of a split boundary, bf16 and int8; two
             launches of either attention, and of the paged attend, must
             give the same bits;
+            q8_matmul, q4k_matmul and q6k_matmul at ROW_CASES (the lm_head
+            at N 16; qkv at N 1, 16, 1024 and 16384: the decode GEMV and
+            the dequant pass + wgmma GEMM; shared down at N 16), two
+            launches bit-equal, library time torch.matmul on the bf16
+            weights dequantized outside the timing;
             the Q8_0 quantizer on the card bit for bit against its CPU run
             on a full-width expert stack, and the Q4_K and Q6_K quantizers
             on 8 experts of one; the paged KV write and attend (16 rows of
@@ -143,6 +148,10 @@ PARITY_SEED = 7
 # tests/test_torch_q6k.py holds clear of such ties.
 Q6K_PARITY_SEED = 8
 IMAGE_TOKEN_ID = 128815  # the DeepSeek tokenizer's <image> id
+# phase 3's row-layout matmul cases (case, N, K, M), the same for every
+# format; the lm_head first (the summary line takes its times)
+ROW_CASES = (("lm_head", 16, 1280, 129280), ("qkv", 1, 1280, 3840), ("qkv", 16, 1280, 3840),
+             ("qkv", 1024, 1280, 3840), ("qkv", 16384, 1280, 3840), ("shared_down", 16, 1792, 1280))
 
 
 class BenchTokenizer:
@@ -309,13 +318,16 @@ def check_q8_kernels(torch, K, record, randn):
     def bf16_abs(x):
         return x.to(torch.bfloat16).float().abs()
 
-    # lm_head 1280 → 129280 at N = 16; qkv 1280 → 3840 at decode and prefill
-    for case, n, k, m in (("lm_head", 16, 1280, 129280), ("qkv", 16, 1280, 3840),
-                          ("qkv", 16384, 1280, 3840)):
+    # lm_head 1280 → 129280 at N = 16; qkv 1280 → 3840 at one request's
+    # decode, the 16-slot step, a 1024-row prefill and the 16 × 1024 wave;
+    # shared down (K 1792) at the step. Two launches must give the same bits.
+    for case, n, k, m in ROW_CASES:
         p = quantize_plain(randn(k, m, dtype=torch.bfloat16, std=k ** -0.5))
         codes, scales = p["codes"], p["scales"]
         x = randn(n, k, dtype=torch.bfloat16)
         out = K.q8_matmul(x, codes, scales)
+        require(torch.equal(out, K.q8_matmul(x, codes, scales)),
+                f"q8_matmul {case} N={n}: two launches on the same inputs differ")
         ref = K.q8_matmul_plain(x, codes, scales)
         w = codes.float() * scales.repeat_interleave(32, dim=1)
         tol = q8_tol(torch.matmul(bf16_abs(x), w.abs().t()))
@@ -325,7 +337,7 @@ def check_q8_kernels(torch, K, record, randn):
                time_ms(lambda: K.q8_matmul(x, codes, scales)),
                time_ms(lambda: K.q8_matmul_plain(x, codes, scales)),
                time_ms(lambda: torch.matmul(x, wt)),
-               bound(nbytes(x, codes, scales, out), 2 * n * k * m, "bf16"))
+               bound(nbytes(x, codes, scales, out), 2 * n * k * m, "bf16"), deterministic=True)
         del out, ref, wt
 
     # expert stacks of one MoE layer: gate+up [64, 1280, 1792], down [64, 896, 1280]
@@ -460,13 +472,14 @@ def check_kquant_kernels(torch, K, record, randn, method):
     def bf16_abs(x):
         return x.to(torch.bfloat16).float().abs()
 
-    # lm_head at N = 16; qkv at decode and prefill; shared down (K 1792) at decode
-    for case, n, k, m in (("lm_head", 16, 1280, 129280), ("qkv", 16, 1280, 3840),
-                          ("qkv", 16384, 1280, 3840), ("shared_down", 16, 1792, 1280)):
+    # the Q8_0 row cases (check_q8_kernels); two launches must give the same bits
+    for case, n, k, m in ROW_CASES:
         p = quantize_plain(randn(k, m, dtype=torch.bfloat16, std=k ** -0.5), method)
         packed = tuple(p[key] for key in keys)
         x = randn(n, k, dtype=torch.bfloat16)
         out = matmul(x, *packed)
+        require(torch.equal(out, matmul(x, *packed)),
+                f"{fmt}_matmul {case} N={n}: two launches on the same inputs differ")
         ref = matmul_plain(x, *packed)
         w = dequant(*packed, -1).float()
         tol = q8_tol(torch.matmul(bf16_abs(x), w.abs().t()))
@@ -476,7 +489,7 @@ def check_kquant_kernels(torch, K, record, randn, method):
                time_ms(lambda: matmul(x, *packed)),
                time_ms(lambda: matmul_plain(x, *packed)),
                time_ms(lambda: torch.matmul(x, wt)),
-               bound(nbytes(x, out, *packed), 2 * n * k * m, "bf16"))
+               bound(nbytes(x, out, *packed), 2 * n * k * m, "bf16"), deterministic=True)
         del out, ref, wt
 
     w8 = randn(8, 1280, 1792, dtype=torch.bfloat16, std=1280 ** -0.5)

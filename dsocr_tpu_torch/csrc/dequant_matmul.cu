@@ -1,10 +1,9 @@
-// Q8_0 dequantize-matmul: the plain projections and the lm_head (row
-// layout) and the routed experts (in-major layout).
+// Q8_0 dequantize-matmul of the routed experts (in-major layout).
 //
-// Replace q8_matmul and q8_matmul_layered (row_kernel), and
-// q8_gather_matmul, q8_gather_matmul_layered, q8_dense_experts_layered
-// and q8_dense_experts_perx_layered (expert_kernel), all in
-// dsocr_tpu/ops/pallas/dequant_matmul.py. See
+// Replaces q8_gather_matmul, q8_gather_matmul_layered,
+// q8_dense_experts_layered and q8_dense_experts_perx_layered
+// (expert_kernel), all in dsocr_tpu/ops/pallas/dequant_matmul.py. The row
+// layout (q8_matmul, q8_matmul_layered) is row_matmul.cu's. See
 // ops/kernels/dequant_matmul.py for what bounds them on the H100.
 //
 // Numerics are the reference's: w = bf16(f32(code) * scale) rounded once
@@ -25,101 +24,6 @@ constexpr int THREADS = 128;
 
 __device__ __forceinline__ __nv_bfloat16 bf16_of(float v) { return __float2bfloat16_rn(v); }
 __device__ __forceinline__ __nv_bfloat16 bf16_of(__nv_bfloat16 v) { return v; }
-
-// ---- row layout: out[N, M] = bf16(x[N, K]) @ dequant(codes[M, K])^T ----
-// A block owns a BM x BN output tile; its four warps form a WM x WN grid
-// and each holds FM x FN 16x16 accumulators. Every K step stages 64
-// values (two Q8 blocks): bf16(x) rows and the dequantized W rows, both
-// k-contiguous in shared memory, so W is read as a col-major B operand.
-// K beyond the matrix (K = 32 with a 64 step) and rows/columns past N/M
-// are zero-filled; stores are masked.
-template <typename XT, int WM, int WN, int FM, int FN>
-__global__ void __launch_bounds__(THREADS)
-    row_kernel(const XT* __restrict__ x, const int8_t* __restrict__ codes,
-               const float* __restrict__ scales, float* __restrict__ out, int N, int K, int M) {
-  static_assert(WM * WN * 32 == THREADS, "four warps");
-  constexpr int BM = WM * FM * 16, BN = WN * FN * 16, BK = 64;
-  constexpr int LDS = BK + 8;  // bf16 per shared row (rows stay 32-byte aligned)
-  constexpr int LDC = BN + 4;
-  __shared__ __align__(128) __nv_bfloat16 xs[BM * LDS];
-  __shared__ __align__(128) __nv_bfloat16 ws[BN * LDS];
-  __shared__ __align__(128) float cs[BM * LDC];
-
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int wm = warp / WN, wn = warp % WN;
-  const int n0 = blockIdx.y * BM, m0 = blockIdx.x * BN;
-  const int KB = K / QB;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int idx = tid; idx < BM * BK; idx += THREADS) {
-      const int r = idx / BK, c = idx % BK, n = n0 + r, k = k0 + c;
-      xs[r * LDS + c] = (n < N && k < K) ? bf16_of(x[(size_t)n * K + k]) : bf16_of(0.f);
-    }
-    for (int idx = tid; idx < BN * (BK / 4); idx += THREADS) {
-      const int r = idx / (BK / 4), c = (idx % (BK / 4)) * 4, m = m0 + r, k = k0 + c;
-      __nv_bfloat16* dst = ws + r * LDS + c;
-      if (m < M && k < K) {  // K % 32 == 0, so the four codes share one block
-        const char4 q = *reinterpret_cast<const char4*>(codes + (size_t)m * K + k);
-        const float s = scales[(size_t)m * KB + k / QB];
-        dst[0] = bf16_of((float)q.x * s);
-        dst[1] = bf16_of((float)q.y * s);
-        dst[2] = bf16_of((float)q.z * s);
-        dst[3] = bf16_of((float)q.w * s);
-      } else {
-        dst[0] = dst[1] = dst[2] = dst[3] = bf16_of(0.f);
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b[FN];
-#pragma unroll
-      for (int i = 0; i < FM; ++i) wmma::load_matrix_sync(a[i], xs + (wm * FM + i) * 16 * LDS + kk, LDS);
-#pragma unroll
-      for (int j = 0; j < FN; ++j) wmma::load_matrix_sync(b[j], ws + (wn * FN + j) * 16 * LDS + kk, LDS);
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j)
-      wmma::store_matrix_sync(cs + (wm * FM + i) * 16 * LDC + (wn * FN + j) * 16, acc[i][j], LDC,
-                              wmma::mem_row_major);
-  __syncthreads();
-  for (int idx = tid; idx < BM * BN; idx += THREADS) {
-    const int r = idx / BN, c = idx % BN, n = n0 + r, m = m0 + c;
-    if (n < N && m < M) out[(size_t)n * M + m] = cs[r * LDC + c];
-  }
-}
-
-template <typename XT>
-cudaError_t launch_row(const void* x, const void* codes, const void* scales, void* out, int N,
-                       int K, int M, cudaStream_t st) {
-  const XT* xp = static_cast<const XT*>(x);
-  const int8_t* cp = static_cast<const int8_t*>(codes);
-  const float* sp = static_cast<const float*>(scales);
-  float* op = static_cast<float*>(out);
-  if (N <= 16) {  // decode and the lm_head: 16 x 64 tiles, one fragment per warp
-    row_kernel<XT, 1, 4, 1, 1><<<dim3((M + 63) / 64, (N + 15) / 16), THREADS, 0, st>>>(
-        xp, cp, sp, op, N, K, M);
-  } else {  // prefill: 64 x 64 tiles, 2 x 2 fragments per warp
-    row_kernel<XT, 2, 2, 2, 2><<<dim3((M + 63) / 64, (N + 63) / 64), THREADS, 0, st>>>(
-        xp, cp, sp, op, N, K, M);
-  }
-  return cudaGetLastError();
-}
 
 // ---- in-major layout: grouped out[g] = bf16(x_g) @ dequant(codes[e_g]) ----
 // Group g multiplies R rows of x, starting at x + g * xg_stride, by expert
@@ -232,21 +136,6 @@ cudaError_t launch_expert(const void* x, const void* codes, const void* scales, 
 
 }  // namespace q8
 }  // namespace dsocr
-
-extern "C" int dsocr_q8_matmul(const void* x, const void* codes, const void* scales, void* out,
-                               int N, int K, int M, int x_dtype, void* stream) {
-  using namespace dsocr;
-  if (K % q8::QB != 0 || (N + 15) / 16 > 65535) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (x_dtype) {
-    case kF32:
-      return (int)q8::launch_row<float>(x, codes, scales, out, N, K, M, st);
-    case kBF16:
-      return (int)q8::launch_row<__nv_bfloat16>(x, codes, scales, out, N, K, M, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
 
 extern "C" int dsocr_q8_expert_matmul(const void* x, const void* codes, const void* scales,
                                       const void* idx, void* out, int groups, int R, int K,

@@ -52,6 +52,7 @@
 // f32 body of flash_tile.cuh, which the SAM kernel shares: TF32 tensor
 // cores would not meet the f32 tolerance.
 #include "flash_tile.cuh"
+#include "wgmma.cuh"
 
 namespace dsocr {
 
@@ -81,58 +82,6 @@ constexpr size_t prefill_smem_bytes() {
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const unsigned*>(&h);
-}
-
-// element (r, c) of a [64][128] bf16 tile in the 128-byte swizzle wgmma
-// reads: two column halves of 64 (8 KB apart), rows of 128 bytes whose
-// 16-byte pieces are permuted by r % 8 (8-row groups 1024 bytes apart)
-__device__ __forceinline__ int sw128_off(int r, int c) {
-  return (c >> 6) * PF_BK * 64 + r * 64 + ((((c & 63) >> 3) ^ (r & 7)) << 3) + (c & 7);
-}
-
-// ---- wgmma: the warpgroup's 64 × N products, B read by the tensor cores
-// straight from shared memory through a matrix descriptor ----
-// Descriptor of a B operand in the 128-byte swizzle (1024-byte aligned
-// atoms of 8 rows): `lbo` is the byte step between atoms along N when B is
-// read transposed (unused otherwise), `sbo` between 8-row groups.
-__device__ __forceinline__ uint64_t wgmma_desc_sw128(const void* smem, unsigned lbo, unsigned sbo) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  return (uint64_t)((a >> 4) & 0x3FFF) | (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
-         (uint64_t)((sbo >> 4) & 0x3FFF) << 32 | (uint64_t)1 << 62;  // base offset 0
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// wait until at most N committed wgmma groups of the warpgroup are pending
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// registers that an async wgmma writes: reads and writes of them stay on
-// this side of the wait that precedes this point
-// (accumulators: not read or copied before the wait; A operands: their
-// registers not reused before it)
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&x)[R][4]) {
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(x[r][e])::"memory");
-}
-template <int R>
-__device__ __forceinline__ void fence_regs(unsigned (&x)[R][4]) {
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(x[r][e])::"memory");
-}
-// generic-proxy writes to shared memory (cp.async, st.shared) become
-// visible to the async proxy that wgmma reads through
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // d (64 × 64, f32; this warp's 16 rows, in mma.m16n8k16 C fragments) +=

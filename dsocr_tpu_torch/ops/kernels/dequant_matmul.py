@@ -1,7 +1,8 @@
 """Fused dequantize-matmul over packed Q8_0 weights.
 
-Five wrappers over the CUDA kernels of csrc/dequant_matmul.cu and
-csrc/moe_megafused.cu serve the seven Q8_0 Pallas functions of
+Five wrappers over the CUDA kernels of csrc/row_matmul.cu,
+csrc/dequant_matmul.cu and csrc/moe_megafused.cu serve the seven Q8_0
+Pallas functions of
 dsocr_tpu/ops/pallas/dequant_matmul.py that the packed serving path
 reaches (a torch view of ``W[layer]`` costs no copy, so one kernel serves
 a function and its ``_layered`` twin):
@@ -10,7 +11,8 @@ a function and its ``_layered`` twin):
   layout, codes [M, K], scales [M, K/32]: the plain projections (qkv
   1280→3840, o 1280→1280, shared gate+up 1280→3584, shared down
   1792→1280) at N = 16 rows per decode step and up to 16 × 1024 rows per
-  prefill wave, and the lm_head (1280→129280).
+  prefill wave, and the lm_head (1280→129280); csrc/row_matmul.cu, one
+  body with ``q4k_matmul`` and ``q6k_matmul`` (row_matmul.py).
 - ``q8_gather_matmul`` ← q8_gather_matmul (:220) and
   q8_gather_matmul_layered (:349): ``out[n] = x[n] @ W[idx[n]]``,
   in-major codes [E, K, M], scales [E, K/32, M]; the routed experts while
@@ -30,19 +32,27 @@ bf16(x) whatever the model dtype; products accumulate in f32. A bf16 ×
 bf16 product is exact in f32, so the kernels' tensor-core sums differ
 from the twins only in summation order.
 
-What bounds them on the H100:
-- decode (N ≤ 32) is device-memory bytes: the dense tier reads every
-  expert's codes once per step, ~2.4 GB of int8 plus ~0.3 GB of f32
-  scales over 11 MoE layers, ≥ ~0.8 ms per step at 3.35 TB/s. The expert
-  kernel grids over (M tile of 128, group), keeps the group's x rows as
-  bf16 in shared memory, dequantizes one 32-row Q8 block of the W tile
-  into shared memory per step (one scale per column), and prefetches the
-  next block's codes into registers while the tensor cores (WMMA bf16,
-  f32 accumulate) run the current one.
-- prefill (N = 16384) is tensor-core work, ~5 TFLOP per 16-row wave:
-  ``q8_matmul`` tiles 64 × 64 outputs per block, stages bf16(x) and the
-  dequantized W tile in shared memory 64 K-values (two Q8 blocks) at a
-  time and multiplies them with WMMA; a 16-row tile serves N ≤ 16.
+What bounds them on the H100, and what the designs do about it:
+- the row layout at decode (N ≤ 16: qkv, o, shared gate+up and down
+  at every step, the lm_head) is device-memory bytes: 4.9 MB of codes
+  for qkv (1.5 µs at 3.35 TB/s), 165 MB for the lm_head. The GEMV of
+  csrc/row_matmul.cu streams each warp's 16 W rows as 16-byte vectors,
+  two steps of 128 K values in flight, and dequantizes them in registers
+  straight into mma.sync fragments; a block per 16-row tile unless larger
+  blocks still leave two per SM (row_matmul.row_plan).
+- the row layout at prefill (N = 16384) is tensor-core work, 161 GFLOP
+  for qkv (≥ 0.163 ms at 989 TFLOP/s) and 252 MB of f32 output: a
+  dequant pass writes W once as bf16 into a workspace, and a wgmma GEMM
+  fed by TMA through a 4-stage ring (a producer thread, two consumer
+  warpgroups, 128 × 256 tiles) multiplies it.
+- the experts at decode (N ≤ 32) are device-memory bytes: the dense tier
+  reads every expert's codes once per step, ~2.4 GB of int8 plus ~0.3 GB
+  of f32 scales over 11 MoE layers, ≥ ~0.8 ms per step at 3.35 TB/s. The
+  expert kernel grids over (M tile of 128, group), keeps the group's x
+  rows as bf16 in shared memory, dequantizes one 32-row Q8 block of the W
+  tile into shared memory per step (one scale per column), and prefetches
+  the next block's codes into registers while the tensor cores (WMMA
+  bf16, f32 accumulate) run the current one.
 - the megafused chain is device-memory bytes too: one MoE layer's
   gate+up and down codes and scales, 146.8 + 18.4 + 73.4 + 9.2 ≈ 248 MB,
   ≥ 0.074 ms at 3.35 TB/s, against the two-kernel sweep's extra [E, N,
@@ -53,7 +63,7 @@ What bounds them on the H100:
   shared memory. Per-expert f32 partials [E, N, H] (5.2 MB at full width)
   are summed in expert order by a second small kernel: two launches on the
   same inputs give the same bits.
-Neither uses wgmma or TMA yet (ROADMAP Queue 4).
+The expert kernels still run on WMMA (ROADMAP, Speed findings).
 """
 
 from __future__ import annotations
@@ -63,6 +73,7 @@ import torch.nn.functional as F
 
 from ...dsq.serve_quant import Q8_BLOCK
 from . import _lib
+from .row_matmul import row_launch
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -130,7 +141,7 @@ def _check_packed(name, codes, scales, c_shape, s_shape):
 def q8_matmul(x, codes, scales):
     """x [N, K] (f32 or bf16) @ dequant(W)ᵀ → [N, M] f32, with W in row
     layout: codes [M, K] int8, scales [M, K/32] f32. CPU tensors run the
-    plain version; CUDA tensors launch the kernel."""
+    plain version; CUDA tensors launch csrc/row_matmul.cu's kernels."""
     if x.device.type == "cpu":
         return q8_matmul_plain(x, codes, scales)
     name = "q8_matmul"
@@ -139,16 +150,7 @@ def q8_matmul(x, codes, scales):
     M = codes.shape[0]
     _check_x(name, x, K)
     _check_packed(name, codes, scales, (M, K), (M, K // Q8_BLOCK))
-    out = torch.empty((N, M), dtype=torch.float32, device=x.device)
-    if N == 0 or M == 0:
-        return out
-    err = _lib.lib().dsocr_q8_matmul(
-        x.data_ptr(), codes.data_ptr(), scales.data_ptr(), out.data_ptr(), N, K, M,
-        _lib.DTYPE_CODES[x.dtype], _lib.stream_ptr(x),
-    )
-    _lib.check(err, name)
-    _lib.count_launch(q8_matmul)
-    return out
+    return row_launch(q8_matmul, "q8_0", x, (codes, scales))
 
 
 q8_matmul.launches = 0

@@ -1,7 +1,8 @@
 """Fused dequantize-matmul over packed Q4_K and Q6_K weights.
 
-For each format, four wrappers over two CUDA kernels
-(csrc/kquant_matmul.cu; one template body serves both formats) serve the
+For each format, four wrappers over CUDA kernels (the row layout in
+csrc/row_matmul.cu, one body with Q8_0's; the experts in
+csrc/kquant_matmul.cu, one template body for both formats) serve the
 six Pallas functions of dsocr_tpu/ops/pallas/kquant_matmul.py that the
 packed serving path reaches (a torch view of ``W[layer]`` costs no copy,
 so one kernel serves a function and its ``_layered`` twin):
@@ -44,24 +45,22 @@ is bf16(x) whatever the model dtype; products accumulate in f32. A bf16 ×
 bf16 product is exact in f32, so the kernels' sums differ from the twins
 only in order.
 
-What bounds them on the H100, and what the design does about it:
-- decode (N ≤ 16) is device-memory bytes: expert gate+up of one layer is
-  110 MB in Q4_K (≥ 0.033 ms at 3.35 TB/s) and 146.8 MB in Q6_K (≥ 0.044
-  ms); the lm_head 124 MB (≥ 0.037 ms) and 165.5 MB (≥ 0.049 ms). The
-  expert kernel grids over (M tile of 128, group), keeps the group's x
-  rows as bf16 in shared memory, dequantizes one 32-K-row step of the W
-  tile into shared memory (a scale and a min per column, or two scale rows
-  per column) and prefetches the next step into registers while the
-  tensor cores (WMMA bf16, f32 accumulate) run the current one; codes come
-  in as one 4-byte vector per thread and byte row, 128 contiguous bytes
-  per warp.
-- prefill (N = 16384) is tensor-core work: qkv is 161 GFLOP, ≥ 0.16 ms
-  at 989 TFLOP/s. The row kernel tiles 64 × 64 outputs per block (16 × 64
-  for N ≤ 16) and stages bf16(x) and the dequantized W tile in shared
-  memory 64 K values at a time: each thread loads 32 values of one row
-  (Q4_K a 16-byte vector of codes, a scale and a min; Q6_K 16 bytes of
-  codes, 8 of highs and two scales), and the next step's while WMMA runs.
-Neither uses wgmma or TMA yet (ROADMAP Queue 4).
+What bounds them on the H100, and what the designs do about it:
+- the row layout: as ``q8_matmul`` (dequant_matmul.py, row_matmul.py):
+  at decode (N ≤ 16) a bytes-bound GEMV that dequantizes 16-byte code
+  vectors in registers into mma.sync fragments (the lm_head's 124 MB of
+  Q4_K codes, ≥ 0.037 ms at 3.35 TB/s, and 165.5 MB of Q6_K, ≥ 0.049
+  ms); at prefill a dequant pass into a bf16 workspace and the wgmma GEMM
+  fed by TMA (qkv at N 16384: 161 GFLOP, ≥ 0.16 ms at 989 TFLOP/s).
+- the experts at decode (N ≤ 16) are device-memory bytes: expert gate+up
+  of one layer is 110 MB in Q4_K (≥ 0.033 ms at 3.35 TB/s) and 146.8 MB in
+  Q6_K (≥ 0.044 ms). The expert kernel grids over (M tile of 128, group),
+  keeps the group's x rows as bf16 in shared memory, dequantizes one
+  32-K-row step of the W tile into shared memory (a scale and a min per
+  column, or two scale rows per column) and prefetches the next step into
+  registers while the tensor cores (WMMA bf16, f32 accumulate) run the
+  current one; codes come in as one 4-byte vector per thread and byte
+  row, 128 contiguous bytes per warp.
 """
 
 from __future__ import annotations
@@ -73,6 +72,7 @@ import torch
 from ...dsq.quant import Q4K_SUB, Q6K_SUB, QK_K
 from ...dsq.serve_quant import unpack_bits
 from . import _lib
+from .row_matmul import row_launch
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -146,16 +146,16 @@ Q6K_PARTS = (("codes", torch.uint8, 2), ("highs", torch.uint8, 4), ("scales", to
 
 
 class _Format(NamedTuple):
-    """A packed format as the kernels take it: its buffers and its two C
-    entry points."""
+    """A packed format as the kernels take it: its buffers, its name
+    (row_matmul.FORMAT_CODES) and the expert kernel's C entry point."""
 
     parts: Tuple[Tuple[str, torch.dtype, int], ...]
-    row_fn: str
+    method: str
     expert_fn: str
 
 
-_Q4K = _Format(Q4K_PARTS, "dsocr_q4k_matmul", "dsocr_q4k_expert_matmul")
-_Q6K = _Format(Q6K_PARTS, "dsocr_q6k_matmul", "dsocr_q6k_expert_matmul")
+_Q4K = _Format(Q4K_PARTS, "q4_k", "dsocr_q4k_expert_matmul")
+_Q6K = _Format(Q6K_PARTS, "q6_k", "dsocr_q6k_expert_matmul")
 
 
 def _check_x(name, x, K):
@@ -179,23 +179,13 @@ def _check_packed(name, fmt: _Format, packed, K, in_major):
 
 
 def _row_launch(wrapper, fmt: _Format, x, *packed):
-    """One launch of the row kernel: x [N, K] @ dequant(W [M, K])ᵀ."""
+    """x [N, K] @ dequant(W [M, K])ᵀ through csrc/row_matmul.cu."""
     name = wrapper.__name__
     _lib.require_cuda(name, x, *packed)
     N, K = x.shape
-    M = packed[0].shape[0]
     _check_x(name, x, K)
     _check_packed(name, fmt, packed, K, in_major=False)
-    out = torch.empty((N, M), dtype=torch.float32, device=x.device)
-    if N == 0 or M == 0:
-        return out
-    err = getattr(_lib.lib(), fmt.row_fn)(
-        x.data_ptr(), *(t.data_ptr() for t in packed), out.data_ptr(), N, K, M,
-        _lib.DTYPE_CODES[x.dtype], _lib.stream_ptr(x),
-    )
-    _lib.check(err, name)
-    _lib.count_launch(wrapper)
-    return out
+    return row_launch(wrapper, fmt.method, x, packed)
 
 
 def _expert_launch(wrapper, fmt: _Format, x, packed, idx, groups, rows, x_group_stride, out):

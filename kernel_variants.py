@@ -1,18 +1,23 @@
 #!/usr/bin/env python3
-"""Time variants of the attention kernels' sources on one CUDA card.
+"""Time variants of the kernels' sources on one CUDA card.
 
     python3 kernel_variants.py '{"base": [], "two_stages": [["constexpr int PF_STAGES = 3;",
-                                                 "constexpr int PF_STAGES = 2;"]]}' [prefill|decode]
+                                                 "constexpr int PF_STAGES = 2;"]]}' [prefill|decode|row]
 
 Each variant is a list of text substitutions applied to a copy of
 dsocr_tpu_torch/csrc/ under dsocr_tpu_torch/_build/variants/<name>/ (an
 empty list is the checkout's own sources); a substitution whose old text
 is "DA_CHUNK" sets the decode attend's split size to the new text, in the
-source and in the wrapper. Each variant builds its own kernel library, and
-every variant runs the same inputs: flash_prefill_attention at phase 3's
-shapes (B 1 and B 4 at S 1792, the profile's 16 × 1024 wave) and
-slot_decode_attention with bf16 and int8 caches (rows ending at split
-edges, the serving step's 904-1031 positions, phase 3's S 2560 rows).
+source and in the wrapper; one whose old text is "py:MODULE.NAME" sets that
+attribute of dsocr_tpu_torch.ops.kernels.MODULE to the JSON value of the
+new text for the variant (row_matmul.GEMV_MAX_N, TARGET_BLOCKS, ...). Each
+variant builds its own kernel library, and every variant runs the same
+inputs: flash_prefill_attention at phase 3's shapes (B 1 and B 4 at S
+1792, the profile's 16 × 1024 wave), slot_decode_attention with bf16 and
+int8 caches (rows ending at split edges, the serving step's 904-1031
+positions, phase 3's S 2560 rows) and, for `row`, q8_matmul, q4k_matmul
+and q6k_matmul at the main path's shapes (qkv at N 1, 16, 32 and 16384,
+o and shared down at N 16, the lm_head at N 16).
 Times are chip_smoke.time_ms's (device milliseconds per call, CUDA
 events); SDPA's time is printed once per slot case, and the decode
 attend's two kernels are timed apart by torch.profiler. Every variant is
@@ -73,6 +78,22 @@ def cases(torch, K, F, which):
                                 lambda q=q, c=c, live=live: F.scaled_dot_product_attention(
                                     q, c[0][0], c[1][0], attn_mask=live, scale=D ** -0.5),
                                 None))
+    if which in ("all", "row"):
+        from dsocr_tpu_torch.dsq.serve_quant import quantize_plain
+
+        shapes = (("qkv", 16384, 1280, 3840), ("qkv", 32, 1280, 3840), ("qkv", 16, 1280, 3840),
+                  ("qkv", 1, 1280, 3840), ("o", 16, 1280, 1280), ("shared_down", 16, 1792, 1280),
+                  ("lm_head", 16, 1280, 129280))
+        for method, fn, plain, keys in (
+                ("q8_0", K.q8_matmul, K.q8_matmul_plain, ("codes", "scales")),
+                ("q4_k", K.q4k_matmul, K.q4k_matmul_plain, ("codes", "scales", "mins")),
+                ("q6_k", K.q6k_matmul, K.q6k_matmul_plain, ("codes", "highs", "scales"))):
+            for case, n, k, m in shapes:
+                p = quantize_plain(randn(k, m, dtype=torch.bfloat16) * k ** -0.5, method)
+                packed = tuple(p[key] for key in keys)
+                x = randn(n, k, dtype=torch.bfloat16)
+                out.append((f"{method} {case} N{n}",
+                            lambda x=x, packed=packed, fn=fn: fn(x, *packed), plain(x, *packed)))
     return out
 
 
@@ -99,13 +120,26 @@ def main() -> int:
     todo = cases(torch, K, F, which)
     src = HERE / "dsocr_tpu_torch" / "csrc"
     root = HERE / "dsocr_tpu_torch" / "_build" / "variants"
+    import importlib
+
+    settings = {}  # variant → [(module, attribute, value)]; defaults restored between variants
+    defaults = {}
     for name, subs in variants.items():
+        settings[name] = []
+        for old, new in subs:
+            if old.startswith("py:"):
+                mod_name, attr = old[3:].rsplit(".", 1)
+                mod = importlib.import_module(f"dsocr_tpu_torch.ops.kernels.{mod_name}")
+                defaults.setdefault((mod, attr), getattr(mod, attr))
+                settings[name].append((mod, attr, json.loads(new)))
         d = root / name
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(src, d / "csrc")
         for f in (d / "csrc").iterdir():
             text = f.read_text()
             for old, new in subs:
+                if old.startswith("py:"):
+                    continue
                 if old == "DA_CHUNK":
                     old, new = "constexpr int DA_CHUNK = 256;", f"constexpr int DA_CHUNK = {new};"
                 text = text.replace(old, new)
@@ -115,12 +149,17 @@ def main() -> int:
             d = root / name
             _lib.CSRC_DIR, _lib.BUILD_DIR, _lib._lib = d / "csrc", d / "build", None
             _lib.DECODE_SPLIT = int(dict(subs).get("DA_CHUNK", 256))
+            for (mod, attr), value in defaults.items():
+                setattr(mod, attr, value)
+            for mod, attr, value in settings[name]:
+                setattr(mod, attr, value)
             _lib.lib()
             for case, fn, ref in todo:
                 line = {"variant": name, "round": rnd, "case": case, "ms": chip_smoke.time_ms(fn)}
                 if ref is not None:
                     line["max_abs_err"] = float((fn().float() - ref.float()).abs().max())
-                    line["tol"] = chip_smoke.bf16_tol(ref)
+                    if ref.dtype == torch.bfloat16:
+                        line["tol"] = chip_smoke.bf16_tol(ref)
                 print(json.dumps(line), flush=True)
             if rnd == 1 and which in ("all", "decode"):
                 profile_decode(torch, name, todo)

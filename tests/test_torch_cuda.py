@@ -174,6 +174,14 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         K.flash_prefill_attention(q, q.cpu(), q, torch.zeros(1, dtype=torch.int32, device=dev), scale=1.0)
     with pytest.raises(ValueError):  # int64 pad_start
         K.flash_prefill_attention(q, q, q, torch.zeros(1, dtype=torch.int64, device=dev), scale=1.0)
+    # the row matmuls: x 2 bytes past a 16-byte boundary (TMA and the GEMV's
+    # 16-byte loads cannot take it), at the GEMV's N and the GEMM's
+    for method, fn in (("q8_0", K.q8_matmul), ("q4_k", K.q4k_matmul), ("q6_k", K.q6k_matmul)):
+        packed = _row_packed(np.random.default_rng(0), method, (), 256, 64, dev)
+        for n in (16, 64):
+            x = torch.zeros(n * 256 + 1, dtype=torch.bfloat16, device=dev)[1:].view(n, 256)
+            with pytest.raises(ValueError, match="16-byte"):
+                fn(x, *packed)
 
 
 # -- Q8_0 dequantize-matmul ------------------------------------------------------
@@ -199,8 +207,20 @@ def _abs_bound(x, w):
     return torch.matmul(x.to(torch.bfloat16).float().abs(), w.abs())
 
 
+# The row matmuls (csrc/row_matmul.cu): the main path's K and M (qkv, o and
+# shared down) at N 1 and 16 (the GEMV) and 17, 300, 1024 (the dequant pass
+# and the wgmma GEMM), and the lm_head at N 16
+_ROW_MAIN = [(n, k, m) for n in (1, 16, 17, 300, 1024) for k, m in ((1280, 3840), (1792, 1280))]
+_ROW_MAIN += [(16, 1280, 129280)]
+
+
+def _row_cases(existing, tails):
+    return existing + [c for c in _ROW_MAIN + tails if c not in existing]
+
+
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,k,m", [(16, 1280, 3840), (3, 32, 96), (300, 96, 200), (17, 1792, 1280)])
+@pytest.mark.parametrize("n,k,m", _row_cases([(16, 1280, 3840), (3, 32, 96), (300, 96, 200), (17, 1792, 1280)],
+                                             [(1, 32, 36), (16, 96, 36), (17, 32, 200), (1024, 96, 200)]))
 def test_q8_matmul_kernel_matches_twin(dev, x_dtype, n, k, m):
     rng = np.random.default_rng(n + k + m)
     codes, scales = (t.to(dev) for t in _q8_weights(rng, (), k, m, False))
@@ -277,7 +297,8 @@ def _q4k_deq(packed, dim):
 
 
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,k,m", [(16, 1280, 3840), (3, 256, 96), (300, 512, 200), (17, 1792, 1280)])
+@pytest.mark.parametrize("n,k,m", _row_cases([(16, 1280, 3840), (3, 256, 96), (300, 512, 200), (17, 1792, 1280)],
+                                             [(1, 256, 36), (16, 512, 200), (1024, 256, 36)]))
 def test_q4k_matmul_kernel_matches_twin(dev, x_dtype, n, k, m):
     rng = np.random.default_rng(n + k + m)
     packed = _q4k_weights(rng, (), k, m, False, dev)
@@ -364,7 +385,8 @@ def _q6k_deq(packed, dim):
 
 
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,k,m", [(16, 1280, 3840), (3, 256, 96), (300, 512, 200), (17, 1792, 1280)])
+@pytest.mark.parametrize("n,k,m", _row_cases([(16, 1280, 3840), (3, 256, 96), (300, 512, 200), (17, 1792, 1280)],
+                                             [(1, 256, 36), (16, 512, 200), (1024, 256, 36)]))
 def test_q6k_matmul_kernel_matches_twin(dev, x_dtype, n, k, m):
     rng = np.random.default_rng(n + k + m)
     packed = _q6k_weights(rng, (), k, m, False, dev)
@@ -373,6 +395,69 @@ def test_q6k_matmul_kernel_matches_twin(dev, x_dtype, n, k, m):
     got = K.q6k_matmul(x, *packed)
     assert K.q6k_matmul.launches == before + 1
     _q8_close(got, K.q6k_matmul_plain(x, *packed), _abs_bound(x, _q6k_deq(packed, -1).t()))
+
+
+# -- the row matmuls of all three formats (csrc/row_matmul.cu) ------------------------
+
+
+def _row_packed(rng, method, lead, k, m, dev):
+    """Row-layout packed weights of a random float [*lead, k, m] stack:
+    [*lead, M, ..] parts in the kernel's argument order."""
+    from dsocr_tpu_torch.dsq.serve_quant import quantize_plain
+
+    keys = {"q8_0": ("codes", "scales"), "q4_k": ("codes", "scales", "mins"),
+            "q6_k": ("codes", "highs", "scales")}[method]
+    w = _randn(rng, *lead, k, m, std=k ** -0.5).to(dev)
+    packed = quantize_plain(w, method)
+    return tuple(packed[key] for key in keys)
+
+
+def _row_fns(method):
+    fmt = {"q8_0": "q8", "q4_k": "q4k", "q6_k": "q6k"}[method]
+    return getattr(K, f"{fmt}_matmul"), getattr(K, f"{fmt}_matmul_plain")
+
+
+def _row_weight(method, packed):
+    """f32 [M, K] holding each weight's bf16 value, from the twin's dequant."""
+    from dsocr_tpu_torch.ops.kernels.dequant_matmul import _dequant_rows
+    from dsocr_tpu_torch.ops.kernels.kquant_matmul import dequant_q4k, dequant_q6k
+
+    if method == "q8_0":
+        return _dequant_rows(*packed)
+    return (dequant_q4k if method == "q4_k" else dequant_q6k)(*packed, -1).float()
+
+
+@pytest.mark.parametrize("method", ["q8_0", "q4_k", "q6_k"])
+@pytest.mark.parametrize("n", [16, 1024])
+def test_row_matmul_repeats_and_dequants_bit_exact(dev, method, n):
+    """Two launches give the same bits (GEMV at N 16, dequant pass + GEMM at
+    N 1024), and x = rows of the identity reads the weights back exactly:
+    1 · w plus zeros is exact in any order, so the kernels' weights equal
+    the twin's dequant (_dequant_rows, dequant_q4k, dequant_q6k) bit for
+    bit, in the GEMV's permuted K slots and through the dequant pass."""
+    fn, _ = _row_fns(method)
+    k, m = 1280, 1280
+    packed = _row_packed(np.random.default_rng(n), method, (), k, m, dev)
+    x = _randn(np.random.default_rng(1), n, k).to(dev, torch.bfloat16)
+    got = fn(x, *packed)
+    assert torch.equal(got, fn(x, *packed))
+    w = _row_weight(method, packed)
+    for r0 in range(0, k, n):  # every K column once
+        eye = torch.eye(k, device=dev, dtype=torch.bfloat16)[r0 : r0 + n]
+        assert torch.equal(fn(eye, *packed), w.t()[r0 : r0 + n])
+
+
+@pytest.mark.parametrize("method", ["q8_0", "q4_k", "q6_k"])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 16, 300])
+def test_row_matmul_on_a_layer_view(dev, method, x_dtype, n):
+    """W[layer] of a [L, M, K] stack at layer 1: a view, no copy."""
+    fn, plain = _row_fns(method)
+    stack = _row_packed(np.random.default_rng(n), method, (3,), 1280, 1280, dev)
+    layer = tuple(t[1] for t in stack)
+    assert all(t.data_ptr() == s.data_ptr() + s.stride(0) * s.element_size() for t, s in zip(layer, stack))
+    x = _randn(np.random.default_rng(2), n, 1280).to(dev, x_dtype)
+    _q8_close(fn(x, *layer), plain(x, *layer), _abs_bound(x, _row_weight(method, layer).t()))
 
 
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])

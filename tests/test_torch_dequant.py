@@ -144,7 +144,8 @@ def _deq_inmajor(p):
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("n,k,m", [(5, 32, 64), (16, 96, 200), (40, 64, 384)])
+@pytest.mark.parametrize("n,k,m", [(5, 32, 64), (16, 96, 200), (40, 64, 384), (1, 32, 64), (17, 96, 200),
+                                   (1, 96, 36), (17, 32, 36)])
 def test_q8_matmul_twin_matches_pallas(dtype, n, k, m):
     rng = np.random.default_rng(n + k + m)
     p = _packed(rng, (), k, m, False)

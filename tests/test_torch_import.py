@@ -33,6 +33,7 @@ SLICE_MODULES = [
     "dsocr_tpu_torch.ops.kernels.kquant_matmul",
     "dsocr_tpu_torch.ops.kernels.paged_attention",
     "dsocr_tpu_torch.ops.kernels.gather_matmul",
+    "dsocr_tpu_torch.ops.kernels.row_matmul",
     "dsocr_tpu_torch.dsq",
     "dsocr_tpu_torch.dsq.quant",
     "dsocr_tpu_torch.dsq.serve_quant",

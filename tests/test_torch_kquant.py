@@ -217,7 +217,8 @@ def _deq(p, dim):
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("n,k,m", [(5, 256, 128), (16, 512, 200), (40, 256, 384)])
+@pytest.mark.parametrize("n,k,m", [(5, 256, 128), (16, 512, 200), (40, 256, 384), (1, 256, 128), (17, 512, 200),
+                                   (1, 512, 36)])
 def test_q4k_matmul_twin_matches_pallas(dtype, n, k, m):
     rng = np.random.default_rng(n + k + m)
     w = _w(rng, (), k, m)
