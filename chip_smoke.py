@@ -16,6 +16,10 @@ non-zero (nothing is caught):
             same function, timed here and used nowhere in the port), and
             the bound: the larger of the bytes the call must move over
             3.35 TB/s and its operations over the peak rate of their type;
+            sam_flash_attention at one page's views (BH 12 at S 4096, BH 72
+            at S 1600) and at the engine's launches (BH 48, BH 192), two
+            launches bit-equal, bound 3xTF32 on the tensor cores with the
+            f32 FMA bound beside it;
             flash_prefill_attention also at the profile's wave (B 16, S
             1024, no pads) and with pads at the tile boundaries 63/64/65,
             slot_decode_attention also at the serving step (16 rows of
@@ -50,7 +54,9 @@ non-zero (nothing is caught):
             Then the profile of that engine at 16 rows (profile_phase):
             a prefill wave and decode steps, their host and device time,
             the largest kernels, and the host time spent in the kernel
-            wrappers against the rest of the step;
+            wrappers against the rest of the step; and its tower line
+            (tower_profile): the vision towers of 16 pages, device ms, the
+            SAM attention's share, host ms around the synchronized call;
     split   the same engine's decoder in the reference's split layout (its
             state split; fusing it gives the engine's weights) over a
             contiguous KVCache: the page's 904-token packet prefilled, then
@@ -140,6 +146,7 @@ N_REQUESTS = 16
 N_SLOTS = 16
 CHUNK = 128
 PROFILE_ROWS, PROFILE_WAVE, PROFILE_WINDOW = 16, 1024, 16  # rows, positions per row, steps
+TOWER_PAGES = 16  # the profile's tower line: the vision towers of a 16-page burst
 PROMPT = "<image>\nFree OCR."
 PARITY_SEED = 7
 # Seed 7's Q6_K weights put a greedy near-tie in the int8-KV runs: summing
@@ -250,7 +257,8 @@ def time_ms(fn, reps: int = 10, batches: int = 3) -> float:
 
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}  # dense bf16 tensor cores; f32 off them
+# dense bf16 and TF32 tensor cores; f32 off them
+PEAK_OPS_PER_S = {"bf16": 989e12, "tf32": 494.7e12, "f32": 67e12}
 
 
 def bound(nbytes: float, ops: float, kind: str):
@@ -526,8 +534,8 @@ def check_kernels(torch, K):
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    def randn(*shape, dtype=torch.float32, std=1.0):
-        return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
+    def randn(*shape, dtype=torch.float32, std=1.0, generator=None):
+        return (torch.randn(shape, generator=generator or gen, device=dev) * std).to(dtype)
 
     cases = []
 
@@ -539,23 +547,37 @@ def check_kernels(torch, K):
         require(err <= tol, f"{kernel} {case}: max abs err {err} > tol {tol}")
         cases.append(line)
 
-    # SAM global attention: 1024 global view (S = 4096, 1 view x 12 heads)
-    # and 640 tiles (S = 1600, 6 tiles x 12 heads); q pre-scaled, f32
-    for bh, s in ((12, 4096), (72, 1600)):
+    # SAM global attention: one 1024 global view (S = 4096, 1 view x 12
+    # heads), one page's six 640 tiles (S = 1600, 72), and, last, the
+    # engine's launches: 4 views (BH 48) and 16 tiles (BH 192) a call; q
+    # pre-scaled, f32. Two launches must give the same bits. The bound is
+    # 3xTF32 on the tensor cores (three TF32 products per f32 product, as
+    # the kernel computes); the f32 FMA bound stands beside it. The launch
+    # shapes draw from a generator of their own and run after every other
+    # kernel, so the other cases' inputs, and the device memory they find
+    # (the plain twin at BH 48 allocates ~13 GB), do not depend on them.
+    def check_sam(bh, s, src):
         w = int(round(s ** 0.5))
-        q, k, v = randn(bh, s, 64, std=0.125), randn(bh, s, 64), randn(bh, s, 64)
-        bias_h, bias_w = randn(bh, s, w, std=0.3), randn(bh, s, w, std=0.3)
+        q, k, v = (randn(bh, s, 64, std=std, generator=src) for std in (0.125, 1.0, 1.0))
+        bias_h, bias_w = (randn(bh, s, w, std=0.3, generator=src) for _ in range(2))
         args = (q, k, v, bias_h, bias_w)
         out = K.sam_flash_attention(*args, width=w)
+        require(torch.equal(out, K.sam_flash_attention(*args, width=w)),
+                "sam_flash_attention: two launches on the same inputs differ")
         ref = K.sam_flash_attention_plain(*args, width=w)
         err = float((out - ref).abs().max())
+        del ref
         bias = (bias_h[..., :, None] + bias_w[..., None, :]).reshape(bh, s, s)
+        flops = 4 * bh * s * s * 64
         record("sam_flash_attention", f"BH={bh} S={s}", err, 1e-4,
                time_ms(lambda: K.sam_flash_attention(*args, width=w)),
                time_ms(lambda: K.sam_flash_attention_plain(*args, width=w)),
                time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=1.0)),
-               bound(nbytes(*args, out), 4 * bh * s * s * 64, "f32"))
-        del bias
+               bound(nbytes(*args, out), 3 * flops, "tf32"),
+               bound_f32_fma_ms=bound(nbytes(*args, out), flops, "f32")[0], deterministic=True)
+
+    check_sam(12, 4096, gen)
+    check_sam(72, 1600, gen)
 
     # decoder prefill: 10 heads of 128, bf16: S = 1792 with left padding;
     # the profile's wave (16 rows of 1024, no padding); pads at the tile
@@ -650,6 +672,10 @@ def check_kernels(torch, K):
     for method in ("q4_k", "q6_k"):
         check_kquant_kernels(torch, K, record, randn, method)
         torch.cuda.empty_cache()
+    launch_gen = torch.Generator(device=dev).manual_seed(1)
+    check_sam(48, 4096, launch_gen)
+    check_sam(192, 1600, launch_gen)
+    torch.cuda.empty_cache()
     return cases
 
 
@@ -809,14 +835,19 @@ def seeded_page():
 _PAGE_INPUT = []
 
 
+def page_input(engine):
+    """The seeded page's VisionInput: the host prep (about 4 s a page) does
+    not depend on the engine, so it runs once per script."""
+    if not _PAGE_INPUT:
+        _PAGE_INPUT.append(engine.prepare_vision_input(*seeded_page()))
+    return _PAGE_INPUT[0]
+
+
 def page_packet(engine):
     """The seeded page through `engine` outside a measured window → (image,
-    vision, tokens, image mask, image embedding). The host prep (about 4 s
-    a page) does not depend on the engine, so it runs once per script."""
+    vision, tokens, image mask, image embedding)."""
     image, vision = seeded_page()
-    if not _PAGE_INPUT:
-        _PAGE_INPUT.append(engine.prepare_vision_input(image, vision))
-    vin = _PAGE_INPUT[0]
+    vin = page_input(engine)
     emb = engine.compute_image_embedding(vin)
     tokens, mask = engine.build_prompt_tokens(BenchTokenizer(), PROMPT, [vin], [emb], vision)
     return image, vision, tokens, mask, emb
@@ -991,14 +1022,15 @@ def serve(engine, tokenizer, images, vision, params, *, n_slots, max_len, chunk)
 
 
 def serving_phase(torch, K, phase, engine, *, n_requests, n_slots, max_new, required,
-                  warmup=True, profile=False, unused=(), same_as=None):
+                  warmup=True, profile=False, towers=False, unused=(), same_as=None):
     """Phases 4-4h: n_requests requests of max_new tokens through
     ContinuousScheduler over n_slots; the launch counters are zeroed just
     before and read just after, every kernel in `required` must have
     launched and none in `unused`. A paged burst also reports its pool and,
     against `same_as` (another burst's tokens), how many requests gave the
-    same tokens. With `profile`, profile_phase follows on the page's packet.
-    → (launch counts, tokens per request)."""
+    same tokens. With `profile`, profile_phase follows on the page's packet
+    (with `towers`, its tower line too). → (launch counts, tokens per
+    request)."""
     from dsocr_tpu_torch.core import DecodeParameters
     from dsocr_tpu_torch.runtime.paged import PagedSlotCache
 
@@ -1067,7 +1099,7 @@ def serving_phase(torch, K, phase, engine, *, n_requests, n_slots, max_new, requ
     for name in unused:
         require(launches[name] == 0, f"kernel {name} was launched in the {phase} burst")
     if profile:
-        profile_phase(torch, K, engine, pre, paged=isinstance(cache, PagedSlotCache))
+        profile_phase(torch, K, engine, pre, paged=isinstance(cache, PagedSlotCache), towers=towers)
     return launches, generated
 
 
@@ -1101,10 +1133,11 @@ def wrapper_host_ms(K, fn) -> float:
     return sum(spent) * 1e3
 
 
-def traced(torch, fn, n_calls: int):
+def traced(torch, fn, n_calls: int, kernels_out=None):
     """fn once under torch.profiler → (device ms per call: the kernel
     events' durations; host ms per call of the traced window, which the
-    profiler slows; the 4 largest kernels [name, launches, ms] per call)."""
+    profiler slows; the 4 largest kernels [name, launches, ms] per call).
+    The kernel events are appended to `kernels_out` where it is given."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1115,12 +1148,58 @@ def traced(torch, fn, n_calls: int):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    if kernels_out is not None:
+        kernels_out.extend(kernels)
     top = sorted(kernels, key=device_us, reverse=True)[:4]
     return (sum(map(device_us, kernels)) / 1e3 / n_calls, wall * 1e3 / n_calls,
             [[e.key[:60], e.count / n_calls, device_us(e) / 1e3 / n_calls] for e in top])
 
 
-def profile_phase(torch, K, engine, pre, paged=False):
+# the SAM global-attention kernels' names: its own bodies
+# (sam_attention_*_kernel), and before them the flash_tile body it shared
+# with the f32 decoder prefill (which the towers never launch), so the
+# tower line also reads a parent tree
+SAM_KERNEL_NAMES = ("sam_attention_", "flash_tile_kernel")
+
+
+def tower_profile(torch, K, engine, pages=TOWER_PAGES):
+    """The vision towers of a 16-page burst: the seeded page's VisionInput
+    (page_input, so no host prep in the window) 16 times through
+    engine._compute_image_embeddings_batched, which pools the pages' views
+    as the scheduler's prefill does (4 global views and 16 tiles a call).
+    Host ms around the synchronized call (median of 3 after a warm-up),
+    then one call under torch.profiler: the towers' device ms, the SAM
+    global attention's device ms, launches and share of it, the largest
+    kernels."""
+    vins = [page_input(engine)] * pages
+
+    def towers():
+        engine._compute_image_embeddings_batched(vins)
+
+    t0 = time.perf_counter()
+    towers()
+    host = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        towers()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t1) * 1e3)
+    K.reset_launches()
+    events = []
+    device_ms, traced_ms, top = traced(torch, towers, 1, kernels_out=events)
+    sam_ms = sum(device_us(e) for e in events if any(n in e.key for n in SAM_KERNEL_NAMES)) / 1e3
+    line = {"phase": "profile_towers", "pages": pages, "host_ms": statistics.median(host),
+            "host_ms_runs": host, "device_ms": device_ms, "busy_share": device_ms / traced_ms,
+            "sam_attention_ms": sam_ms, "sam_attention_share": sam_ms / device_ms,
+            "sam_attention_launches": K.launch_counts()["sam_flash_attention"], "top": top,
+            "seconds": time.perf_counter() - t0}
+    emit(line)
+    require(device_ms > 0 and sam_ms > 0, "the profiler saw no tower or SAM attention time")
+    return line
+
+
+def profile_phase(torch, K, engine, pre, paged=False, towers=False):
     """Where the time goes at 16 rows in the engine's weight format:
     a prefill wave (16 rows × 1024 seeded embeddings through the decoder,
     host clock around synchronized work, median of 3 after a warm-up) and
@@ -1131,7 +1210,8 @@ def profile_phase(torch, K, engine, pre, paged=False):
     torch.profiler (device ms, busy share, largest kernels), and 16 steps
     with every kernel wrapper timed on the host: the host ms per step
     inside the wrappers against the rest of the step. `seconds` gives the
-    wall seconds of each part."""
+    wall seconds of each part. With `towers`, tower_profile's line
+    follows."""
     from dsocr_tpu_torch.core import DecodeParameters
     from dsocr_tpu_torch.ops.rope import build_rope_tables
     from dsocr_tpu_torch.runtime.slots import SlotRunner
@@ -1202,6 +1282,8 @@ def profile_phase(torch, K, engine, pre, paged=False):
     emit(line)
     require(all(t > 0 for t in (line["prefill_device_ms"], line["step_device_ms"])),
             "the profiler saw no device time")
+    if towers:
+        tower_profile(torch, K, engine)
 
 
 def full_width_engine(torch, quantize=None):
@@ -1362,7 +1444,7 @@ def main() -> int:
     attention = ["sam_flash_attention", "flash_prefill_attention"] + slot
     engine = full_width_engine(torch)
     bursts = [serving_phase(torch, K, "serve", engine, n_requests=N_REQUESTS, n_slots=N_SLOTS,
-                            max_new=MAX_NEW, required=attention, profile=True)[0]]
+                            max_new=MAX_NEW, required=attention, profile=True, towers=True)[0]]
     bursts.append(split_phase(torch, K, engine))
     prefill = ["sam_flash_attention", "flash_prefill_attention"]
     bursts.append(decode_phase(torch, K, engine, smi, required=prefill))

@@ -1,6 +1,5 @@
-// One query-tile flash attention loop, shared by the decoder prefill
-// kernel (prefill_attention.cu) and the SAM global-attention kernel
-// (sam_attention.cu).
+// One query-tile flash attention loop on the CUDA cores: the f32 body of
+// the decoder prefill (prefill_attention.cu; bf16 runs on wgmma there).
 //
 // A block owns FT_BQ = 64 queries of one (batch, head) and walks EVERY
 // key tile of the sequence with an f32 online softmax. Scores never leave
@@ -11,9 +10,8 @@
 //
 // Shared memory, in floats: Q tile [64][D+1], one K-or-V tile
 // [64][max(D,Dv)+1] (K for the scores, then V for the value sum), the
-// score/probability tile [64][65], the running max / sum / rescale per
-// row, and for SAM the block's bias rows [64][kh] and [64][kw]. About
-// 84 KB at D = 128, so two blocks fit on one SM.
+// score/probability tile [64][65] and the running max / sum / rescale per
+// row: about 84 KB at D = 128, so two blocks fit on one SM.
 #pragma once
 
 #include <math.h>
@@ -33,29 +31,23 @@ struct FlashParams {
   const void* k;  // [B, Hkv, S, D]
   const void* v;  // [B, Hkv, S, Dv]
   void* out;      // [B, S, H * Dv]
-  const int32_t* pad_start;  // prefill: [B] left-pad boundary
-  const float* bias_h;       // SAM: [B * H, S, kh]
-  const float* bias_w;       // SAM: [B * H, S, kw]
+  const int32_t* pad_start;  // [B] left-pad boundary
   int B, H, Hkv, S, D, Dv;
-  int kh, kw, width;
   float scale;
 };
 
-inline size_t flash_smem_bytes(int D, int Dv, int kh, int kw) {
+inline size_t flash_smem_bytes(int D, int Dv) {
   const int dkv = (D > Dv ? D : Dv) + 1;
   const size_t floats = (size_t)FT_BQ * (D + 1) + (size_t)FT_BK * dkv +
-                        (size_t)FT_BQ * (FT_BK + 1) + 3 * FT_BQ +
-                        (size_t)FT_BQ * (kh + kw);
+                        (size_t)FT_BQ * (FT_BK + 1) + 3 * FT_BQ;
   return floats * sizeof(float);
 }
 
-// SAM = false: causal + left-pad mask (kv <= q and kv >= pad_start[b]),
-//   scores = q.k * scale, masked entries -1e30 (a fully masked row comes
-//   out as the uniform mean of v over all S keys, as in the reference).
-// SAM = true: no mask, scores = q.k * scale + bias_h[i, j / W] +
-//   bias_w[i, j % W] (the caller pre-scales q and passes scale = 1).
-// Keys at j >= S (the ragged last tile) get -inf and weigh exactly 0.
-template <typename T, bool SAM>
+// Causal + left-pad mask (kv <= q and kv >= pad_start[b]), scores =
+// q.k * scale, masked entries -1e30 (a fully masked row comes out as the
+// uniform mean of v over all S keys, as in the reference). Keys at j >= S
+// (the ragged last tile) get -inf and weigh exactly 0.
+template <typename T>
 __global__ void __launch_bounds__(FT_THREADS) flash_tile_kernel(FlashParams p) {
   extern __shared__ float smem[];
   const int D = p.D, Dv = p.Dv, S = p.S;
@@ -67,8 +59,6 @@ __global__ void __launch_bounds__(FT_THREADS) flash_tile_kernel(FlashParams p) {
   float* m_s = s_s + FT_BQ * (FT_BK + 1);  // [BQ]
   float* l_s = m_s + FT_BQ;                // [BQ]
   float* a_s = l_s + FT_BQ;                // [BQ]
-  float* bh_s = a_s + FT_BQ;               // [BQ][kh]
-  float* bw_s = bh_s + FT_BQ * p.kh;       // [BQ][kw]
 
   const int tid = threadIdx.x;
   const int bh = blockIdx.x;  // b * H + h
@@ -78,21 +68,11 @@ __global__ void __launch_bounds__(FT_THREADS) flash_tile_kernel(FlashParams p) {
   const T* q = static_cast<const T*>(p.q) + (size_t)bh * S * D;
   const T* k = static_cast<const T*>(p.k) + (size_t)(b * p.Hkv + hk) * S * D;
   const T* v = static_cast<const T*>(p.v) + (size_t)(b * p.Hkv + hk) * S * Dv;
-  const int pad = (!SAM && p.pad_start) ? p.pad_start[b] : 0;
+  const int pad = p.pad_start ? p.pad_start[b] : 0;
 
   for (int idx = tid; idx < FT_BQ * D; idx += FT_THREADS) {
     const int r = idx / D, d = idx % D;
     q_s[r * DQ + d] = (q0 + r < S) ? to_f32(q[(size_t)(q0 + r) * D + d]) : 0.f;
-  }
-  if (SAM) {
-    for (int idx = tid; idx < FT_BQ * p.kh; idx += FT_THREADS) {
-      const int r = idx / p.kh, c = idx % p.kh;
-      bh_s[idx] = (q0 + r < S) ? p.bias_h[((size_t)bh * S + q0 + r) * p.kh + c] : 0.f;
-    }
-    for (int idx = tid; idx < FT_BQ * p.kw; idx += FT_THREADS) {
-      const int r = idx / p.kw, c = idx % p.kw;
-      bw_s[idx] = (q0 + r < S) ? p.bias_w[((size_t)bh * S + q0 + r) * p.kw + c] : 0.f;
-    }
   }
   if (tid < FT_BQ) {
     m_s[tid] = FT_MASKED;
@@ -141,9 +121,6 @@ __global__ void __launch_bounds__(FT_THREADS) flash_tile_kernel(FlashParams p) {
         float s;
         if (kj >= S) {
           s = -INFINITY;
-        } else if (SAM) {
-          s = sc[i][c] * p.scale + bh_s[r * p.kh + kj / p.width] +
-              bw_s[r * p.kw + kj % p.width];
         } else {
           s = (kj <= qi && kj >= pad) ? sc[i][c] * p.scale : FT_MASKED;
         }
@@ -213,14 +190,14 @@ __global__ void __launch_bounds__(FT_THREADS) flash_tile_kernel(FlashParams p) {
   }
 }
 
-template <typename T, bool SAM>
+template <typename T>
 inline cudaError_t launch_flash_tile(const FlashParams& p, cudaStream_t stream) {
-  const size_t smem = flash_smem_bytes(p.D, p.Dv, SAM ? p.kh : 0, SAM ? p.kw : 0);
+  const size_t smem = flash_smem_bytes(p.D, p.Dv);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_tile_kernel<T, SAM>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_tile_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(p.B * p.H, (p.S + FT_BQ - 1) / FT_BQ);
-  flash_tile_kernel<T, SAM><<<grid, FT_THREADS, smem, stream>>>(p);
+  flash_tile_kernel<T><<<grid, FT_THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 

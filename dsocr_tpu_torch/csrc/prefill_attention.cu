@@ -49,8 +49,8 @@
 // and slower at the serving wave's B 16, the main path.
 //
 // f32 inputs (the tiny parity configs, not the main path) run the CUDA-core
-// f32 body of flash_tile.cuh, which the SAM kernel shares: TF32 tensor
-// cores would not meet the f32 tolerance.
+// f32 body of flash_tile.cuh: plain TF32 tensor cores would not meet the
+// f32 tolerance.
 #include "flash_tile.cuh"
 #include "wgmma.cuh"
 
@@ -437,6 +437,5 @@ extern "C" int dsocr_flash_prefill_attention(
   p.D = D;
   p.Dv = Dv;
   p.scale = scale;
-  p.width = 1;
-  return (int)launch_flash_tile<float, false>(p, st);
+  return (int)launch_flash_tile<float>(p, st);
 }

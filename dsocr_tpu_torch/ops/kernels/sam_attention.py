@@ -1,26 +1,39 @@
 """SAM global attention with the decomposed relative-position bias.
 
-Replaces ``sam_flash_attention`` (dsocr_tpu/ops/pallas/sam_attention.py:74).
+Replaces ``sam_flash_attention`` (dsocr_tpu/ops/pallas/sam_attention.py:74,
+``pallas_call`` at :92).
 
     out = softmax(q·kᵀ + bias_h[i, j // W] + bias_w[i, j % W]) · v
 
 with q pre-scaled by D^-0.5 and f32 throughout. It runs in SAM's global
 blocks (2, 5, 8, 11) at S = 4096 for a 1024 view and S = 1600 for a 640
-tile, D = 64.
+tile, D = 64; the engine pools 4 views (BH 48) or 16 tiles (BH 192) a
+call.
 
-What bounds it on the H100: arithmetic. Per (view, head) it does
-4·S²·D FLOPs (~4.3 GFLOP at S = 4096) on O(S·D) bytes, far above the
-card's ridge point — the plain version instead writes and re-reads an
-[S, S] f32 score tensor and its bias (~64 MiB each per head at 4096).
+What bounds it on the H100 (NVIDIA H100 80GB HBM3, 700 W): operations.
+Per (view, head) it does 4·S²·D FLOPs (~4.3 GFLOP at S = 4096) on O(S·D)
+bytes, far above the card's ridge point; the plain version instead writes
+and re-reads an [S, S] f32 score tensor and its bias (~64 MiB each per
+head at 4096). f32 is what the reference computes, so the bound is either
+f32 FMAs on the CUDA cores (67 TFLOP/s: 0.769 ms at BH 12, S 4096) or
+3xTF32 on the tensor cores (three TF32 products per f32 product at 494.7
+TFLOP/s: 0.313 ms).
 
-What the design does (csrc/sam_attention.cu over csrc/flash_tile.cuh):
-one block per 64 queries of one (view, head) walks all key tiles with an
-f32 online softmax in shared memory; the bias is rebuilt per score from
-the block's [64, qh] and [64, qw] rows staged in shared memory, so no
-S×S tensor reaches device memory. The Pallas kernel's one-hot expansion
-matmuls were a Mosaic workaround and are not carried over. The math is
-f32 on CUDA cores, not tensor cores: f32 is what the reference computes,
-and wgmma/TF32 tiling is later work.
+What the design does (csrc/sam_attention.cu): 3xTF32 — each operand splits
+into hi = tf32(x) and lo = tf32(x − hi), a product is lo·hi + hi·lo +
+hi·hi in f32 — for both q·kᵀ and p·v, so the tensor cores do f32-accurate
+work (tests/test_torch_sam_split.py emulates it against the Pallas
+kernel). At D ≤ 64 (the main path) a block of two warpgroups owns 128
+queries of one (view, head) and runs both products on wgmma: K and V tiles
+of 64 keys come through a cp.async ring and are split once a tile into
+hi/lo planes in shared memory (V transposed), Q's fragments, the score
+tile, the online softmax (log2 units) and the output stay in registers,
+and each tile's P·V sums in fresh accumulators (the tensor cores round
+their f32 sums toward zero). The bias is read per score from the block's
+bias rows staged in shared memory (the Pallas kernel's one-hot expansion
+matmuls were a Mosaic workaround and are not carried over). 64 < D ≤ 128
+runs an mma.sync body. The TF32 split is the kernel's own arithmetic:
+torch's TF32 switches are not touched.
 """
 
 from __future__ import annotations
@@ -55,6 +68,11 @@ def sam_flash_attention(q, k, v, bias_h, bias_w, *, width: int):
         raise ValueError(f"{name}: expects f32 operands")
     if k.shape != q.shape or v.shape != q.shape or kh * kw != s or kw != width:
         raise ValueError(f"{name}: bad shapes {q.shape} {bias_h.shape} {bias_w.shape}")
+    if d % 4 or d > 128 or kh > 64 or kw > 64:
+        raise ValueError(f"{name}: needs D a multiple of 4 up to 128 and kh, kw <= 64, got "
+                         f"D={d} kh={kh} kw={kw}")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"{name}: q, k and v must start on a 16-byte boundary")
     out = torch.empty_like(q)
     err = _lib.lib().dsocr_sam_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_h.data_ptr(),

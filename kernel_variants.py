@@ -2,7 +2,7 @@
 """Time variants of the kernels' sources on one CUDA card.
 
     python3 kernel_variants.py '{"base": [], "two_stages": [["constexpr int PF_STAGES = 3;",
-                                                 "constexpr int PF_STAGES = 2;"]]}' [prefill|decode|row]
+                                                 "constexpr int PF_STAGES = 2;"]]}' [prefill|decode|row|sam]
 
 Each variant is a list of text substitutions applied to a copy of
 dsocr_tpu_torch/csrc/ under dsocr_tpu_torch/_build/variants/<name>/ (an
@@ -15,11 +15,13 @@ variant builds its own kernel library, and every variant runs the same
 inputs: flash_prefill_attention at phase 3's shapes (B 1 and B 4 at S
 1792, the profile's 16 × 1024 wave), slot_decode_attention with bf16 and
 int8 caches (rows ending at split edges, the serving step's 904-1031
-positions, phase 3's S 2560 rows) and, for `row`, q8_matmul, q4k_matmul
+positions, phase 3's S 2560 rows), for `row`, q8_matmul, q4k_matmul
 and q6k_matmul at the main path's shapes (qkv at N 1, 16, 32 and 16384,
-o and shared down at N 16, the lm_head at N 16).
+o and shared down at N 16, the lm_head at N 16) and, for `sam`,
+sam_flash_attention at phase 3's four shapes (BH 12 and 48 at S 4096,
+BH 72 and 192 at S 1600; the engine launches the larger two).
 Times are chip_smoke.time_ms's (device milliseconds per call, CUDA
-events); SDPA's time is printed once per slot case, and the decode
+events); SDPA's time is printed once per slot and SAM case, and the decode
 attend's two kernels are timed apart by torch.profiler. Every variant is
 timed twice, all variants in turn, and each line carries the round.
 """
@@ -44,6 +46,19 @@ def cases(torch, K, F, which):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     out = []
+    if which in ("all", "sam"):
+        for bh, s in ((12, 4096), (72, 1600), (48, 4096), (192, 1600)):
+            w = int(round(s ** 0.5))
+            q, k, v = randn(bh, s, 64) * 0.125, randn(bh, s, 64), randn(bh, s, 64)
+            bias_h, bias_w = randn(bh, s, w) * 0.3, randn(bh, s, w) * 0.3
+            args = (q, k, v, bias_h, bias_w)
+            ref = K.sam_flash_attention_plain(*args, width=w)
+            out.append((f"sam BH{bh} S{s}", lambda args=args, w=w: K.sam_flash_attention(*args, width=w), ref))
+            bias = (bias_h[..., :, None] + bias_w[..., None, :]).reshape(bh, s, s)
+            out.append((f"sdpa BH{bh} S{s}",
+                        lambda q=q, k=k, v=v, bias=bias: F.scaled_dot_product_attention(
+                            q, k, v, attn_mask=bias, scale=1.0),
+                        None))
     if which in ("all", "prefill"):
         for b, pads, s in ((1, [0], 1792), (4, [0, 300, 7, 1000], 1792), (16, [0] * 16, 1024)):
             q, k, v = (randn(b, 10, s, 128, dtype=torch.bfloat16) for _ in range(3))

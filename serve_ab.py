@@ -1,6 +1,6 @@
 """Serving bursts of two trees of the PyTorch port on one card, alternated.
 
-    python3 serve_ab.py PARENT_ROOT . . PARENT_ROOT
+    python3 serve_ab.py [--towers] PARENT_ROOT . . PARENT_ROOT
 
 Each argument is the root of a tree that holds a ``dsocr_tpu_torch/``
 package. The trees run one after another in the order given, each in a
@@ -10,8 +10,11 @@ kernels, then runs the bf16 and the Q6_K serving bursts of this file's
 ``chip_smoke.py`` on that tree's package: 16 requests of 128 greedy tokens
 over 16 slots on the seeded page, after a 2-request warm-up, each followed
 by its profile (prefill wave and decode steps, host and device time).
-Every line it prints is ``chip_smoke.py``'s, with ``"tree"`` added. It
-exits non-zero if any run fails, and needs one CUDA card.
+With ``--towers`` a process runs only ``chip_smoke.tower_profile`` on the
+bf16 engine instead: the vision towers of 16 pages, device ms and the SAM
+attention's share. Every line it prints is ``chip_smoke.py``'s, with
+``"tree"`` added. It exits non-zero if any run fails, and needs one CUDA
+card.
 """
 
 from __future__ import annotations
@@ -26,9 +29,9 @@ import sys
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
-def run_tree(root: str) -> int:
-    """The bursts on the package under `root`, measured by this file's
-    chip_smoke.py."""
+def run_tree(root: str, towers: bool = False) -> int:
+    """The bursts (or with `towers` the tower profile) on the package under
+    `root`, measured by this file's chip_smoke.py."""
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
@@ -50,6 +53,9 @@ def run_tree(root: str) -> int:
     cs.emit = lambda obj: emit({**obj, "tree": root})
     set_f32_precision()
     _lib.lib()
+    if towers:
+        cs.tower_profile(torch, K, cs.full_width_engine(torch))
+        return 0
     attention = ["sam_flash_attention", "flash_prefill_attention", "slot_kv_update", "slot_decode_attention"]
     for quantize, phase, kernels in ((None, "serve", []),
                                      ("q6_k", "serve_q6k", ["q6k_matmul", "q6k_dense_experts"])):
@@ -64,7 +70,9 @@ def run_tree(root: str) -> int:
 
 def main(argv) -> int:
     if len(argv) >= 2 and argv[0] == "--tree":
-        return run_tree(argv[1])
+        return run_tree(argv[1], towers=argv[2:] == ["--towers"])
+    towers = argv[:1] == ["--towers"]
+    argv = argv[1:] if towers else argv
     if not argv:
         print(__doc__, file=sys.stderr)
         return 2
@@ -73,7 +81,8 @@ def main(argv) -> int:
     print(json.dumps({"nvidia_smi": smi.stdout.strip(), "order": argv}), flush=True)
     failed = []
     for root in argv:
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--tree", root], timeout=600)
+        flag = ["--towers"] if towers else []
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--tree", root, *flag], timeout=600)
         if proc.returncode:
             failed.append((root, proc.returncode))
     if failed:

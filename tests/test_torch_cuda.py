@@ -47,7 +47,14 @@ def _close(got, want):
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
 
 
-@pytest.mark.parametrize("BH,qh,qw,D", [(4, 40, 40, 64), (2, 5, 7, 16), (1, 64, 64, 64)])
+@pytest.mark.parametrize("BH,qh,qw,D", [
+    (4, 40, 40, 64), (2, 5, 7, 16), (1, 64, 64, 64),
+    (48, 64, 64, 64),  # the engine's launch: 4 global views x 12 heads
+    (192, 40, 40, 64),  # the engine's launch: 16 tiles x 12 heads
+    (2, 56, 40, 64),  # W 40: key tiles of 64 cross key rows; kh != kw
+    (2, 12, 12, 128),  # D > 64 (the mma.sync body), a ragged key tile
+    (3, 9, 11, 96),  # D 96, padded to 128
+])
 def test_sam_kernel_matches_twin(dev, BH, qh, qw, D):
     rng = np.random.default_rng(BH + qh)
     S = qh * qw
@@ -57,6 +64,29 @@ def test_sam_kernel_matches_twin(dev, BH, qh, qw, D):
     got = K.sam_flash_attention(q, k, v, bh, bw, width=qw)
     assert K.sam_flash_attention.launches == before + 1
     _close(got, K.sam_flash_attention_plain(q, k, v, bh, bw, width=qw))
+
+
+def test_sam_kernel_large_scores(dev):
+    """Scores of large magnitude (q std 1, bias std 3, S 1600): the online
+    softmax's running max must keep exp from overflowing."""
+    rng = np.random.default_rng(11)
+    BH, qh, qw, D = 6, 40, 40, 64
+    S = qh * qw
+    q, k, v = (_randn(rng, BH, S, D).to(dev) for _ in range(3))
+    bh, bw = _randn(rng, BH, S, qh, std=3.0).to(dev), _randn(rng, BH, S, qw, std=3.0).to(dev)
+    got = K.sam_flash_attention(q, k, v, bh, bw, width=qw)
+    assert torch.isfinite(got).all()
+    _close(got, K.sam_flash_attention_plain(q, k, v, bh, bw, width=qw))
+
+
+def test_sam_kernel_is_deterministic(dev):
+    rng = np.random.default_rng(12)
+    BH, qh, qw, D = 12, 64, 64, 64
+    S = qh * qw
+    q, k, v = (_randn(rng, BH, S, D, std=s).to(dev) for s in (0.125, 1.0, 1.0))
+    bh, bw = _randn(rng, BH, S, qh, std=0.3).to(dev), _randn(rng, BH, S, qw, std=0.3).to(dev)
+    first = K.sam_flash_attention(q, k, v, bh, bw, width=qw)
+    assert torch.equal(first, K.sam_flash_attention(q, k, v, bh, bw, width=qw))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
