@@ -17,9 +17,11 @@ non-zero (nothing is caught):
             the bound: the larger of the bytes the call must move over
             3.35 TB/s and its operations over the peak rate of their type;
             sam_flash_attention at one page's views (BH 12 at S 4096, BH 72
-            at S 1600) and at the engine's launches (BH 48, BH 192), two
-            launches bit-equal, bound 3xTF32 on the tensor cores with the
-            f32 FMA bound beside it;
+            at S 1600), at the engine's launches (BH 48, BH 192) and at
+            the 1280 view's 80 × 80 grid (S 6400, BH 12 and 48) and a
+            128 × 128 grid past the staged bias's shared-memory budget (BH
+            2), two launches bit-equal, bound 3xTF32 on the tensor cores
+            with the f32 FMA bound beside it;
             flash_prefill_attention also at the profile's wave (B 16, S
             1024, no pads) and with pads at the tile boundaries 63/64/65,
             slot_decode_attention also at the serving step (16 rows of
@@ -27,6 +29,8 @@ non-zero (nothing is caught):
             ending on either side of a split boundary, bf16 and int8; two
             launches of either attention, and of the paged attend, must
             give the same bits;
+            the dense expert sweeps of the three formats (gate+up and down
+            of one MoE layer at N 16) two launches bit-equal;
             q8_matmul, q4k_matmul and q6k_matmul at ROW_CASES (the lm_head
             at N 16; qkv at N 1, 16, 1024 and 16384: the decode GEMV and
             the dequant pass + wgmma GEMM; shared down at N 16), two
@@ -410,8 +414,9 @@ def check_expert_kernels(torch, record, randn, fmt, gather, gather_plain, dense,
                          perx_plain, gu, dn, deq, keys):
     """The gather, dense and per-expert wrappers of one format against
     their twins: gather 60 rows (10 tokens × top-6) of both stacks, the
-    dense pair at N = 16. `gu` and `dn` are packed [E, K, M] stacks (dn
-    may be a stand-in), `deq` dequantizes one to f32 [E, K, M]."""
+    dense pair at N = 16 (csrc/expert_sweep.cu), each launched twice and
+    bit-equal. `gu` and `dn` are packed [E, K, M] stacks (dn may be a
+    stand-in), `deq` dequantizes one to f32 [E, K, M]."""
 
     def bf16_abs(x):
         return x.to(torch.bfloat16).float().abs()
@@ -441,26 +446,30 @@ def check_expert_kernels(torch, record, randn, fmt, gather, gather_plain, dense,
     E, k, m = w.shape
     x = randn(16, k, dtype=torch.bfloat16)
     out = dense(x, *packed)
+    require(torch.equal(out, dense(x, *packed)),
+            f"{fmt}_dense_experts: two launches on the same inputs differ")
     ref = dense_plain(x, *packed)
     wb = w.to(torch.bfloat16)
     record(f"{fmt}_dense_experts", f"gateup N=16 E={E} K={k} M={m}", float((out - ref).abs().max()),
            q8_tol(torch.matmul(bf16_abs(x)[None], w.abs())),
            time_ms(lambda: dense(x, *packed)), time_ms(lambda: dense_plain(x, *packed)),
            time_ms(lambda: torch.matmul(x[None], wb)),
-           bound(nbytes(x, out, *packed), 2 * E * 16 * k * m, "bf16"))
+           bound(nbytes(x, out, *packed), 2 * E * 16 * k * m, "bf16"), deterministic=True)
     del out, ref, wb, w
     packed = tuple(dn[key] for key in keys)
     w = deq(dn)
     E, k, m = w.shape
     xe = randn(E, 16, k, dtype=torch.bfloat16)
     out = perx(xe, *packed)
+    require(torch.equal(out, perx(xe, *packed)),
+            f"{fmt}_dense_experts_perx: two launches on the same inputs differ")
     ref = perx_plain(xe, *packed)
     wb = w.to(torch.bfloat16)
     record(f"{fmt}_dense_experts_perx", f"down N=16 E={E} K={k} M={m}", float((out - ref).abs().max()),
            q8_tol(torch.matmul(bf16_abs(xe), w.abs())),
            time_ms(lambda: perx(xe, *packed)), time_ms(lambda: perx_plain(xe, *packed)),
            time_ms(lambda: torch.matmul(xe, wb)),
-           bound(nbytes(xe, out, *packed), 2 * E * 16 * k * m, "bf16"))
+           bound(nbytes(xe, out, *packed), 2 * E * 16 * k * m, "bf16"), deterministic=True)
 
 
 def check_kquant_kernels(torch, K, record, randn, method):
@@ -556,7 +565,7 @@ def check_kernels(torch, K):
     # shapes draw from a generator of their own and run after every other
     # kernel, so the other cases' inputs, and the device memory they find
     # (the plain twin at BH 48 allocates ~13 GB), do not depend on them.
-    def check_sam(bh, s, src):
+    def check_sam(bh, s, src):  # a square grid of S = W² keys
         w = int(round(s ** 0.5))
         q, k, v = (randn(bh, s, 64, std=std, generator=src) for std in (0.125, 1.0, 1.0))
         bias_h, bias_w = (randn(bh, s, w, std=0.3, generator=src) for _ in range(2))
@@ -676,6 +685,12 @@ def check_kernels(torch, K):
     check_sam(48, 4096, launch_gen)
     check_sam(192, 1600, launch_gen)
     torch.cuda.empty_cache()
+    # the 1280 view's 80 × 80 grid (S 6400: one view's 12 heads, and the
+    # engine's 4-view launch), and 128 × 128, past the shared-memory budget
+    # of the staged bias rows (the kernel reads the bias per score there)
+    for bh, s in ((12, 6400), (48, 6400), (2, 16384)):
+        check_sam(bh, s, launch_gen)
+        torch.cuda.empty_cache()
     return cases
 
 

@@ -1,9 +1,10 @@
 // Q8_0 dequantize-matmul of the routed experts (in-major layout).
 //
-// Replaces q8_gather_matmul, q8_gather_matmul_layered,
-// q8_dense_experts_layered and q8_dense_experts_perx_layered
-// (expert_kernel), all in dsocr_tpu/ops/pallas/dequant_matmul.py. The row
-// layout (q8_matmul, q8_matmul_layered) is row_matmul.cu's. See
+// Replaces q8_gather_matmul and q8_gather_matmul_layered (expert_kernel),
+// in dsocr_tpu/ops/pallas/dequant_matmul.py. The C entry sends the dense
+// sweeps (no expert index: q8_dense_experts_layered and
+// q8_dense_experts_perx_layered) to expert_sweep.cu's body. The row layout
+// (q8_matmul, q8_matmul_layered) is row_matmul.cu's. See
 // ops/kernels/dequant_matmul.py for what bounds them on the H100.
 //
 // Numerics are the reference's: w = bf16(f32(code) * scale) rounded once
@@ -12,7 +13,7 @@
 // the summation order differs from the plain twins.
 #include <mma.h>
 
-#include "common.cuh"
+#include "quant_decode.cuh"
 
 namespace dsocr {
 namespace q8 {
@@ -137,6 +138,12 @@ cudaError_t launch_expert(const void* x, const void* codes, const void* scales, 
 }  // namespace q8
 }  // namespace dsocr
 
+extern "C" int dsocr_expert_sweep(int fmt, const void* x, const void* p0, const void* p1, const void* p2,
+                                  void* out, int E, int R, int K, int M, long long xg_stride, int x_dtype,
+                                  void* stream);
+
+// idx null: the dense sweeps (group g multiplies expert g), on
+// expert_sweep.cu's body; else the gather tier on expert_kernel
 extern "C" int dsocr_q8_expert_matmul(const void* x, const void* codes, const void* scales,
                                       const void* idx, void* out, int groups, int R, int K,
                                       int M, int E, long long xg_stride, int x_dtype,
@@ -144,6 +151,10 @@ extern "C" int dsocr_q8_expert_matmul(const void* x, const void* codes, const vo
   using namespace dsocr;
   if (K % q8::QB != 0 || M % 4 != 0 || groups > 65535 || (R + 15) / 16 > 65535) {
     return (int)cudaErrorInvalidValue;
+  }
+  if (idx == nullptr) {
+    if (groups > E) return (int)cudaErrorInvalidValue;
+    return dsocr_expert_sweep(kQ8, x, codes, scales, nullptr, out, groups, R, K, M, xg_stride, x_dtype, stream);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (x_dtype) {

@@ -2,9 +2,11 @@
 // layout).
 //
 // Replaces, in dsocr_tpu/ops/pallas/kquant_matmul.py, q4k_gather_matmul,
-// q4k_gather_matmul_layered, q4k_dense_experts_layered,
-// q4k_dense_experts_perx_layered and their six q6k_ counterparts
-// (expert_kernel). The row layout (q4k_matmul, q6k_matmul and their
+// q4k_gather_matmul_layered, q6k_gather_matmul and
+// q6k_gather_matmul_layered (expert_kernel). The C entries send the dense
+// sweeps (no expert index: q4k_dense_experts_layered,
+// q4k_dense_experts_perx_layered and their q6k_ counterparts) to
+// expert_sweep.cu's body. The row layout (q4k_matmul, q6k_matmul and their
 // _layered forms) is row_matmul.cu's. See ops/kernels/kquant_matmul.py for
 // the layouts and for what bounds them on the H100.
 //
@@ -127,11 +129,28 @@ cudaError_t launch_expert(const void* x, P w, const void* idx, void* out, int gr
   return cudaGetLastError();
 }
 
+extern "C" int dsocr_expert_sweep(int fmt, const void* x, const void* p0, const void* p1, const void* p2,
+                                  void* out, int E, int R, int K, int M, long long xg_stride, int x_dtype,
+                                  void* stream);
+
+inline int sweep_entry(const void* x, const Q4K& w, void* out, int E, int R, int K, int M,
+                       long long xg_stride, int x_dtype, void* stream) {
+  return dsocr_expert_sweep(kQ4K, x, w.codes, w.scales, w.mins, out, E, R, K, M, xg_stride, x_dtype, stream);
+}
+inline int sweep_entry(const void* x, const Q6K& w, void* out, int E, int R, int K, int M,
+                       long long xg_stride, int x_dtype, void* stream) {
+  return dsocr_expert_sweep(kQ6K, x, w.codes, w.highs, w.scales, out, E, R, K, M, xg_stride, x_dtype, stream);
+}
+
 template <class P>
 int expert_entry(const void* x, P w, const void* idx, void* out, int groups, int R, int K, int M,
                  int E, long long xg_stride, int x_dtype, void* stream) {
   if (K % 256 != 0 || M % 4 != 0 || groups > 65535 || (R + 15) / 16 > 65535) {
     return (int)cudaErrorInvalidValue;
+  }
+  if (idx == nullptr) {  // the dense sweeps (group g multiplies expert g): expert_sweep.cu
+    if (groups > E) return (int)cudaErrorInvalidValue;
+    return sweep_entry(x, w, out, groups, R, K, M, xg_stride, x_dtype, stream);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (x_dtype) {

@@ -45,12 +45,24 @@
 //   accumulators and merges into O by FFMA: the tensor cores' f32 sums
 //   round toward zero, which over the 1,536 products of a row's output at S
 //   4096 biased O by ~7e-5 of its magnitude.
-// - Bias: the block's rows of bias_h and bias_w are staged in shared memory
-//   once, rows g and g + 8 of a warp side by side (one 8-byte load gives
-//   both), bias_h with one more column of -inf. Per key tile the loading
-//   threads write each key's (j / W, j % W), or (kh, 0) for a key at j >= S
-//   (the ragged last tile), so that key's score is -inf and weighs exactly
-//   0; its K and V rows are zero-filled by the copy.
+// - Bias: per key tile the loading threads write each key's (j / W, j % W),
+//   or (kh, 0) for a key at j >= S (the ragged last tile), so that key's
+//   score is -inf and weighs exactly 0; its K and V rows are zero-filled by
+//   the copy. Each score reads its two terms by that table from one of two
+//   sources, chosen by the C entry from the shared-memory bytes:
+//   - staged (every grid up to about 112 × 112 at D <= 64, 190 × 190 above):
+//     the block's rows of bias_h and bias_w sit in shared memory, copied
+//     once, rows g and g + 8 of a warp side by side (one 8-byte load gives
+//     both), bias_h with one more column of -inf. That costs 8 bytes ×
+//     BQ / 2 × ((kh + 1) + bw_stride(kw)): 64.5 KB at 64 × 64 with the
+//     wgmma body's 128 rows, 80.5 KB at 80 × 80, and it fits while
+//     (kh + 1) + bw_stride(kw) <= 228 (wgmma) or 392 (mma.sync);
+//   - global, past that budget: each score reads bias_h[i, j / W] and
+//     bias_w[i, j % W] through L1 (a key tile touches at most
+//     ceil(64 / W) + 1 columns of bias_h and min(W, 64) of bias_w, so the
+//     lines stay cached across a warp's rows), scaled by log2 e as the
+//     staged copy is, so both sources give the same bits.
+//   The reference takes any grid; so does the kernel.
 // - 64 < D <= 128 (no caller on the main path): mma.sync.m16n8k8, a block
 //   of 64 queries in 4 warps, each warp splitting its K and V fragments as
 //   it loads them from tiles in XOR-swizzled rows of 128 (zero-padded).
@@ -64,7 +76,6 @@ namespace dsocr {
 
 constexpr int SA_BK = 64;     // keys per tile
 constexpr int SA_STAGES = 2;  // K/V tiles in the ring
-constexpr int SA_KMAX = 64;   // largest kh and kw
 constexpr float SA_LOG2E = 1.4426950408889634f;
 
 struct SamParams {
@@ -138,6 +149,53 @@ __device__ __forceinline__ void stage_bias(const SamParams& p, int q0, size_t he
   }
 }
 
+// A score's two bias terms for rows g and g + 8 of a warp, in log2 units,
+// by key column: bias_h's (c = kh for a key past S: -inf) and bias_w's.
+// Staged: the block's rows in shared memory (stage_bias's layout).
+struct StagedBias {
+  const float2* bhr;
+  const float2* bwr;
+  int wx;
+  __device__ __forceinline__ float2 h(int c) const { return bhr[c]; }
+  __device__ __forceinline__ float2 w(int c) const { return bwr[c ^ wx]; }
+};
+
+// Global: straight from bias_h and bias_w through L1; a row past S reads
+// row S - 1 (its output is never written)
+struct GlobalBias {
+  const float* h0;
+  const float* h1;
+  const float* w0;
+  const float* w1;
+  int kh;
+  __device__ __forceinline__ GlobalBias(const SamParams& p, size_t head, int row0, int row1) {
+    const size_t r0 = head + min(row0, p.S - 1), r1 = head + min(row1, p.S - 1);
+    h0 = p.bias_h + r0 * p.kh;
+    h1 = p.bias_h + r1 * p.kh;
+    w0 = p.bias_w + r0 * p.kw;
+    w1 = p.bias_w + r1 * p.kw;
+    kh = p.kh;
+  }
+  __device__ __forceinline__ float2 h(int c) const {
+    if (c >= kh) return make_float2(-INFINITY, -INFINITY);
+    return make_float2(__ldg(h0 + c) * SA_LOG2E, __ldg(h1 + c) * SA_LOG2E);
+  }
+  __device__ __forceinline__ float2 w(int c) const {
+    return make_float2(__ldg(w0 + c) * SA_LOG2E, __ldg(w1 + c) * SA_LOG2E);
+  }
+};
+
+// the bias source of pair row pr (rows g and g + 8 of a warp: row0, row1)
+template <bool STAGED>
+__device__ __forceinline__ auto make_bias(const SamParams& p, size_t head, int row0, int row1,
+                                          const float2* bh2, const float2* bw2, int pr, int g) {
+  if constexpr (STAGED) {
+    return StagedBias{bh2 + pr * (p.kh + 1), bw2 + pr * bw_stride(p.kw), bw_swizzle(g)};
+  } else {
+    return GlobalBias(p, head, row0, row1);
+  }
+}
+
 // key k0 + j's (j / W, j % W), or (kh, 0) past S (bias_h's -inf column);
 // thread j < SA_BK writes entry j
 __device__ __forceinline__ void write_key_table(int2* tab, const SamParams& p, int k0, int j) {
@@ -154,15 +212,16 @@ __device__ __forceinline__ void write_key_table(int2* tab, const SamParams& p, i
 // fragments (rows g, g + 8 at keys 8n + 2t, 8n + 2t + 1): adds the bias,
 // moves the running max m and rescales the running sum l (alpha: the
 // factor for O), and leaves P = 2^(s - m) in sc.
-__device__ __forceinline__ void softmax_tile(float (&sc)[8][4], const int2* tb, const float2* bhr,
-                                             const float2* bwr, int wx, int t, float (&m)[2],
-                                             float (&l)[2], float (&alpha)[2]) {
+template <class Bias>
+__device__ __forceinline__ void softmax_tile(float (&sc)[8][4], const int2* tb, const Bias& bias,
+                                             int t, float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2]) {
   float mx[2] = {m[0], m[1]};
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
     const int4 hw = *reinterpret_cast<const int4*>(tb + 8 * n + 2 * t);
-    const float2 h0 = bhr[hw.x], w0 = bwr[hw.y ^ wx];
-    const float2 h1 = bhr[hw.z], w1 = bwr[hw.w ^ wx];
+    const float2 h0 = bias.h(hw.x), w0 = bias.w(hw.y);
+    const float2 h1 = bias.h(hw.z), w1 = bias.w(hw.w);
     sc[n][0] += h0.x + w0.x;
     sc[n][1] += h1.x + w1.x;
     sc[n][2] += h0.y + w0.y;
@@ -246,11 +305,12 @@ __device__ __forceinline__ void wgmma_3xtf32(float (&d)[8][4], const float (&ah)
   }
 }
 
-inline size_t sam_wgmma_smem_bytes(int kh, int kw) {
+inline size_t sam_wgmma_smem_bytes(int kh, int kw, bool staged) {
   return sizeof(float) * (SA_STAGES * 2 + 3) * SW_TILE + sizeof(int2) * SA_STAGES * SA_BK +
-         bias_smem_bytes(SW_BQ, kh, kw);
+         (staged ? bias_smem_bytes(SW_BQ, kh, kw) : 0);
 }
 
+template <bool STAGED>
 __global__ void __launch_bounds__(SW_THREADS, 1) sam_attention_wgmma_kernel(SamParams p) {
   extern __shared__ __align__(1024) float sw_smem[];
   float* ring = sw_smem;                        // [STAGES][K, V][TILE]; K's hi in place
@@ -290,7 +350,7 @@ __global__ void __launch_bounds__(SW_THREADS, 1) sam_attention_wgmma_kernel(SamP
     if (st < ntiles) load_tile(st, st);
     cp_async_commit();
   }
-  stage_bias<SW_BQ, SW_THREADS>(p, q0, head, bh2, bw2, tid);
+  if (STAGED) stage_bias<SW_BQ, SW_THREADS>(p, q0, head, bh2, bw2, tid);
 
   // Q's A fragments in log2 units, split once: k-step kk's columns t and
   // t + 4 are d = 8 kk + t and 8 kk + t + 4 (wgmma reads K in order)
@@ -310,9 +370,7 @@ __global__ void __launch_bounds__(SW_THREADS, 1) sam_attention_wgmma_kernel(SamP
 #pragma unroll
   for (int n = 0; n < 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  const float2* bhr = bh2 + (8 * warp + g) * (p.kh + 1);
-  const float2* bwr = bw2 + (8 * warp + g) * bw_stride(p.kw);
-  const int wx = bw_swizzle(g);
+  const auto bias = make_bias<STAGED>(p, head, row0, row1, bh2, bw2, 8 * warp + g, g);
 
   for (int kt = 0; kt < ntiles; ++kt) {
     cp_async_wait<SA_STAGES - 2>();
@@ -363,7 +421,7 @@ __global__ void __launch_bounds__(SW_THREADS, 1) sam_attention_wgmma_kernel(SamP
     fence_regs(sc);
 
     float alpha[2];
-    softmax_tile(sc, tab + slot * SA_BK, bhr, bwr, wx, t, m, l, alpha);
+    softmax_tile(sc, tab + slot * SA_BK, bias, t, m, l, alpha);
     // P's A fragments: k-step j takes keys 8j + 2t, 8j + 2t + 1 (C columns
     // 2t, 2t + 1) as columns t, t + 4
     float ph[8][4], pl[8][4];
@@ -405,13 +463,15 @@ __global__ void __launch_bounds__(SW_THREADS, 1) sam_attention_wgmma_kernel(SamP
   }
 }
 
-inline cudaError_t launch_sam_attention_wgmma(const SamParams& p, int BH, cudaStream_t stream) {
-  const size_t smem = sam_wgmma_smem_bytes(p.kh, p.kw);
-  cudaError_t err = cudaFuncSetAttribute(sam_attention_wgmma_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+inline cudaError_t launch_sam_attention_wgmma(const SamParams& p, int BH, size_t smem_max,
+                                              cudaStream_t stream) {
+  const bool staged = sam_wgmma_smem_bytes(p.kh, p.kw, true) <= smem_max;
+  const size_t smem = sam_wgmma_smem_bytes(p.kh, p.kw, staged);
+  auto kernel = staged ? sam_attention_wgmma_kernel<true> : sam_attention_wgmma_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.S + SW_BQ - 1) / SW_BQ, BH);
-  sam_attention_wgmma_kernel<<<grid, SW_THREADS, smem, stream>>>(p);
+  kernel<<<grid, SW_THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -449,11 +509,12 @@ __device__ __forceinline__ int k_off(int r, int c) { return r * SM_DP + ((c ^ ((
 // chunk bits 0 and 1
 __device__ __forceinline__ int v_off(int r, int c) { return r * SM_DP + ((c ^ ((r >> 1) & 3)) << 2); }
 
-inline size_t sam_mma_smem_bytes(int kh, int kw) {
+inline size_t sam_mma_smem_bytes(int kh, int kw, bool staged) {
   return sizeof(float) * SA_STAGES * 2 * SM_TILE + sizeof(int2) * SA_STAGES * SA_BK +
-         bias_smem_bytes(SM_BQ, kh, kw);
+         (staged ? bias_smem_bytes(SM_BQ, kh, kw) : 0);
 }
 
+template <bool STAGED>
 __global__ void __launch_bounds__(SM_THREADS, 1) sam_attention_mma_kernel(SamParams p) {
   constexpr int CH = SM_DP / 4;  // 16-byte chunks of a row
   constexpr int KS = SM_DP / 8;  // k-steps of the scores, n-tiles of the output
@@ -492,7 +553,7 @@ __global__ void __launch_bounds__(SM_THREADS, 1) sam_attention_mma_kernel(SamPar
     if (st < ntiles) load_tile(st, st);
     cp_async_commit();
   }
-  stage_bias<SM_BQ, SM_THREADS>(p, q0, head, bh2, bw2, tid);
+  if (STAGED) stage_bias<SM_BQ, SM_THREADS>(p, q0, head, bh2, bw2, tid);
 
   // Q in log2 units, split per tile: k-step 2s takes d and d + 1 of the
   // 16-byte piece at d = 16s + 4t as columns t and t + 4, k-step 2s + 1
@@ -518,9 +579,7 @@ __global__ void __launch_bounds__(SM_THREADS, 1) sam_attention_mma_kernel(SamPar
 #pragma unroll
   for (int n = 0; n < KS; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  const float2* bhr = bh2 + (8 * warp + g) * (p.kh + 1);
-  const float2* bwr = bw2 + (8 * warp + g) * bw_stride(p.kw);
-  const int wx = bw_swizzle(g);
+  const auto bias = make_bias<STAGED>(p, head, row0, row1, bh2, bw2, 8 * warp + g, g);
 
   for (int kt = 0; kt < ntiles; ++kt) {
     cp_async_wait<SA_STAGES - 2>();  // tile kt is in
@@ -559,7 +618,7 @@ __global__ void __launch_bounds__(SM_THREADS, 1) sam_attention_mma_kernel(SamPar
     }
 
     float alpha[2];
-    softmax_tile(sc, tab + slot * SA_BK, bhr, bwr, wx, t, m, l, alpha);
+    softmax_tile(sc, tab + slot * SA_BK, bias, t, m, l, alpha);
 
     // this tile's P·V in fresh accumulators, 8 keys a k-step: P's A
     // fragment is the score C fragment (keys 2t, 2t + 1 as columns t,
@@ -625,13 +684,15 @@ __global__ void __launch_bounds__(SM_THREADS, 1) sam_attention_mma_kernel(SamPar
   }
 }
 
-inline cudaError_t launch_sam_attention_mma(const SamParams& p, int BH, cudaStream_t stream) {
-  const size_t smem = sam_mma_smem_bytes(p.kh, p.kw);
-  cudaError_t err = cudaFuncSetAttribute(sam_attention_mma_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+inline cudaError_t launch_sam_attention_mma(const SamParams& p, int BH, size_t smem_max,
+                                            cudaStream_t stream) {
+  const bool staged = sam_mma_smem_bytes(p.kh, p.kw, true) <= smem_max;
+  const size_t smem = sam_mma_smem_bytes(p.kh, p.kw, staged);
+  auto kernel = staged ? sam_attention_mma_kernel<true> : sam_attention_mma_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.S + SM_BQ - 1) / SM_BQ, BH);
-  sam_attention_mma_kernel<<<grid, SM_THREADS, smem, stream>>>(p);
+  kernel<<<grid, SM_THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -643,9 +704,15 @@ extern "C" int dsocr_sam_flash_attention(
   using namespace dsocr;
   const bool aligned = ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16 == 0;
   if (BH < 1 || BH > 65535 || S < 1 || D < 4 || D > 128 || D % 4 || kh < 1 || kw < 1 ||
-      kh > SA_KMAX || kw > SA_KMAX || width <= 0 || !aligned) {
+      (long long)kh * kw != S || kw != width || !aligned) {
     return (int)cudaErrorInvalidValue;
   }
+  // the bias rows are staged in shared memory where they fit beside the
+  // ring, and read per score from L1 / L2 past that
+  int dev = 0, smem_max = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
   SamParams p{};
   p.q = static_cast<const float*>(q);
   p.k = static_cast<const float*>(k);
@@ -659,5 +726,6 @@ extern "C" int dsocr_sam_flash_attention(
   p.kw = kw;
   p.width = width;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(D <= 64 ? launch_sam_attention_wgmma(p, BH, st) : launch_sam_attention_mma(p, BH, st));
+  return (int)(D <= 64 ? launch_sam_attention_wgmma(p, BH, (size_t)smem_max, st)
+                       : launch_sam_attention_mma(p, BH, (size_t)smem_max, st));
 }

@@ -71,25 +71,25 @@ KERNELS = (
      f"{_DQ}:171 (q8_matmul), {_DQ}:312 (q8_matmul_layered)"),
     (q8_gather_matmul, "dsocr_tpu_torch/csrc/dequant_matmul.cu",
      f"{_DQ}:250 (q8_gather_matmul), {_DQ}:381 (q8_gather_matmul_layered)"),
-    (q8_dense_experts, "dsocr_tpu_torch/csrc/dequant_matmul.cu",
+    (q8_dense_experts, "dsocr_tpu_torch/csrc/expert_sweep.cu",
      f"{_DQ}:480 (q8_dense_experts_layered)"),
-    (q8_dense_experts_perx, "dsocr_tpu_torch/csrc/dequant_matmul.cu",
+    (q8_dense_experts_perx, "dsocr_tpu_torch/csrc/expert_sweep.cu",
      f"{_DQ}:520 (q8_dense_experts_perx_layered)"),
     (q4k_matmul, "dsocr_tpu_torch/csrc/row_matmul.cu",
      f"{_KQ}:225 (q4k_matmul), {_KQ}:362 (q4k_matmul_layered)"),
     (q4k_gather_matmul, "dsocr_tpu_torch/csrc/kquant_matmul.cu",
      f"{_KQ}:593 (q4k_gather_matmul), {_KQ}:633 (q4k_gather_matmul_layered)"),
-    (q4k_dense_experts, "dsocr_tpu_torch/csrc/kquant_matmul.cu",
+    (q4k_dense_experts, "dsocr_tpu_torch/csrc/expert_sweep.cu",
      f"{_KQ}:844 (q4k_dense_experts_layered)"),
-    (q4k_dense_experts_perx, "dsocr_tpu_torch/csrc/kquant_matmul.cu",
+    (q4k_dense_experts_perx, "dsocr_tpu_torch/csrc/expert_sweep.cu",
      f"{_KQ}:908 (q4k_dense_experts_perx_layered)"),
     (q6k_matmul, "dsocr_tpu_torch/csrc/row_matmul.cu",
      f"{_KQ}:294 (q6k_matmul), {_KQ}:430 (q6k_matmul_layered)"),
     (q6k_gather_matmul, "dsocr_tpu_torch/csrc/kquant_matmul.cu",
      f"{_KQ}:729 (q6k_gather_matmul), {_KQ}:770 (q6k_gather_matmul_layered)"),
-    (q6k_dense_experts, "dsocr_tpu_torch/csrc/kquant_matmul.cu",
+    (q6k_dense_experts, "dsocr_tpu_torch/csrc/expert_sweep.cu",
      f"{_KQ}:982 (q6k_dense_experts_layered)"),
-    (q6k_dense_experts_perx, "dsocr_tpu_torch/csrc/kquant_matmul.cu",
+    (q6k_dense_experts_perx, "dsocr_tpu_torch/csrc/expert_sweep.cu",
      f"{_KQ}:1025 (q6k_dense_experts_perx_layered)"),
     (q8_moe_megafused, "dsocr_tpu_torch/csrc/moe_megafused.cu",
      f"{_DQ}:669 (q8_moe_megafused_layered)"),

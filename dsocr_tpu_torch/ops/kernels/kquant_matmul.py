@@ -1,8 +1,9 @@
 """Fused dequantize-matmul over packed Q4_K and Q6_K weights.
 
 For each format, four wrappers over CUDA kernels (the row layout in
-csrc/row_matmul.cu, one body with Q8_0's; the experts in
-csrc/kquant_matmul.cu, one template body for both formats) serve the
+csrc/row_matmul.cu and the dense expert sweeps in csrc/expert_sweep.cu,
+one body each with Q8_0's; the gather tier in csrc/kquant_matmul.cu, one
+template body for both formats) serve the
 six Pallas functions of dsocr_tpu/ops/pallas/kquant_matmul.py that the
 packed serving path reaches (a torch view of ``W[layer]`` costs no copy,
 so one kernel serves a function and its ``_layered`` twin):
@@ -54,7 +55,12 @@ What bounds them on the H100, and what the designs do about it:
   fed by TMA (qkv at N 16384: 161 GFLOP, ≥ 0.16 ms at 989 TFLOP/s).
 - the experts at decode (N ≤ 16) are device-memory bytes: expert gate+up
   of one layer is 110 MB in Q4_K (≥ 0.033 ms at 3.35 TB/s) and 146.8 MB in
-  Q6_K (≥ 0.044 ms). The expert kernel grids over (M tile of 128, group),
+  Q6_K (≥ 0.044 ms). The dense sweeps run csrc/expert_sweep.cu's body (as
+  ``q8_dense_experts``, dequant_matmul.py): codes, highs, scales, mins
+  and x through a cp.async ring, decoded in registers into mma.sync
+  fragments; a lane's two code rows hold its 4 K rows (two K values a
+  byte), a Q6_K lane's one highs row their high bits. The gather tier's
+  expert kernel grids over (M tile of 128, group),
   keeps the group's x rows as bf16 in shared memory, dequantizes one
   32-K-row step of the W tile into shared memory (a scale and a min per
   column, or two scale rows per column) and prefetches the next step into

@@ -6,9 +6,9 @@ Replaces ``sam_flash_attention`` (dsocr_tpu/ops/pallas/sam_attention.py:74,
     out = softmax(q·kᵀ + bias_h[i, j // W] + bias_w[i, j % W]) · v
 
 with q pre-scaled by D^-0.5 and f32 throughout. It runs in SAM's global
-blocks (2, 5, 8, 11) at S = 4096 for a 1024 view and S = 1600 for a 640
-tile, D = 64; the engine pools 4 views (BH 48) or 16 tiles (BH 192) a
-call.
+blocks (2, 5, 8, 11) at S = 4096 for a 1024 view (6400 for a 1280 view)
+and S = 1600 for a 640 tile, D = 64; the engine pools 4 views (BH 48) or
+16 tiles (BH 192) a call.
 
 What bounds it on the H100 (NVIDIA H100 80GB HBM3, 700 W): operations.
 Per (view, head) it does 4·S²·D FLOPs (~4.3 GFLOP at S = 4096) on O(S·D)
@@ -29,11 +29,19 @@ of 64 keys come through a cp.async ring and are split once a tile into
 hi/lo planes in shared memory (V transposed), Q's fragments, the score
 tile, the online softmax (log2 units) and the output stay in registers,
 and each tile's P·V sums in fresh accumulators (the tensor cores round
-their f32 sums toward zero). The bias is read per score from the block's
-bias rows staged in shared memory (the Pallas kernel's one-hot expansion
-matmuls were a Mosaic workaround and are not carried over). 64 < D ≤ 128
-runs an mma.sync body. The TF32 split is the kernel's own arithmetic:
-torch's TF32 switches are not touched.
+their f32 sums toward zero). 64 < D ≤ 128 runs an mma.sync body. The
+TF32 split is the kernel's own arithmetic: torch's TF32 switches are not
+touched.
+
+The bias is read per score (the Pallas kernel's one-hot expansion matmuls
+were a Mosaic workaround and are not carried over), from the block's bias
+rows staged in shared memory while they fit beside the ring — 8 bytes ×
+64 × ((kh + 1) + kw rounded up to 16) at D ≤ 64: 64.5 KB at 64 × 64,
+80.5 KB at the 1280 view's 80 × 80, square grids up to about 112 × 112;
+about 190 × 190 at D > 64 — and past that straight from bias_h and bias_w
+through L1 and L2. The C entry chooses by the card's shared-memory limit,
+so every grid the reference takes runs on the card; the only limits are D
+(a multiple of 4 up to 128) and 16-byte alignment of q, k and v.
 """
 
 from __future__ import annotations
@@ -68,9 +76,8 @@ def sam_flash_attention(q, k, v, bias_h, bias_w, *, width: int):
         raise ValueError(f"{name}: expects f32 operands")
     if k.shape != q.shape or v.shape != q.shape or kh * kw != s or kw != width:
         raise ValueError(f"{name}: bad shapes {q.shape} {bias_h.shape} {bias_w.shape}")
-    if d % 4 or d > 128 or kh > 64 or kw > 64:
-        raise ValueError(f"{name}: needs D a multiple of 4 up to 128 and kh, kw <= 64, got "
-                         f"D={d} kh={kh} kw={kw}")
+    if d % 4 or d > 128:
+        raise ValueError(f"{name}: needs D a multiple of 4 up to 128, got D={d}")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError(f"{name}: q, k and v must start on a 16-byte boundary")
     out = torch.empty_like(q)

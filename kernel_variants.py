@@ -2,7 +2,7 @@
 """Time variants of the kernels' sources on one CUDA card.
 
     python3 kernel_variants.py '{"base": [], "two_stages": [["constexpr int PF_STAGES = 3;",
-                                                 "constexpr int PF_STAGES = 2;"]]}' [prefill|decode|row|sam]
+                                                 "constexpr int PF_STAGES = 2;"]]}' [prefill|decode|row|sam|experts]
 
 Each variant is a list of text substitutions applied to a copy of
 dsocr_tpu_torch/csrc/ under dsocr_tpu_torch/_build/variants/<name>/ (an
@@ -19,7 +19,13 @@ positions, phase 3's S 2560 rows), for `row`, q8_matmul, q4k_matmul
 and q6k_matmul at the main path's shapes (qkv at N 1, 16, 32 and 16384,
 o and shared down at N 16, the lm_head at N 16) and, for `sam`,
 sam_flash_attention at phase 3's four shapes (BH 12 and 48 at S 4096,
-BH 72 and 192 at S 1600; the engine launches the larger two).
+BH 72 and 192 at S 1600; the engine launches the larger two), and, for
+`experts`, the dense expert sweeps of csrc/expert_sweep.cu at the serving
+step's shapes (N 16, E 64): q8/q4k/q6k_dense_experts on a gate+up stack
+(1280 → 1792) and q8_dense_experts_perx on a down stack (896 → 1280), with
+the K-quants' perx at the stand-in 1792 → 1280 (substitutions such as
+["static constexpr int STAGES = 3;", "static constexpr int STAGES = 4;"], BK, WN, WK,
+MIN_BLOCKS_LO, MIN_BLOCKS_HI).
 Times are chip_smoke.time_ms's (device milliseconds per call, CUDA
 events); SDPA's time is printed once per slot and SAM case, and the decode
 attend's two kernels are timed apart by torch.profiler. Every variant is
@@ -108,6 +114,22 @@ def cases(torch, K, F, which):
                 packed = tuple(p[key] for key in keys)
                 x = randn(n, k, dtype=torch.bfloat16)
                 out.append((f"{method} {case} N{n}",
+                            lambda x=x, packed=packed, fn=fn: fn(x, *packed), plain(x, *packed)))
+    if which in ("all", "experts"):
+        from dsocr_tpu_torch.dsq.serve_quant import quantize_expert_stack
+
+        for method, keys in (("q8_0", ("codes", "scales")), ("q4_k", ("codes", "scales", "mins")),
+                             ("q6_k", ("codes", "highs", "scales"))):
+            fmt = "q8" if method == "q8_0" else method.replace("_", "")
+            down_k = 896 if method == "q8_0" else 1792  # the K-quants' perx at its stand-in shape
+            for case, k, m, per_expert in (("gateup", 1280, 1792, False), ("down", down_k, 1280, True)):
+                p = quantize_expert_stack(randn(64, k, m, dtype=torch.bfloat16) * k ** -0.5, method)
+                packed = tuple(p[key] for key in keys)
+                del p
+                name = f"{fmt}_dense_experts{'_perx' if per_expert else ''}"
+                fn, plain = getattr(K, name), getattr(K, f"{name}_plain")
+                x = randn(*((64,) if per_expert else ()), 16, k, dtype=torch.bfloat16)
+                out.append((f"{name} {case} N16 E64 K{k} M{m}",
                             lambda x=x, packed=packed, fn=fn: fn(x, *packed), plain(x, *packed)))
     return out
 

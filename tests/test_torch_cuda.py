@@ -66,6 +66,29 @@ def test_sam_kernel_matches_twin(dev, BH, qh, qw, D):
     _close(got, K.sam_flash_attention_plain(q, k, v, bh, bw, width=qw))
 
 
+@pytest.mark.parametrize("BH,qh,qw,D", [
+    (12, 80, 80, 64),  # the 1280 view: S 6400, bias rows staged (80.5 KB)
+    (2, 60, 96, 64),  # kw > 64: key tiles cross rows of 96
+    (2, 128, 128, 64),  # past the staged budget: the bias read per score
+    (2, 2, 100, 64),  # tiny S, one side large
+    (2, 100, 2, 64),
+    (2, 4, 240, 64),  # S 960 past the staged budget (wgmma body)
+    (1, 8, 400, 80),  # S 3200 past the staged budget (mma.sync body)
+    (2, 96, 96, 128),  # the mma.sync body, staged, kh and kw > 64
+])
+def test_sam_kernel_takes_every_grid(dev, BH, qh, qw, D):
+    """Grids above 64 x 64 and past the staged bias's shared-memory budget,
+    on both bias sources and both bodies: the twin within 1e-4, two
+    launches bit-equal."""
+    rng = np.random.default_rng(BH * qh + qw)
+    S = qh * qw
+    q, k, v = (_randn(rng, BH, S, D, std=s).to(dev) for s in (D ** -0.5, 1.0, 1.0))
+    bh, bw = _randn(rng, BH, S, qh, std=0.3).to(dev), _randn(rng, BH, S, qw, std=0.3).to(dev)
+    got = K.sam_flash_attention(q, k, v, bh, bw, width=qw)
+    assert torch.equal(got, K.sam_flash_attention(q, k, v, bh, bw, width=qw))
+    _close(got, K.sam_flash_attention_plain(q, k, v, bh, bw, width=qw))
+
+
 def test_sam_kernel_large_scores(dev):
     """Scores of large magnitude (q std 1, bias std 3, S 1600): the online
     softmax's running max must keep exp from overflowing."""
@@ -278,7 +301,8 @@ def test_q8_gather_kernel_matches_twin(dev, x_dtype, e, n, k, m):
 
 
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("e,n,k,m", [(64, 16, 1280, 1792), (64, 16, 896, 1280), (4, 3, 32, 64), (5, 20, 64, 36)])
+@pytest.mark.parametrize("e,n,k,m", [(64, 16, 1280, 1792), (64, 16, 896, 1280), (4, 3, 32, 64), (5, 20, 64, 36),
+                                     (4, 1, 96, 256), (3, 33, 128, 132)])
 def test_q8_dense_expert_kernels_match_twins(dev, x_dtype, e, n, k, m):
     rng = np.random.default_rng(e * n + k)
     codes, scales = (t.to(dev) for t in _q8_weights(rng, (e,), k, m, True))
@@ -287,11 +311,13 @@ def test_q8_dense_expert_kernels_match_twins(dev, x_dtype, e, n, k, m):
     before = K.q8_dense_experts.launches
     got = K.q8_dense_experts(x, codes, scales)
     assert K.q8_dense_experts.launches == before + 1
+    assert torch.equal(got, K.q8_dense_experts(x, codes, scales))
     _q8_close(got, K.q8_dense_experts_plain(x, codes, scales), _abs_bound(x[None], w))
     xe = _randn(rng, e, n, k).to(dev, x_dtype)
     before = K.q8_dense_experts_perx.launches
     got = K.q8_dense_experts_perx(xe, codes, scales)
     assert K.q8_dense_experts_perx.launches == before + 1
+    assert torch.equal(got, K.q8_dense_experts_perx(xe, codes, scales))
     _q8_close(got, K.q8_dense_experts_perx_plain(xe, codes, scales), _abs_bound(xe, w))
 
 
@@ -355,7 +381,8 @@ def test_q4k_gather_kernel_matches_twin(dev, x_dtype, e, n, k, m):
 
 
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("e,n,k,m", [(64, 16, 1280, 1792), (64, 16, 1792, 1280), (4, 3, 256, 64), (5, 20, 512, 36)])
+@pytest.mark.parametrize("e,n,k,m", [(64, 16, 1280, 1792), (64, 16, 1792, 1280), (4, 3, 256, 64), (5, 20, 512, 36),
+                                     (4, 1, 256, 256), (3, 33, 512, 132)])
 def test_q4k_dense_expert_kernels_match_twins(dev, x_dtype, e, n, k, m):
     rng = np.random.default_rng(e * n + k)
     packed = _q4k_weights(rng, (e,), k, m, True, dev)
@@ -364,11 +391,13 @@ def test_q4k_dense_expert_kernels_match_twins(dev, x_dtype, e, n, k, m):
     before = K.q4k_dense_experts.launches
     got = K.q4k_dense_experts(x, *packed)
     assert K.q4k_dense_experts.launches == before + 1
+    assert torch.equal(got, K.q4k_dense_experts(x, *packed))
     _q8_close(got, K.q4k_dense_experts_plain(x, *packed), _abs_bound(x[None], w))
     xe = _randn(rng, e, n, k).to(dev, x_dtype)
     before = K.q4k_dense_experts_perx.launches
     got = K.q4k_dense_experts_perx(xe, *packed)
     assert K.q4k_dense_experts_perx.launches == before + 1
+    assert torch.equal(got, K.q4k_dense_experts_perx(xe, *packed))
     _q8_close(got, K.q4k_dense_experts_perx_plain(xe, *packed), _abs_bound(xe, w))
 
 
@@ -506,7 +535,8 @@ def test_q6k_gather_kernel_matches_twin(dev, x_dtype, e, n, k, m):
 
 
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("e,n,k,m", [(64, 16, 1280, 1792), (64, 16, 1792, 1280), (4, 3, 256, 64), (5, 20, 512, 36)])
+@pytest.mark.parametrize("e,n,k,m", [(64, 16, 1280, 1792), (64, 16, 1792, 1280), (4, 3, 256, 64), (5, 20, 512, 36),
+                                     (4, 1, 256, 256), (3, 33, 512, 132)])
 def test_q6k_dense_expert_kernels_match_twins(dev, x_dtype, e, n, k, m):
     rng = np.random.default_rng(e * n + k)
     packed = _q6k_weights(rng, (e,), k, m, True, dev)
@@ -515,11 +545,13 @@ def test_q6k_dense_expert_kernels_match_twins(dev, x_dtype, e, n, k, m):
     before = K.q6k_dense_experts.launches
     got = K.q6k_dense_experts(x, *packed)
     assert K.q6k_dense_experts.launches == before + 1
+    assert torch.equal(got, K.q6k_dense_experts(x, *packed))
     _q8_close(got, K.q6k_dense_experts_plain(x, *packed), _abs_bound(x[None], w))
     xe = _randn(rng, e, n, k).to(dev, x_dtype)
     before = K.q6k_dense_experts_perx.launches
     got = K.q6k_dense_experts_perx(xe, *packed)
     assert K.q6k_dense_experts_perx.launches == before + 1
+    assert torch.equal(got, K.q6k_dense_experts_perx(xe, *packed))
     _q8_close(got, K.q6k_dense_experts_perx_plain(xe, *packed), _abs_bound(xe, w))
 
 
@@ -699,3 +731,35 @@ def test_gather_matmul_raises_on_bad_inputs(dev):
                 (x, w.transpose(1, 2), idx), (x, w[0], idx)):
         with pytest.raises(ValueError):
             K.gather_matmul(*bad)
+
+
+@pytest.mark.parametrize("method", ["q8_0", "q4_k", "q6_k"])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_dense_sweeps_take_x_off_a_16_byte_boundary(dev, method, x_dtype):
+    """x one element past a 16-byte boundary (a view): the sweep copies it
+    with plain loads instead of cp.async; the twin within tolerance, two
+    launches bit-equal."""
+    rng = np.random.default_rng(7)
+    e, n, k, m = 4, 16, 256, 128
+    if method == "q8_0":
+        codes, scales = (t.to(dev) for t in _q8_weights(rng, (e,), k, m, True))
+        packed = (codes, scales)
+        w = codes.float() * scales.repeat_interleave(32, dim=1)
+    elif method == "q4_k":
+        packed = _q4k_weights(rng, (e,), k, m, True, dev)
+        w = _q4k_deq(packed, -2)
+    else:
+        packed = _q6k_weights(rng, (e,), k, m, True, dev)
+        w = _q6k_deq(packed, -2)
+    fmt = method.replace("_", "").replace("q80", "q8")
+    dense, perx = getattr(K, f"{fmt}_dense_experts"), getattr(K, f"{fmt}_dense_experts_perx")
+    x = torch.zeros(n * k + 1, dtype=x_dtype, device=dev)[1:].view(n, k)
+    x.copy_(_randn(rng, n, k).to(dev, x_dtype))
+    got = dense(x, *packed)
+    assert torch.equal(got, dense(x, *packed))
+    _q8_close(got, getattr(K, f"{fmt}_dense_experts_plain")(x, *packed), _abs_bound(x[None], w))
+    xe = torch.zeros(e * n * k + 1, dtype=x_dtype, device=dev)[1:].view(e, n, k)
+    xe.copy_(_randn(rng, e, n, k).to(dev, x_dtype))
+    got = perx(xe, *packed)
+    assert torch.equal(got, perx(xe, *packed))
+    _q8_close(got, getattr(K, f"{fmt}_dense_experts_perx_plain")(xe, *packed), _abs_bound(xe, w))

@@ -99,6 +99,8 @@ def _pallas(args, qw):
     (5, 7, 16, 0.25, 0.3, 1e-5),  # S 35: one ragged tile
     (12, 12, 32, 64 ** -0.5, 0.3, 1e-5),  # S 144: tiles of 64 cross key rows of 12; ragged last
     (8, 8, 64, 1.0, 3.0, 4e-5),  # scores of large magnitude
+    (2, 100, 64, 0.125, 0.3, 1e-5),  # S 200: a tile of 64 keys within one key row of 100
+    (100, 2, 64, 0.125, 0.3, 1e-5),  # S 200: a tile spans 32 key rows of 2
 ])
 def test_3xtf32_emulation_matches_pallas(qh, qw, D, q_std, bias_std, tol):
     args = _case(qh * 97 + D, 2, qh, qw, D, q_std, bias_std)
