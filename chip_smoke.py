@@ -30,7 +30,10 @@ non-zero (nothing is caught):
             launches of either attention, and of the paged attend, must
             give the same bits;
             the dense expert sweeps of the three formats (gate+up and down
-            of one MoE layer at N 16) two launches bit-equal;
+            of one MoE layer at N 16) and their gather tier at
+            GATHER_DRAWS (6, 24 and 60 routed selections, 24 and 60 that
+            share one top-6; bound: the distinct experts' bytes), two
+            launches bit-equal;
             q8_matmul, q4k_matmul and q6k_matmul at ROW_CASES (the lm_head
             at N 16; qkv at N 1, 16, 1024 and 16384: the decode GEMV and
             the dequant pass + wgmma GEMM; shared down at N 16), two
@@ -81,6 +84,10 @@ non-zero (nothing is caught):
             then its profile;
 4c. serve_q8_gather  the same Q8_0 engine, 4 requests × 32 tokens over 4
             slots (24 selections ≤ 64): q8_gather_matmul must launch;
+            then the same burst again under torch.profiler with every
+            gather launch's idx kept (`_trace` line: the gather tier's
+            device ms and launches, and the distinct experts of the
+            launches of each selection count);
 4d. serve_q4k        packed Q4_K decoder weights from the same seed (the
             routed experts' down projection, in dim 896, packs as Q8_0):
             16 requests × 128 tokens over 16 slots, the dense tier:
@@ -88,12 +95,14 @@ non-zero (nothing is caught):
             launch; then its profile;
 4e. serve_q4k_gather the same Q4_K engine, 4 requests × 32 tokens over 4
             slots: q4k_gather_matmul and q8_gather_matmul must launch;
+            then its `_trace` line;
 4f. serve_q6k        packed Q6_K decoder weights from the same seed (the
             experts' down projection again Q8_0): 16 requests × 128 tokens
             over 16 slots, the dense tier: q6k_matmul, q6k_dense_experts
             and q8_dense_experts_perx must launch; then its profile;
 4g. serve_q6k_gather the same Q6_K engine, 4 requests × 32 tokens over 4
             slots: q6k_gather_matmul and q8_gather_matmul must launch;
+            then its `_trace` line;
 4h. serve_q8_paged   the Q8_0 engine of 4b with DSOCR_PAGED_KV=1,
             DSOCR_Q8_MEGAFUSED=1 and DSOCR_POOL_PAGES=108: 16 requests × 128
             tokens over 16 slots from a pool that holds 12 rows (9 pages of
@@ -410,13 +419,36 @@ def check_megafused(torch, K, record, randn, gu, dn):
            sweep_ms=time_ms(sweep), deterministic=True)
 
 
+# the gather tier's draws timed in phase 3, (selections, top-6 sets): a
+# top-6 of its own for each token at the burst's largest gather launch
+# (10 rows × top-6), 4 serving slots and one request's decode; then 4 and
+# 10 tokens that share one top-6, as identical requests route (the
+# bursts here serve one page: their 24-selection launches hold 6–8
+# distinct experts)
+GATHER_DRAWS = ((60, 10), (24, 4), (6, 1), (24, 1), (60, 1))
+GATHER_TOPK = 6
+
+
+def routed_idx(torch, tokens, E, generator, sets=None):
+    """A router's selections [tokens · top-6] int32: each token's experts
+    distinct, `sets` top-6 draws (default one a token) taken in turn."""
+    draws = [torch.randperm(E, generator=generator, device="cuda")[:GATHER_TOPK] for _ in range(sets or tokens)]
+    return torch.stack([draws[t % len(draws)] for t in range(tokens)]).reshape(-1).to(torch.int32)
+
+
+def gather_case(sel, sets):
+    """The label of a GATHER_DRAWS entry."""
+    return f"{sel} rows" + ("" if sets == sel // GATHER_TOPK else f" {sets} top-6")
+
+
 def check_expert_kernels(torch, record, randn, fmt, gather, gather_plain, dense, dense_plain, perx,
                          perx_plain, gu, dn, deq, keys):
     """The gather, dense and per-expert wrappers of one format against
-    their twins: gather 60 rows (10 tokens × top-6) of both stacks, the
-    dense pair at N = 16 (csrc/expert_sweep.cu), each launched twice and
-    bit-equal. `gu` and `dn` are packed [E, K, M] stacks (dn may be a
-    stand-in), `deq` dequantizes one to f32 [E, K, M]."""
+    their twins: gather at GATHER_DRAWS' routed selections of both
+    stacks, the dense pair at N = 16 (csrc/expert_sweep.cu), each launched
+    twice and bit-equal. `gu` and `dn` are packed [E, K, M] stacks (dn may
+    be a stand-in), `deq` dequantizes one to f32 [E, K, M]. A gather's
+    bound counts the bytes of the distinct experts it selects."""
 
     def bf16_abs(x):
         return x.to(torch.bfloat16).float().abs()
@@ -426,20 +458,25 @@ def check_expert_kernels(torch, record, randn, fmt, gather, gather_plain, dense,
         packed = tuple(p[key] for key in keys)
         w = deq(p)
         E, k, m = w.shape
-        x = randn(60, k, dtype=torch.bfloat16)
-        idx = torch.randint(0, E, (60,), generator=gen_idx, device="cuda", dtype=torch.int32)
-        out = gather(x, *packed, idx)
-        ref = gather_plain(x, *packed, idx)
-        bnd = torch.bmm(bf16_abs(x)[:, None], w[idx.long()].abs())
-        wg = w[idx.long()].to(torch.bfloat16)  # the library call gets its weights gathered
-        used = torch.unique(idx).numel()  # bytes of the experts this run selects
-        record(f"{fmt}_gather_matmul", f"{case} 60 rows E={E} K={k} M={m}", float((out - ref).abs().max()),
-               q8_tol(bnd),
-               time_ms(lambda: gather(x, *packed, idx)),
-               time_ms(lambda: gather_plain(x, *packed, idx)),
-               time_ms(lambda: torch.bmm(x[:, None], wg)),
-               bound(nbytes(x, idx, out) + nbytes(*packed) * used // E, 2 * 60 * k * m, "bf16"))
-        del out, ref, bnd, wg, w
+        for sel, sets in GATHER_DRAWS:
+            x = randn(sel, k, dtype=torch.bfloat16)
+            idx = routed_idx(torch, sel // GATHER_TOPK, E, gen_idx, sets)
+            out = gather(x, *packed, idx)
+            require(torch.equal(out, gather(x, *packed, idx)),
+                    f"{fmt}_gather_matmul {case} {gather_case(sel, sets)}: two launches on the same inputs differ")
+            ref = gather_plain(x, *packed, idx)
+            bnd = torch.bmm(bf16_abs(x)[:, None], w[idx.long()].abs())
+            wg = w[idx.long()].to(torch.bfloat16)  # the library call gets its weights gathered
+            used = torch.unique(idx).numel()  # bytes of the experts this run selects
+            record(f"{fmt}_gather_matmul", f"{case} {gather_case(sel, sets)} E={E} K={k} M={m}",
+                   float((out - ref).abs().max()), q8_tol(bnd),
+                   time_ms(lambda: gather(x, *packed, idx)),
+                   time_ms(lambda: gather_plain(x, *packed, idx)),
+                   time_ms(lambda: torch.bmm(x[:, None], wg)),
+                   bound(nbytes(x, idx, out) + nbytes(*packed) * used // E, 2 * sel * k * m, "bf16"),
+                   deterministic=True, distinct_experts=used)
+            del out, ref, bnd, wg
+        del w
 
     packed = tuple(gu[key] for key in keys)
     w = deq(gu)
@@ -979,11 +1016,23 @@ def split_phase(torch, K, engine, steps=32):
     return gather_launches
 
 
+GATHER_STEPS = 16
+
+
+def is_gather_kernel(name: str) -> bool:
+    """A profiler kernel name of the gather tier: csrc/expert_sweep.cu's
+    gather instantiations, whose last template argument is true, or the
+    expert_kernel of trees before it (serve_ab.py reads a parent's)."""
+    return ("sweep_kernel<" in name and name.split(">")[0].endswith("true")) or "::expert_kernel<" in name
+
+
 def decode_phase(torch, K, engine, smi, required, max_new=MAX_NEW):
     """Single-request decode at full width: engine.decode on the seeded page,
     max_new greedy tokens (after a warm-up prefill and 4 steps of the same
     path), the launch counters zeroed just before and read just after;
-    every kernel in `required` must have launched."""
+    every kernel in `required` must have launched. With packed weights,
+    16 more warm-up steps under torch.profiler give the gather tier's
+    device ms a token beside the step's (`gather`)."""
     from dsocr_tpu_torch.core import DecodeParameters
     from dsocr_tpu_torch.runtime.kv_cache import bump_length
 
@@ -991,11 +1040,27 @@ def decode_phase(torch, K, engine, smi, required, max_new=MAX_NEW):
     s_pad = -(-len(tokens) // 128) * 128
     with torch.no_grad():
         logits, cache = engine._prefill(engine._row_embeds(tokens, mask, [emb], s_pad)[None],
-                                        engine.new_kv_cache(1, s_pad + 8),
+                                        engine.new_kv_cache(1, s_pad + 8 + GATHER_STEPS),
                                         torch.tensor([len(tokens)], device="cuda"))
         cache = bump_length(cache, len(tokens))
         for _ in range(4):
             logits, cache, _ = engine._step_fn(engine.model.decoder, logits.argmax(dim=-1), cache, None)
+        gather = None
+        if engine.quantize:  # the gather tier's device ms a token, from 16 traced steps
+            state = [logits, cache]
+
+            def steps():
+                for _ in range(GATHER_STEPS):
+                    state[0], state[1], _ = engine._step_fn(engine.model.decoder, state[0].argmax(dim=-1),
+                                                            state[1], None)
+
+            kernels = []
+            step_ms, host_ms, _ = traced(torch, steps, GATHER_STEPS, kernels)
+            mine = [e for e in kernels if is_gather_kernel(e.key)]
+            gather = {"steps": GATHER_STEPS, "device_ms_per_token": sum(map(device_us, mine)) / 1e3 / GATHER_STEPS,
+                      "launches_per_token": sum(e.count for e in mine) / GATHER_STEPS,
+                      "step_device_ms": step_ms, "step_host_ms_traced": host_ms}
+            logits, cache = state
     del logits, cache, emb
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1015,6 +1080,8 @@ def decode_phase(torch, K, engine, smi, required, max_new=MAX_NEW):
             "decode_tok_per_s": out.response_tokens / st["decode.generate"],
             "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
             "launches": {k: v for k, v in launches.items() if v}}
+    if gather is not None:
+        line["gather"] = gather
     emit(line)
     require(out.response_tokens == max_new or (eos not in out.generated_tokens and not out.truncated),
             f"decode returned {out.response_tokens} of {max_new} tokens without EOS")
@@ -1037,15 +1104,15 @@ def serve(engine, tokenizer, images, vision, params, *, n_slots, max_len, chunk)
 
 
 def serving_phase(torch, K, phase, engine, *, n_requests, n_slots, max_new, required,
-                  warmup=True, profile=False, towers=False, unused=(), same_as=None):
+                  warmup=True, profile=False, towers=False, unused=(), same_as=None, trace_gather=False):
     """Phases 4-4h: n_requests requests of max_new tokens through
     ContinuousScheduler over n_slots; the launch counters are zeroed just
     before and read just after, every kernel in `required` must have
     launched and none in `unused`. A paged burst also reports its pool and,
     against `same_as` (another burst's tokens), how many requests gave the
     same tokens. With `profile`, profile_phase follows on the page's packet
-    (with `towers`, its tower line too). → (launch counts, tokens per
-    request)."""
+    (with `towers`, its tower line too); with `trace_gather`, gather_trace
+    on the same burst. → (launch counts, tokens per request)."""
     from dsocr_tpu_torch.core import DecodeParameters
     from dsocr_tpu_torch.runtime.paged import PagedSlotCache
 
@@ -1115,36 +1182,87 @@ def serving_phase(torch, K, phase, engine, *, n_requests, n_slots, max_new, requ
         require(launches[name] == 0, f"kernel {name} was launched in the {phase} burst")
     if profile:
         profile_phase(torch, K, engine, pre, paged=isinstance(cache, PagedSlotCache), towers=towers)
+    if trace_gather:
+        gather_trace(torch, K, phase, engine, lambda: serve(engine, tok, [image] * n_requests, vision, params,
+                                                            n_slots=n_slots, max_len=max_len, chunk=CHUNK))
     return launches, generated
 
 
-def wrapper_host_ms(K, fn) -> float:
-    """Run fn with every kernel wrapper timed on the host clock where the
-    port calls it; → milliseconds spent inside the wrappers (checks, the
-    output's allocation, the ctypes launch). The kernel modules keep their
+def gather_trace(torch, K, phase, engine, burst):
+    """The gather tier in a burst: `burst` once more under torch.profiler,
+    every gather wrapper's idx kept (a copy on the card). Emits the tier's
+    device ms and launches (per decode step: two a MoE layer), and for
+    each selection count its launches and their distinct in-range experts
+    (min, mean, max) beside the mean of as many uniform draws."""
+    E = engine.cfg.language.n_routed_experts
+    names = {f"{fmt}_gather_matmul" for fmt in ("q8", "q4k", "q6k")}
+    kept = []
+
+    def keep(w):
+        def kept_idx(*args, **kwargs):
+            kept.append(args[-1].clone())
+            return w(*args, **kwargs)
+
+        return kept_idx
+
+    kernels = []
+    with wrapped_kernels(K, keep, names):
+        traced(torch, burst, 1, kernels)
+    mine = [e for e in kernels if is_gather_kernel(e.key)]
+    launches = sum(e.count for e in mine)
+    device_ms = sum(map(device_us, mine)) / 1e3
+    by_count = {}
+    for idx in kept:
+        by_count.setdefault(idx.numel(), []).append(torch.unique(idx[(idx >= 0) & (idx < E)]).numel())
+    per_step = 2 * len(engine.model.decoder.moe_layers)
+    emit({"phase": f"{phase}_trace", "gather_launches": launches, "wrapper_calls": len(kept),
+          "gather_device_ms": device_ms, "device_ms_per_launch": device_ms / max(launches, 1),
+          "device_ms_per_step": device_ms * per_step / max(launches, 1), "launches_per_step": per_step,
+          "distinct_experts": {s: {"launches": len(d), "min": min(d), "mean": statistics.fmean(d), "max": max(d),
+                                   "uniform_mean": E * (1 - (1 - 1 / E) ** s)}
+                               for s, d in sorted(by_count.items())}})
+    require(launches > 0 and kept, f"{phase}: the trace saw no gather launch")
+
+
+@contextlib.contextmanager
+def wrapped_kernels(K, wrap, names=None):
+    """Within the block, every kernel wrapper (or those named in `names`)
+    is wrap(wrapper) where the port calls it. The kernel modules keep their
     own names, through which they count launches."""
-    spent = []
     patched = []
-    wrappers = {w.__name__: w for w, _, _ in K.KERNELS}
+    wrappers = {w.__name__: w for w, _, _ in K.KERNELS if names is None or w.__name__ in names}
     for mod in list(sys.modules.values()):
         name = getattr(mod, "__name__", "")
         if not name.startswith("dsocr_tpu_torch.") or name.startswith("dsocr_tpu_torch.ops.kernels."):
             continue
         for attr, w in wrappers.items():
             if getattr(mod, attr, None) is w:
-                def timed(*args, _w=w, **kwargs):
-                    t0 = time.perf_counter()
-                    out = _w(*args, **kwargs)
-                    spent.append(time.perf_counter() - t0)
-                    return out
-
-                setattr(mod, attr, timed)
+                setattr(mod, attr, wrap(w))
                 patched.append((mod, attr, w))
     try:
-        fn()
+        yield
     finally:
         for mod, attr, w in patched:
             setattr(mod, attr, w)
+
+
+def wrapper_host_ms(K, fn) -> float:
+    """Run fn with every kernel wrapper timed on the host clock where the
+    port calls it; → milliseconds spent inside the wrappers (checks, the
+    output's allocation, the ctypes launch)."""
+    spent = []
+
+    def timer(w):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = w(*args, **kwargs)
+            spent.append(time.perf_counter() - t0)
+            return out
+
+        return timed
+
+    with wrapped_kernels(K, timer):
+        fn()
     return sum(spent) * 1e3
 
 
@@ -1474,7 +1592,7 @@ def main() -> int:
     bursts.append(launches)
     bursts.append(serving_phase(
         torch, K, "serve_q8_gather", engine, n_requests=4, n_slots=4, max_new=32,
-        required=["q8_gather_matmul"], warmup=False)[0])
+        required=["q8_gather_matmul"], warmup=False, trace_gather=True)[0])
     bursts.append(decode_phase(torch, K, engine, smi,
                                required=prefill + ["q8_matmul", "q8_gather_matmul"]))
     # the same engine with a shared page pool that holds 12 of the 16 rows
@@ -1495,7 +1613,7 @@ def main() -> int:
         warmup=False, profile=True)[0])
     bursts.append(serving_phase(
         torch, K, "serve_q4k_gather", engine, n_requests=4, n_slots=4, max_new=32,
-        required=["q4k_gather_matmul", "q8_gather_matmul"], warmup=False)[0])
+        required=["q4k_gather_matmul", "q8_gather_matmul"], warmup=False, trace_gather=True)[0])
     del engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -1506,7 +1624,7 @@ def main() -> int:
         warmup=False, profile=True)[0])
     bursts.append(serving_phase(
         torch, K, "serve_q6k_gather", engine, n_requests=4, n_slots=4, max_new=32,
-        required=["q6k_gather_matmul", "q8_gather_matmul"], warmup=False)[0])
+        required=["q6k_gather_matmul", "q8_gather_matmul"], warmup=False, trace_gather=True)[0])
     del engine
     gc.collect()
     torch.cuda.empty_cache()

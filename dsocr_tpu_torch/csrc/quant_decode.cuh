@@ -25,11 +25,7 @@
 // an exact f32 difference, then one rounded product.
 //
 // Row: 32 consecutive K values k0 .. k0 + 31 of one W row (k0 % 32 == 0);
-// value(r, v) is value v of them. Cols (the in-major expert kernels): one
-// thread's four columns m .. m + 3 over one 32-K-row step of an expert, the
-// K-rows 2 (warp + 4 i) and the one after, i = 0..3; value(c, i, col, odd)
-// is that of the odd-th K-row of byte row i in column col. A zero Row or
-// Cols (dead rows and columns) decodes to ±0.
+// value(r, v) is value v of them. A zero Row (dead rows) decodes to ±0.
 #pragma once
 
 #include "common.cuh"
@@ -96,26 +92,6 @@ struct Q4K {
   static __device__ __forceinline__ float value(const Row& r, int v) {
     return fmaf(small_uint_f32(field(word_of(r.q, v / 8), 4 * (v % 8), 0xFu), 0.f), r.s, -r.b);
   }
-
-  struct Cols {
-    uint32_t q[4];
-    float4 s, b;
-  };
-  __device__ __forceinline__ Cols cols(int e, int K, int M, int k0, int warp, int m) const {
-    Cols c;
-    const uint8_t* W = codes + (size_t)e * (K / 2) * M + (size_t)(k0 / 2) * M + m;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) c.q[i] = *reinterpret_cast<const unsigned*>(W + (size_t)(warp + 4 * i) * M);
-    const size_t srow = (size_t)e * (K / SUB) * M + (size_t)(k0 / SUB) * M + m;
-    c.s = *reinterpret_cast<const float4*>(scales + srow);
-    c.b = *reinterpret_cast<const float4*>(mins + srow);
-    return c;
-  }
-  static __device__ __forceinline__ float value(const Cols& c, int i, int col, int odd) {
-    const float s = col == 0 ? c.s.x : col == 1 ? c.s.y : col == 2 ? c.s.z : c.s.w;
-    const float b = col == 0 ? c.b.x : col == 1 ? c.b.y : col == 2 ? c.b.z : c.b.w;
-    return fmaf(static_cast<float>(field(c.q[i], 8 * col + 4 * odd, 0xFu)), s, -b);
-  }
 };
 
 struct Q6K {
@@ -123,10 +99,6 @@ struct Q6K {
   const uint8_t* codes;
   const uint8_t* highs;
   const float* scales;
-
-  static __device__ __forceinline__ float deq(uint32_t lo, uint32_t hi, float s) {
-    return (static_cast<float>(lo | (hi << 4)) - 32.f) * s;  // exact difference, one rounding
-  }
 
   struct Row {  // 16 bytes of low nibbles, 8 of highs, two scales
     uint4 q;
@@ -142,34 +114,6 @@ struct Q6K {
     const uint32_t q = field(word_of(r.q, v / 8), 4 * (v % 8), 0xFu) |
                        (field(v < 16 ? r.h.x : r.h.y, 2 * (v % 16), 0x3u) << 4);
     return small_uint_f32(q, 32.f) * (v < 16 ? r.s.x : r.s.y);
-  }
-
-  // Byte row warp + 4 i holds K-rows 2 (warp + 4 i) and the one after:
-  // their highs sit in highs byte row (warp + 4 i) / 2 at bits 4 (warp % 2)
-  // and 4 (warp % 2) + 2, and their scale in the step's scale row i / 2.
-  struct Cols {
-    uint32_t q[4], h[4];  // h: each byte shifted to the thread's two highs
-    float4 s[2];
-  };
-  __device__ __forceinline__ Cols cols(int e, int K, int M, int k0, int warp, int m) const {
-    Cols c;
-    const uint8_t* W = codes + (size_t)e * (K / 2) * M + (size_t)(k0 / 2) * M + m;
-    const uint8_t* H = highs + (size_t)e * (K / 4) * M + (size_t)(k0 / 4) * M + m;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      c.q[i] = *reinterpret_cast<const unsigned*>(W + (size_t)(warp + 4 * i) * M);
-      c.h[i] = (*reinterpret_cast<const unsigned*>(H + (size_t)((warp + 4 * i) / 2) * M) >> (4 * (warp % 2))) &
-               0x0F0F0F0Fu;
-    }
-    const float* S = scales + (size_t)e * (K / SUB) * M + (size_t)(k0 / SUB) * M + m;
-    c.s[0] = *reinterpret_cast<const float4*>(S);
-    c.s[1] = *reinterpret_cast<const float4*>(S + M);
-    return c;
-  }
-  static __device__ __forceinline__ float value(const Cols& c, int i, int col, int odd) {
-    const float4 s4 = c.s[i / 2];
-    const float s = col == 0 ? s4.x : col == 1 ? s4.y : col == 2 ? s4.z : s4.w;
-    return deq(field(c.q[i], 8 * col + 4 * odd, 0xFu), field(c.h[i], 8 * col + 2 * odd, 0x3u), s);
   }
 };
 

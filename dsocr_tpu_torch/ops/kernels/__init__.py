@@ -69,7 +69,7 @@ KERNELS = (
      "dsocr_tpu/ops/pallas/slot_attention.py:436"),
     (q8_matmul, "dsocr_tpu_torch/csrc/row_matmul.cu",
      f"{_DQ}:171 (q8_matmul), {_DQ}:312 (q8_matmul_layered)"),
-    (q8_gather_matmul, "dsocr_tpu_torch/csrc/dequant_matmul.cu",
+    (q8_gather_matmul, "dsocr_tpu_torch/csrc/expert_sweep.cu",
      f"{_DQ}:250 (q8_gather_matmul), {_DQ}:381 (q8_gather_matmul_layered)"),
     (q8_dense_experts, "dsocr_tpu_torch/csrc/expert_sweep.cu",
      f"{_DQ}:480 (q8_dense_experts_layered)"),
@@ -77,7 +77,7 @@ KERNELS = (
      f"{_DQ}:520 (q8_dense_experts_perx_layered)"),
     (q4k_matmul, "dsocr_tpu_torch/csrc/row_matmul.cu",
      f"{_KQ}:225 (q4k_matmul), {_KQ}:362 (q4k_matmul_layered)"),
-    (q4k_gather_matmul, "dsocr_tpu_torch/csrc/kquant_matmul.cu",
+    (q4k_gather_matmul, "dsocr_tpu_torch/csrc/expert_sweep.cu",
      f"{_KQ}:593 (q4k_gather_matmul), {_KQ}:633 (q4k_gather_matmul_layered)"),
     (q4k_dense_experts, "dsocr_tpu_torch/csrc/expert_sweep.cu",
      f"{_KQ}:844 (q4k_dense_experts_layered)"),
@@ -85,7 +85,7 @@ KERNELS = (
      f"{_KQ}:908 (q4k_dense_experts_perx_layered)"),
     (q6k_matmul, "dsocr_tpu_torch/csrc/row_matmul.cu",
      f"{_KQ}:294 (q6k_matmul), {_KQ}:430 (q6k_matmul_layered)"),
-    (q6k_gather_matmul, "dsocr_tpu_torch/csrc/kquant_matmul.cu",
+    (q6k_gather_matmul, "dsocr_tpu_torch/csrc/expert_sweep.cu",
      f"{_KQ}:729 (q6k_gather_matmul), {_KQ}:770 (q6k_gather_matmul_layered)"),
     (q6k_dense_experts, "dsocr_tpu_torch/csrc/expert_sweep.cu",
      f"{_KQ}:982 (q6k_dense_experts_layered)"),

@@ -1,8 +1,8 @@
 """Fused dequantize-matmul over packed Q8_0 weights.
 
 Five wrappers over the CUDA kernels of csrc/row_matmul.cu,
-csrc/dequant_matmul.cu, csrc/expert_sweep.cu and csrc/moe_megafused.cu
-serve the seven Q8_0
+csrc/expert_sweep.cu (through csrc/dequant_matmul.cu's C entry) and
+csrc/moe_megafused.cu serve the seven Q8_0
 Pallas functions of
 dsocr_tpu/ops/pallas/dequant_matmul.py that the packed serving path
 reaches (a torch view of ``W[layer]`` costs no copy, so one kernel serves
@@ -49,20 +49,23 @@ What bounds them on the H100, and what the designs do about it:
 - the experts at decode (N ≤ 32) are device-memory bytes: the dense tier
   reads every expert's codes once per step, ~2.4 GB of int8 plus ~0.3 GB
   of f32 scales over 11 MoE layers, ≥ ~0.8 ms per step at 3.35 TB/s
-  (gate+up of one layer 0.052 ms, down 0.027). The dense sweeps
-  (``q8_dense_experts``, ``q8_dense_experts_perx``) run csrc/expert_sweep.cu,
-  one body with the K-quants': a block owns an expert's 128-column slab
-  over all of K and streams its codes, scales and x through a 4-stage
-  cp.async ring of 64 K rows, one barrier a stage; each lane decodes its
-  16 columns × 4 K rows of a 16-K chunk in registers straight into
-  mma.sync.m16n8k16 A fragments (W as A, x as B), and the epilogue stores
-  float4s from the C fragments after a sum over the block's 4 K-split
-  warps in warp order. The gather tier (``q8_gather_matmul``) keeps
-  csrc/dequant_matmul.cu's expert kernel: it grids over (M tile of 128,
-  group), keeps the group's x rows as bf16 in shared memory, dequantizes
-  one 32-row Q8 block of the W tile into shared memory per step (one scale
-  per column), and prefetches the next block's codes into registers while
-  the tensor cores (WMMA bf16, f32 accumulate) run the current one.
+  (gate+up of one layer 0.052 ms, down 0.027); the gather tier reads each
+  distinct selected expert once (2.58 MB of gate+up, 1.29 MB of down: at
+  one request's 6 selections 15.5 MB, ≥ 4.6 µs). All four expert wrappers
+  (``q8_gather_matmul``, ``q8_dense_experts``, ``q8_dense_experts_perx``)
+  run csrc/expert_sweep.cu, one body with the K-quants': a block owns an
+  expert's 128-column slab over all of K and streams its codes, scales
+  and x through a 4-stage cp.async ring of 64 K rows, one barrier a
+  stage; each lane decodes its 16 columns × 4 K rows of a 16-K chunk in
+  registers straight into mma.sync.m16n8k16 A fragments (W as A, x as
+  B), and the epilogue stores float4s from the C fragments after a sum
+  over the block's 4 K-split warps in warp order. In the gather tier the
+  blocks group the selections by expert from ``idx`` themselves: the
+  block of an expert's first selection takes up to 16 of that expert's
+  selections as one task (x rows gathered, output rows scattered), the
+  others return at once, and where few experts are selected a cluster of
+  blocks splits each task's K (sums added in rank order through
+  distributed shared memory).
 - the megafused chain is device-memory bytes too: one MoE layer's
   gate+up and down codes and scales, 146.8 + 18.4 + 73.4 + 9.2 ≈ 248 MB,
   ≥ 0.074 ms at 3.35 TB/s, against the two-kernel sweep's extra [E, N,
@@ -73,7 +76,6 @@ What bounds them on the H100, and what the designs do about it:
   shared memory. Per-expert f32 partials [E, N, H] (5.2 MB at full width)
   are summed in expert order by a second small kernel: two launches on the
   same inputs give the same bits.
-The gather tier still runs on WMMA (ROADMAP, Queue 3).
 """
 
 from __future__ import annotations

@@ -1,9 +1,9 @@
 """Fused dequantize-matmul over packed Q4_K and Q6_K weights.
 
 For each format, four wrappers over CUDA kernels (the row layout in
-csrc/row_matmul.cu and the dense expert sweeps in csrc/expert_sweep.cu,
-one body each with Q8_0's; the gather tier in csrc/kquant_matmul.cu, one
-template body for both formats) serve the
+csrc/row_matmul.cu; the gather tier and the dense expert sweeps in
+csrc/expert_sweep.cu through csrc/kquant_matmul.cu's C entries; one body
+each with Q8_0's) serve the
 six Pallas functions of dsocr_tpu/ops/pallas/kquant_matmul.py that the
 packed serving path reaches (a torch view of ``W[layer]`` costs no copy,
 so one kernel serves a function and its ``_layered`` twin):
@@ -55,18 +55,15 @@ What bounds them on the H100, and what the designs do about it:
   fed by TMA (qkv at N 16384: 161 GFLOP, ≥ 0.16 ms at 989 TFLOP/s).
 - the experts at decode (N ≤ 16) are device-memory bytes: expert gate+up
   of one layer is 110 MB in Q4_K (≥ 0.033 ms at 3.35 TB/s) and 146.8 MB in
-  Q6_K (≥ 0.044 ms). The dense sweeps run csrc/expert_sweep.cu's body (as
-  ``q8_dense_experts``, dequant_matmul.py): codes, highs, scales, mins
-  and x through a cp.async ring, decoded in registers into mma.sync
+  Q6_K (≥ 0.044 ms); the gather tier reads each distinct selected expert
+  once (1.72 MB of Q4_K gate+up, 2.29 MB of Q6_K). Both tiers run
+  csrc/expert_sweep.cu's body (as ``q8_dense_experts`` and
+  ``q8_gather_matmul``, dequant_matmul.py): codes, highs, scales, mins and
+  x through a cp.async ring, decoded in registers into mma.sync
   fragments; a lane's two code rows hold its 4 K rows (two K values a
   byte), a Q6_K lane's one highs row their high bits. The gather tier's
-  expert kernel grids over (M tile of 128, group),
-  keeps the group's x rows as bf16 in shared memory, dequantizes one
-  32-K-row step of the W tile into shared memory (a scale and a min per
-  column, or two scale rows per column) and prefetches the next step into
-  registers while the tensor cores (WMMA bf16, f32 accumulate) run the
-  current one; codes come in as one 4-byte vector per thread and byte
-  row, 128 contiguous bytes per warp.
+  blocks group the selections by expert from ``idx`` in the kernel, so
+  each selected expert is read once.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the kernels phase of several checkouts on one CUDA card.
 
-    python3 kernel_ab.py TREE [TREE ...]
+    python3 kernel_ab.py [--same-cases] TREE [TREE ...]
 
 Each TREE is a directory holding a checkout (chip_smoke.py beside
 dsocr_tpu_torch/), such as a parent commit unpacked with `git archive`
@@ -9,8 +9,11 @@ into a git-ignored directory. The trees run one after another, each in a
 process of its own, in the order given (parent, change, change, parent
 for an A/B): each builds its own kernel library and runs its own
 chip_smoke.check_kernels, timed with this checkout's chip_smoke.time_ms so
-that every tree is measured the same way. Each kernel line is printed as
-chip_smoke prints it, with the tree added; any failure exits non-zero.
+that every tree is measured the same way. With --same-cases every tree
+runs this checkout's check_kernels instead (its cases on the tree's
+kernels), for trees whose wrappers take the same arguments. Each kernel
+line is printed as chip_smoke prints it, with the tree added; any
+failure exits non-zero.
 """
 
 from __future__ import annotations
@@ -24,8 +27,9 @@ import sys
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
-def run_tree(root: str) -> None:
-    """In a child process: the kernels phase of the checkout at `root`."""
+def run_tree(root: str, same_cases: bool) -> None:
+    """In a child process: the kernels phase of the checkout at `root`
+    (with same_cases, this checkout's phase on root's kernels)."""
     spec = importlib.util.spec_from_file_location("timing_smoke", os.path.join(HERE, "chip_smoke.py"))
     timing = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(timing)
@@ -40,18 +44,21 @@ def run_tree(root: str) -> None:
         raise RuntimeError(f"imported {chip_smoke.__file__}, not the one in {root}")
     chip_smoke.time_ms = timing.time_ms
     set_f32_precision()
-    chip_smoke.check_kernels(torch, K)
+    (timing if same_cases else chip_smoke).check_kernels(torch, K)
 
 
 def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] == "--tree":
-        run_tree(os.path.abspath(sys.argv[2]))
+    args = sys.argv[1:]
+    same = ["--same-cases"] if args[:1] == ["--same-cases"] else []
+    args = args[len(same):]
+    if len(args) == 2 and args[0] == "--tree":
+        run_tree(os.path.abspath(args[1]), bool(same))
         return 0
-    if len(sys.argv) < 2:
+    if not args:
         print(__doc__, file=sys.stderr)
         return 2
-    for tree in sys.argv[1:]:
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--tree", tree],
+    for tree in args:
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), *same, "--tree", tree],
                               capture_output=True, text=True)
         for line in proc.stdout.splitlines():
             if line.startswith("{"):

@@ -2,7 +2,7 @@
 """Time variants of the kernels' sources on one CUDA card.
 
     python3 kernel_variants.py '{"base": [], "two_stages": [["constexpr int PF_STAGES = 3;",
-                                                 "constexpr int PF_STAGES = 2;"]]}' [prefill|decode|row|sam|experts]
+                                                 "constexpr int PF_STAGES = 2;"]]}' [prefill|decode|row|sam|experts|gather[,...]]
 
 Each variant is a list of text substitutions applied to a copy of
 dsocr_tpu_torch/csrc/ under dsocr_tpu_torch/_build/variants/<name>/ (an
@@ -25,7 +25,10 @@ step's shapes (N 16, E 64): q8/q4k/q6k_dense_experts on a gate+up stack
 (1280 → 1792) and q8_dense_experts_perx on a down stack (896 → 1280), with
 the K-quants' perx at the stand-in 1792 → 1280 (substitutions such as
 ["static constexpr int STAGES = 3;", "static constexpr int STAGES = 4;"], BK, WN, WK,
-MIN_BLOCKS_LO, MIN_BLOCKS_HI).
+MIN_BLOCKS_LO, MIN_BLOCKS_HI), and, for `gather`, the gather tier
+(q8/q4k/q6k_gather_matmul, the same stacks) at chip_smoke's
+GATHER_DRAWS (6, 24 and 60 routed selections, and 24 and 60 that share
+one top-6; KSPLIT_MIN, KSPLIT_MAX, SPLIT_MIN_STAGES, MIN_BLOCKS_HI).
 Times are chip_smoke.time_ms's (device milliseconds per call, CUDA
 events); SDPA's time is printed once per slot and SAM case, and the decode
 attend's two kernels are timed apart by torch.profiler. Every variant is
@@ -52,7 +55,7 @@ def cases(torch, K, F, which):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     out = []
-    if which in ("all", "sam"):
+    if {"all", "sam"} & which:
         for bh, s in ((12, 4096), (72, 1600), (48, 4096), (192, 1600)):
             w = int(round(s ** 0.5))
             q, k, v = randn(bh, s, 64) * 0.125, randn(bh, s, 64), randn(bh, s, 64)
@@ -65,7 +68,7 @@ def cases(torch, K, F, which):
                         lambda q=q, k=k, v=v, bias=bias: F.scaled_dot_product_attention(
                             q, k, v, attn_mask=bias, scale=1.0),
                         None))
-    if which in ("all", "prefill"):
+    if {"all", "prefill"} & which:
         for b, pads, s in ((1, [0], 1792), (4, [0, 300, 7, 1000], 1792), (16, [0] * 16, 1024)):
             q, k, v = (randn(b, 10, s, 128, dtype=torch.bfloat16) for _ in range(3))
             pad = torch.tensor(pads, dtype=torch.int32, device=dev)
@@ -73,7 +76,7 @@ def cases(torch, K, F, which):
             out.append((f"prefill B{b} S{s}",
                         lambda q=q, k=k, v=v, pad=pad: K.flash_prefill_attention(q, k, v, pad, scale=128 ** -0.5),
                         ref))
-    if which in ("all", "decode"):
+    if {"all", "decode"} & which:
         B, NKV, D = 16, 10, 128
         for name, S, lengths in (
                 ("edges", 1536, torch.tensor([0, 254, 255, 256, 257, 511, 512, 513] * 2, dtype=torch.int32, device=dev)),
@@ -99,7 +102,7 @@ def cases(torch, K, F, which):
                                 lambda q=q, c=c, live=live: F.scaled_dot_product_attention(
                                     q, c[0][0], c[1][0], attn_mask=live, scale=D ** -0.5),
                                 None))
-    if which in ("all", "row"):
+    if {"all", "row"} & which:
         from dsocr_tpu_torch.dsq.serve_quant import quantize_plain
 
         shapes = (("qkv", 16384, 1280, 3840), ("qkv", 32, 1280, 3840), ("qkv", 16, 1280, 3840),
@@ -115,7 +118,7 @@ def cases(torch, K, F, which):
                 x = randn(n, k, dtype=torch.bfloat16)
                 out.append((f"{method} {case} N{n}",
                             lambda x=x, packed=packed, fn=fn: fn(x, *packed), plain(x, *packed)))
-    if which in ("all", "experts"):
+    if {"all", "experts"} & which:
         from dsocr_tpu_torch.dsq.serve_quant import quantize_expert_stack
 
         for method, keys in (("q8_0", ("codes", "scales")), ("q4_k", ("codes", "scales", "mins")),
@@ -131,6 +134,25 @@ def cases(torch, K, F, which):
                 x = randn(*((64,) if per_expert else ()), 16, k, dtype=torch.bfloat16)
                 out.append((f"{name} {case} N16 E64 K{k} M{m}",
                             lambda x=x, packed=packed, fn=fn: fn(x, *packed), plain(x, *packed)))
+    if {"all", "gather"} & which:
+        import chip_smoke
+        from dsocr_tpu_torch.dsq.serve_quant import quantize_expert_stack
+
+        for method, keys in (("q8_0", ("codes", "scales")), ("q4_k", ("codes", "scales", "mins")),
+                             ("q6_k", ("codes", "highs", "scales"))):
+            fmt = "q8" if method == "q8_0" else method.replace("_", "")
+            fn, plain = getattr(K, f"{fmt}_gather_matmul"), getattr(K, f"{fmt}_gather_matmul_plain")
+            down_k = 896 if method == "q8_0" else 1792  # the K-quants' down at its stand-in shape
+            for case, k, m in (("gateup", 1280, 1792), ("down", down_k, 1280)):
+                p = quantize_expert_stack(randn(64, k, m, dtype=torch.bfloat16) * k ** -0.5, method)
+                packed = tuple(p[key] for key in keys)
+                del p
+                for sel, sets in chip_smoke.GATHER_DRAWS:
+                    x = randn(sel, k, dtype=torch.bfloat16)
+                    idx = chip_smoke.routed_idx(torch, sel // chip_smoke.GATHER_TOPK, 64, gen, sets)
+                    out.append((f"{fmt}_gather_matmul {case} {chip_smoke.gather_case(sel, sets)} E64 K{k} M{m}",
+                                lambda x=x, packed=packed, idx=idx, fn=fn: fn(x, *packed, idx),
+                                plain(x, *packed, idx)))
     return out
 
 
@@ -139,7 +161,7 @@ def main() -> int:
         print(__doc__, file=sys.stderr)
         return 2
     variants = json.loads(sys.argv[1])
-    which = sys.argv[2] if len(sys.argv) == 3 else "all"
+    which = set((sys.argv[2] if len(sys.argv) == 3 else "all").split(","))
     import torch
     import torch.nn.functional as F
 
@@ -198,7 +220,7 @@ def main() -> int:
                     if ref.dtype == torch.bfloat16:
                         line["tol"] = chip_smoke.bf16_tol(ref)
                 print(json.dumps(line), flush=True)
-            if rnd == 1 and which in ("all", "decode"):
+            if rnd == 1 and {"all", "decode"} & which:
                 profile_decode(torch, name, todo)
     return 0
 

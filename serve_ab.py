@@ -1,6 +1,6 @@
 """Serving bursts of two trees of the PyTorch port on one card, alternated.
 
-    python3 serve_ab.py [--towers] PARENT_ROOT . . PARENT_ROOT
+    python3 serve_ab.py [--towers | --gather] PARENT_ROOT . . PARENT_ROOT
 
 Each argument is the root of a tree that holds a ``dsocr_tpu_torch/``
 package. The trees run one after another in the order given, each in a
@@ -12,7 +12,11 @@ over 16 slots on the seeded page, after a 2-request warm-up, each followed
 by its profile (prefill wave and decode steps, host and device time).
 With ``--towers`` a process runs only ``chip_smoke.tower_profile`` on the
 bf16 engine instead: the vision towers of 16 pages, device ms and the SAM
-attention's share. Every line it prints is ``chip_smoke.py``'s, with
+attention's share. With ``--gather`` it runs the Q8_0 engine's gather
+tier instead: the 4-slot burst of 4 requests × 32 tokens with its
+``_trace`` line (the tier's device ms, the distinct experts of each
+launch), then single-request decode with the tier's device ms a token.
+Every line it prints is ``chip_smoke.py``'s, with
 ``"tree"`` added. It exits non-zero if any run fails, and needs one CUDA
 card.
 """
@@ -29,8 +33,9 @@ import sys
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
-def run_tree(root: str, towers: bool = False) -> int:
-    """The bursts (or with `towers` the tower profile) on the package under
+def run_tree(root: str, mode: str = "") -> int:
+    """The bursts (or with mode "--towers" the tower profile, with
+    "--gather" the gather tier's burst and decode) on the package under
     `root`, measured by this file's chip_smoke.py."""
     root = os.path.abspath(root)
     sys.path.insert(0, root)
@@ -53,8 +58,15 @@ def run_tree(root: str, towers: bool = False) -> int:
     cs.emit = lambda obj: emit({**obj, "tree": root})
     set_f32_precision()
     _lib.lib()
-    if towers:
+    if mode == "--towers":
         cs.tower_profile(torch, K, cs.full_width_engine(torch))
+        return 0
+    if mode == "--gather":
+        engine = cs.full_width_engine(torch, quantize="q8_0")
+        cs.serving_phase(torch, K, "serve_q8_gather", engine, n_requests=4, n_slots=4, max_new=32,
+                         required=["q8_gather_matmul"], trace_gather=True)
+        cs.decode_phase(torch, K, engine, cs.smi_line(),
+                        required=["sam_flash_attention", "flash_prefill_attention", "q8_gather_matmul"])
         return 0
     attention = ["sam_flash_attention", "flash_prefill_attention", "slot_kv_update", "slot_decode_attention"]
     for quantize, phase, kernels in ((None, "serve", []),
@@ -70,9 +82,9 @@ def run_tree(root: str, towers: bool = False) -> int:
 
 def main(argv) -> int:
     if len(argv) >= 2 and argv[0] == "--tree":
-        return run_tree(argv[1], towers=argv[2:] == ["--towers"])
-    towers = argv[:1] == ["--towers"]
-    argv = argv[1:] if towers else argv
+        return run_tree(argv[1], *argv[2:])
+    flag = argv[:1] if argv[:1] in (["--towers"], ["--gather"]) else []
+    argv = argv[len(flag):]
     if not argv:
         print(__doc__, file=sys.stderr)
         return 2
@@ -81,7 +93,6 @@ def main(argv) -> int:
     print(json.dumps({"nvidia_smi": smi.stdout.strip(), "order": argv}), flush=True)
     failed = []
     for root in argv:
-        flag = ["--towers"] if towers else []
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--tree", root, *flag], timeout=600)
         if proc.returncode:
             failed.append((root, proc.returncode))

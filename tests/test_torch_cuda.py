@@ -285,19 +285,72 @@ def test_q8_matmul_kernel_matches_twin(dev, x_dtype, n, k, m):
     _q8_close(got, K.q8_matmul_plain(x, codes, scales), _abs_bound(x, w))
 
 
+
+# The gather tier (csrc/expert_sweep.cu groups the selections by expert
+# from idx in the kernel). idx kinds: "uniform" draws; "routed" as a router
+# makes them, each token's top-6 distinct (6, 24 and 60 selections: one
+# request's decode step, 4 serving slots, the largest gather launch);
+# "shared", tokens that share one top-6, as identical requests route;
+# "one", every selection on one expert (more than 8 rows: several n-tiles;
+# more than 16: several passes over the expert); "oob", two indices
+# outside [0, E), whose rows are zeros. `offset` moves x off a 16-byte
+# boundary. Two launches must give the same bits.
+def _gather_idx(rng, kind, n, e):
+    if kind == "uniform":
+        return rng.integers(0, e, size=n).astype(np.int32)
+    if kind == "one":
+        return np.full(n, e // 2, dtype=np.int32)
+    if kind == "shared":
+        return np.tile(rng.permutation(e)[:6], -(-n // 6))[:n].astype(np.int32)
+    idx = np.concatenate([rng.permutation(e)[:6] for _ in range(-(-n // 6))])[:n].astype(np.int32)
+    if kind == "oob":
+        idx[[1, n // 2]] = [-1, e]
+    return idx
+
+
+def _check_gather(dev, fn, plain, packed, w, x_dtype, kind, n, offset, rng):
+    """fn (a gather wrapper) against its twin; w the dequantized stack [E, K, M] f32."""
+    e, k, _ = w.shape
+    idx_np = _gather_idx(rng, kind, n, e)
+    idx = torch.from_numpy(idx_np).to(dev)
+    x = _randn(rng, n * k + offset).to(dev, x_dtype)[offset:].view(n, k)
+    assert (x.data_ptr() % 16 == 0) == (offset == 0)
+    before = fn.launches
+    got = fn(x, *packed, idx)
+    assert fn.launches == before + 1
+    assert torch.equal(got, fn(x, *packed, idx))
+    live = torch.from_numpy((idx_np >= 0) & (idx_np < e)).to(dev)
+    safe = torch.where(live, idx, torch.zeros_like(idx))
+    assert torch.equal(got[~live], torch.zeros_like(got[~live]))
+    bound = torch.bmm(x.to(torch.bfloat16).float().abs()[:, None], w[safe.long()].abs())[:, 0]
+    _q8_close(got[live], plain(x, *packed, safe)[live], bound[live])
+
+
+# (kind, e, n, k, m, offset) for K a multiple of `k_unit`: uniform draws at
+# the earlier (e, n, k, m) cases, the full-width stacks (gate+up 1280 →
+# 1792; down 896 → 1280, for the K-quants the stand-in 1792 → 1280) at 6,
+# 24 and 60 routed selections and at 24 and 60 that share one top-6, then
+# small stacks
+def _gather_cases(k_unit):
+    down_k = 896 if k_unit == 32 else 1792
+    earlier = ([(64, 60, 1280, 1792), (64, 24, 896, 1280), (4, 5, 32, 64), (3, 7, 96, 36)] if k_unit == 32
+               else [(64, 60, 1280, 1792), (4, 5, 256, 64), (3, 7, 512, 36)])
+    return [("uniform", *case, 0) for case in earlier] + [
+        ("routed", 64, n, k, m, 0) for n in (6, 24, 60) for k, m in ((1280, 1792), (down_k, 1280))] + [
+        ("shared", 64, n, k, m, 0) for n in (24, 60) for k, m in ((1280, 1792), (down_k, 1280))] + [
+        ("one", 8, 12, 2 * k_unit, 36, 0), ("one", 8, 20, 256, 64, 0), ("one", 8, 60, 256, 128, 0),
+        ("oob", 16, 24, 256, 128, 0), ("routed", 8, 4096, 256, 64, 0), ("routed", 8, 12, 256, 36, 1),
+        ("routed", 64, 6, 1280, 1792, 1)]
+
+
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("e,n,k,m", [(64, 60, 1280, 1792), (64, 24, 896, 1280), (4, 5, 32, 64), (3, 7, 96, 36)])
-def test_q8_gather_kernel_matches_twin(dev, x_dtype, e, n, k, m):
+@pytest.mark.parametrize("kind,e,n,k,m,offset", _gather_cases(32))
+def test_q8_gather_kernel_matches_twin(dev, x_dtype, kind, e, n, k, m, offset):
     rng = np.random.default_rng(e + n + k)
     codes, scales = (t.to(dev) for t in _q8_weights(rng, (e,), k, m, True))
-    x = _randn(rng, n, k).to(dev, x_dtype)
-    idx = torch.from_numpy(rng.integers(0, e, size=n).astype(np.int32)).to(dev)
-    before = K.q8_gather_matmul.launches
-    got = K.q8_gather_matmul(x, codes, scales, idx)
-    assert K.q8_gather_matmul.launches == before + 1
-    w = (codes.float() * scales.repeat_interleave(32, dim=1))[idx.long()]
-    bound = torch.bmm(x.to(torch.bfloat16).float().abs()[:, None], w.abs())[:, 0]
-    _q8_close(got, K.q8_gather_matmul_plain(x, codes, scales, idx), bound)
+    w = codes.float() * scales.repeat_interleave(32, dim=1)
+    _check_gather(dev, K.q8_gather_matmul, K.q8_gather_matmul_plain, (codes, scales), w, x_dtype, kind, n,
+                  offset, rng)
 
 
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
@@ -366,18 +419,12 @@ def test_q4k_matmul_kernel_matches_twin(dev, x_dtype, n, k, m):
 
 
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("e,n,k,m", [(64, 60, 1280, 1792), (4, 5, 256, 64), (3, 7, 512, 36)])
-def test_q4k_gather_kernel_matches_twin(dev, x_dtype, e, n, k, m):
+@pytest.mark.parametrize("kind,e,n,k,m,offset", _gather_cases(256))
+def test_q4k_gather_kernel_matches_twin(dev, x_dtype, kind, e, n, k, m, offset):
     rng = np.random.default_rng(e + n + k)
     packed = _q4k_weights(rng, (e,), k, m, True, dev)
-    x = _randn(rng, n, k).to(dev, x_dtype)
-    idx = torch.from_numpy(rng.integers(0, e, size=n).astype(np.int32)).to(dev)
-    before = K.q4k_gather_matmul.launches
-    got = K.q4k_gather_matmul(x, *packed, idx)
-    assert K.q4k_gather_matmul.launches == before + 1
-    w = _q4k_deq(packed, -2)[idx.long()]
-    bound = torch.bmm(x.to(torch.bfloat16).float().abs()[:, None], w.abs())[:, 0]
-    _q8_close(got, K.q4k_gather_matmul_plain(x, *packed, idx), bound)
+    _check_gather(dev, K.q4k_gather_matmul, K.q4k_gather_matmul_plain, packed, _q4k_deq(packed, -2), x_dtype,
+                  kind, n, offset, rng)
 
 
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
@@ -520,18 +567,12 @@ def test_row_matmul_on_a_layer_view(dev, method, x_dtype, n):
 
 
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("e,n,k,m", [(64, 60, 1280, 1792), (4, 5, 256, 64), (3, 7, 512, 36)])
-def test_q6k_gather_kernel_matches_twin(dev, x_dtype, e, n, k, m):
+@pytest.mark.parametrize("kind,e,n,k,m,offset", _gather_cases(256))
+def test_q6k_gather_kernel_matches_twin(dev, x_dtype, kind, e, n, k, m, offset):
     rng = np.random.default_rng(e + n + k)
     packed = _q6k_weights(rng, (e,), k, m, True, dev)
-    x = _randn(rng, n, k).to(dev, x_dtype)
-    idx = torch.from_numpy(rng.integers(0, e, size=n).astype(np.int32)).to(dev)
-    before = K.q6k_gather_matmul.launches
-    got = K.q6k_gather_matmul(x, *packed, idx)
-    assert K.q6k_gather_matmul.launches == before + 1
-    w = _q6k_deq(packed, -2)[idx.long()]
-    bound = torch.bmm(x.to(torch.bfloat16).float().abs()[:, None], w.abs())[:, 0]
-    _q8_close(got, K.q6k_gather_matmul_plain(x, *packed, idx), bound)
+    _check_gather(dev, K.q6k_gather_matmul, K.q6k_gather_matmul_plain, packed, _q6k_deq(packed, -2), x_dtype,
+                  kind, n, offset, rng)
 
 
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])

@@ -1,6 +1,7 @@
-"""The dense expert sweep's fragment mapping (csrc/expert_sweep.cu),
-emulated in torch on the CPU, against the reference's Pallas kernels in
-interpret mode.
+"""The expert sweep's fragment mapping (csrc/expert_sweep.cu), emulated
+in torch on the CPU, against the reference's Pallas kernels in interpret
+mode: the dense sweeps, and the gather tier's plan (gather_plan: the
+kernel's leader test, row lists and n-tiles) on the same body.
 
 The kernel cannot run here, so this file transcribes what it does with
 each byte: a task (expert, slab of 128 · WN columns, 16 rows of x) walks
@@ -192,6 +193,61 @@ def _lane_x(x_img, xes, c, nt):
     return raw.to(torch.bfloat16).float().reshape(8, 4, 4)
 
 
+def _task(fmt, planes, e, m0, x_src, r0, br, stages):
+    """One block's sums over its WK warps, [br, BN] f32: expert e, the slab
+    at column m0, x rows r0 .. r0 + br - 1 of x_src (zeros past its rows),
+    the ring stages `stages` of BK K rows."""
+    K = x_src.shape[-1]
+    nt_count = br // 8
+    kinds = PLANES[fmt]
+    xes = x_src.element_size()
+    # accumulators in the C matrices' form: [WK][WN][8 j][NT][16][8]
+    acc = torch.zeros(WK, WN, 8, nt_count, 16, 8)
+    for k0 in (BK * kt for kt in stages):
+        imgs = [_stage_plane(p, e, m0, k0, kpr, es, planes[0].shape[-1], K)
+                for p, (_, kpr, es) in zip(planes, kinds)]
+        x_img = _stage_x(x_src, r0, k0, br, K)
+        for c in range(CHUNKS):
+            if k0 + 16 * c >= K:
+                break
+            wk = c % WK
+            for wn in range(WN):
+                w = _lane_values(fmt, imgs, c, wn).to(torch.bfloat16).float()  # [8, 4, 4, 16]
+                A = torch.zeros(8, 16, 16)  # tile j: [row, K slot]
+                for t in range(4):
+                    for i in range(4):
+                        A[:, 0:8, _slot(t, i)] = w[:, t, i, 0::2].t()  # row g: column 2j
+                        A[:, 8:16, _slot(t, i)] = w[:, t, i, 1::2].t()  # row g + 8: 2j + 1
+                for nt in range(nt_count):
+                    xv = _lane_x(x_img, xes, c, nt)
+                    B = torch.zeros(16, 8)
+                    for t in range(4):
+                        for i in range(4):
+                            B[_slot(t, i), :] = xv[:, t, i]  # column g
+                    acc[wk, wn, :, nt] += A @ B
+    # each lane's C registers, written as the epilogue does
+    red = torch.zeros(WK, br, BN)
+    for wk in range(WK):
+        for wn in range(WN):
+            for nt in range(nt_count):
+                C = acc[wk, wn, :, nt]  # [8 j, 16, 8]
+                for t in range(4):
+                    for h in range(2):
+                        n = 8 * nt + 2 * t + h
+                        for g in range(8):
+                            # c_i = C[g + 8 (i // 2)][2t + i % 2]
+                            reg = [C[:, g + 8 * (i // 2), 2 * t + (i % 2)] for i in range(4)]
+                            for u in range(4):
+                                col = 128 * wn + 16 * g + 4 * u
+                                red[wk, n, col: col + 4] = torch.stack(
+                                    [reg[h][2 * u], reg[2 + h][2 * u], reg[h][2 * u + 1],
+                                     reg[2 + h][2 * u + 1]])
+    total = red[0].clone()
+    for wk in range(1, WK):
+        total += red[wk]
+    return total
+
+
 def emulate(fmt, x, planes, per_expert):
     """out [E, N, M] f32 as csrc/expert_sweep.cu computes it: x [N, K]
     (dense) or [E, N, K] (perx), f32 or bf16; `planes` the format's
@@ -199,61 +255,56 @@ def emulate(fmt, x, planes, per_expert):
     E, _, M = planes[0].shape
     K = x.shape[-1]
     N = x.shape[-2]
-    nt_count = 1 if N <= 8 else 2
-    br = 8 * nt_count
-    kinds = PLANES[fmt]
-    xes = x.element_size()
+    br = 8 if N <= 8 else 16
     out = torch.zeros(E, N, M)
     for e in range(E):
         x_e = x[e] if per_expert else x
         for m0 in range(0, M, BN):
             for r0 in range(0, N, br):
-                # accumulators in the C matrices' form: [WK][WN][8 j][NT][16][8]
-                acc = torch.zeros(WK, WN, 8, nt_count, 16, 8)
-                for k0 in range(0, K, BK):
-                    imgs = [_stage_plane(p, e, m0, k0, kpr, es, M, K)
-                            for p, (_, kpr, es) in zip(planes, kinds)]
-                    x_img = _stage_x(x_e, r0, k0, br, K)
-                    for c in range(CHUNKS):
-                        if k0 + 16 * c >= K:
-                            break
-                        wk = c % WK
-                        for wn in range(WN):
-                            w = _lane_values(fmt, imgs, c, wn).to(torch.bfloat16).float()  # [8, 4, 4, 16]
-                            A = torch.zeros(8, 16, 16)  # tile j: [row, K slot]
-                            for t in range(4):
-                                for i in range(4):
-                                    A[:, 0:8, _slot(t, i)] = w[:, t, i, 0::2].t()  # row g: column 2j
-                                    A[:, 8:16, _slot(t, i)] = w[:, t, i, 1::2].t()  # row g + 8: 2j + 1
-                            for nt in range(nt_count):
-                                xv = _lane_x(x_img, xes, c, nt)
-                                B = torch.zeros(16, 8)
-                                for t in range(4):
-                                    for i in range(4):
-                                        B[_slot(t, i), :] = xv[:, t, i]  # column g
-                                acc[wk, wn, :, nt] += A @ B
-                # each lane's C registers, written as the epilogue does
-                red = torch.zeros(WK, br, BN)
-                for wk in range(WK):
-                    for wn in range(WN):
-                        for nt in range(nt_count):
-                            C = acc[wk, wn, :, nt]  # [8 j, 16, 8]
-                            for t in range(4):
-                                for h in range(2):
-                                    n = 8 * nt + 2 * t + h
-                                    for g in range(8):
-                                        # c_i = C[g + 8 (i // 2)][2t + i % 2]
-                                        reg = [C[:, g + 8 * (i // 2), 2 * t + (i % 2)] for i in range(4)]
-                                        for u in range(4):
-                                            col = 128 * wn + 16 * g + 4 * u
-                                            red[wk, n, col: col + 4] = torch.stack(
-                                                [reg[h][2 * u], reg[2 + h][2 * u], reg[h][2 * u + 1],
-                                                 reg[2 + h][2 * u + 1]])
-                total = red[0].clone()
-                for wk in range(1, WK):
-                    total += red[wk]
+                total = _task(fmt, planes, e, m0, x_e, r0, br, range(-(-K // BK)))
                 rows, cols = min(br, N - r0), min(BN, M - m0)
                 out[e, r0: r0 + rows, m0: m0 + cols] = total[:rows, :cols]
+    return out
+
+
+def gather_plan(idx, E, br):
+    """The gather launch's tasks as its blocks build them from idx
+    (csrc/expert_sweep.cu: plan_rows): (expert, selections whose x rows the
+    task reads, selections whose output rows it writes), one for each
+    leader g, a selection of an expert in [0, E) below which that expert
+    has a multiple of br selections; its list is the next br selections
+    g'' >= g of that expert in ascending order."""
+    idx = [int(v) for v in idx]
+    tasks = []
+    for g, e in enumerate(idx):
+        if 0 <= e < E and idx[:g].count(e) % br == 0:
+            sel = [j for j in range(g, len(idx)) if idx[j] == e][:br]
+            tasks.append((e, sel, sel))
+    return tasks
+
+
+def emulate_gather(fmt, x, planes, idx, ks=1):
+    """out [G, M] f32 as csrc/expert_sweep.cu's gather launch computes it:
+    x [G, K] (one row a selection), idx [G]; tasks of BR rows (8 when G <=
+    8, else 16: NT n-tiles), each task's K stages split over a cluster of
+    ks blocks whose sums add in rank order; rows of an index outside
+    [0, E) are zeros."""
+    E, _, M = planes[0].shape
+    G, K = x.shape
+    br = 8 if G <= 8 else 16
+    ktiles = -(-K // BK)
+    per = -(-ktiles // ks)
+    out = torch.zeros(G, M)
+    for e, rows_x, rows_o in gather_plan(idx, E, br):
+        x_task = x[rows_x]
+        for m0 in range(0, M, BN):
+            total = None
+            for rank in range(ks):
+                part = _task(fmt, planes, e, m0, x_task, 0, br,
+                             range(min(ktiles, rank * per), min(ktiles, rank * per + per)))
+                total = part if total is None else total + part
+            cols = min(BN, M - m0)
+            out[rows_o, m0: m0 + cols] = total[: len(rows_o), :cols]
     return out
 
 
@@ -353,6 +404,135 @@ def test_a_wrong_slot_misses_the_tolerance(monkeypatch):
     monkeypatch.setattr(sys.modules[__name__], "_lane_x", swapped)
     bad = emulate("q8_0", torch.from_numpy(x), (p["codes"], p["scales"]), False).numpy()
     assert np.abs(bad - want).max() > 1e-2 * scale
+
+
+# -- the gather tier: the plan the kernel builds from idx, on the same body --
+
+
+def _routed(rng, tokens, topk, e):
+    """A router's selections: each token's top-k experts, distinct."""
+    return np.concatenate([rng.permutation(e)[:topk] for _ in range(tokens)]).astype(np.int32)
+
+
+# (case, E, idx maker): every selection distinct (one token's top-6); repeats
+# across tokens (four tokens' top-3 of 5); every selection on one expert
+# (20 rows: a task of 16 and one of 4); one selection
+_GATHER = {
+    "distinct": (8, lambda rng: _routed(rng, 1, 6, 8)),
+    "repeats": (5, lambda rng: _routed(rng, 4, 3, 5)),
+    "one_expert": (3, lambda rng: np.full(20, 1, np.int32)),
+    "single": (4, lambda rng: np.array([2], np.int32)),
+}
+
+
+def _gather_inputs(method, case, dtype, k, m, seed):
+    """A [2, E, k, m] stack (layer 1 is used), x [G, k] and idx [G]."""
+    rng = np.random.default_rng(seed)
+    e, make_idx = _GATHER[case]
+    idx = make_idx(rng)
+    w = (rng.normal(size=(2, e, k, m)) * k ** -0.5).astype(np.float32)
+    x = rng.normal(size=(len(idx), k)).astype(np.float32)
+    if dtype == "bf16":
+        x = _f32_of_bf16(x)
+    return w, x, idx
+
+
+def _gather_bound(x, deq, idx):
+    """|bf16 x[g]| @ |W[idx[g]]| for every selection: [G, M]."""
+    return np.einsum("gk,gkm->gm", np.abs(_f32_of_bf16(x)), np.abs(deq[idx]))
+
+
+def _gather_pallas(method, x, dtype, w, idx, layer):
+    """The reference's gather function and its _layered form, interpret mode."""
+    if method == "q8_0":
+        planes = jax_sq.quantize_expert_stack(w, "q8_0")
+        codes, scales = jnp.asarray(planes["codes"]), jnp.asarray(planes["scales"])
+        one = jax_dq.q8_gather_matmul(_jx(x, dtype), codes[layer], scales[layer], jnp.asarray(idx),
+                                      interpret=True)
+        layered = jax_dq.q8_gather_matmul_layered(_jx(x, dtype), codes, scales, jnp.asarray(idx),
+                                                  jnp.int32(layer), interpret=True)
+        return one, layered
+    fmt = method.replace("_", "")
+    planes = {key: jnp.asarray(v) for key, v in jax_sq.quantize_expert_stack(w, method).items()}
+    one = getattr(jax_kq, f"{fmt}_gather_matmul")(_jx(x, dtype), {key: v[layer] for key, v in planes.items()},
+                                                   jnp.asarray(idx), interpret=True)
+    layered = getattr(jax_kq, f"{fmt}_gather_matmul_layered")(_jx(x, dtype), planes, jnp.asarray(idx),
+                                                               jnp.int32(layer), interpret=True)
+    return one, layered
+
+
+def _packed_layer(method, w, layer):
+    """The port's packed planes of layer `layer` and its dequantized [E, K, M] weight."""
+    from dsocr_tpu_torch.ops.kernels import kquant_matmul
+
+    p = sq.quantize_expert_stack(torch.from_numpy(w), method)
+    packed = tuple(p[name][layer] for name, _, _ in PLANES[method])
+    if method == "q8_0":
+        codes, scales = packed
+        deq = (codes.float() * scales.repeat_interleave(32, dim=1)).to(torch.bfloat16).float()
+    else:
+        deq = getattr(kquant_matmul, f"dequant_{method.replace('_', '')}")(*packed, -2).float()
+    return packed, deq.numpy()
+
+
+@pytest.mark.parametrize("method", ["q8_0", "q4_k", "q6_k"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("case,ks", [("distinct", 1), ("repeats", 1), ("repeats", 2), ("one_expert", 1),
+                                     ("one_expert", 2), ("single", 1)])
+def test_gather_emulation_matches_pallas(method, dtype, case, ks):
+    """K 256 (4 ring stages: ks 2 gives each block of the cluster two), M 132
+    (a second slab with 4 live columns)."""
+    k, m, layer = 256, 132, 1
+    w, x, idx = _gather_inputs(method, case, dtype, k, m, len(case) + 7 * ks + len(method))
+    packed, deq = _packed_layer(method, w, layer)
+    got = emulate_gather(method, _tx(x, dtype), packed, idx, ks).numpy()
+    bound = _gather_bound(x, deq, idx)
+    for want in _gather_pallas(method, x, dtype, w, idx, layer):
+        assert got.shape == want.shape
+        assert float(np.abs(got - np.asarray(want)).max()) <= 1e-5 * float(bound.max())
+
+
+def test_gather_plan_leaders_lists_and_tiles():
+    """A block leads where its expert's earlier selections number a multiple
+    of the task's rows; its list is the next selections of that expert in
+    order; out-of-range indices have no task."""
+    idx = [3, 1, 3, -1, 1, 7, 3, 9]
+    assert gather_plan(idx, 8, 8) == [(3, [0, 2, 6], [0, 2, 6]), (1, [1, 4], [1, 4]), (7, [5], [5])]
+    assert gather_plan([2] * 20, 4, 16) == [(2, list(range(16)), list(range(16))), (2, [16, 17, 18, 19], [16, 17, 18, 19])]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_gather_row_bits_do_not_depend_on_its_tile(dtype):
+    """Selection 3's row gives the same bits alone in its tile (row 0) as
+    shared with three other selections of its expert (row 2 of 4)."""
+    k, m = 256, 128
+    w, x, _ = _gather_inputs("q8_0", "repeats", dtype, k, m, 11)
+    packed, _ = _packed_layer("q8_0", w, 1)
+    shared = np.array([1, 0, 1, 1, 2, 1], np.int32)
+    alone = np.array([2, 0, 3, 1, 2, 4], np.int32)
+    a = emulate_gather("q8_0", _tx(x[:6], dtype), packed, shared)
+    b = emulate_gather("q8_0", _tx(x[:6], dtype), packed, alone)
+    assert torch.equal(a[3], b[3])
+    assert torch.equal(a[1], b[1]) and not torch.equal(a[0], b[0])
+
+
+def test_a_wrong_row_mapping_misses_the_tolerance(monkeypatch):
+    """The check can fail: a plan that scatters each task's outputs one row
+    off its x rows misses the reference by far."""
+    import sys
+
+    k, m, layer = 256, 128, 1
+    w, x, idx = _gather_inputs("q8_0", "repeats", "f32", k, m, 5)
+    packed, deq = _packed_layer("q8_0", w, layer)
+    want, _ = _gather_pallas("q8_0", x, "f32", w, idx, layer)
+    right = gather_plan
+
+    def rotated(idx, E, br):
+        return [(e, rows_x, rows_o[1:] + rows_o[:1]) for e, rows_x, rows_o in right(idx, E, br)]
+
+    monkeypatch.setattr(sys.modules[__name__], "gather_plan", rotated)
+    bad = emulate_gather("q8_0", torch.from_numpy(x), packed, idx).numpy()
+    assert np.abs(bad - np.asarray(want)).max() > 1e-2 * float(_gather_bound(x, deq, idx).max())
 
 
 # -- the shared-memory layout: every piece has one place, and the reads of a
