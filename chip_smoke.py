@@ -44,9 +44,15 @@ non-zero (nothing is caught):
             on 8 experts of one; the paged KV write and attend (16 rows of
             ~968 tokens in 9 pages of 128 each, int8 and bf16 pools; the
             library time of the attend is SDPA over the rows' pages gathered
-            outside the timing), the megafused Q8_0 chain (one MoE layer
-            at 16 rows, tolerance megafused_tol per element, two launches
-            bit-equal, beside it the two-kernel sweep it replaces) and
+            outside the timing); the KV writes from the decoder's token,
+            slot_kv_write and paged_kv_write (int8 and bf16 caches, bf16
+            and f32 tokens with an all-zero row and rounding ties from
+            kv_tokens, every plane torch.equal to the twin's, beside them
+            route_ms: quantize_kv_int8 and the codes-in write, as the step
+            wrote before); the megafused Q8_0 chain (one MoE layer at 16,
+            11 and 32 rows, tolerance megafused_tol per element, two
+            launches bit-equal, beside it the two-kernel sweep it replaces,
+            sweep_ms) and
             gather_matmul (the split layout's expert gather, gate/up and
             down stacks at 96 and 12 rows, bf16 and f32, two launches
             bit-equal; library time index_select + bmm);
@@ -57,10 +63,13 @@ non-zero (nothing is caught):
             crop mode, after a warm-up of 2 requests × 8 tokens (the
             process's one: later bursts, each engine's first included, run
             warm). The launch counters are zeroed just before and read
-            just after; every kernel of the bf16 path must have launched.
+            just after; every kernel of the bf16 path must have launched,
+            the codes-in writes (slot_kv_update, paged_kv_update) not:
+            every burst's decode step quantizes its token in the write.
             Then the profile of that engine at 16 rows (profile_phase):
             a prefill wave and decode steps, their host and device time,
-            the largest kernels, and the host time spent in the kernel
+            the kernel launches a decode step, the largest kernels, and
+            the host time spent in the kernel
             wrappers against the rest of the step; and its tower line
             (tower_profile): the vision towers of 16 pages, device ms, the
             SAM attention's share, host ms around the synchronized call;
@@ -106,9 +115,10 @@ non-zero (nothing is caught):
 4h. serve_q8_paged   the Q8_0 engine of 4b with DSOCR_PAGED_KV=1,
             DSOCR_Q8_MEGAFUSED=1 and DSOCR_POOL_PAGES=108: 16 requests × 128
             tokens over 16 slots from a pool that holds 12 rows (9 pages of
-            128 each), so 4 requests wait for pages. paged_kv_update,
+            128 each), so 4 requests wait for pages. paged_kv_write,
             paged_decode_attention, q8_moe_megafused and q8_matmul must
-            launch, the slot kernels and the two-kernel sweep must not; the
+            launch, the slot kernels, the codes-in writes and the
+            two-kernel sweep must not; the
             line gives the pool's pages and bytes against the contiguous
             cache's, the occupancy, and how many requests' tokens equal 4b's
             (not required: megafused sums the experts in another order);
@@ -330,6 +340,31 @@ def megafused_tol(torch, x, weights, gu_codes, gu_scales, dn_codes, dn_scales):
     return (weights.abs()[:, :, None] * torch.matmul(terms, deq(dn_codes, dn_scales).abs())).sum(0) + 1e-6
 
 
+def kv_tokens(torch, qkv, NKV, D):
+    """The decoder's new K and V for a KV write from its projection qkv
+    [B, 1, 3·NKV·D]: [B, NKV, 1, D] views of it, as DeepseekDecoder._qkv
+    splits it (so not contiguous), with the quantizer's edge cases written
+    in: row 0's first head all zeros (scale 0, safe 1); row 1's first head
+    amax 127 (scale 1) and row 2's last head amax 63.5 (scale 0.5), their
+    other values on rounding ties (x / scale = k + 0.5), exact in bf16."""
+    B = qkv.shape[0]
+    _, k, v = torch.split(qkv, NKV * D, dim=-1)
+    k, v = (t.reshape(B, 1, NKV, D).transpose(1, 2) for t in (k, v))
+    d = torch.arange(D, device=qkv.device, dtype=torch.float32)
+    ties = (d % 200 - 100) + 0.5
+    ties[0] = 127.0
+    halves = ((d % 100) - 50) * 0.5 + 0.25
+    halves[0] = 63.5
+    for t, sign in ((k, 1.0), (v, -1.0)):
+        if B > 0:
+            t[0, 0, 0] = 0.0
+        if B > 1:
+            t[1, 0, 0] = sign * ties
+        if B > 2:
+            t[2, NKV - 1, 0] = sign * halves
+    return k, v
+
+
 def check_q8_kernels(torch, K, record, randn):
     """Phase 3, Q8_0: the four dequant-matmul wrappers against their twins
     at the main path's shapes, and the quantizer on the card against its
@@ -385,38 +420,50 @@ def check_q8_kernels(torch, K, record, randn):
 
 
 def check_megafused(torch, K, record, randn, gu, dn):
-    """q8_moe_megafused on one full-width MoE layer at 16 rows, routed
-    top-6 by a seeded softmax router: per-element tolerance megafused_tol,
-    two launches bit-equal; beside it the two-kernel sweep it replaces
-    (q8_dense_experts, silu·up, q8_dense_experts_perx, the combine). No
-    single PyTorch call computes the chain: no library time."""
+    """q8_moe_megafused on one full-width MoE layer at N 16 (the serving
+    step), 11 and 32 rows, routed top-6 by a seeded softmax router:
+    per-element tolerance megafused_tol, two launches bit-equal; beside it
+    the two-kernel sweep it replaces (q8_dense_experts, silu·up,
+    q8_dense_experts_perx, the combine), sweep_ms. No single PyTorch call
+    computes the chain: no library time."""
     import torch.nn.functional as F
 
-    E, N, topk = gu["codes"].shape[0], 16, 6
-    x = randn(N, gu["codes"].shape[1], dtype=torch.bfloat16)
-    weights, idx = torch.topk(torch.softmax(randn(N, E), dim=-1), topk, dim=-1)
-    w = torch.zeros((E, N), device=x.device).index_put_(
-        (idx.reshape(-1), torch.arange(N, device=x.device).repeat_interleave(topk)),
-        weights.reshape(-1), accumulate=True)
-    args = (x, w, gu["codes"], gu["scales"], dn["codes"], dn["scales"])
-    out = K.q8_moe_megafused(*args)
-    again = K.q8_moe_megafused(*args)
-    require(torch.equal(out, again), "q8_moe_megafused: two launches on the same inputs differ")
-    ref = K.q8_moe_megafused_plain(*args)
-    tol = megafused_tol(torch, *args)
-    require(bool(((out - ref).abs() <= tol).all()), "q8_moe_megafused: outside the per-element tolerance")
+    from dsocr_tpu_torch.ops.kernels import dequant_matmul
 
-    def sweep():
-        gates, ups = torch.chunk(K.q8_dense_experts(x, gu["codes"], gu["scales"]), 2, dim=-1)
-        outs = K.q8_dense_experts_perx((F.silu(gates) * ups).to(x.dtype), dn["codes"], dn["scales"])
-        sel = outs[idx, torch.arange(N, device=x.device)[:, None]]
-        return (sel * weights[..., None]).sum(dim=1)
+    def occupancy(*shape):  # what the card holds of the launch (None from a tree that cannot say)
+        query = getattr(dequant_matmul, "q8_moe_megafused_occupancy", None)
+        return query(*shape) if query else None
 
-    record("q8_moe_megafused", f"N={N} E={E} H=1280 MI=896 top-{topk}", float((out - ref).abs().max()),
-           float(tol.max()), time_ms(lambda: K.q8_moe_megafused(*args)),
-           time_ms(lambda: K.q8_moe_megafused_plain(*args)), None,
-           bound(nbytes(*args, out), 2 * E * N * (1280 * 1792 + 896 * 1280), "bf16"),
-           sweep_ms=time_ms(sweep), deterministic=True)
+    E, topk = gu["codes"].shape[0], 6
+    H, MI = gu["codes"].shape[1], dn["codes"].shape[1]
+    for N in (16, 11, 32):
+        x = randn(N, H, dtype=torch.bfloat16)
+        weights, idx = torch.topk(torch.softmax(randn(N, E), dim=-1), topk, dim=-1)
+        w = torch.zeros((E, N), device=x.device).index_put_(
+            (idx.reshape(-1), torch.arange(N, device=x.device).repeat_interleave(topk)),
+            weights.reshape(-1), accumulate=True)
+        args = (x, w, gu["codes"], gu["scales"], dn["codes"], dn["scales"])
+        out = K.q8_moe_megafused(*args)
+        again = K.q8_moe_megafused(*args)
+        require(torch.equal(out, again), f"q8_moe_megafused N={N}: two launches on the same inputs differ")
+        ref = K.q8_moe_megafused_plain(*args)
+        tol = megafused_tol(torch, *args)
+        require(bool(((out - ref).abs() <= tol).all()),
+                f"q8_moe_megafused N={N}: outside the per-element tolerance")
+
+        def sweep():
+            gates, ups = torch.chunk(K.q8_dense_experts(x, gu["codes"], gu["scales"]), 2, dim=-1)
+            outs = K.q8_dense_experts_perx((F.silu(gates) * ups).to(x.dtype), dn["codes"], dn["scales"])
+            sel = outs[idx, torch.arange(N, device=x.device)[:, None]]
+            return (sel * weights[..., None]).sum(dim=1)
+
+        record("q8_moe_megafused", f"N={N} E={E} H={H} MI={MI} top-{topk}", float((out - ref).abs().max()),
+               float(tol.max()), time_ms(lambda: K.q8_moe_megafused(*args)),
+               time_ms(lambda: K.q8_moe_megafused_plain(*args)), None,
+               bound(nbytes(*args, out), 2 * E * N * (H * 2 * MI + MI * H), "bf16"),
+               sweep_ms=time_ms(sweep), deterministic=True,
+               clusters_resident_blocks_per_sm=occupancy(N, H, MI, E))
+        del out, again, ref, tol
 
 
 # the gather tier's draws timed in phase 3, (selections, top-6 sets): a
@@ -687,6 +734,7 @@ def check_kernels(torch, K):
         check_slot_attend(torch, K, record, randn, q=randn(B, 10, 1, D, dtype=torch.bfloat16),
                           caches=caches, layer=layer, lengths=lengths, case=f"{kind} B={B} S={S}")
     del k_all, v_all, ks_all, vs_all, caches, twins
+    check_kv_writes(torch, K, record, randn, "slot", (L, B, NKV, S), D, lengths, layer)
     # the serving step (16 rows of the page's packet, 904 prompt tokens and
     # up to 128 new, in a 1536-position slot cache), then rows that end on
     # either side of a split boundary, and a row of one position
@@ -729,6 +777,59 @@ def check_kernels(torch, K):
         check_sam(bh, s, launch_gen)
         torch.cuda.empty_cache()
     return cases
+
+
+def check_kv_writes(torch, K, record, randn, layout, lead, D, lengths, layer, tables=None):
+    """The KV writes from the decoder's token (slot_kv_write or
+    paged_kv_write: the int8 quantization in the kernel's body) on caches
+    of shape `lead` + [D] (slot [L, B, NKV, S], paged [L, P, NKV, page]),
+    int8 and bf16, tokens bf16 (the model's) and f32 from kv_tokens (the
+    projection's views, an all-zero row and rounding ties): every plane
+    torch.equal to the twin's (quantize_kv_int8, or the cast, then the
+    plain write) on the same card. Beside the kernel's time, route_ms: the
+    decode step's write before the kernel quantized, quantize_kv_int8 on K
+    and V (about 11 PyTorch launches each) and the codes-in kernel
+    (slot_kv_update / paged_kv_update). Bound: the token read once, the
+    codes (or values), scales and the row map's int32s written or read
+    once. No single PyTorch call does the write: no library time."""
+    from dsocr_tpu_torch.ops.attention import quantize_kv_int8
+
+    dev = "cuda"
+    B, NKV = lengths.shape[0], lead[2]
+    write = getattr(K, f"{layout}_kv_write")
+    twin = getattr(K, f"{layout}_kv_write_plain")
+    update = getattr(K, f"{layout}_kv_update")
+    where = (layer, lengths) if tables is None else (tables, lengths, layer)
+    for kind, token in (("int8", torch.bfloat16), ("bf16", torch.bfloat16), ("int8", torch.float32)):
+        if kind == "int8":
+            caches = [torch.randint(-127, 128, (*lead, D), device=dev, dtype=torch.int8) for _ in range(2)]
+            caches += [randn(*lead).abs() * 0.02 for _ in range(2)]
+        else:
+            caches = [randn(*lead, D, dtype=torch.bfloat16) for _ in range(2)] + [None, None]
+        twins = [None if c is None else c.clone() for c in caches]
+        k, v = kv_tokens(torch, randn(B, 1, 3 * NKV * D, dtype=token), NKV, D)
+        write(*caches, k, v, *where)
+        twin(*twins, k, v, *where)
+        same = all(a is None or torch.equal(a, b) for a, b in zip(caches, twins))
+        del twins
+
+        def route():
+            if kind == "int8":
+                (kq, ks), (vq, vs) = quantize_kv_int8(k[:, :, 0]), quantize_kv_int8(v[:, :, 0])
+                new = (kq, vq, ks, vs)
+            else:
+                new = (k[:, :, 0].to(caches[0].dtype).contiguous(), v[:, :, 0].to(caches[0].dtype).contiguous(),
+                       None, None)
+            update(*caches, *new, *where)
+
+        written = 2 * B * NKV * (D * caches[0].element_size() + (4 if kind == "int8" else 0))
+        map_bytes = nbytes(lengths) + (nbytes(tables) if tables is not None else 0)
+        record(f"{layout}_kv_write", f"{kind} cache, {str(token)[6:]} token B={B} {layout} {list(lead)}",
+               0.0 if same else float("inf"), 0.0,
+               time_ms(lambda: write(*caches, k, v, *where)), time_ms(lambda: twin(*caches, k, v, *where)),
+               None, bound(2 * B * NKV * D * k.element_size() + written + map_bytes, 0, "bf16"),
+               route_ms=time_ms(route), bit_exact=same)
+        del caches
 
 
 def check_slot_attend(torch, K, record, randn, *, q, caches, layer, lengths, case):
@@ -871,6 +972,9 @@ def check_paged_kernels(torch, K, record, randn, gen):
                deterministic=True)
         del pools, new
         torch.cuda.empty_cache()
+    # a row without a page writes nothing: the last row's table is emptied
+    tables[-1] = -1
+    check_kv_writes(torch, K, record, randn, "paged", (L, P, NKV, page), D, lengths, layer, tables=tables)
 
 
 def seeded_page():
@@ -1340,7 +1444,8 @@ def profile_phase(torch, K, engine, pre, paged=False, towers=False):
     SlotRunner.run_chunk, or with `paged` a PagedSlotRunner over a pool
     of 16 × 12 pages, greedy with the 20-gram ban: host ms per step,
     median of 4 windows of 16 steps). Then one wave and 4 steps under
-    torch.profiler (device ms, busy share, largest kernels), and 16 steps
+    torch.profiler (device ms, busy share, kernel launches a step: the
+    kernel events' count, largest kernels), and 16 steps
     with every kernel wrapper timed on the host: the host ms per step
     inside the wrappers against the rest of the step. `seconds` gives the
     wall seconds of each part. With `towers`, tower_profile's line
@@ -1397,8 +1502,10 @@ def profile_phase(torch, K, engine, pre, paged=False, towers=False):
     windows = [host_ms(lambda: chunk(window), window) for _ in range(4)]
     line["decode_step_ms"], line["decode_step_ms_windows"] = statistics.median(windows), windows
     t1 = time.perf_counter()
-    line["step_device_ms"], traced_ms, line["step_top"] = traced(torch, lambda: chunk(4), 4)
+    step_events = []
+    line["step_device_ms"], traced_ms, line["step_top"] = traced(torch, lambda: chunk(4), 4, step_events)
     line["step_busy_share"] = line["step_device_ms"] / traced_ms
+    line["step_launches"] = sum(e.count for e in step_events) / 4  # kernel events a step
     seconds.update(join_and_steps=t1 - t0, traced_steps=time.perf_counter() - t1)
     t1 = time.perf_counter()
     K.reset_launches()
@@ -1417,6 +1524,15 @@ def profile_phase(torch, K, engine, pre, paged=False, towers=False):
             "the profiler saw no device time")
     if towers:
         tower_profile(torch, K, engine)
+
+
+def profile_packet(torch, K, engine, paged=False):
+    """profile_phase on the seeded page's packet, without a burst before it
+    (serve_ab.py --profiles)."""
+    _, _, tokens, mask, emb = page_packet(engine)
+    pre = engine._prefill_rows([(tokens, mask, [emb])])[0]
+    del emb
+    profile_phase(torch, K, engine, pre, paged=paged)
 
 
 def full_width_engine(torch, quantize=None):
@@ -1522,7 +1638,7 @@ def parity_phase(torch):
         counts = K.launch_counts()
         result[f"{key}_equal"] = tokens["cpu"] == tokens["cuda"]
         result[f"{key}_launches"] = {name: counts[name] for name in
-                                     ("q8_moe_megafused", "paged_kv_update", "paged_decode_attention")}
+                                     ("q8_moe_megafused", "paged_kv_write", "paged_decode_attention")}
         result[f"{key}_max_occupancy"] = max(sched.batch_sizes)
         require(all(result[f"{key}_launches"].values()), f"{key}: a paged or megafused kernel did not run")
         require(not pool or max(sched.batch_sizes) <= int(pool), f"{key}: more rows than the pool holds")
@@ -1573,11 +1689,15 @@ def main() -> int:
           "load_s": time.perf_counter() - t0, "library": os.path.relpath(_lib.build_info["path"], HERE)})
 
     cases = check_kernels(torch, K)
-    slot = ["slot_kv_update", "slot_decode_attention"]
+    slot = ["slot_kv_write", "slot_decode_attention"]
+    # the codes-in writes of the reference's contract: phase 3 only, since
+    # the decode step's writes quantize the token themselves
+    codes_in = ["slot_kv_update", "paged_kv_update"]
     attention = ["sam_flash_attention", "flash_prefill_attention"] + slot
     engine = full_width_engine(torch)
     bursts = [serving_phase(torch, K, "serve", engine, n_requests=N_REQUESTS, n_slots=N_SLOTS,
-                            max_new=MAX_NEW, required=attention, profile=True, towers=True)[0]]
+                            max_new=MAX_NEW, required=attention, unused=codes_in, profile=True,
+                            towers=True)[0]]
     bursts.append(split_phase(torch, K, engine))
     prefill = ["sam_flash_attention", "flash_prefill_attention"]
     bursts.append(decode_phase(torch, K, engine, smi, required=prefill))
@@ -1588,7 +1708,7 @@ def main() -> int:
     sweep = ["q8_dense_experts", "q8_dense_experts_perx"]
     launches, q8_tokens = serving_phase(
         torch, K, "serve_q8", engine, n_requests=N_REQUESTS, n_slots=N_SLOTS, max_new=MAX_NEW,
-        required=attention + ["q8_matmul"] + sweep, warmup=False, profile=True)
+        required=attention + ["q8_matmul"] + sweep, unused=codes_in, warmup=False, profile=True)
     bursts.append(launches)
     bursts.append(serving_phase(
         torch, K, "serve_q8_gather", engine, n_requests=4, n_slots=4, max_new=32,
@@ -1600,9 +1720,9 @@ def main() -> int:
     with environ(DSOCR_PAGED_KV="1", DSOCR_Q8_MEGAFUSED="1", DSOCR_POOL_PAGES="108"):
         bursts.append(serving_phase(
             torch, K, "serve_q8_paged", engine, n_requests=N_REQUESTS, n_slots=N_SLOTS,
-            max_new=MAX_NEW, required=["paged_kv_update", "paged_decode_attention",
+            max_new=MAX_NEW, required=["paged_kv_write", "paged_decode_attention",
                                        "q8_moe_megafused", "q8_matmul"],
-            unused=slot + sweep, warmup=False, profile=True, same_as=q8_tokens)[0])
+            unused=slot + sweep + codes_in, warmup=False, profile=True, same_as=q8_tokens)[0])
     del engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -1610,7 +1730,7 @@ def main() -> int:
     bursts.append(serving_phase(
         torch, K, "serve_q4k", engine, n_requests=N_REQUESTS, n_slots=N_SLOTS, max_new=MAX_NEW,
         required=attention + ["q4k_matmul", "q4k_dense_experts", "q8_dense_experts_perx"],
-        warmup=False, profile=True)[0])
+        unused=codes_in, warmup=False, profile=True)[0])
     bursts.append(serving_phase(
         torch, K, "serve_q4k_gather", engine, n_requests=4, n_slots=4, max_new=32,
         required=["q4k_gather_matmul", "q8_gather_matmul"], warmup=False, trace_gather=True)[0])
@@ -1621,7 +1741,7 @@ def main() -> int:
     bursts.append(serving_phase(
         torch, K, "serve_q6k", engine, n_requests=N_REQUESTS, n_slots=N_SLOTS, max_new=MAX_NEW,
         required=attention + ["q6k_matmul", "q6k_dense_experts", "q8_dense_experts_perx"],
-        warmup=False, profile=True)[0])
+        unused=codes_in, warmup=False, profile=True)[0])
     bursts.append(serving_phase(
         torch, K, "serve_q6k_gather", engine, n_requests=4, n_slots=4, max_new=32,
         required=["q6k_gather_matmul", "q8_gather_matmul"], warmup=False, trace_gather=True)[0])

@@ -20,6 +20,8 @@
 
 #include <math.h>
 
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace dsocr {
@@ -59,59 +61,138 @@ struct PagedRows {
 };
 
 // ---- the KV write ---------------------------------------------------------
-// Grid (B, NKV), one thread per element of D. Copies row b's new token (bit
-// for bit, whatever its element type: E is an unsigned type of its size)
-// into the cache row that holds position lengths[b]; a row that holds no
-// such position writes nothing.
-template <typename E, typename Map>
-__global__ void kv_write_kernel(E* k, E* v, float* ks, float* vs, const E* kn, const E* vn,
-                                const float* ksn, const float* vsn, int NKV, int D, int Dv,
-                                Map map) {
-  const int b = blockIdx.x, h = blockIdx.y;
+// One warp per (row, head) and plane (warp 0 of a block K, warp 1 V): row
+// b's new token goes into the cache row that holds position lengths[b]; a
+// row that holds no such position writes nothing. Its source row is
+// kn + b · kb + h · kh (elements; D contiguous), so the decoder's K and V
+// come as the views its projection leaves, with no copy. Three modes of
+// one body:
+//
+//   QUANT   TI f32 or bf16, TC int8: the token is quantized here, as the
+//           reference's quantize_kv_int8 does before its write: amax by
+//           warp max (order-free, so exact), scale = amax / 127 (IEEE
+//           division: the build has no fast-math), safe = scale where > 0
+//           else 1, code = int8(clamp(rint(x / safe), -127, 127)), round
+//           half to even. D ≤ 128: four values a lane. Codes and scale go
+//           to the map's row.
+//   convert TI f32 or bf16, TC f32 or bf16: the token in the cache's type
+//           (round to nearest even, as .to(dtype)).
+//   copy    TI = TC, an unsigned type of the element's size: bits as they
+//           are, the scales ksn/vsn [B, NKV] beside them where the cache
+//           has scale planes (the reference's Pallas contract: codes and
+//           scales quantized by the caller).
+template <typename TI, typename TC, bool QUANT, typename Map>
+__global__ void __launch_bounds__(64) kv_write_kernel(TC* k, TC* v, float* ks, float* vs, const TI* kn,
+                                                      const TI* vn, const float* ksn, const float* vsn,
+                                                      long long kb, long long kh, long long vb, long long vh,
+                                                      int NKV, int D, int Dv, Map map) {
+  const int b = blockIdx.x, h = blockIdx.y, lane = threadIdx.x % 32;
+  const bool is_v = threadIdx.x >= 32;
   const long long dst = map.row(b, h, map.lengths[b]);
   if (dst < 0) return;
-  const size_t src = (size_t)b * NKV + h;
-  for (int d = threadIdx.x; d < D; d += blockDim.x) k[dst * D + d] = kn[src * D + d];
-  for (int d = threadIdx.x; d < Dv; d += blockDim.x) v[dst * Dv + d] = vn[src * Dv + d];
-  if (ks != nullptr && threadIdx.x == 0) {
-    ks[dst] = ksn[src];
-    vs[dst] = vsn[src];
+  const int n = is_v ? Dv : D;
+  const TI* src = is_v ? vn + b * vb + h * vh : kn + b * kb + h * kh;
+  TC* out = (is_v ? v : k) + dst * n;
+  if constexpr (QUANT) {
+    float x[4];
+    float amax = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int d = 4 * lane + i;
+      x[i] = d < n ? to_f32(src[d]) : 0.f;
+      amax = fmaxf(amax, fabsf(x[i]));
+    }
+    amax = warp_max(amax);
+    const float scale = amax / 127.0f;
+    const float safe = scale > 0.f ? scale : 1.0f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int d = 4 * lane + i;
+      if (d < n) out[d] = (TC)fminf(fmaxf(rintf(x[i] / safe), -127.f), 127.f);
+    }
+    if (lane == 0) (is_v ? vs : ks)[dst] = scale;
+  } else {
+    for (int d = lane; d < n; d += 32) {
+      if constexpr (std::is_same<TI, TC>::value) {
+        out[d] = src[d];
+      } else {
+        out[d] = from_f32<TC>(to_f32(src[d]));
+      }
+    }
+    if (ks != nullptr && lane == 0) (is_v ? vs : ks)[dst] = (is_v ? vsn : ksn)[(size_t)b * NKV + h];
   }
 }
 
+template <typename TI, typename TC, bool QUANT, typename Map>
+cudaError_t launch_kv_write_as(void* k, void* v, void* ks, void* vs, const void* kn, const void* vn,
+                               const void* ksn, const void* vsn, long long kb, long long kh, long long vb,
+                               long long vh, int B, int NKV, int D, int Dv, Map map, cudaStream_t st) {
+  kv_write_kernel<TI, TC, QUANT, Map><<<dim3(B, NKV), 64, 0, st>>>(
+      static_cast<TC*>(k), static_cast<TC*>(v), static_cast<float*>(ks), static_cast<float*>(vs),
+      static_cast<const TI*>(kn), static_cast<const TI*>(vn), static_cast<const float*>(ksn),
+      static_cast<const float*>(vsn), kb, kh, vb, vh, NKV, D, Dv, map);
+  return cudaGetLastError();
+}
+
+// The reference's contract: k_new/v_new [B, NKV, D|Dv] already in the
+// cache's type (int8 codes with their scales ksn/vsn), copied bit for bit.
 template <typename Map>
 cudaError_t launch_kv_write(void* k, void* v, void* ks, void* vs, const void* kn, const void* vn,
                             const void* ksn, const void* vsn, int B, int NKV, int D, int Dv,
                             int esize, Map map, cudaStream_t st) {
-  const dim3 grid(B, NKV);
-  const int threads = 128;
-  float* ksf = static_cast<float*>(ks);
-  float* vsf = static_cast<float*>(vs);
-  const float* ksnf = static_cast<const float*>(ksn);
-  const float* vsnf = static_cast<const float*>(vsn);
+  const long long kb = (long long)NKV * D, vb = (long long)NKV * Dv;
   switch (esize) {
     case 1:
-      kv_write_kernel<uint8_t, Map><<<grid, threads, 0, st>>>(
-          static_cast<uint8_t*>(k), static_cast<uint8_t*>(v), ksf, vsf,
-          static_cast<const uint8_t*>(kn), static_cast<const uint8_t*>(vn), ksnf, vsnf, NKV, D,
-          Dv, map);
-      break;
+      return launch_kv_write_as<uint8_t, uint8_t, false>(k, v, ks, vs, kn, vn, ksn, vsn, kb, D, vb, Dv, B, NKV,
+                                                         D, Dv, map, st);
     case 2:
-      kv_write_kernel<uint16_t, Map><<<grid, threads, 0, st>>>(
-          static_cast<uint16_t*>(k), static_cast<uint16_t*>(v), ksf, vsf,
-          static_cast<const uint16_t*>(kn), static_cast<const uint16_t*>(vn), ksnf, vsnf, NKV, D,
-          Dv, map);
-      break;
+      return launch_kv_write_as<uint16_t, uint16_t, false>(k, v, ks, vs, kn, vn, ksn, vsn, kb, D, vb, Dv, B,
+                                                           NKV, D, Dv, map, st);
     case 4:
-      kv_write_kernel<uint32_t, Map><<<grid, threads, 0, st>>>(
-          static_cast<uint32_t*>(k), static_cast<uint32_t*>(v), ksf, vsf,
-          static_cast<const uint32_t*>(kn), static_cast<const uint32_t*>(vn), ksnf, vsnf, NKV, D,
-          Dv, map);
-      break;
+      return launch_kv_write_as<uint32_t, uint32_t, false>(k, v, ks, vs, kn, vn, ksn, vsn, kb, D, vb, Dv, B,
+                                                           NKV, D, Dv, map, st);
     default:
       return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
+}
+
+// The token as the decoder leaves it, in_dtype f32 or bf16 at strides
+// (kb, kh), (vb, vh): quantized for an int8 cache (cache_dtype kI8, ks and
+// vs its scale planes), else converted to the cache's f32 or bf16.
+template <typename TI, typename Map>
+cudaError_t launch_kv_write_token_from(void* k, void* v, void* ks, void* vs, const void* kn, const void* vn,
+                                       long long kb, long long kh, long long vb, long long vh, int B, int NKV,
+                                       int D, int Dv, int cache_dtype, Map map, cudaStream_t st) {
+  switch (cache_dtype) {
+    case kI8:
+      if (D > 128 || Dv > 128 || ks == nullptr || vs == nullptr) return cudaErrorInvalidValue;
+      return launch_kv_write_as<TI, int8_t, true>(k, v, ks, vs, kn, vn, nullptr, nullptr, kb, kh, vb, vh, B, NKV,
+                                                  D, Dv, map, st);
+    case kF32:
+      return launch_kv_write_as<TI, float, false>(k, v, nullptr, nullptr, kn, vn, nullptr, nullptr, kb, kh, vb,
+                                                  vh, B, NKV, D, Dv, map, st);
+    case kBF16:
+      return launch_kv_write_as<TI, __nv_bfloat16, false>(k, v, nullptr, nullptr, kn, vn, nullptr, nullptr, kb,
+                                                          kh, vb, vh, B, NKV, D, Dv, map, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <typename Map>
+cudaError_t launch_kv_write_token(void* k, void* v, void* ks, void* vs, const void* kn, const void* vn,
+                                  long long kb, long long kh, long long vb, long long vh, int B, int NKV, int D,
+                                  int Dv, int in_dtype, int cache_dtype, Map map, cudaStream_t st) {
+  switch (in_dtype) {
+    case kF32:
+      return launch_kv_write_token_from<float>(k, v, ks, vs, kn, vn, kb, kh, vb, vh, B, NKV, D, Dv, cache_dtype,
+                                               map, st);
+    case kBF16:
+      return launch_kv_write_token_from<__nv_bfloat16>(k, v, ks, vs, kn, vn, kb, kh, vb, vh, B, NKV, D, Dv,
+                                                       cache_dtype, map, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // ---- the decode attend ------------------------------------------------------

@@ -52,9 +52,12 @@ def quantize_kv_int8(x: torch.Tensor):
     """[..., S, D] → (codes int8, scale f32 [..., S]): symmetric per-token
     max-abs scaling, round half to even, safe scale 1.0 where amax is 0.
     Bit-exact with the reference (torch.round and jnp.round both round
-    half to even)."""
+    half to even), on the card too: the divisor is a tensor, since
+    PyTorch's CUDA division by a Python number multiplies by its
+    reciprocal, which moves some scales by an ulp."""
     x32 = x.float()
-    scale = x32.abs().amax(dim=-1) / 127.0
+    amax = x32.abs().amax(dim=-1)
+    scale = amax / amax.new_full((), 127.0)
     safe = torch.where(scale > 0, scale, torch.ones_like(scale))
     codes = torch.round(x32 / safe[..., None]).clamp(-127, 127).to(torch.int8)
     return codes, scale
@@ -88,18 +91,6 @@ def attention_kv_int8(
     return out.reshape(B, NH, Sq, Dv).transpose(1, 2).reshape(B, Sq, NH * Dv).to(q.dtype)
 
 
-def _new_kv(k: torch.Tensor, v: torch.Tensor, kv_dtype: torch.dtype, quant: bool):
-    """The new token's (k, v, k scale, v scale) as the cache stores them:
-    [B, H_kv, D] codes and [B, H_kv] scales for an int8 cache, else the
-    cache dtype and no scales."""
-    if quant:
-        k_q, k_s = quantize_kv_int8(k)
-        v_q, v_s = quantize_kv_int8(v)
-        return (k_q[:, :, 0].contiguous(), v_q[:, :, 0].contiguous(),
-                k_s[:, :, 0].contiguous(), v_s[:, :, 0].contiguous())
-    return k[:, :, 0].to(kv_dtype).contiguous(), v[:, :, 0].to(kv_dtype).contiguous(), None, None
-
-
 def slot_kv_write_attend(
     q: torch.Tensor,  # [B, NH, 1, D]
     k: torch.Tensor,  # [B, H_kv, 1, D] new token K (model dtype)
@@ -115,16 +106,16 @@ def slot_kv_write_attend(
     """Write row r's new K/V at row_lengths[r] of `layer` (in place) and
     attend over [0, row_lengths[r]] of that layer → [B, 1, NH*Dv].
 
-    With scale planes the caches hold int8 codes plus per-token scales
-    and the new token is quantized first. Both steps go through the slot
-    kernels (ops/kernels/slot_attention.py): the CUDA kernels on the
-    card, their plain twins on the CPU."""
-    from .kernels import slot_decode_attention, slot_kv_update
+    With scale planes the caches hold int8 codes plus per-token scales,
+    and the write quantizes the new token itself (in its kernel on the
+    card). Both steps go through the slot kernels
+    (ops/kernels/slot_attention.py): the CUDA kernels on the card, their
+    plain twins on the CPU."""
+    from .kernels import slot_decode_attention, slot_kv_write
 
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
-    new = _new_kv(k, v, k_all.dtype, ks_all is not None)
-    slot_kv_update(k_all, v_all, ks_all, vs_all, *new, layer, row_lengths)
+    slot_kv_write(k_all, v_all, ks_all, vs_all, k, v, layer, row_lengths)
     return slot_decode_attention(
         q.contiguous(), k_all, v_all, ks_all, vs_all, layer, row_lengths, scale=scale
     )
@@ -147,11 +138,11 @@ def paged_kv_write_attend(
     at position row_lengths[r] through its page table (in place), then
     attend [0, row_lengths[r]] → [B, 1, NH*Dv] in q's dtype. As in the
     reference, the attend takes q in f32 and returns f32. Both steps go
-    through the paged kernels (ops/kernels/paged_attention.py)."""
-    from .kernels import paged_decode_attention, paged_kv_update
+    through the paged kernels (ops/kernels/paged_attention.py); the write
+    quantizes the new token itself for an int8 pool."""
+    from .kernels import paged_decode_attention, paged_kv_write
 
-    new = _new_kv(k, v, k_pool.dtype, ks_pool is not None)
-    paged_kv_update(k_pool, v_pool, ks_pool, vs_pool, *new, tables, row_lengths, layer)
+    paged_kv_write(k_pool, v_pool, ks_pool, vs_pool, k, v, tables, row_lengths, layer)
     ctx = paged_decode_attention(q[:, :, 0].float().contiguous(), k_pool, v_pool, ks_pool,
                                  vs_pool, tables, row_lengths, layer, scale=scale)
     return ctx[:, None].to(q.dtype)

@@ -43,6 +43,8 @@ from .paged_attention import (
     paged_decode_attention_plain,
     paged_kv_update,
     paged_kv_update_plain,
+    paged_kv_write,
+    paged_kv_write_plain,
 )
 from .prefill_attention import flash_prefill_attention, flash_prefill_attention_plain
 from .sam_attention import sam_flash_attention, sam_flash_attention_plain
@@ -51,11 +53,14 @@ from .slot_attention import (
     slot_decode_attention_plain,
     slot_kv_update,
     slot_kv_update_plain,
+    slot_kv_write,
+    slot_kv_write_plain,
 )
 
 _DQ = "dsocr_tpu/ops/pallas/dequant_matmul.py"
 _KQ = "dsocr_tpu/ops/pallas/kquant_matmul.py"
 _PA = "dsocr_tpu/ops/pallas/paged_attention.py"
+_QKV = "dsocr_tpu/ops/attention.py:83 (quantize_kv_int8, XLA)"
 
 # (wrapper, source, replaced TPU kernels' pallas_call sites)
 KERNELS = (
@@ -65,6 +70,8 @@ KERNELS = (
      "dsocr_tpu/ops/pallas/prefill_attention.py:101"),
     (slot_kv_update, "dsocr_tpu_torch/csrc/slot_attention.cu",
      "dsocr_tpu/ops/pallas/slot_attention.py:278"),
+    (slot_kv_write, "dsocr_tpu_torch/csrc/slot_attention.cu",
+     f"dsocr_tpu/ops/pallas/slot_attention.py:278 (slot_kv_update), {_QKV}"),
     (slot_decode_attention, "dsocr_tpu_torch/csrc/slot_attention.cu",
      "dsocr_tpu/ops/pallas/slot_attention.py:436"),
     (q8_matmul, "dsocr_tpu_torch/csrc/row_matmul.cu",
@@ -94,6 +101,7 @@ KERNELS = (
     (q8_moe_megafused, "dsocr_tpu_torch/csrc/moe_megafused.cu",
      f"{_DQ}:669 (q8_moe_megafused_layered)"),
     (paged_kv_update, "dsocr_tpu_torch/csrc/paged_attention.cu", f"{_PA}:312"),
+    (paged_kv_write, "dsocr_tpu_torch/csrc/paged_attention.cu", f"{_PA}:312 (paged_kv_update), {_QKV}"),
     (paged_decode_attention, "dsocr_tpu_torch/csrc/paged_attention.cu", f"{_PA}:158"),
     (gather_matmul, "dsocr_tpu_torch/csrc/gather_matmul.cu",
      "dsocr_tpu/ops/pallas/gather_matmul.py:86"),
@@ -120,6 +128,8 @@ __all__ = [
     "paged_decode_attention_plain",
     "paged_kv_update",
     "paged_kv_update_plain",
+    "paged_kv_write",
+    "paged_kv_write_plain",
     "q4k_dense_experts",
     "q4k_dense_experts_perx",
     "q4k_dense_experts_perx_plain",
@@ -153,4 +163,6 @@ __all__ = [
     "slot_decode_attention_plain",
     "slot_kv_update",
     "slot_kv_update_plain",
+    "slot_kv_write",
+    "slot_kv_write_plain",
 ]

@@ -46,12 +46,14 @@ _SIGNATURES = {
     "dsocr_sam_flash_attention": [_P] * 6 + [_I] * 6 + [_P],
     "dsocr_flash_prefill_attention": [_P] * 5 + [_I] * 6 + [_F, _I, _P],
     "dsocr_slot_kv_update": [_P] * 9 + [_I] * 6 + [_P],
+    "dsocr_slot_kv_write": [_P] * 7 + [_L] * 4 + [_I] * 7 + [_P],
     "dsocr_slot_decode_attention": [_P] * 8 + [_I] * 6 + [_F, _I, _I, _I, _P],
     "dsocr_paged_kv_update": [_P] * 10 + [_I] * 8 + [_P],
+    "dsocr_paged_kv_write": [_P] * 8 + [_L] * 4 + [_I] * 9 + [_P],
     "dsocr_paged_decode_attention": [_P] * 9 + [_I] * 8 + [_F, _I, _I, _P],
     "dsocr_row_matmul": [_I] + [_P] * 6 + [_I] * 4 + [_P],
     "dsocr_q8_expert_matmul": [_P] * 5 + [_I] * 5 + [_L, _I, _P],
-    "dsocr_q8_moe_megafused": [_P] * 8 + [_I] * 5 + [_P],
+    "dsocr_q8_moe_megafused": [_P] * 8 + [_I] * 5 + [_P, _P],
     "dsocr_q4k_expert_matmul": [_P] * 6 + [_I] * 5 + [_L, _I, _P],
     "dsocr_q6k_expert_matmul": [_P] * 6 + [_I] * 5 + [_L, _I, _P],
     "dsocr_gather_matmul": [_P] * 4 + [_I] * 6 + [_P],

@@ -23,9 +23,9 @@ a function and its ``_layered`` twin):
 - ``q8_dense_experts_perx`` ← q8_dense_experts_perx_layered (:495):
   ``out[e] = x[e] @ W[e]``; the down projection of that sweep.
 - ``q8_moe_megafused`` ← q8_moe_megafused_layered (:629), in
-  csrc/moe_megafused.cu: the dense tier's whole expert chain in one
-  kernel, ``out[n] = Σ_e w[e, n] · (silu(x@Wg[e]) · (x@Wu[e])) @ Wd[e]``,
-  under ``DSOCR_Q8_MEGAFUSED=1`` (ops/moe.py).
+  csrc/moe_megafused.cu on the sweep's body: the dense tier's whole
+  expert chain in one kernel, ``out[n] = Σ_e w[e, n] · (silu(x@Wg[e]) ·
+  (x@Wu[e])) @ Wd[e]``, under ``DSOCR_Q8_MEGAFUSED=1`` (ops/moe.py).
 
 Numerics are the reference's ("fast" expand mode): the weight is
 bf16(f32(code) · scale), rounded once per element; the activation is
@@ -69,16 +69,22 @@ What bounds them on the H100, and what the designs do about it:
 - the megafused chain is device-memory bytes too: one MoE layer's
   gate+up and down codes and scales, 146.8 + 18.4 + 73.4 + 9.2 ≈ 248 MB,
   ≥ 0.074 ms at 3.35 TB/s, against the two-kernel sweep's extra [E, N,
-  2·MI] and [E, N, H] f32 round trips and its combine. A cluster of two
-  blocks serves one expert (128 blocks on 132 SMs); each streams 64-row
-  code tiles through a 5-stage cp.async ring, so one block keeps ~45 KB
-  in flight, and the pair trades its halves of inter through distributed
-  shared memory. Per-expert f32 partials [E, N, H] (5.2 MB at full width)
-  are summed in expert order by a second small kernel: two launches on the
-  same inputs give the same bits.
+  2·MI] and [E, N, H] f32 round trips and its combine. It runs on the
+  sweep's body (csrc/moe_megafused.cu over csrc/expert_sweep.cuh): a
+  cluster of blocks serves one expert, each taking a share of its inter
+  chunks (64 gate columns beside the 64 matching up columns, so a lane's
+  C fragments hold gate and up of one column and bf16(silu(g)·u) forms in
+  registers) and then a share of its output slabs, whose stages read the
+  inter chunk they multiply from the block that owns it through
+  distributed shared memory; one ring of stages runs through both phases.
+  Per-expert f32 partials [E, N, H] (5.2 MB at full width) are summed in
+  expert order by a second small kernel: two launches on the same inputs
+  give the same bits.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 import torch.nn.functional as F
@@ -268,11 +274,11 @@ def q8_moe_megafused(x, weights, gu_codes, gu_scales, dn_codes, dn_scales):
     out = torch.empty((N, H), dtype=torch.float32, device=x.device)
     if N == 0:
         return out
-    partial = torch.empty((E, N, H), dtype=torch.float32, device=x.device)
+    partial = torch.empty((E, 2, N, H), dtype=torch.float32, device=x.device)
     err = _lib.lib().dsocr_q8_moe_megafused(
         x.data_ptr(), weights.data_ptr(), gu_codes.data_ptr(), gu_scales.data_ptr(),
         dn_codes.data_ptr(), dn_scales.data_ptr(), partial.data_ptr(), out.data_ptr(),
-        N, H, MI, E, _lib.DTYPE_CODES[x.dtype], _lib.stream_ptr(x),
+        N, H, MI, E, _lib.DTYPE_CODES[x.dtype], _lib.stream_ptr(x), None,
     )
     _lib.check(err, name)
     _lib.count_launch(q8_moe_megafused)
@@ -280,3 +286,15 @@ def q8_moe_megafused(x, weights, gu_codes, gu_scales, dn_codes, dn_scales):
 
 
 q8_moe_megafused.launches = 0
+
+
+def q8_moe_megafused_occupancy(N: int, H: int, MI: int, E: int, x_dtype=torch.bfloat16):
+    """(clusters the card holds at once, blocks an SM holds) of
+    q8_moe_megafused's launch at these sizes, from the CUDA occupancy
+    calculator; nothing runs."""
+    occupancy = (ctypes.c_int * 2)()
+    err = _lib.lib().dsocr_q8_moe_megafused(
+        None, None, None, None, None, None, None, None, N, H, MI, E, _lib.DTYPE_CODES[x_dtype], None,
+        ctypes.addressof(occupancy))
+    _lib.check(err, "q8_moe_megafused_occupancy")
+    return occupancy[0], occupancy[1]

@@ -2,7 +2,10 @@
 
 ``paged_kv_update`` replaces paged_kv_update
 (dsocr_tpu/ops/pallas/paged_attention.py:233) and
-``paged_decode_attention`` replaces paged_decode_attention (:99). Row b's
+``paged_decode_attention`` replaces paged_decode_attention (:99);
+``paged_kv_write`` is the write as the decode step calls it, from the
+unquantized token, and also replaces the reference's quantize_kv_int8
+(dsocr_tpu/ops/attention.py:83) that feeds paged_kv_update. Row b's
 position t lives in page ``tables[b, t // page]`` of a shared pool, at
 offset ``t % page``. Pools are [L, P, NKV, page, D]: int8 codes with
 [L, P, NKV, page] f32 scale planes, or the model dtype without scales;
@@ -12,7 +15,9 @@ released. Main path: L = 12, P = 108, NKV = 10, page = 128, D = 128,
 B = 16, P_max = 12.
 
 What bounds them on the H100: device-memory bytes. The write moves one
-token per (row, head), a few KB per call: launch latency. The attend
+token per (row, head), a few KB per call: launch latency (and, before
+the quantization moved into it, 22 PyTorch launches a layer to quantize
+the token for an int8 pool). The attend
 reads each row's used K/V once: at 16 rows × 10 heads × ~1,032 tokens ×
 264 B (int8 K and V of 128 plus two f32 scales) it reads ≈43.6 MB a
 launch, ≥ 13 µs at 3.35 TB/s.
@@ -21,9 +26,11 @@ What the design does (csrc/paged_attention.cu over the bodies in
 csrc/kv_attention.cuh, which the contiguous slot kernels share): the
 address mapping is the one difference from ops/kernels/slot_attention.py.
 
-- ``paged_kv_update``: grid (B, NKV), one thread per element of D,
-  writes row b's token IN PLACE at its page and offset; the layer is a
-  Python int, so the wrapper passes the pointer of ``pool[layer]``. A row
+- ``paged_kv_write`` and ``paged_kv_update``: the slot write's body
+  (``paged_kv_write`` quantizes or converts the token in the kernel,
+  ``paged_kv_update`` copies codes and scales), grid (B, NKV), a warp per
+  plane, writing row b's token IN PLACE at its page and offset; the layer
+  is a Python int, so the wrapper passes the pointer of ``pool[layer]``. A row
   whose position falls on no page (a released or never-joined row, or a
   finished row one past its last page) writes nothing: the reference
   instead writes idle rows' token 0 through a stale table into page
@@ -43,6 +50,7 @@ import torch
 
 from ..attention import attention, attention_kv_int8
 from . import _lib
+from .slot_attention import check_cache_planes, token_rows, token_view
 
 
 def _pages(tables: torch.Tensor, n_pages: int):
@@ -116,6 +124,58 @@ def paged_kv_update(k_pool, v_pool, ks_pool, vs_pool, k_new, v_new, ks_new, vs_n
 
 
 paged_kv_update.launches = 0
+
+
+def paged_kv_write_plain(k_pool, v_pool, ks_pool, vs_pool, k_new, v_new, tables, lengths,
+                         layer: int):
+    """quantize_kv_int8 (or the cast to the pool's dtype), then the plain
+    write."""
+    k_new, v_new = (t[:, :, 0] if t.dim() == 4 else t for t in (k_new, v_new))
+    paged_kv_update_plain(k_pool, v_pool, ks_pool, vs_pool,
+                          *token_rows(k_new, v_new, k_pool.dtype, ks_pool is not None), tables, lengths,
+                          layer)
+
+
+def paged_kv_write(k_pool, v_pool, ks_pool, vs_pool, k_new, v_new, tables, lengths, layer: int):
+    """Write one token per row at position lengths[b] of `layer`, through
+    the page tables, in place, from the token as the decoder leaves it.
+
+    k_pool/v_pool [L, P, NKV, page, D|Dv] (int8 codes, f32 or bf16),
+    ks_pool/vs_pool [L, P, NKV, page] f32 or None; k_new/v_new [B, NKV, 1,
+    D|Dv] (or [B, NKV, D|Dv]) f32 or bf16, any strides with D contiguous:
+    quantized in the kernel for an int8 pool (D ≤ 128), else converted;
+    tables [B, P_max] int32; lengths [B] int32. Returns None."""
+    if k_pool.device.type == "cpu":
+        return paged_kv_write_plain(k_pool, v_pool, ks_pool, vs_pool, k_new, v_new, tables, lengths,
+                                    layer)
+    name = "paged_kv_write"
+    _lib.require_cuda(name, k_pool, v_pool, ks_pool, vs_pool, tables, lengths)
+    L, P, NKV, page, D = k_pool.shape
+    Dv = v_pool.shape[-1]
+    B, P_max = tables.shape
+    quant = check_cache_planes(name, k_pool, v_pool, ks_pool, vs_pool)
+    if v_pool.shape[:4] != k_pool.shape[:4]:
+        raise ValueError(f"{name}: bad pool shapes {k_pool.shape} {v_pool.shape}")
+    k_new, v_new = token_view(name, k_new, B, NKV, D), token_view(name, v_new, B, NKV, Dv)
+    if k_new.device != k_pool.device or v_new.device != k_pool.device or k_new.dtype != v_new.dtype:
+        raise ValueError(f"{name}: K and V tokens must share the pool's device and one dtype")
+    if quant and max(D, Dv) > 128:
+        raise ValueError(f"{name}: the quantizing write takes head dims up to 128")
+    if (lengths.shape != (B,) or lengths.dtype != torch.int32 or tables.dtype != torch.int32
+            or not 0 <= layer < L):
+        raise ValueError(f"{name}: lengths [B] and tables must be int32 and layer in range")
+    err = _lib.lib().dsocr_paged_kv_write(
+        k_pool[layer].data_ptr(), v_pool[layer].data_ptr(),
+        ks_pool[layer].data_ptr() if quant else None, vs_pool[layer].data_ptr() if quant else None,
+        k_new.data_ptr(), v_new.data_ptr(), tables.data_ptr(), lengths.data_ptr(), k_new.stride(0),
+        k_new.stride(1), v_new.stride(0), v_new.stride(1), B, NKV, P, page, P_max, D, Dv,
+        _lib.DTYPE_CODES[k_new.dtype], _lib.DTYPE_CODES[k_pool.dtype], _lib.stream_ptr(k_pool),
+    )
+    _lib.check(err, name)
+    _lib.count_launch(paged_kv_write)
+
+
+paged_kv_write.launches = 0
 
 
 def _rows(plane: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

@@ -2,7 +2,8 @@
 """Time variants of the kernels' sources on one CUDA card.
 
     python3 kernel_variants.py '{"base": [], "two_stages": [["constexpr int PF_STAGES = 3;",
-                                                 "constexpr int PF_STAGES = 2;"]]}' [prefill|decode|row|sam|experts|gather[,...]]
+                                                 "constexpr int PF_STAGES = 2;"]]}' \
+        [prefill|decode|row|sam|experts|gather|megafused|kvwrite[,...]]
 
 Each variant is a list of text substitutions applied to a copy of
 dsocr_tpu_torch/csrc/ under dsocr_tpu_torch/_build/variants/<name>/ (an
@@ -28,7 +29,14 @@ the K-quants' perx at the stand-in 1792 → 1280 (substitutions such as
 MIN_BLOCKS_LO, MIN_BLOCKS_HI), and, for `gather`, the gather tier
 (q8/q4k/q6k_gather_matmul, the same stacks) at chip_smoke's
 GATHER_DRAWS (6, 24 and 60 routed selections, and 24 and 60 that share
-one top-6; KSPLIT_MIN, KSPLIT_MAX, SPLIT_MIN_STAGES, MIN_BLOCKS_HI).
+one top-6; KSPLIT_MIN, KSPLIT_MAX, SPLIT_MIN_STAGES, MIN_BLOCKS_HI), and,
+for `megafused`, q8_moe_megafused on one full-width MoE layer at N 16, 11
+and 32 with the two-kernel sweep beside it, and at N 16 on 32 and 16 of
+its experts (csrc/moe_megafused.cu's CLUSTER and MIN_BLOCKS,
+expert_sweep.cuh's STAGES), and, for `kvwrite`,
+slot_kv_write and paged_kv_write at the serving step (16 rows, int8 and
+bf16 caches, bf16 tokens) beside the step's former route
+(quantize_kv_int8, then the codes-in write).
 Times are chip_smoke.time_ms's (device milliseconds per call, CUDA
 events); SDPA's time is printed once per slot and SAM case, and the decode
 attend's two kernels are timed apart by torch.profiler. Every variant is
@@ -153,6 +161,59 @@ def cases(torch, K, F, which):
                     out.append((f"{fmt}_gather_matmul {case} {chip_smoke.gather_case(sel, sets)} E64 K{k} M{m}",
                                 lambda x=x, packed=packed, idx=idx, fn=fn: fn(x, *packed, idx),
                                 plain(x, *packed, idx)))
+    if {"all", "megafused"} & which:
+        from dsocr_tpu_torch.dsq.serve_quant import quantize_expert_stack
+
+        gu = quantize_expert_stack(randn(64, 1280, 1792, dtype=torch.bfloat16) * 1280 ** -0.5)
+        dn = quantize_expert_stack(randn(64, 896, 1280, dtype=torch.bfloat16) * 896 ** -0.5)
+        # N 16, 11 and 32 on the layer's 64 experts; then N 16 on its first 32
+        # and 16 experts, fewer clusters than the card holds: a cluster's own
+        # chain of stages, with the card nearly empty
+        for n, e in ((16, 64), (11, 64), (32, 64), (16, 32), (16, 16)):
+            x = randn(n, 1280, dtype=torch.bfloat16)
+            weights, idx = torch.topk(torch.softmax(randn(n, e), dim=-1), 6, dim=-1)
+            w = torch.zeros((e, n), device=dev).index_put_(
+                (idx.reshape(-1), torch.arange(n, device=dev).repeat_interleave(6)), weights.reshape(-1),
+                accumulate=True)
+            args = (x, w, gu["codes"][:e], gu["scales"][:e], dn["codes"][:e], dn["scales"][:e])
+            out.append((f"q8_moe_megafused N{n} E{e}", lambda args=args: K.q8_moe_megafused(*args),
+                        K.q8_moe_megafused_plain(*args)))
+            if e < 64:
+                continue
+
+            def sweep(x=x, idx=idx, weights=weights, n=n):
+                gates, ups = torch.chunk(K.q8_dense_experts(x, gu["codes"], gu["scales"]), 2, dim=-1)
+                outs = K.q8_dense_experts_perx((F.silu(gates) * ups).to(x.dtype), dn["codes"], dn["scales"])
+                return (outs[idx, torch.arange(n, device=dev)[:, None]] * weights[..., None]).sum(dim=1)
+
+            out.append((f"sweep N{n}", sweep, None))
+    if {"all", "kvwrite"} & which:
+        import chip_smoke
+        from dsocr_tpu_torch.ops.attention import quantize_kv_int8
+
+        B, NKV, D = 16, 10, 128
+        for layout, lead in (("slot", (12, B, NKV, 2560)), ("paged", (12, 144, NKV, 128))):
+            lengths = torch.randint(904, 1032, (B,), generator=gen, device=dev, dtype=torch.int32)
+            tables = torch.randperm(144, generator=gen, device=dev)[: B * 9].reshape(B, 9).int()
+            where = (5, lengths) if layout == "slot" else (tables, lengths, 5)
+            write, update = getattr(K, f"{layout}_kv_write"), getattr(K, f"{layout}_kv_update")
+            for kind in ("int8", "bf16"):
+                if kind == "int8":
+                    c = [torch.randint(-127, 128, (*lead, D), device=dev, dtype=torch.int8) for _ in range(2)]
+                    c += [randn(*lead).abs() * 0.02 for _ in range(2)]
+                else:
+                    c = [randn(*lead, D, dtype=torch.bfloat16) for _ in range(2)] + [None, None]
+                k, v = chip_smoke.kv_tokens(torch, randn(B, 1, 3 * NKV * D, dtype=torch.bfloat16), NKV, D)
+
+                def route(c=c, k=k, v=v, kind=kind, update=update, where=where):
+                    if kind == "int8":
+                        (kq, ks), (vq, vs) = quantize_kv_int8(k[:, :, 0]), quantize_kv_int8(v[:, :, 0])
+                        return update(*c, kq, vq, ks, vs, *where)
+                    return update(*c, k[:, :, 0].contiguous(), v[:, :, 0].contiguous(), None, None, *where)
+
+                out.append((f"{layout}_kv_write {kind}", lambda c=c, k=k, v=v, write=write, where=where:
+                            write(*c, k, v, *where), None))
+                out.append((f"{layout} quantize + kv_update {kind}", route, None))
     return out
 
 

@@ -1,6 +1,6 @@
 """Serving bursts of two trees of the PyTorch port on one card, alternated.
 
-    python3 serve_ab.py [--towers | --gather] PARENT_ROOT . . PARENT_ROOT
+    python3 serve_ab.py [--towers | --gather | --profiles] PARENT_ROOT . . PARENT_ROOT
 
 Each argument is the root of a tree that holds a ``dsocr_tpu_torch/``
 package. The trees run one after another in the order given, each in a
@@ -15,7 +15,11 @@ bf16 engine instead: the vision towers of 16 pages, device ms and the SAM
 attention's share. With ``--gather`` it runs the Q8_0 engine's gather
 tier instead: the 4-slot burst of 4 requests × 32 tokens with its
 ``_trace`` line (the tier's device ms, the distinct experts of each
-launch), then single-request decode with the tier's device ms a token.
+launch), then single-request decode with the tier's device ms a token. With
+``--profiles`` it runs only ``chip_smoke.profile_phase`` on the page's
+packet (no burst) for every serving format: bf16, Q8_0, Q4_K, Q6_K, and
+the Q8_0 engine with a paged pool and the megafused chain (the decode
+step's host and device ms and its kernel launches).
 Every line it prints is ``chip_smoke.py``'s, with
 ``"tree"`` added. It exits non-zero if any run fails, and needs one CUDA
 card.
@@ -35,8 +39,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 def run_tree(root: str, mode: str = "") -> int:
     """The bursts (or with mode "--towers" the tower profile, with
-    "--gather" the gather tier's burst and decode) on the package under
-    `root`, measured by this file's chip_smoke.py."""
+    "--gather" the gather tier's burst and decode, with "--profiles" every
+    format's profile) on the package under `root`, measured by this file's
+    chip_smoke.py."""
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
@@ -68,7 +73,20 @@ def run_tree(root: str, mode: str = "") -> int:
         cs.decode_phase(torch, K, engine, cs.smi_line(),
                         required=["sam_flash_attention", "flash_prefill_attention", "q8_gather_matmul"])
         return 0
-    attention = ["sam_flash_attention", "flash_prefill_attention", "slot_kv_update", "slot_decode_attention"]
+    if mode == "--profiles":
+        for quantize in (None, "q8_0", "q4_k", "q6_k"):
+            engine = cs.full_width_engine(torch, quantize=quantize)
+            cs.profile_packet(torch, K, engine)
+            if quantize == "q8_0":
+                with cs.environ(DSOCR_Q8_MEGAFUSED="1"):
+                    cs.profile_packet(torch, K, engine, paged=True)
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+        return 0
+    # the decode step's KV write: the token-quantizing wrapper where the tree has one
+    write = "slot_kv_write" if hasattr(K, "slot_kv_write") else "slot_kv_update"
+    attention = ["sam_flash_attention", "flash_prefill_attention", write, "slot_decode_attention"]
     for quantize, phase, kernels in ((None, "serve", []),
                                      ("q6_k", "serve_q6k", ["q6k_matmul", "q6k_dense_experts"])):
         engine = cs.full_width_engine(torch, quantize=quantize)
@@ -83,7 +101,7 @@ def run_tree(root: str, mode: str = "") -> int:
 def main(argv) -> int:
     if len(argv) >= 2 and argv[0] == "--tree":
         return run_tree(argv[1], *argv[2:])
-    flag = argv[:1] if argv[:1] in (["--towers"], ["--gather"]) else []
+    flag = argv[:1] if argv[:1] in (["--towers"], ["--gather"], ["--profiles"]) else []
     argv = argv[len(flag):]
     if not argv:
         print(__doc__, file=sys.stderr)

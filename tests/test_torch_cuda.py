@@ -221,6 +221,30 @@ def test_slot_kv_update_kernel_bit_exact(dev, kind):
         assert got is None or torch.equal(got, want)
 
 
+# The writes from the decoder's token (csrc/kv_attention.cuh, quantized or
+# converted in the kernel) against their twins on the CPU tensors' copies:
+# quantize_kv_int8 (or the cast) and the plain write, bit for bit, ties and
+# an all-zero row included (chip_smoke.kv_tokens).
+@pytest.mark.parametrize("kind", ["int8", "bf16", "f32"])
+@pytest.mark.parametrize("token", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [128, 64])
+def test_slot_kv_write_kernel_bit_exact(dev, kind, token, D):
+    import chip_smoke
+
+    rng = np.random.default_rng(D + len(kind))
+    L, B, NKV, S = 3, 5, 2, 64
+    caches = _slot_caches(rng, L, B, NKV, S, D, kind, dev)
+    twins = [None if c is None else c.cpu() for c in caches]
+    k, v = chip_smoke.kv_tokens(torch, _randn(rng, B, 1, 3 * NKV * D).to(dev, token), NKV, D)
+    lengths = torch.tensor([0, S - 1, 9, S, 30], dtype=torch.int32, device=dev)  # S: dropped
+    before = K.slot_kv_write.launches
+    K.slot_kv_write(*caches, k, v, 2, lengths)
+    assert K.slot_kv_write.launches == before + 1
+    K.slot_kv_write_plain(*twins, k.cpu(), v.cpu(), 2, lengths.cpu())
+    for got, want in zip(caches, twins):
+        assert got is None or torch.equal(got.cpu(), want)
+
+
 def test_wrappers_raise_instead_of_falling_back(dev):
     q = torch.zeros((1, 2, 64, 8), device=dev)
     with pytest.raises(ValueError):  # mixed devices
@@ -646,6 +670,59 @@ def test_paged_kv_update_kernel_bit_exact(dev, kind):
         assert got is None or torch.equal(got, want)
 
 
+@pytest.mark.parametrize("kind", ["int8", "bf16", "f32"])
+@pytest.mark.parametrize("token", [torch.bfloat16, torch.float32])
+def test_paged_kv_write_kernel_bit_exact(dev, kind, token):
+    import chip_smoke
+
+    rng = np.random.default_rng(11 + len(kind))
+    L, P, NKV, page, D, P_max = 3, 9, 2, 16, 128, 2
+    pools = _paged_pools(rng, L, P, NKV, page, D, kind, dev)
+    twins = [None if c is None else c.cpu() for c in pools]
+    k, v = chip_smoke.kv_tokens(torch, _randn(rng, 5, 1, 3 * NKV * D).to(dev, token), NKV, D)
+    tables = torch.tensor([[4, 1], [0, 7], [2, -1], [-1, -1], [8, 3]], dtype=torch.int32, device=dev)
+    # a page, the second page, a page, no page, past the table
+    lengths = torch.tensor([3, page + 5, 0, 0, page * P_max], dtype=torch.int32, device=dev)
+    before = K.paged_kv_write.launches
+    K.paged_kv_write(*pools, k, v, tables, lengths, 1)
+    assert K.paged_kv_write.launches == before + 1
+    K.paged_kv_write_plain(*twins, k.cpu(), v.cpu(), tables.cpu(), lengths.cpu(), 1)
+    for got, want in zip(pools, twins):
+        assert got is None or torch.equal(got.cpu(), want)
+
+
+def test_quantize_kv_int8_on_card_is_bit_exact_with_cpu(dev):
+    """The join-time quantizer (and the write kernels' twin) on CUDA
+    tensors: PyTorch's CUDA division by a Python number would multiply by
+    its reciprocal; the port divides by a tensor, as the CPU and the
+    reference do."""
+    from dsocr_tpu_torch.ops.attention import quantize_kv_int8
+
+    x = _randn(np.random.default_rng(8), 512, 10, 128)
+    for dtype in (torch.float32, torch.bfloat16):
+        xd = x.to(dtype)
+        codes, scales = quantize_kv_int8(xd.to(dev))
+        want_codes, want_scales = quantize_kv_int8(xd)
+        assert torch.equal(codes.cpu(), want_codes) and torch.equal(scales.cpu(), want_scales)
+
+
+def test_kv_write_wrappers_raise_on_bad_inputs(dev):
+    rng = np.random.default_rng(4)
+    caches = _slot_caches(rng, 1, 2, 2, 8, 256, "int8", dev)
+    token = torch.zeros((2, 2, 1, 256), device=dev)
+    lengths = torch.zeros(2, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="128"):  # the quantizing write holds D ≤ 128 in a warp
+        K.slot_kv_write(*caches, token, token, 0, lengths)
+    caches = _slot_caches(rng, 1, 2, 2, 8, 16, "int8", dev)
+    codes = torch.zeros((2, 2, 1, 16), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError):  # the token comes unquantized
+        K.slot_kv_write(*caches, codes, codes, 0, lengths)
+    pools = _paged_pools(rng, 1, 3, 2, 8, 16, "bf16", dev)
+    with pytest.raises(ValueError):  # scale planes without an int8 pool
+        K.paged_kv_write(pools[0], pools[1], caches[2][0], caches[3][0], token[..., :16], token[..., :16],
+                         torch.zeros((2, 1), dtype=torch.int32, device=dev), lengths, 0)
+
+
 @pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
 @pytest.mark.parametrize("B,NH,NKV,D,page,P_max", [(5, 10, 10, 128, 128, 3), (4, 8, 2, 16, 8, 5)])
 def test_paged_decode_kernel_matches_twin(dev, kind, B, NH, NKV, D, page, P_max):
@@ -708,8 +785,9 @@ def _megafused_close(got, want, x, w, gu, dn):
 
 
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("e,n,h,mi", [(64, 16, 1280, 896), (4, 16, 768, 256), (4, 4, 32, 32),
-                                      (5, 20, 64, 96)])
+@pytest.mark.parametrize("e,n,h,mi", [(64, 16, 1280, 896), (64, 11, 1280, 896), (64, 32, 1280, 896),
+                                      (4, 16, 768, 256), (4, 4, 32, 32), (5, 20, 64, 96), (3, 9, 96, 448),
+                                      (8, 32, 256, 128)])
 def test_q8_megafused_kernel_matches_twin_and_repeats(dev, x_dtype, e, n, h, mi):
     rng = np.random.default_rng(e + n + h + mi)
     gu = tuple(t.to(dev) for t in _q8_weights(rng, (e,), h, 2 * mi, True))

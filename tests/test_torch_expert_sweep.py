@@ -1,7 +1,8 @@
-"""The expert sweep's fragment mapping (csrc/expert_sweep.cu), emulated
-in torch on the CPU, against the reference's Pallas kernels in interpret
-mode: the dense sweeps, and the gather tier's plan (gather_plan: the
-kernel's leader test, row lists and n-tiles) on the same body.
+"""The expert sweep's fragment mapping (csrc/expert_sweep.cu over
+csrc/expert_sweep.cuh), emulated in torch on the CPU, against the
+reference's Pallas kernels in interpret mode: the dense sweeps, and the
+gather tier's plan (gather_plan: the kernel's leader test, row lists and
+n-tiles) on the same body.
 
 The kernel cannot run here, so this file transcribes what it does with
 each byte: a task (expert, slab of 128 · WN columns, 16 rows of x) walks
@@ -40,11 +41,13 @@ from dsocr_tpu.ops.pallas import dequant_matmul as jax_dq
 from dsocr_tpu.ops.pallas import kquant_matmul as jax_kq
 from dsocr_tpu_torch.dsq import serve_quant as sq
 
-SRC = pathlib.Path(__file__).resolve().parents[1] / "dsocr_tpu_torch" / "csrc" / "expert_sweep.cu"
+CSRC = pathlib.Path(__file__).resolve().parents[1] / "dsocr_tpu_torch" / "csrc"
+SRC = CSRC / "expert_sweep.cu"  # the kernels; the body they share: expert_sweep.cuh
 
 
-def _const(name):
-    return int(re.search(rf"constexpr int {name} = (\d+);", SRC.read_text()).group(1))
+def _const(name, path=None):
+    text = path.read_text() if path else SRC.read_text() + (CSRC / "expert_sweep.cuh").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
 
 
 BK, WN, WK = _const("BK"), _const("WN"), _const("WK")

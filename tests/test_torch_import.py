@@ -128,6 +128,12 @@ _MISPLACED_CALLS = {
     "paged_kv_update": lambda K: K.paged_kv_update(
         _meta(2, 5, 2, 8, 16), _meta(2, 5, 2, 8, 16), None, None, _meta(3, 2, 16), _meta(3, 2, 16),
         None, None, _meta(3, 2, dtype=torch.int32), _meta(3, dtype=torch.int32), 0),
+    "paged_kv_write": lambda K: K.paged_kv_write(
+        _meta(2, 5, 2, 8, 16), _meta(2, 5, 2, 8, 16), None, None, _meta(3, 2, 1, 16), _meta(3, 2, 1, 16),
+        _meta(3, 2, dtype=torch.int32), _meta(3, dtype=torch.int32), 0),
+    "slot_kv_write": lambda K: K.slot_kv_write(
+        _meta(2, 3, 2, 8, 16, dtype=torch.int8), _meta(2, 3, 2, 8, 16, dtype=torch.int8), _meta(2, 3, 2, 8),
+        _meta(2, 3, 2, 8), _meta(3, 2, 1, 16), _meta(3, 2, 1, 16), 0, _meta(3, dtype=torch.int32)),
     "gather_matmul": lambda K: K.gather_matmul(
         _meta(4, 32), _meta(3, 32, 48), _meta(4, dtype=torch.int32)),
     "paged_decode_attention": lambda K: K.paged_decode_attention(

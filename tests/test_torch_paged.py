@@ -416,7 +416,7 @@ def test_paged_serving_matches_reference_and_contiguous(jax_engines, quantize, k
     want = _serve(JaxScheduler(jax_engine, _Tok(), **kw), JaxParams, JaxVision(64, 64, False))
 
     ran = []
-    for mod, name in ((port_kernels, "paged_kv_update"), (port_kernels, "paged_decode_attention"),
+    for mod, name in ((port_kernels, "paged_kv_write"), (port_kernels, "paged_decode_attention"),
                       (port_moe, "q8_moe_megafused")):
         orig = getattr(mod, name)
         monkeypatch.setattr(mod, name, lambda *a, _o=orig, _n=name, **k: ran.append(_n) or _o(*a, **k))
@@ -425,7 +425,7 @@ def test_paged_serving_matches_reference_and_contiguous(jax_engines, quantize, k
     assert [len(t) for t in got] == BUDGETS
     assert got == contiguous
     assert got == want if vs_reference else got != want
-    expect = {"paged_kv_update", "paged_decode_attention"} | ({"q8_moe_megafused"} if quantize else set())
+    expect = {"paged_kv_write", "paged_decode_attention"} | ({"q8_moe_megafused"} if quantize else set())
     assert set(ran) == expect
     assert bool(traced) == bool(quantize)  # the reference ran its megafused branch too
     allocator = sched._runner.allocator
