@@ -56,16 +56,26 @@ non-zero (nothing is caught):
             gather_matmul (the split layout's expert gather, gate/up and
             down stacks at 96 and 12 rows, bf16 and f32, two launches
             bit-equal; library time index_select + bmm);
+    host_prep  host image prep of the seeded page (below) on the card's
+            host: engine.prepare_vision_input with the native resampler and
+            with its NumPy twin, the global view and every tile bit-equal,
+            and seeded images at a few sizes resized both ways bit-equal;
+            seconds a page of each (median of 3), a 16-page prep wave
+            through the engine's prefill (its thread pool), os.cpu_count();
 4. serve    DeepSeek-OCR v1 at full width (DeepseekOcrConfig(), bf16
             weights from a seeded torch.Generator, int8 KV): 16 requests
             of 128 new tokens through ContinuousScheduler.submit over 16
-            slots, 128-step chunks, on a seeded 1756×2852 page in 1024/640
+            slots at the scheduler's defaults (speculative chunk dispatch
+            on), 128-step chunks, on a seeded 1756×2852 page in 1024/640
             crop mode, after a warm-up of 2 requests × 8 tokens (the
             process's one: later bursts, each engine's first included, run
             warm). The launch counters are zeroed just before and read
             just after; every kernel of the bf16 path must have launched,
             the codes-in writes (slot_kv_update, paged_kv_update) not:
             every burst's decode step quantizes its token in the write.
+            Every serving line (4-4h) gives the scheduler's
+            speculated_chunks and stage_ms (the stage totals of a
+            BenchRecorder installed for the burst).
             Then the profile of that engine at 16 rows (profile_phase):
             a prefill wave and decode steps, their host and device time,
             the kernel launches a decode step, the largest kernels, and
@@ -73,6 +83,16 @@ non-zero (nothing is caught):
             wrappers against the rest of the step; and its tower line
             (tower_profile): the vision towers of 16 pages, device ms, the
             SAM attention's share, host ms around the synchronized call;
+    serve_spec  the same burst in 32-step chunks, where the speculation
+            gate opens (at 128-step chunks of 128 tokens it cannot):
+            speculated_chunks must be > 0;
+    sched   the same engine, 4 requests of 32 tokens in 8-step chunks:
+            streamed against plain (equal tokens, each callback extending
+            the last), the page twice with DSOCR_PREFIX_CACHE=4 (one hit,
+            equal tokens, the hit's TTFT beside the miss's), max_inflight=2
+            with 4 submitted (2 shed, 2 complete), one injected chunk fault
+            (recoveries 1, tokens equal to the plain burst's), and the same
+            with DSOCR_PAGED_KV=1 (every page back afterwards);
     split   the same engine's decoder in the reference's split layout (its
             state split; fusing it gives the engine's weights) over a
             contiguous KVCache: the page's 904-token packet prefilled, then
@@ -141,8 +161,8 @@ The seeded page's host prep (page_packet) runs once for the script;
 outside the bursts' windows each phase reuses it.
 
 Then a line with the script's total seconds, a {"kernels": [...]} summary
-line (launches: the sum over the eight serving bursts, the split phase
-and the two decode phases), the nvidia-smi
+line (launches: the sum over the nine serving bursts, the sched phase, the
+split phase and the two decode phases), the nvidia-smi
 line, and last
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
 dsocr_tpu_torch package beside this file, it exits non-zero and prints
@@ -992,8 +1012,10 @@ _PAGE_INPUT = []
 
 
 def page_input(engine):
-    """The seeded page's VisionInput: the host prep (about 4 s a page) does
-    not depend on the engine, so it runs once per script."""
+    """The seeded page's VisionInput: the host prep (the host_prep phase
+    read 0.11 s a page with the native resampler and 3.2 s with its NumPy
+    twin on the host of an H100 80GB HBM3 machine) does not depend on the
+    engine, so it runs once per script."""
     if not _PAGE_INPUT:
         _PAGE_INPUT.append(engine.prepare_vision_input(*seeded_page()))
     return _PAGE_INPUT[0]
@@ -1007,6 +1029,194 @@ def page_packet(engine):
     emb = engine.compute_image_embedding(vin)
     tokens, mask = engine.build_prompt_tokens(BenchTokenizer(), PROMPT, [vin], [emb], vision)
     return image, vision, tokens, mask, emb
+
+
+HOST_PREP_SIZES = ((37, 53, 128, 96), (1756, 2852, 1, 1), (641, 1283, 639, 311), (900, 700, 1280, 1920))
+
+
+def host_prep_phase(torch, engine, pages=N_REQUESTS):
+    """Host image prep on the card's host. The seeded page through
+    engine.prepare_vision_input with the native resampler and with its
+    NumPy twin (resize_bicubic_numpy swapped in): the global view and every
+    tile bit-equal, and HOST_PREP_SIZES (source H, W → output W, H) of
+    seeded images resized both ways bit-equal; the seconds a page of each
+    (median of 3); then a 16-page prep wave through the engine's prefill
+    (its thread pool of up to 8; slot.prepare_inputs of a BenchRecorder,
+    towers and prefill after it not counted), and os.cpu_count()."""
+    import numpy as np
+
+    from dsocr_tpu_torch.core.benchmark import BenchRecorder, set_recorder
+    from dsocr_tpu_torch.image import resample
+
+    image, vision = seeded_page()
+
+    def prep_seconds():
+        times, vin = [], None
+        for _ in range(3):
+            t0 = time.perf_counter()
+            vin = engine.prepare_vision_input(image, vision)
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times), times, vin
+
+    native_s, native_runs, native_vin = prep_seconds()
+    native = resample.resize_bicubic_native
+    resample.resize_bicubic_native = resample.resize_bicubic_numpy
+    try:
+        twin_s, twin_runs, twin_vin = prep_seconds()
+    finally:
+        resample.resize_bicubic_native = native
+    rng = np.random.default_rng(5)
+    sizes_equal = []
+    for h, w, ow, oh in HOST_PREP_SIZES:
+        img = rng.integers(0, 256, size=(h, w, 3), dtype=np.uint8)
+        sizes_equal.append(bool(np.array_equal(resample.resize_bicubic(img, ow, oh),
+                                               resample.resize_bicubic_numpy(img, ow, oh))))
+    rec = BenchRecorder()
+    set_recorder(rec)
+    try:
+        engine.prefill_for_slots(BenchTokenizer(), [(PROMPT, [image], vision)] * pages)
+    finally:
+        set_recorder(None)
+    wave_s = rec.stage_totals()["slot.prepare_inputs"] / 1e3
+    line = {"phase": "host_prep", "cpu_count": os.cpu_count(),
+            "tiles": len(native_vin.patches), "crop_shape": list(native_vin.crop_shape),
+            "global_view_equal": bool(np.array_equal(native_vin.global_pixels, twin_vin.global_pixels)),
+            "tiles_equal": bool(np.array_equal(native_vin.patches, twin_vin.patches)),
+            "sizes_equal": sizes_equal,
+            "prepare_s_per_page_native": native_s, "prepare_s_per_page_twin": twin_s,
+            "prepare_s_runs_native": native_runs, "prepare_s_runs_twin": twin_runs,
+            "wave_pages": pages, "wave_prep_s": wave_s, "wave_prep_s_per_page": wave_s / pages}
+    emit(line)
+    require(line["global_view_equal"] and line["tiles_equal"] and all(sizes_equal),
+            "the native resize differs from its NumPy twin")
+
+
+class InjectedFault(RuntimeError):
+    """The sched phase's injected chunk fault: the one exception it expects."""
+
+
+def sched_phase(torch, K, engine, n_requests=4, max_new=32, chunk=8):
+    """The scheduler's serving features at full width on the bf16 engine:
+    n_requests requests of the seeded page, max_new greedy tokens, over
+    n_requests slots, chunks of `chunk` steps, prefill waves of one request.
+    Checks, each against the plain burst's tokens: every request streamed
+    (each callback's list extends the one before, and the last is the
+    tokens); the page twice, one after the other, with DSOCR_PREFIX_CACHE=4
+    (one hit; the hit's TTFT beside the miss's); max_inflight=2 with
+    n_requests submitted at once (two shed with QueueDepthExceeded, two
+    complete); one injected chunk fault (recoveries 1, every request
+    completes with the plain burst's tokens); and the plain and faulted
+    bursts again with DSOCR_PAGED_KV=1 (the faulted tokens equal the
+    paged plain burst's, and every page back in the pool after each).
+
+    The fault is injected on the first chunk, which raises before it runs:
+    the row rejoins through the same one-row prefill and join as the
+    plain burst, so its tokens are equal by construction. A later fault
+    rejoins through a continuation prefill, which computes the generated
+    tokens' K/V in the prefill's bf16 sums rather than the decode step's,
+    so greedy tokens of random weights could part there; the CPU tests
+    (tests/test_torch_scheduler.py) hold continuations at f32. Waves of one
+    request: the recovery re-prefills one row, and cuBLAS may sum a wave of
+    several rows in another order."""
+    from dsocr_tpu_torch.core import DecodeParameters
+    from dsocr_tpu_torch.server.scheduler import ContinuousScheduler, QueueDepthExceeded
+
+    image, vision, tokens, _, _ = page_packet(engine)
+    params = DecodeParameters(max_new_tokens=max_new)
+    tok = BenchTokenizer()
+    s_pad = -(-len(tokens) // 128) * 128
+    max_len = -(-(s_pad + max_new) // 512) * 512
+
+    def scheduler(**kw):
+        return ContinuousScheduler(engine, tok, n_slots=n_requests, max_len=max_len, chunk_steps=chunk,
+                                   prefill_batch=1, **kw)
+
+    def burst(sched, n=n_requests, stream=None, exceptions=False):
+        async def run():
+            return await asyncio.gather(*(
+                sched.submit(PROMPT, [image], vision, params,
+                             stream_cb=None if stream is None else stream(i)) for i in range(n)),
+                return_exceptions=exceptions)
+
+        return asyncio.run(run())
+
+    def inject(sched):
+        sched._ensure_state()
+        run = sched._runner.run_chunk_snap
+        calls = []
+
+        def chunk_call(*args):
+            calls.append(1)
+            if len(calls) == 1:
+                raise InjectedFault("injected chunk fault")
+            return run(*args)
+
+        sched._runner.run_chunk_snap = chunk_call
+
+    K.reset_launches()
+    t0 = time.perf_counter()
+    plain = scheduler()
+    want = [o.generated_tokens for o in burst(plain)]
+    line = {"phase": "sched", "requests": n_requests, "max_new": max_new, "chunk": chunk,
+            "tokens_per_request": [len(t) for t in want], "plain_speculated_chunks": plain.speculated_chunks}
+
+    seen = {i: [] for i in range(n_requests)}
+    streamed_sched = scheduler()
+    streamed = [o.generated_tokens for o in burst(
+        streamed_sched, stream=lambda i: (lambda n, toks: seen[i].append(list(toks))))]
+    extends = all(b[: len(a)] == a and len(b) > len(a) for calls in seen.values()
+                  for a, b in zip(calls, calls[1:]))
+    line.update(stream_equal=streamed == want, stream_callbacks=[len(c) for c in seen.values()],
+                stream_extends=extends, stream_last_equal=[c[-1] if c else None for c in seen.values()] == want,
+                stream_speculated_chunks=streamed_sched.speculated_chunks)
+
+    with environ(DSOCR_PREFIX_CACHE="4"):
+        cached = scheduler()
+    miss = burst(cached, n=1)[0].generated_tokens
+    hit = burst(cached, n=1)[0].generated_tokens
+    line.update(prefix_hits=cached.prefix_cache.hits, prefix_misses=cached.prefix_cache.misses,
+                prefix_equal=miss == hit == want[0], ttft_miss_s=cached.ttft_samples[0],
+                ttft_hit_s=cached.ttft_samples[1])
+
+    capped = scheduler(max_inflight=2)
+    outs = burst(capped, exceptions=True)
+    shed = [o for o in outs if isinstance(o, QueueDepthExceeded)]
+    done = [o for o in outs if not isinstance(o, BaseException)]
+    line.update(shed=len(shed), shed_requests=capped.shed_requests, shed_completed=len(done),
+                retry_after_s=[e.retry_after_s for e in shed])
+    require(len(shed) + len(done) == len(outs), f"an unexpected failure under max_inflight: {outs}")
+
+    faulted = scheduler()
+    inject(faulted)
+    got = [o.generated_tokens for o in burst(faulted)]
+    line.update(recoveries=faulted.recoveries, recovered_equal=got == want)
+
+    with environ(DSOCR_PAGED_KV="1"):
+        paged_plain = scheduler()
+        paged_want = [o.generated_tokens for o in burst(paged_plain)]
+        paged_faulted = scheduler()
+        inject(paged_faulted)
+        paged_got = [o.generated_tokens for o in burst(paged_faulted)]
+    pools = [(s._runner.allocator.free_count, s._cache.n_pages) for s in (paged_plain, paged_faulted)]
+    line.update(paged_recoveries=paged_faulted.recoveries, paged_recovered_equal=paged_got == paged_want,
+                paged_equal_to_contiguous=paged_want == want, paged_pages_free_after=pools,
+                launches={k: v for k, v in K.launch_counts().items() if v},
+                seconds=time.perf_counter() - t0)
+    launches = K.launch_counts()
+    emit(line)
+    require(line["stream_equal"] and line["stream_extends"] and line["stream_last_equal"],
+            "streamed tokens differ from the plain burst's or do not extend")
+    require(all(n >= 2 for n in line["stream_callbacks"]), "a streamed request got fewer than 2 callbacks")
+    require(line["stream_speculated_chunks"] == 0, "a chunk was speculated while rows streamed")
+    require(line["prefix_hits"] == 1 and line["prefix_misses"] == 1 and line["prefix_equal"],
+            "the prefix cache did not serve the second page from one hit with equal tokens")
+    require(line["shed"] == 2 and line["shed_requests"] == 2 and line["shed_completed"] == 2,
+            "max_inflight=2 did not shed two of four requests")
+    require(line["recoveries"] == 1 and line["recovered_equal"], "the recovered burst differs")
+    require(line["paged_recoveries"] == 1 and line["paged_recovered_equal"],
+            "the recovered paged burst differs")
+    require(all(free == total for free, total in pools), f"pages were not returned: {pools}")
+    return launches
 
 
 def split_state(torch, state, lang):
@@ -1207,16 +1417,40 @@ def serve(engine, tokenizer, images, vision, params, *, n_slots, max_len, chunk)
     return asyncio.run(run()), sched
 
 
+@contextlib.contextmanager
+def recording():
+    """A BenchRecorder installed for the block → the recorder (None from a
+    tree without core/benchmark.py, which serve_ab.py may drive)."""
+    try:
+        from dsocr_tpu_torch.core.benchmark import BenchRecorder, set_recorder
+    except ImportError:
+        yield None
+        return
+    rec = BenchRecorder()
+    set_recorder(rec)
+    try:
+        yield rec
+    finally:
+        set_recorder(None)
+
+
 def serving_phase(torch, K, phase, engine, *, n_requests, n_slots, max_new, required,
-                  warmup=True, profile=False, towers=False, unused=(), same_as=None, trace_gather=False):
+                  warmup=True, profile=False, towers=False, unused=(), same_as=None, trace_gather=False,
+                  chunk=CHUNK, speculate=False):
     """Phases 4-4h: n_requests requests of max_new tokens through
-    ContinuousScheduler over n_slots; the launch counters are zeroed just
-    before and read just after, every kernel in `required` must have
-    launched and none in `unused`. A paged burst also reports its pool and,
-    against `same_as` (another burst's tokens), how many requests gave the
-    same tokens. With `profile`, profile_phase follows on the page's packet
-    (with `towers`, its tower line too); with `trace_gather`, gather_trace
-    on the same burst. → (launch counts, tokens per request)."""
+    ContinuousScheduler over n_slots at its defaults (speculative chunk
+    dispatch on), chunks of `chunk` steps; the launch counters are zeroed
+    just before and read just after, every kernel in `required` must have
+    launched and none in `unused`. The line gives the scheduler's
+    speculated_chunks and stage_ms, the stage totals of a BenchRecorder
+    installed for the burst (while one is installed, the engine waits for
+    the towers and the prefill to finish inside their stages); with
+    `speculate`, speculated_chunks must be > 0. A paged burst also
+    reports its pool and, against `same_as` (another burst's tokens), how
+    many requests gave the same tokens. With `profile`, profile_phase
+    follows on the page's packet (with `towers`, its tower line too); with
+    `trace_gather`, gather_trace on the same burst. → (launch counts,
+    tokens per request)."""
     from dsocr_tpu_torch.core import DecodeParameters
     from dsocr_tpu_torch.runtime.paged import PagedSlotCache
 
@@ -1232,11 +1466,12 @@ def serving_phase(torch, K, phase, engine, *, n_requests, n_slots, max_new, requ
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
-    t0 = time.perf_counter()
-    outs, sched = serve(engine, tok, [image] * n_requests, vision, params,
-                        n_slots=n_slots, max_len=max_len, chunk=CHUNK)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with recording() as rec:
+        t0 = time.perf_counter()
+        outs, sched = serve(engine, tok, [image] * n_requests, vision, params,
+                            n_slots=n_slots, max_len=max_len, chunk=chunk)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = K.launch_counts()
 
     generated = [o.generated_tokens for o in outs]
@@ -1249,7 +1484,9 @@ def serving_phase(torch, K, phase, engine, *, n_requests, n_slots, max_new, requ
         "pages_per_s": len(outs) / wall, "decode_tok_per_s": n_tokens / wall,
         "ttft_p50_s": statistics.median(sched.ttft_samples),
         "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-        "occupancy_per_chunk": sched.batch_sizes, "launches": launches,
+        "occupancy_per_chunk": sched.batch_sizes, "chunk": chunk,
+        "speculated_chunks": getattr(sched, "speculated_chunks", None),
+        "stage_ms": rec.stage_totals() if rec is not None else None, "launches": launches,
     }
     cache = sched._state.cache
     if isinstance(cache, PagedSlotCache):
@@ -1280,6 +1517,7 @@ def serving_phase(torch, K, phase, engine, *, n_requests, n_slots, max_new, requ
         require(len(g) == max_new or (len(g) < max_new and not o.truncated and eos not in g),
                 f"a request returned {len(g)} of {max_new} tokens without EOS")
     require(line["logits_finite"], "non-finite logits")
+    require(not speculate or line["speculated_chunks"], f"the {phase} burst speculated no chunk")
     for name in required:
         require(launches[name] > 0, f"kernel {name} was not launched in the {phase} burst")
     for name in unused:
@@ -1567,16 +1805,18 @@ def parity_phase(torch):
     state = cpu.model.state_dict()
     result = {"phase": "parity"}
     for kv_quant in (None, "int8"):
-        tokens = {}
+        tokens, speculated = {}, {}
         for device in ("cpu", "cuda"):
             eng = DeepseekOcrEngine(cfg, dtype=torch.float32, device=device, max_seq_len=512,
                                     kv_quant=kv_quant, state=state)
-            outs, _ = serve(eng, TinyTokenizer(), images, vision, params,
-                            n_slots=2, max_len=256, chunk=8)
+            outs, sched = serve(eng, TinyTokenizer(), images, vision, params,
+                                n_slots=2, max_len=256, chunk=8)
             tokens[device] = [o.generated_tokens for o in outs]
+            speculated[device] = sched.speculated_chunks
         key = kv_quant or "f32"
         result[f"{key}_equal"] = tokens["cpu"] == tokens["cuda"]
         result[f"{key}_tokens_cuda"] = tokens["cuda"]
+        result[f"{key}_speculated_chunks"] = speculated  # the scheduler's default is on, both sides
     # Q8_0: every contraction dim % 32, so the routed experts pack too.
     # K-quants: hidden 256 puts the projections' in dims on the 256-value
     # super-block; the down projections (in dim 32) pack as Q8_0, a mixed
@@ -1695,9 +1935,22 @@ def main() -> int:
     codes_in = ["slot_kv_update", "paged_kv_update"]
     attention = ["sam_flash_attention", "flash_prefill_attention"] + slot
     engine = full_width_engine(torch)
+    host_prep_phase(torch, engine)
     bursts = [serving_phase(torch, K, "serve", engine, n_requests=N_REQUESTS, n_slots=N_SLOTS,
                             max_new=MAX_NEW, required=attention, unused=codes_in, profile=True,
                             towers=True)[0]]
+    # Phase 4's gate cannot open: a chunk of 128 steps and 128 new tokens
+    # never leave two chunks of budget (emitted + 2 · 128 <= 128). The same
+    # burst in chunks of 32 (the scheduler's default chunk_steps) must
+    # speculate: rows join at chunk boundaries, so the first wave's 4 rows
+    # have emitted 0, 32, 64 or 96 tokens when the other 12 join. Up to 64
+    # opens the gate at once (64 + 2 · 32 <= 128, no free slot); 96 opens
+    # it a chunk later, when those rows have left, no prefill is left and
+    # the other rows have emitted 32.
+    bursts.append(serving_phase(torch, K, "serve_spec", engine, n_requests=N_REQUESTS, n_slots=N_SLOTS,
+                                max_new=MAX_NEW, required=attention, unused=codes_in, warmup=False,
+                                chunk=32, speculate=True)[0])
+    bursts.append(sched_phase(torch, K, engine))
     bursts.append(split_phase(torch, K, engine))
     prefill = ["sam_flash_attention", "flash_prefill_attention"]
     bursts.append(decode_phase(torch, K, engine, smi, required=prefill))

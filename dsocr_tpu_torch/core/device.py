@@ -11,15 +11,35 @@ Float32 precision is set here as well: PyTorch runs f32 matmuls in full
 f32 by default but cuDNN f32 convolutions in TF32 (~3 decimal digits).
 The SAM neck convs (models/deepseek/sam.py) compute in f32 like the
 reference, so both TF32 switches are turned off.
+
+``is_sticky_cuda_error`` tells the errors after which the process's CUDA
+context is unusable from those after which it can go on (the serving
+scheduler recovers only from the latter).
 """
 
 from __future__ import annotations
 
+import re
 from typing import Optional, Union
 
 import torch
 
 _ALIASES = {"cuda": "cuda", "gpu": "cuda", "cpu": "cpu"}
+
+# cudaError_t codes that leave the context unusable ("sticky": every later
+# call fails too), with the runtime's own description of each
+STICKY_CUDA_ERRORS = {
+    214: "uncorrectable ECC error encountered",
+    700: "an illegal memory access was encountered",
+    702: "the launch timed out and was terminated",
+    710: "device-side assert triggered",
+    714: "hardware stack error",
+    715: "an illegal instruction was encountered",
+    716: "misaligned address",
+    717: "operation not supported on global/shared address space",
+    718: "invalid program counter",
+    719: "unspecified launch failure",
+}
 
 
 def set_f32_precision() -> None:
@@ -46,3 +66,14 @@ def select_device(device: Optional[Union[str, torch.device]] = None) -> torch.de
         raise RuntimeError("device 'cuda' requested but no CUDA GPU is available")
     set_f32_precision()
     return torch.device("cuda", torch.cuda.current_device()) if name == "cuda" else torch.device("cpu")
+
+
+def is_sticky_cuda_error(err: BaseException) -> bool:
+    """Is `err` a CUDA error that leaves the context unusable? Read from
+    its message: PyTorch's ("CUDA error: an illegal memory access ...")
+    or the kernel wrappers' ("CUDA error 700 at launch"). Out of memory
+    and errors raised by the program are not sticky."""
+    msg = str(err)
+    codes = {int(code) for code in re.findall(r"CUDA error (\d+)", msg)}
+    return bool(codes & STICKY_CUDA_ERRORS.keys()) or (
+        "CUDA error" in msg and any(text in msg for text in STICKY_CUDA_ERRORS.values()))

@@ -7,7 +7,7 @@ from typing import Tuple
 
 import numpy as np
 
-from .resample import resize_bicubic_numpy
+from .resample import resize_bicubic
 
 
 def round_ties_to_even(value: float) -> float:
@@ -34,7 +34,7 @@ def build_global_view_with_box(
     scale = min(base_size / orig_w, base_size / orig_h)
     new_w = int(min(max(round_ties_to_even(orig_w * scale), 1.0), float(base_size)))
     new_h = int(min(max(round_ties_to_even(orig_h * scale), 1.0), float(base_size)))
-    resized = resize_bicubic_numpy(image, new_w, new_h)
+    resized = resize_bicubic(image, new_w, new_h)
     x_off = int(round_ties_to_even((base_size - new_w) * 0.5))
     y_off = int(round_ties_to_even((base_size - new_h) * 0.5))
     canvas[y_off : y_off + new_h, x_off : x_off + new_w] = resized

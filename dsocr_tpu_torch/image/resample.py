@@ -1,21 +1,37 @@
-"""Pillow-exact bicubic resampling in NumPy (no Pillow needed).
+"""Pillow-exact bicubic resampling without Pillow.
 
-The same 22-bit fixed-point algorithm as Pillow and the reference's
-``resize_bicubic_numpy`` (dsocr_tpu/image/resample.py:109-127): support-2
-bicubic with a = -0.5, bounds rounded half towards zero, per-row weight
-normalization, ``(acc + 2^21) >> 22`` clipped to 8 bits. Accumulation is
-integer, so the tap loop below (one [out, ...] slice per tap instead of
-one [out, taps, ...] gather) gives bit-identical results with a fraction
-of the memory.
+``resize_bicubic`` is the main path's resize: the native C++ resampler
+(dsocr_tpu_torch/native), as the reference resizes through its own
+(dsocr_tpu/image/resample.py:28-41). ``resize_bicubic_numpy`` is its
+NumPy twin, which the tests hold it against; nothing on the main path
+calls it.
+
+The twin runs the same 22-bit fixed-point algorithm as Pillow and the
+reference's ``resize_bicubic_numpy`` (dsocr_tpu/image/resample.py:109-127):
+support-2 bicubic with a = -0.5, bounds rounded half towards zero, per-row
+weight normalization, ``(acc + 2^21) >> 22`` clipped to 8 bits.
+Accumulation is integer, so the tap loop below (one [out, ...] slice per
+tap instead of one [out, taps, ...] gather) gives bit-identical results
+with a fraction of the memory.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from ..native import resize_bicubic_native
+
 _PRECISION_BITS = 22
 _PRECISION_SCALE = float(1 << _PRECISION_BITS)
 _ROUNDING_BIAS = 1 << (_PRECISION_BITS - 1)
+
+
+def resize_bicubic(image: np.ndarray, width: int, height: int) -> np.ndarray:
+    """Resize RGB uint8 [H, W, 3] with Pillow's bicubic filter through the
+    native resampler (built at first use; raises if it cannot be)."""
+    if width <= 0 or height <= 0:
+        return np.zeros((max(height, 0), max(width, 0), 3), dtype=np.uint8)
+    return resize_bicubic_native(image, width, height)
 
 
 def _bicubic_kernel(x: np.ndarray) -> np.ndarray:

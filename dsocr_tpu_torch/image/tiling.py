@@ -11,7 +11,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from .resample import resize_bicubic_numpy
+from .resample import resize_bicubic
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,7 +67,7 @@ def dynamic_preprocess(image: np.ndarray, params: PreprocessParams) -> DynamicPr
         return DynamicPreprocessResult(tiles=[], ratio=(1, 1))
     w_tiles, h_tiles = select_target_ratio(orig_w, orig_h, params)
     size = params.tile_size
-    resized = resize_bicubic_numpy(image, size * w_tiles, size * h_tiles)
+    resized = resize_bicubic(image, size * w_tiles, size * h_tiles)
     tiles = [
         resized[(i // w_tiles) * size : (i // w_tiles + 1) * size,
                 (i % w_tiles) * size : (i % w_tiles + 1) * size]

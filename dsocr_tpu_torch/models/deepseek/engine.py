@@ -12,7 +12,10 @@ Two surfaces are ported:
 - continuous batching: prepare_vision_input, compute_image_embedding,
   build_prompt_tokens, slot_step_fn, new_slot_cache, make_slot_runner,
   the paged pair slot_step_fn_paged and make_paged_slot_runner (a shared
-  KV page pool; no mesh branch), prefill_for_slot and prefill_for_slots.
+  KV page pool; no mesh branch), prefill_for_slot (with the continuation
+  prefill, ``extra_tokens``) and prefill_for_slots, whose stages the
+  bench recorder times under the reference's names (slot.prepare_inputs,
+  slot.vision_towers, slot.prefill_rows).
 
 The engine serves the decoder's fused layout: a split state (the
 reference's init or loader layout) is fused at init, as the reference's
@@ -38,6 +41,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ...core.benchmark import Timer, get_recorder
 from ...core.device import select_device
 from ...core.params import DecodeOutcome, DecodeParameters, VisionSettings, normalize_text
 from ...core.sampling import select_token_id_host
@@ -291,15 +295,31 @@ class DeepseekOcrEngine:
                                  allocator=PageAllocator(n_pages))
         return runner, cache
 
-    def prefill_for_slot(self, tokenizer, prompt, images, vision) -> dict:
-        """Vision + prompt + one-row prefill → a join packet."""
-        return self.prefill_for_slots(tokenizer, [(prompt, images, vision)])[0]
+    def prefill_for_slot(self, tokenizer, prompt, images, vision, extra_tokens=None) -> dict:
+        """Vision + prompt + one-row prefill → a join packet.
+
+        ``extra_tokens`` (a continuation): tokens already generated for the
+        request, appended after the prompt (image mask False), so that a
+        request whose row was lost to a device fault can rejoin from its
+        host-side record; the packet's logits then select the token after
+        them (server/scheduler.py, _recover_device_failure)."""
+        return self._prefill_wave(tokenizer, [(prompt, images, vision)], [extra_tokens])[0]
 
     def prefill_for_slots(self, tokenizer, requests) -> List[dict]:
         """Join packets for [(prompt, images, vision), ...]: host prep on a
         thread pool, towers batched across every image of the wave, then one
         batched prefill per group of rows sharing a 128-token bucket."""
+        return self._prefill_wave(tokenizer, requests, [None] * len(requests))
+
+    def _timed_sync(self, out: Optional[torch.Tensor]) -> None:
+        """Wait for the device work behind `out` while a bench recorder is
+        installed, so that the stage timer around it reads its end."""
+        if out is not None and get_recorder() is not None:
+            out.reshape(-1)[:1].cpu()
+
+    def _prefill_wave(self, tokenizer, requests, extras) -> List[dict]:
         flat = [(ri, np.asarray(img)) for ri, (_, images, _) in enumerate(requests) for img in images]
+        prep_t = Timer("slot.prepare_inputs")
         if len(flat) > 1:
             with ThreadPoolExecutor(max_workers=min(8, len(flat))) as pool:
                 prepared = list(pool.map(
@@ -307,15 +327,22 @@ class DeepseekOcrEngine:
                 ))
         else:
             prepared = [self.prepare_vision_input(img, requests[ri][2]) for ri, img in flat]
+        prep_t.finish(images=len(flat))
+        tower_t = Timer("slot.vision_towers")
         embeddings = self._compute_image_embeddings_batched(prepared)
+        self._timed_sync(embeddings[-1] if embeddings else None)
+        tower_t.finish(images=len(flat))
         per_req: List[Tuple[list, list]] = [([], []) for _ in requests]
         for (ri, _), vin, emb in zip(flat, prepared, embeddings):
             per_req[ri][0].append(vin)
             per_req[ri][1].append(emb)
+        prefill_t = Timer("slot.prefill_rows")
         rows = []
-        for ri, (prompt, _, vision) in enumerate(requests):
+        for ri, ((prompt, _, vision), extra) in enumerate(zip(requests, extras)):
             vins, embs = per_req[ri]
             tokens, mask = self.build_prompt_tokens(tokenizer, prompt, vins, embs, vision)
+            if extra:
+                tokens, mask = tokens + list(extra), mask + [0] * len(extra)
             rows.append((tokens, mask, embs))
         groups: Dict[int, List[int]] = {}
         for i, (tokens, _, _) in enumerate(rows):
@@ -324,6 +351,8 @@ class DeepseekOcrEngine:
         for idxs in groups.values():
             for i, pkt in zip(idxs, self._prefill_rows([rows[i] for i in idxs])):
                 out[i] = pkt
+        self._timed_sync(out[-1]["logits"] if out else None)
+        prefill_t.finish(rows=len(out), waves=len(groups))
         return out
 
     def _prefill_rows(self, rows) -> List[dict]:

@@ -230,6 +230,14 @@ class PagedSlotRunner(SlotRunner):
                 self._free_row(state, row)
         return state, finished, firsts_out
 
+    def release_all_rows(self) -> None:
+        """Return every row's pages to the pool. Device-fault recovery
+        calls it: the rows that were live when a chunk failed never ran
+        release(), and the state they were in is rebuilt (init_state
+        empties the tables)."""
+        for row in list(self._row_pages):
+            self.allocator.release(self._row_pages.pop(row))
+
     @torch.no_grad()
     def release(self, state: SlotState, row: int) -> SlotState:
         self._free_row(state, row)

@@ -194,13 +194,33 @@ class SlotRunner:
             self._step(model_params, state)
         return state
 
-    def harvest(self, state: SlotState) -> SlotHarvest:
-        snap = torch.cat(
+    @staticmethod
+    def snapshot(state: SlotState) -> torch.Tensor:
+        """[B, C + 3] packed device copy of what a harvest reads: context,
+        ctx_len, prompt_len, active. A copy, not a view: the state is
+        updated in place, so the next chunk would overwrite a view."""
+        return torch.cat(
             [state.context, state.ctx_len[:, None], state.prompt_len[:, None],
              state.active.long()[:, None]], dim=1,
-        ).cpu().numpy()
-        C = snap.shape[1] - 3
-        return SlotHarvest(snap[:, :C], snap[:, C], snap[:, C + 1], snap[:, C + 2].astype(bool))
+        )
+
+    def run_chunk_snap(self, model_params: Any, state: SlotState,
+                       n_steps: int) -> Tuple[SlotState, torch.Tensor]:
+        """run_chunk, then its snapshot, queued before the caller queues
+        anything else: the snapshot can be harvested (harvest_from_snap)
+        after the next chunk has been dispatched."""
+        state = self.run_chunk(model_params, state, n_steps)
+        return state, self.snapshot(state)
+
+    @staticmethod
+    def harvest_from_snap(snap: torch.Tensor) -> SlotHarvest:
+        """One device→host copy of a snapshot."""
+        arr = snap.cpu().numpy()
+        C = arr.shape[1] - 3
+        return SlotHarvest(arr[:, :C], arr[:, C], arr[:, C + 1], arr[:, C + 2].astype(bool))
+
+    def harvest(self, state: SlotState) -> SlotHarvest:
+        return self.harvest_from_snap(self.snapshot(state))
 
     # -- join / release ---------------------------------------------------------
 

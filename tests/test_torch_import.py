@@ -1,10 +1,12 @@
 """The PyTorch port imports without jax or the reference's heavy deps, and
 picks its device explicitly."""
 
+import ast
 import json
+import os
+import pathlib
 import subprocess
 import sys
-import os
 
 import pytest
 import torch
@@ -14,9 +16,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SLICE_MODULES = [
     "dsocr_tpu_torch",
     "dsocr_tpu_torch.core",
+    "dsocr_tpu_torch.core.benchmark",
     "dsocr_tpu_torch.core.device",
     "dsocr_tpu_torch.core.params",
     "dsocr_tpu_torch.core.sampling",
+    "dsocr_tpu_torch.core.streaming",
     "dsocr_tpu_torch.ops",
     "dsocr_tpu_torch.ops.norms",
     "dsocr_tpu_torch.ops.activations",
@@ -38,6 +42,9 @@ SLICE_MODULES = [
     "dsocr_tpu_torch.dsq.quant",
     "dsocr_tpu_torch.dsq.serve_quant",
     "dsocr_tpu_torch.image",
+    "dsocr_tpu_torch.image.resample",
+    "dsocr_tpu_torch.native",
+    "dsocr_tpu_torch.native.resample",
     "dsocr_tpu_torch.models.deepseek",
     "dsocr_tpu_torch.models.deepseek.config",
     "dsocr_tpu_torch.models.deepseek.sam",
@@ -51,6 +58,7 @@ SLICE_MODULES = [
     "dsocr_tpu_torch.runtime.generate",
     "dsocr_tpu_torch.runtime.slots",
     "dsocr_tpu_torch.runtime.paged",
+    "dsocr_tpu_torch.server.prefix_cache",
     "dsocr_tpu_torch.server.scheduler",
 ]
 FORBIDDEN = ["jax", "PIL", "safetensors", "ml_dtypes", "tokenizers", "aiohttp", "triton"]
@@ -70,6 +78,31 @@ def test_port_imports_no_jax_nor_heavy_deps():
     )
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def _imported_roots(path: pathlib.Path):
+    """Top-level names of every module the file imports (absolute imports;
+    the port's relative imports stay inside it)."""
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(alias.name.split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("where", ["chip_smoke.py", "dsocr_tpu_torch"])
+def test_no_line_imports_jax_nor_heavy_deps(where):
+    """Every import statement of chip_smoke.py and of every port module,
+    whether it runs at import time or inside a function."""
+    root = pathlib.Path(REPO) / where
+    files = [root] if root.is_file() else sorted(
+        p for p in root.rglob("*.py") if "_build" not in p.relative_to(root).parts)
+    assert files
+    for path in files:
+        bad = _imported_roots(path) & set(FORBIDDEN + ["dsocr_tpu"])
+        assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
 
 
 def test_cuda_request_without_gpu_raises():
