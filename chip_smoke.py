@@ -105,6 +105,20 @@ non-zero (nothing is caught):
             greedy tokens: prompt tokens, prefill seconds, ms per step,
             tok/s, peak memory, with the card's name and power limit; for
             this bf16 engine, and again after 4c for the Q8_0 one;
+    weights the same engine's weights written as an HF-named two-shard
+            safetensors checkpoint with its config.json (write_checkpoint,
+            ~6.7 GB in the ignored dsocr_tpu_torch/_build/weights/; the
+            phase needs WEIGHTS_DISK free and fails without it), loaded
+            through load_engine (bf16, int8 KV): every tensor, the page's
+            prefill logits and engine.decode's 32 greedy tokens equal to
+            the seeded engine's; then a Q8_0 and a Q6_K snapshot exported
+            on the card by `dsq export`, each loaded through load_engine
+            in its header's format: every packed tensor equal to the
+            port's packing, on the card, of the floats it stands for
+            (snapshot_floats); the Q6_K engine serves the 16 × 128 burst
+            (`serve_q6k_snapshot`: the row matmul and the dense sweep must
+            launch) and its profile; bytes and seconds of each write,
+            export and load, free disk, peak host RSS and device GiB;
 4b. serve_q8         the same with packed Q8_0 decoder weights (quantized
             on the card from the same seed): 16 requests × 128 tokens over
             16 slots, 16·6 = 96 selections > 64 experts, so decode runs the
@@ -154,14 +168,18 @@ non-zero (nothing is caught):
             full-width down projection is Q8_0); and the Q8_0 config at 4
             slots with paged KV and the megafused chain, f32 and int8 KV,
             and with a pool of 2 pages, so that a request waits for pages;
-            and engine.decode with and without the cache, f32 and Q8_0.
+            and engine.decode with and without the cache, f32 and Q8_0;
+            and weights from files at hidden 256 (FILES_PARITY_SEED's
+            checkpoint, its Q4_K and Q6_K snapshots exported on the card),
+            loaded on the card and on the CPU: packed tensors bit-equal,
+            greedy tokens equal at 4 slots with int8 KV.
 
 Every phase line carries t_s, the script's seconds when it was printed.
 The seeded page's host prep (page_packet) runs once for the script;
 outside the bursts' windows each phase reuses it.
 
 Then a line with the script's total seconds, a {"kernels": [...]} summary
-line (launches: the sum over the nine serving bursts, the sched phase, the
+line (launches: the sum over the ten serving bursts, the sched phase, the
 split phase and the two decode phases), the nvidia-smi
 line, and last
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
@@ -197,9 +215,17 @@ PARITY_SEED = 7
 # the card. The Q6_K parity engines draw from seed 8, which
 # tests/test_torch_q6k.py holds clear of such ties.
 Q6K_PARITY_SEED = 8
+# Phase 5's weights-from-files case draws from seed 9: seeds 7, 8, 11 and
+# 12 put such a near-tie in its Q4_K or Q6_K run (int8 KV, 4 slots);
+# tests/test_torch_loader.py holds 9 clear.
+FILES_PARITY_SEED = 9
 IMAGE_TOKEN_ID = 128815  # the DeepSeek tokenizer's <image> id
 # phase 3's row-layout matmul cases (case, N, K, M), the same for every
 # format; the lm_head first (the summary line takes its times)
+# the weights phase's files (git-ignored): a full-width bf16 checkpoint
+# (~6.7 GB) and one snapshot at a time (~3 GB)
+WEIGHTS_DIR = os.path.join(HERE, "dsocr_tpu_torch", "_build", "weights")
+WEIGHTS_DISK = 12 * 10 ** 9
 ROW_CASES = (("lm_head", 16, 1280, 129280), ("qkv", 1, 1280, 3840), ("qkv", 16, 1280, 3840),
              ("qkv", 1024, 1280, 3840), ("qkv", 16384, 1280, 3840), ("shared_down", 16, 1792, 1280))
 
@@ -1240,6 +1266,259 @@ def split_state(torch, state, lang):
     return out
 
 
+def config_json(cfg) -> dict:
+    """A published-style config.json for `cfg` (DeepseekOcrConfig.from_dict
+    reads it back: the language fields under language_config, SAM and CLIP
+    under vision_config.width, the projector). Only the full-width towers
+    round-trip: the published format has no SAM window or neck width."""
+    sam, clip = cfg.sam, cfg.clip
+    return {
+        "architectures": ["DeepseekOCRForCausalLM"],
+        "language_config": dataclasses.asdict(cfg.language),
+        "vision_config": {"image_size": sam.image_size, "width": {
+            "sam_vit_b": {"image_size": sam.image_size, "patch_size": sam.patch_size, "width": sam.embed_dim,
+                          "layers": sam.depth, "heads": sam.num_heads,
+                          "downsample_channels": list(sam.out_channels),
+                          "global_attn_indexes": list(sam.global_attn_indexes)},
+            "clip-l-14-224": {"width": clip.hidden_size, "layers": clip.num_layers, "heads": clip.num_heads,
+                              "image_size": clip.image_size, "patch_size": clip.patch_size}}},
+        "projector_config": {"projector_type": "linear", "n_embed": cfg.projector_n_embed,
+                             "input_dim": cfg.projector_input_dim},
+    }
+
+
+def hf_tensors(torch, state, cfg):
+    """A model state_dict (fused or split) → (HF checkpoint name, tensor)
+    in the loader's table order: the loader's name map inverted (fused
+    projections split, [in, out] linears and expert stacks transposed
+    back to [out, in])."""
+    from dsocr_tpu_torch.models.deepseek.loader import checkpoint_entries
+
+    split = split_state(torch, state, cfg.language)
+    for e in checkpoint_entries(cfg):
+        t = split[e.key]
+        if e.experts:
+            for j in range(e.experts):
+                yield e.name.format(e=j), t[j].t()
+        else:
+            yield e.name, t.t() if e.transpose else t
+
+
+def write_checkpoint(torch, state, cfg, directory, shards=2):
+    """Write `state` as an HF-named safetensors shard set in `directory`
+    (model-0000k-of-0000n.safetensors, split by bytes, and
+    model.safetensors.index.json) with its config.json; → (index path,
+    config path, bytes of tensor data). Each tensor is copied to the host
+    on its own."""
+    import struct
+
+    names = {torch.float32: "F32", torch.float16: "F16", torch.bfloat16: "BF16", torch.int64: "I64",
+             torch.int32: "I32", torch.int8: "I8", torch.uint8: "U8"}
+    tensors = list(hf_tensors(torch, state, cfg))
+    total = sum(t.numel() * t.element_size() for _, t in tensors)
+    weight_map, start = {}, 0
+    for k in range(shards):
+        fname = f"model-{k + 1:05d}-of-{shards:05d}.safetensors"
+        group, size = [], 0
+        while start < len(tensors) and (size < total / shards or k == shards - 1):
+            group.append(tensors[start])
+            size += tensors[start][1].numel() * tensors[start][1].element_size()
+            start += 1
+        header, offset = {}, 0
+        for name, t in group:
+            n = t.numel() * t.element_size()
+            header[name] = {"dtype": names[t.dtype], "shape": list(t.shape), "data_offsets": [offset, offset + n]}
+            offset += n
+            weight_map[name] = fname
+        raw = json.dumps(header).encode()
+        raw += b" " * (-len(raw) % 8)  # the data starts on an 8-byte boundary
+        with open(os.path.join(directory, fname), "wb") as fh:
+            fh.write(struct.pack("<Q", len(raw)) + raw)
+            for _, t in group:
+                fh.write(t.contiguous().cpu().reshape(-1).view(torch.uint8).numpy())
+    index = os.path.join(directory, "model.safetensors.index.json")
+    with open(index, "w") as fh:
+        json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, fh)
+    config = os.path.join(directory, "config.json")
+    with open(config, "w") as fh:
+        json.dump(config_json(cfg), fh)
+    return index, config, total
+
+
+def snapshot_floats(torch, state, cfg, reader, device):
+    """The floats a snapshot stands for, in the fused layout: `state` (the
+    checkpoint the snapshot was exported from), with each float fallback
+    record's (F16) value in place of the checkpoint's, cast to the model
+    dtype as the loader casts it."""
+    from dsocr_tpu_torch.models.deepseek.decoder import fuse_decoder_params
+    from dsocr_tpu_torch.models.deepseek.loader import checkpoint_entries
+
+    split = split_state(torch, state, cfg.language)
+    where = {}
+    for e in checkpoint_entries(cfg):
+        for j in range(e.experts) if e.experts else [None]:
+            where[e.name.format(e=j) if e.experts else e.name] = (e.key, j)
+    cloned = set()
+    for rec in reader.records:
+        if rec.q_dtype not in ("F16", "BF16", "F32"):
+            continue
+        key, j = where[f"{rec.name}.weight"]
+        w = reader.dequantize(rec.name, torch.float32, device).t().to(split[key].dtype)
+        if j is None:
+            split[key] = w.contiguous()
+            continue
+        if key not in cloned:
+            split[key] = split[key].clone()
+            cloned.add(key)
+        split[key][j] = w
+    return fuse_decoder_params(split)
+
+
+def host_rss_peak_gib() -> float:
+    """The process's peak resident set so far (ru_maxrss, KiB on Linux)."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+
+
+def export_snapshot(torch, index, config, path, method, device=None):
+    """`python -m dsocr_tpu_torch.dsq export` of the checkpoint as a
+    `method` snapshot (quantized on `device`, the card by default); its
+    summary line goes to stderr. → seconds."""
+    from dsocr_tpu_torch.dsq import cli as dsq_cli
+
+    args = ["export", "--weights", index, "--config", config, "--dtype", method, "--model-id", "chip-smoke",
+            "--output", path] + (["--device", device] if device else [])
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        require(dsq_cli.main(args) == 0, f"dsq export {method} failed")
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def file_engine(torch, cfg, index, snapshot, method, device, kv_quant=None):
+    """The tiny config's f32 engine from a checkpoint and a snapshot on
+    `device` (load_engine's path; config.json cannot carry the tiny
+    towers' widths)."""
+    from dsocr_tpu_torch.models.deepseek import DeepseekOcrEngine
+    from dsocr_tpu_torch.models.deepseek.loader import load_deepseek_params
+
+    state = load_deepseek_params(index, cfg, dtype=torch.float32, snapshot_path=snapshot, device=device)
+    return DeepseekOcrEngine(cfg, dtype=torch.float32, device=device, max_seq_len=512, kv_quant=kv_quant,
+                             state=state, quantize=method)
+
+
+PACKED_PARTS = ("codes", "scales", "mins", "highs")
+
+
+def prefill_logits(engine):
+    """The page's packet through `engine`'s towers and prefill → logits."""
+    _, _, tokens, mask, emb = page_packet(engine)
+    return engine._prefill_rows([(tokens, mask, [emb])])[0]["logits"]
+
+
+def weights_phase(torch, K, engine, required, unused):
+    """Weights from files at full width, on phase 4's bf16 engine: its
+    weights written as an HF-named two-shard safetensors checkpoint with its
+    config.json (write_checkpoint), loaded through load_engine (bf16, int8
+    KV): every tensor, the page's prefill logits and engine.decode's 32
+    greedy tokens must equal the seeded engine's. Then `dsq export` of a
+    Q8_0 and a Q6_K snapshot on the card, each loaded through load_engine
+    in the header's format: every packed tensor must equal the port's own
+    packing, on the card, of the floats it stands for (snapshot_floats);
+    the Q6_K engine then serves the 16 × 128 burst (its serving line and
+    profile; the kernels in `required` must launch, none in `unused`). The line gives
+    the bytes and seconds of each write, export and load, the free disk
+    before the phase, peak host RSS and peak device GiB. The files live in
+    WEIGHTS_DIR (git-ignored) and are removed at the end; too little free
+    disk fails the phase. → the burst's launch counts."""
+    import collections
+    import shutil
+
+    from dsocr_tpu_torch.core import DecodeParameters
+    from dsocr_tpu_torch.core.engine import ModelKind
+    from dsocr_tpu_torch.dsq.format import DsqReader
+    from dsocr_tpu_torch.models.deepseek.quantize import quantize_decoder_params
+    from dsocr_tpu_torch.models.registry import load_engine
+
+    shutil.rmtree(WEIGHTS_DIR, ignore_errors=True)
+    os.makedirs(WEIGHTS_DIR)
+    free = shutil.disk_usage(WEIGHTS_DIR).free
+    line = {"phase": "weights", "disk_free_bytes": free, "host_rss_peak_before_gib": host_rss_peak_gib()}
+    require(free >= WEIGHTS_DISK, f"{free} bytes free in {WEIGHTS_DIR}; the weights phase needs {WEIGHTS_DISK}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    failures = []
+
+    def load(snapshot=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = load_engine(ModelKind.DEEPSEEK, config_path=config, weights_path=index, snapshot_path=snapshot,
+                          dtype="bfloat16", max_seq_len=engine.max_seq_len, kv_quant="int8")
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    try:
+        t0 = time.perf_counter()
+        index, config, nbytes = write_checkpoint(torch, engine.model.state_dict(), engine.cfg, WEIGHTS_DIR)
+        ckpt = line["checkpoint"] = {"bytes": nbytes, "write_s": time.perf_counter() - t0}
+        loaded, ckpt["load_s"] = load()
+        want, got = engine.model.state_dict(), loaded.model.state_dict()
+        differ = sorted(k for k in set(want) | set(got) if k not in want or k not in got
+                        or want[k].dtype != got[k].dtype or not torch.equal(want[k], got[k]))
+        ckpt.update(tensors=len(want), tensors_differ=differ[:8])
+        ckpt["prefill_logits_equal"] = torch.equal(*(prefill_logits(e) for e in (engine, loaded)))
+        image, vision = seeded_page()
+        decoded = [e.decode(BenchTokenizer(), PROMPT, [image], vision,
+                            DecodeParameters(max_new_tokens=32)).generated_tokens for e in (engine, loaded)]
+        ckpt.update(decode_tokens=len(decoded[1]), decode_tokens_equal=decoded[0] == decoded[1])
+        failures += [] if not differ else ["the loaded checkpoint's tensors differ"]
+        failures += [] if ckpt["prefill_logits_equal"] else ["the loaded checkpoint's prefill logits differ"]
+        failures += [] if ckpt["decode_tokens_equal"] else ["the loaded checkpoint's decode tokens differ"]
+        del loaded, want, got
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        launches = None
+        for method in ("q8_0", "q6_k"):
+            path = os.path.join(WEIGHTS_DIR, f"{method}.dsq")
+            snap = line[method] = {"export_s": export_snapshot(torch, index, config, path, method),
+                                   "bytes": os.path.getsize(path)}
+            reader = DsqReader(path)
+            snap["records"] = dict(collections.Counter(r.q_dtype for r in reader.records))
+            loaded, snap["load_s"] = load(path)
+            snap["quantize"] = loaded.quantize
+            expected = quantize_decoder_params(
+                snapshot_floats(torch, engine.model.state_dict(), engine.cfg, reader, "cuda"), method)
+            got = loaded.model.state_dict()
+            packed = [k for k in expected if k.rsplit(".", 1)[-1] in PACKED_PARTS]
+            differ = [k for k in packed if k not in got or not torch.equal(expected[k], got[k])]
+            snap.update(packed_tensors=len(packed), packed_differ=differ[:8])
+            failures += [] if loaded.quantize == method else [f"the {method} snapshot served as {loaded.quantize}"]
+            failures += [] if packed and not differ else [f"the {method} snapshot's packed tensors differ"]
+            del expected, got
+            reader.close()
+            if method == "q6_k" and not failures:
+                launches = serving_phase(torch, K, "serve_q6k_snapshot", loaded, n_requests=N_REQUESTS,
+                                         n_slots=N_SLOTS, max_new=MAX_NEW, required=required, unused=unused,
+                                         warmup=False, profile=True)[0]
+            del loaded
+            gc.collect()
+            torch.cuda.empty_cache()
+            os.remove(path)
+    finally:
+        shutil.rmtree(WEIGHTS_DIR, ignore_errors=True)
+    line.update(seconds=time.perf_counter() - t_phase, host_rss_peak_gib=host_rss_peak_gib(),
+                max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    emit(line)
+    require(not failures, "; ".join(failures))
+    return launches
+
+
 def split_phase(torch, K, engine, steps=32):
     """The decoder's split layout at full width on the card: the bf16 split
     tree of phase 4's engine (fusing it gives the engine's weights) over a
@@ -1789,8 +2068,25 @@ def full_width_engine(torch, quantize=None):
     return engine
 
 
+def files_parity(torch, cfg, directory, device=None):
+    """Phase 5's files: FILES_PARITY_SEED's f32 engine of `cfg` written
+    as a checkpoint in `directory`, exported as a Q4_K and a Q6_K snapshot
+    (quantized on `device`, the card by default) → (index, {method: path})."""
+    from dsocr_tpu_torch.models.deepseek import DeepseekOcrEngine
+
+    os.makedirs(directory, exist_ok=True)
+    seeded = DeepseekOcrEngine(cfg, dtype=torch.float32, device="cpu", max_seq_len=512, seed=FILES_PARITY_SEED)
+    index, config, _ = write_checkpoint(torch, seeded.model.state_dict(), cfg, directory)
+    snaps = {m: os.path.join(directory, f"{m}.dsq") for m in ("q4_k", "q6_k")}
+    for method, path in snaps.items():
+        export_snapshot(torch, index, config, path, method, device)
+    return index, snaps
+
+
 def parity_phase(torch):
     """Phase 5: tiny config, same weights, CUDA kernels vs CPU twins."""
+    import shutil
+
     import numpy as np
 
     from dsocr_tpu_torch.core import DecodeParameters, VisionSettings
@@ -1882,6 +2178,23 @@ def parity_phase(torch):
         result[f"{key}_max_occupancy"] = max(sched.batch_sizes)
         require(all(result[f"{key}_launches"].values()), f"{key}: a paged or megafused kernel did not run")
         require(not pool or max(sched.batch_sizes) <= int(pool), f"{key}: more rows than the pool holds")
+    # weights from files at hidden 256: FILES_PARITY_SEED's float weights
+    # as a checkpoint, its Q4_K and Q6_K snapshots exported on the
+    # card, each loaded on the card and on the CPU: packed tensors equal,
+    # greedy tokens equal at 4 slots, int8 KV
+    index, snaps = files_parity(torch, kq(32), os.path.join(WEIGHTS_DIR, "parity"))
+    for method, snapshot in snaps.items():
+        states, tokens = {}, {}
+        for device in ("cpu", "cuda"):
+            eng = file_engine(torch, kq(32), index, snapshot, method, device, kv_quant="int8")
+            states[device] = {k: v.cpu() for k, v in eng.model.state_dict().items()}
+            outs, _ = serve(eng, TinyTokenizer(), images, vision, params, n_slots=4, max_len=256, chunk=8)
+            tokens[device] = [o.generated_tokens for o in outs]
+        result[f"files_{method}_packed_equal"] = states["cpu"].keys() == states["cuda"].keys() and all(
+            torch.equal(v, states["cuda"][k]) for k, v in states["cpu"].items())
+        result[f"files_{method}_tokens_equal"] = tokens["cpu"] == tokens["cuda"]
+        result[f"files_{method}_tokens_cuda"] = tokens["cuda"]
+    shutil.rmtree(os.path.join(WEIGHTS_DIR, "parity"), ignore_errors=True)
     # single-request decode (engine.decode over a contiguous KV cache), with
     # and without the cache, f32 and Q8_0 weights (the gather tier at N = 1)
     for tag, qcfg, method in (("f32", cfg, None), ("q8", dataclasses.replace(cfg, language=lang32), "q8_0")):
@@ -1954,6 +2267,8 @@ def main() -> int:
     bursts.append(split_phase(torch, K, engine))
     prefill = ["sam_flash_attention", "flash_prefill_attention"]
     bursts.append(decode_phase(torch, K, engine, smi, required=prefill))
+    bursts.append(weights_phase(torch, K, engine, required=attention + [
+        "q6k_matmul", "q6k_dense_experts", "q8_dense_experts_perx"], unused=codes_in))
     del engine
     gc.collect()
     torch.cuda.empty_cache()

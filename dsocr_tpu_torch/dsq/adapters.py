@@ -1,0 +1,105 @@
+"""Model adapters: the quantizable linears of a model from its config
+(dsocr_tpu/dsq/adapters.py, the reference's dsq-models crate).
+
+``ModelAdapter`` {id, supports(config), discover(config, scope) →
+[LinearSpec], recommend_dtype}; ``infer_adapter`` picks one from a
+config.json's contents. Specs use the HF checkpoint names, so snapshots
+interoperate with the reference's. The PaddleOCR-VL and DotsOCR adapters
+come with their model families (ROADMAP Queue 1 #5): Paddle's reads the
+family's config class, which the port has not yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+import json
+import pathlib
+from typing import Any, List, Mapping, Optional
+
+
+class AdapterScope(enum.Enum):
+    TEXT = "text"
+    TEXT_AND_PROJECTOR = "text+projector"
+
+
+@dataclasses.dataclass(frozen=True)
+class LinearSpec:
+    name: str  # checkpoint name WITHOUT the trailing .weight
+    out_dim: int
+    in_dim: int
+
+
+class ModelAdapter:
+    id: str = ""
+
+    def supports(self, config: Mapping[str, Any]) -> bool:
+        raise NotImplementedError
+
+    def discover(self, config: Mapping[str, Any], scope: AdapterScope) -> List[LinearSpec]:
+        raise NotImplementedError
+
+    def recommend_dtype(self) -> str:
+        return "Q6_K"
+
+
+class DeepseekOcrAdapter(ModelAdapter):
+    id = "deepseek-ocr"
+
+    def supports(self, config) -> bool:
+        archs = config.get("architectures") or []
+        return any("DeepseekOCR" in a or "deepseek" in a.lower() for a in archs) or (
+            "vision_config" in config
+            and "sam_vit_b" in (config.get("vision_config", {}).get("width") or {})
+        )
+
+    def discover(self, config, scope) -> List[LinearSpec]:
+        from ..models.deepseek.config import DeepseekOcrConfig
+
+        cfg = DeepseekOcrConfig.from_dict(config)
+        lang = cfg.language
+        H, D, NH = lang.hidden_size, lang.head_dim, lang.num_attention_heads
+        NKV, DV = lang.resolved_kv_heads, lang.resolved_v_head_dim
+        specs: List[LinearSpec] = []
+        for i in range(lang.num_hidden_layers):
+            base = f"model.layers.{i}"
+            specs += [
+                LinearSpec(f"{base}.self_attn.q_proj", NH * D, H),
+                LinearSpec(f"{base}.self_attn.k_proj", NKV * D, H),
+                LinearSpec(f"{base}.self_attn.v_proj", NKV * DV, H),
+                LinearSpec(f"{base}.self_attn.o_proj", H, NH * DV),
+            ]
+            if lang.is_moe_layer(i):
+                mi = lang.moe_intermediate_size or lang.intermediate_size
+                for e in range(lang.n_routed_experts or 0):
+                    eb = f"{base}.mlp.experts.{e}"
+                    specs += [LinearSpec(f"{eb}.gate_proj", mi, H), LinearSpec(f"{eb}.up_proj", mi, H),
+                              LinearSpec(f"{eb}.down_proj", H, mi)]
+                if lang.n_shared_experts:
+                    si = mi * lang.n_shared_experts
+                    sb = f"{base}.mlp.shared_experts"
+                    specs += [LinearSpec(f"{sb}.gate_proj", si, H), LinearSpec(f"{sb}.up_proj", si, H),
+                              LinearSpec(f"{sb}.down_proj", H, si)]
+            else:
+                inter = lang.intermediate_size
+                specs += [LinearSpec(f"{base}.mlp.gate_proj", inter, H),
+                          LinearSpec(f"{base}.mlp.up_proj", inter, H),
+                          LinearSpec(f"{base}.mlp.down_proj", H, inter)]
+        specs.append(LinearSpec("lm_head", lang.vocab_size, H))
+        if scope is AdapterScope.TEXT_AND_PROJECTOR:
+            specs.append(LinearSpec("model.projector.layers", cfg.projector_n_embed, cfg.projector_input_dim))
+        return specs
+
+
+ADAPTERS: List[ModelAdapter] = [DeepseekOcrAdapter()]
+
+
+def infer_adapter(config: Mapping[str, Any]) -> Optional[ModelAdapter]:
+    for adapter in ADAPTERS:
+        if adapter.supports(config):
+            return adapter
+    return None
+
+
+def infer_adapter_from_path(config_path) -> Optional[ModelAdapter]:
+    return infer_adapter(json.loads(pathlib.Path(config_path).read_text()))

@@ -1,5 +1,17 @@
-"""Q4_K and Q6_K row quantization in torch (dsocr_tpu/dsq/quant.py:
-quantize_q4_k with _make_qkx2_quants, quantize_q6_k with _make_qx_quants).
+"""ggml quantization in torch (dsocr_tpu/dsq/quant.py): the Q4_K and Q6_K
+row quantizers (quantize_q4_k with _make_qkx2_quants, quantize_q6_k with
+_make_qx_quants), Q8_0's ``q8_rows``, and the byte codecs of all three.
+
+The byte codecs (``quantize_q8_0`` / ``q4_k`` / ``q6_k``, their
+``dequantize_*``, ``quantize``, ``dequantize``, ``block_size``) write and
+read the reference's ggml payloads, byte for byte, on any device: the
+quantizers hand their block parts (``q4k_blocks``, ``q6k_blocks``: f16
+``d``/``dmin``, 6-bit scales and mins, 8-bit scales, codes) to the
+encoders, and ``*_rows_from_payload`` decode a payload into what the row
+quantizers return, which the serving packers lay out
+(dsq/serve_quant.py). ``dequantize_q4_k`` returns f64, as NumPy computes
+it; the others f32. The reference's native quantizer (native/quant.cpp)
+is not carried over: these run on the card.
 
 ``q4k_rows`` and ``q6k_rows`` are ``quantize_q4_k`` / ``quantize_q6_k``
 followed by the reference's payload decode
@@ -124,10 +136,10 @@ def _make_qkx2_quants(x, weights, nmax: int, rmin: float = -1.0, rdelta: float =
     return scale, the_min
 
 
-def q4k_rows(rows: torch.Tensor):
-    """[R, K] float, K % 256 == 0 → (codes [R, K] uint8 in 0..15,
-    scales [R, K/32] f32 = d·sc, mins [R, K/32] f32 = dmin·m); the
-    dequantized weight is codes · scales − mins per 32 values."""
+def q4k_blocks(rows: torch.Tensor):
+    """[R, K] float, K % 256 == 0 → a Q4_K super-block's parts, one row of
+    each per 256 values: (codes [nb, 256] uint8 in 0..15, d [nb] and dmin
+    [nb] f32 holding f16 values, sc [nb, 8] and m [nb, 8] int64 in 0..63)."""
     r, k = rows.shape
     if k % QK_K:
         raise ValueError(f"Q4_K rows need K % {QK_K} == 0, got K = {k}")
@@ -160,10 +172,22 @@ def q4k_rows(rows: torch.Tensor):
     safe_dd = torch.where(dd == 0.0, 1.0, dd)
     codes = _nearest_int((x.reshape(nb, 8, Q4K_SUB).double() + mmf[..., None]) / safe_dd[..., None])
     codes = torch.where((dd == 0.0)[..., None], 0.0, codes.clamp(0, 15))
+    return codes.to(torch.uint8).reshape(nb, QK_K), d, dmin, sc, m
+
+
+def _q4k_decoded(r: int, k: int, codes, d, dmin, sc, m):
+    """Q4_K parts → (codes [R, K], scales = d·sc, mins = dmin·m [R, K/32])."""
     # f16 d or dmin (11 bits) times a 6-bit integer is exact in f32
     s = (d[:, None] * sc.float()).reshape(r, k // Q4K_SUB)
     b = (dmin[:, None] * m.float()).reshape(r, k // Q4K_SUB)
-    return codes.to(torch.uint8).reshape(r, k), s, b
+    return codes.reshape(r, k), s, b
+
+
+def q4k_rows(rows: torch.Tensor):
+    """[R, K] float, K % 256 == 0 → (codes [R, K] uint8 in 0..15,
+    scales [R, K/32] f32 = d·sc, mins [R, K/32] f32 = dmin·m); the
+    dequantized weight is codes · scales − mins per 32 values."""
+    return _q4k_decoded(*rows.shape, *q4k_blocks(rows))
 
 
 def _signed_absmax(t: torch.Tensor) -> torch.Tensor:
@@ -199,10 +223,10 @@ def _make_qx_quants(x, nmax: int):
     return torch.where(dead[:, None], 0.0, L), torch.where(dead, 0.0, scale)
 
 
-def q6k_rows(rows: torch.Tensor):
-    """[R, K] float, K % 256 == 0 → (codes [R, K] uint8 in 0..63,
-    scales [R, K/16] f32 = d·sc); the dequantized weight is
-    (codes − 32) · scales per 16 values."""
+def q6k_blocks(rows: torch.Tensor):
+    """[R, K] float, K % 256 == 0 → a Q6_K super-block's parts, one row of
+    each per 256 values: (codes [nb, 256] uint8 in 0..63, d [nb] f32
+    holding f16 values, sc [nb, 16] f32 holding the int8 scales)."""
     r, k = rows.shape
     if k % QK_K:
         raise ValueError(f"Q6_K rows need K % {QK_K} == 0, got K = {k}")
@@ -218,11 +242,218 @@ def q6k_rows(rows: torch.Tensor):
     d = torch.where(dead, 0.0, d)
     sc = torch.clamp(_nearest_int(iscale[:, None] * scales), max=127)
     sc = torch.remainder(sc + 128.0, 256.0) - 128.0  # astype(np.int8) wraps
-    # f16 d (11 bits) times an 8-bit integer is exact in f32; a dead
-    # super-block has d = 0, so its scales come out 0 as the payload's do
+    sc = torch.where(dead[:, None], 0.0, sc)
+    # f16 d (11 bits) times an 8-bit integer is exact in f32
     dd = d[:, None] * sc
     safe_dd = torch.where(dd == 0.0, 1.0, dd)
     codes = _nearest_int(x.reshape(nb, 16, Q6K_SUB) / safe_dd[..., None]).clamp(-32, 31) + 32
     codes = torch.where((dd == 0.0)[..., None], L0, codes)  # ggml skips those sub-blocks
     codes = torch.where(dead[:, None, None], 0.0, codes)  # and zeroes dead super-blocks
-    return codes.to(torch.uint8).reshape(r, k), dd.reshape(r, k // Q6K_SUB)
+    return codes.to(torch.uint8).reshape(nb, QK_K), d, sc
+
+
+def _q6k_decoded(r: int, k: int, codes, d, sc):
+    """Q6_K parts → (codes [R, K], scales = d·sc [R, K/16])."""
+    return codes.reshape(r, k), (d[:, None] * sc).reshape(r, k // Q6K_SUB)
+
+
+def q6k_rows(rows: torch.Tensor):
+    """[R, K] float, K % 256 == 0 → (codes [R, K] uint8 in 0..63,
+    scales [R, K/16] f32 = d·sc); the dequantized weight is
+    (codes − 32) · scales per 16 values."""
+    return _q6k_decoded(*rows.shape, *q6k_blocks(rows))
+
+
+# ---------------------------------------------------------------------------
+# Q8_0, and the ggml byte codecs (dsocr_tpu/dsq/quant.py:44-378)
+# ---------------------------------------------------------------------------
+
+Q8_BLOCK = 32  # values per Q8_0 block (one f16 scale)
+Q8_BLOCK_BYTES = 34  # f16 scale + 32 int8 codes
+Q4K_BLOCK_BYTES = 144  # f16 d + f16 dmin + 12 B of 6-bit scales and mins + 128 B of nibbles
+Q6K_BLOCK_BYTES = 210  # 128 B low nibbles + 64 B 2-bit highs + 16 int8 scales + f16 d
+
+
+def q8_rows(rows: torch.Tensor):
+    """[R, K] float, K % 32 == 0 → (codes [R, K] int8, scales [R, K/32]
+    f32): amax/127 in f32, codes from the f32 scale's inverse rounded half
+    away from zero (Rust's f32::round) and clipped, an all-zero block
+    coded 0; the returned scale is rounded through f16, as a Q8_0 payload
+    stores it (the reference's serve_quant.q8_rows)."""
+    r, k = rows.shape
+    x = rows.float().reshape(r, k // Q8_BLOCK, Q8_BLOCK)
+    amax = x.abs().amax(dim=-1)
+    zero = torch.zeros_like(amax)
+    # a tensor divisor: CUDA divides by a scalar as a product with its
+    # reciprocal, which is not the correctly rounded quotient
+    scale = torch.where(amax > 0.0, amax / torch.full_like(amax, 127.0), zero)
+    nonzero = scale != 0.0
+    inv = torch.where(nonzero, torch.div(torch.ones_like(scale), torch.where(nonzero, scale, 1.0)), zero)
+    t = x * inv[..., None]
+    # round half away from zero (Rust f32::round), not torch.round's half-to-even
+    q = torch.where(t >= 0.0, torch.floor(t + 0.5), torch.ceil(t - 0.5)).clamp_(-128, 127)
+    codes = torch.where(nonzero[..., None], q, 0.0).to(torch.int8)
+    return codes.reshape(r, k), scale.to(torch.float16).float()
+
+
+def _check_cols(cols: int, block: int) -> None:
+    if cols % block:
+        raise ValueError(f"cols {cols} not a multiple of {block}")
+
+
+def as_payload(payload, device=None) -> torch.Tensor:
+    """A payload (bytes-like, or a uint8 tensor) as a 1-D uint8 tensor on
+    `device` (None: where it is; the CPU for bytes)."""
+    if not isinstance(payload, torch.Tensor):
+        payload = torch.frombuffer(bytearray(payload), dtype=torch.uint8) if len(payload) else (
+            torch.empty(0, dtype=torch.uint8))
+    return payload.to(device) if device is not None else payload
+
+
+def _blocks(payload, block_bytes: int, device=None) -> torch.Tensor:
+    return as_payload(payload, device).reshape(-1, block_bytes)
+
+
+def _f16_bytes(x: torch.Tensor) -> torch.Tensor:
+    """[n] f32 holding f16 values → [n, 2] uint8, little-endian."""
+    return x.to(torch.float16).view(torch.uint8).reshape(-1, 2)
+
+
+def _f16_of(b: torch.Tensor) -> torch.Tensor:
+    """[n, 2] uint8 → [n] f32."""
+    return b.contiguous().view(torch.float16).reshape(-1).float()
+
+
+def to_bytes(t: torch.Tensor) -> bytes:
+    """A tensor's bytes (its data, wherever it lies)."""
+    return t.contiguous().cpu().reshape(-1).view(torch.uint8).numpy().tobytes()
+
+
+def quantize_q8_0(weights: torch.Tensor, rows: int, cols: int) -> bytes:
+    """Row-major [rows, cols] float → Q8_0 payload bytes, the reference's
+    bytes (quantized where the weights lie)."""
+    _check_cols(cols, Q8_BLOCK)
+    codes, scales = q8_rows(weights.reshape(rows, cols))
+    return to_bytes(torch.cat([_f16_bytes(scales.reshape(-1)),
+                               codes.reshape(-1, Q8_BLOCK).view(torch.uint8)], dim=1))
+
+
+def q8_rows_from_payload(payload, rows: int, cols: int, device=None):
+    """A Q8_0 payload → (codes [rows, cols] int8, scales [rows, cols/32]
+    f32), what q8_rows returns for the weights it was made from."""
+    blocks = _blocks(payload, Q8_BLOCK_BYTES, device)
+    codes = blocks[:, 2:].contiguous().view(torch.int8).reshape(rows, cols)
+    return codes, _f16_of(blocks[:, :2]).reshape(rows, cols // Q8_BLOCK)
+
+
+def dequantize_q8_0(payload, rows: int, cols: int, device=None) -> torch.Tensor:
+    """[rows, cols] f32: code × the f16 scale."""
+    codes, scales = q8_rows_from_payload(payload, rows, cols, device)
+    return (codes.float().reshape(-1, Q8_BLOCK) * scales.reshape(-1, 1)).reshape(rows, cols)
+
+
+def _pack_q4k_scales(sc: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """[nb, 8] 6-bit scales + [nb, 8] 6-bit mins → [nb, 12] uint8 (ggml's
+    packing: sub-blocks 0-3 in the low 6 bits of bytes 0-3 and 4-7, 4-7 as
+    nibbles in bytes 8-11 with their high 2 bits in the top of bytes 0-7)."""
+    sc, m = sc.long() & 63, m.long() & 63
+    out = torch.cat([sc[:, :4] | ((sc[:, 4:] >> 4) << 6),
+                     m[:, :4] | ((m[:, 4:] >> 4) << 6),
+                     (sc[:, 4:] & 0xF) | ((m[:, 4:] & 0xF) << 4)], dim=1)
+    return out.to(torch.uint8)
+
+
+def _unpack_q4k_scales(packed: torch.Tensor):
+    """[nb, 12] uint8 → (sc [nb, 8], m [nb, 8]) int64 (ggml get_scale_min_k4)."""
+    p = packed.long()
+    sc = torch.cat([p[:, 0:4] & 63, (p[:, 8:12] & 0xF) | ((p[:, 0:4] >> 6) << 4)], dim=1)
+    m = torch.cat([p[:, 4:8] & 63, (p[:, 8:12] >> 4) | ((p[:, 4:8] >> 6) << 4)], dim=1)
+    return sc, m
+
+
+def quantize_q4_k(weights: torch.Tensor, rows: int, cols: int) -> bytes:
+    """Row-major [rows, cols] float → Q4_K payload bytes (144 a block)."""
+    _check_cols(cols, QK_K)
+    codes, d, dmin, sc, m = q4k_blocks(weights.reshape(rows, cols))
+    pairs = codes.reshape(-1, 4, 2, 32)  # per 64 values: the low 32, then the high 32
+    qs = (pairs[:, :, 0] | (pairs[:, :, 1] << 4)).reshape(-1, 128)
+    return to_bytes(torch.cat([_f16_bytes(d), _f16_bytes(dmin), _pack_q4k_scales(sc, m), qs], dim=1))
+
+
+def q4k_parts_from_payload(payload, device=None):
+    """A Q4_K payload → q4k_blocks' parts (codes, d, dmin, sc, m)."""
+    blocks = _blocks(payload, Q4K_BLOCK_BYTES, device)
+    qs = blocks[:, 16:].reshape(-1, 4, 1, 32)
+    codes = torch.cat([qs & 0xF, qs >> 4], dim=2).reshape(-1, QK_K)
+    sc, m = _unpack_q4k_scales(blocks[:, 4:16])
+    return codes, _f16_of(blocks[:, 0:2]), _f16_of(blocks[:, 2:4]), sc, m
+
+
+def q4k_rows_from_payload(payload, rows: int, cols: int, device=None):
+    """A Q4_K payload → what q4k_rows returns for its weights."""
+    return _q4k_decoded(rows, cols, *q4k_parts_from_payload(payload, device))
+
+
+def dequantize_q4_k(payload, rows: int, cols: int, device=None) -> torch.Tensor:
+    """[rows, cols] f64, as NumPy computes it (f32 × int32 promotes to
+    f64): d·sc·q − dmin·m."""
+    codes, s, b = q4k_rows_from_payload(payload, rows, cols, device)
+    vals = codes.double().reshape(-1, Q4K_SUB) * s.double().reshape(-1, 1) - b.double().reshape(-1, 1)
+    return vals.reshape(rows, cols)
+
+
+def quantize_q6_k(weights: torch.Tensor, rows: int, cols: int) -> bytes:
+    """Row-major [rows, cols] float → Q6_K payload bytes (210 a block)."""
+    _check_cols(cols, QK_K)
+    codes, d, sc = q6k_blocks(weights.reshape(rows, cols))
+    a = codes.reshape(-1, 2, 4, 32)  # per 128 values, four runs of 32
+    low, high = a & 0xF, a >> 4
+    ql = torch.stack([low[:, :, 0] | (low[:, :, 2] << 4), low[:, :, 1] | (low[:, :, 3] << 4)], dim=2)
+    qh = high[:, :, 0] | (high[:, :, 1] << 2) | (high[:, :, 2] << 4) | (high[:, :, 3] << 6)
+    scales = sc.to(torch.int8).view(torch.uint8)
+    return to_bytes(torch.cat([ql.reshape(-1, 128), qh.reshape(-1, 64), scales, _f16_bytes(d)], dim=1))
+
+
+def q6k_parts_from_payload(payload, device=None):
+    """A Q6_K payload → q6k_blocks' parts (codes, d, sc)."""
+    blocks = _blocks(payload, Q6K_BLOCK_BYTES, device)
+    ql = blocks[:, :128].reshape(-1, 2, 2, 32)
+    qh = blocks[:, 128:192].reshape(-1, 2, 32)
+    lo = [ql[:, :, 0] & 0xF, ql[:, :, 1] & 0xF, ql[:, :, 0] >> 4, ql[:, :, 1] >> 4]
+    codes = torch.stack([lo[i] | (((qh >> (2 * i)) & 3) << 4) for i in range(4)], dim=2).reshape(-1, QK_K)
+    sc = blocks[:, 192:208].contiguous().view(torch.int8).float()
+    return codes, _f16_of(blocks[:, 208:210]), sc
+
+
+def q6k_rows_from_payload(payload, rows: int, cols: int, device=None):
+    """A Q6_K payload → what q6k_rows returns for its weights."""
+    return _q6k_decoded(rows, cols, *q6k_parts_from_payload(payload, device))
+
+
+def dequantize_q6_k(payload, rows: int, cols: int, device=None) -> torch.Tensor:
+    """[rows, cols] f32: (d·sc)·(q − 32)."""
+    codes, s = q6k_rows_from_payload(payload, rows, cols, device)
+    vals = s.reshape(-1, 1) * (codes.float() - 32.0).reshape(-1, Q6K_SUB)
+    return vals.reshape(rows, cols)
+
+
+_CODECS = {
+    "Q8_0": (quantize_q8_0, dequantize_q8_0, Q8_BLOCK),
+    "Q4_K": (quantize_q4_k, dequantize_q4_k, QK_K),
+    "Q6_K": (quantize_q6_k, dequantize_q6_k, QK_K),
+}
+
+
+def quantize(dtype: str, weights: torch.Tensor, rows: int, cols: int) -> bytes:
+    """ggml payload bytes of `weights`, quantized where they lie (the
+    reference's native/quant.cpp path is not carried over: the card runs
+    these on the device)."""
+    return _CODECS[dtype][0](weights, rows, cols)
+
+
+def dequantize(dtype: str, payload, rows: int, cols: int, device=None) -> torch.Tensor:
+    return _CODECS[dtype][1](payload, rows, cols, device)
+
+
+def block_size(dtype: str) -> int:
+    return _CODECS[dtype][2]

@@ -28,37 +28,45 @@ Q6_K keeps the low 4 bits of its 6-bit codes as Q4_K keeps its codes, the
                    scales [.., E, in/16, out]}
 A K-quant needs in % 256 == 0; other weights fall back to Q8_0 per
 tensor (``effective_method``), as the reference does.
+
+Raw payloads (the reference's ``raw=``): a snapshot's published ggml
+bytes for a weight are decoded on the device straight into these layouts
+(``raw_payload_for``: the method must match and the byte count check out,
+else the float is packed, as the reference falls back); the decode gives
+what quantizing the weights the payload was made from gives, so the two
+routes pack the same tensors. ``fused_raw`` concatenates the parts' payloads
+of a fused projection, ``collect_raw_plain`` gathers a stacked linear's.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Union
+import math
+from typing import Dict, Optional, Sequence, Union
 
 import torch
 
-from .quant import QK_K, q4k_rows, q6k_rows
+from .quant import (
+    Q4K_BLOCK_BYTES,
+    Q6K_BLOCK_BYTES,
+    Q8_BLOCK,
+    Q8_BLOCK_BYTES,
+    QK_K,
+    as_payload,
+    q4k_rows,
+    q4k_rows_from_payload,
+    q6k_rows,
+    q6k_rows_from_payload,
+    q8_rows,
+    q8_rows_from_payload,
+)
 
-Q8_BLOCK = 32
 METHODS = ("q8_0", "q4_k", "q6_k")
 KQ_CHUNK = 1 << 24  # weights per K-quant row call: few launches, a bounded working set
-
-
-def q8_rows(rows: torch.Tensor):
-    """[R, K] float → (codes [R, K] int8, scales [R, K/32] f32)."""
-    r, k = rows.shape
-    x = rows.float().reshape(r, k // Q8_BLOCK, Q8_BLOCK)
-    amax = x.abs().amax(dim=-1)
-    zero = torch.zeros_like(amax)
-    # a tensor divisor: CUDA divides by a scalar as a product with its
-    # reciprocal, which is not the correctly rounded quotient
-    scale = torch.where(amax > 0.0, amax / torch.full_like(amax, 127.0), zero)
-    nonzero = scale != 0.0
-    inv = torch.where(nonzero, torch.div(torch.ones_like(scale), torch.where(nonzero, scale, 1.0)), zero)
-    t = x * inv[..., None]
-    # round half away from zero (Rust f32::round), not torch.round's half-to-even
-    q = torch.where(t >= 0.0, torch.floor(t + 0.5), torch.ceil(t - 0.5)).clamp_(-128, 127)
-    codes = torch.where(nonzero[..., None], q, 0.0).to(torch.int8)
-    return codes.reshape(r, k), scale.to(torch.float16).float()
+PAYLOAD_BYTES_PER_ROW = {  # ggml block bytes per weight row of length i
+    "q8_0": lambda i: (i // Q8_BLOCK) * Q8_BLOCK_BYTES,
+    "q4_k": lambda i: (i // QK_K) * Q4K_BLOCK_BYTES,
+    "q6_k": lambda i: (i // QK_K) * Q6K_BLOCK_BYTES,
+}
 
 
 def effective_method(method: str, in_dim: int) -> str:
@@ -97,13 +105,40 @@ def unpack_bits(packed: torch.Tensor, dim: int, bits: int) -> torch.Tensor:
     return torch.stack(fields, dim=dim + 1).flatten(dim, dim + 1)
 
 
-def _kquant_rows(method: str, rows: torch.Tensor):
-    """[R, in] → the K-quant's packed parts along the last dim (module
-    docstring), q4k_rows / q6k_rows in chunks of ~KQ_CHUNK weights."""
-    fn = q4k_rows if method == "q4_k" else q6k_rows
-    step = max(1, KQ_CHUNK // rows.shape[1])
-    parts = [fn(rows[r : r + step]) for r in range(0, rows.shape[0], step)]
-    out = [torch.cat(p) for p in zip(*parts)]
+def raw_payload_for(raw, method: str, rows: int, i: int, device=None) -> Optional[torch.Tensor]:
+    """The payload of `rows` weight rows of length i as one uint8 tensor on
+    `device`, when `raw` ({"method", "layers": payloads per layer, or per
+    expert of a layer}) holds them under this method with the right byte
+    count; else None."""
+    if raw is None or raw.get("method") != method:
+        return None
+    flat = []
+    for layer in raw["layers"]:
+        flat.extend(layer if isinstance(layer, (list, tuple)) else [layer])
+    parts = [as_payload(p) for p in flat]
+    if sum(p.numel() for p in parts) != rows * PAYLOAD_BYTES_PER_ROW[method](i):
+        return None
+    return torch.cat([p.to(device) for p in parts])
+
+
+def _row_parts(method: str, rows: Optional[torch.Tensor], payload: Optional[torch.Tensor],
+               n: int, i: int) -> Dict[str, torch.Tensor]:
+    """n weight rows of length i → the method's packed parts along the last
+    dim (module docstring): quantized from `rows` [n, i], or decoded from
+    their ggml `payload`; K-quants in chunks of ~KQ_CHUNK weights."""
+    if method == "q8_0":
+        codes, scales = q8_rows(rows) if payload is None else q8_rows_from_payload(payload, n, i)
+        return {"codes": codes, "scales": scales}
+    step = max(1, KQ_CHUNK // i)
+    if payload is None:
+        fn = q4k_rows if method == "q4_k" else q6k_rows
+        chunks = (fn(rows[a : a + step]) for a in range(0, n, step))
+    else:
+        fn = q4k_rows_from_payload if method == "q4_k" else q6k_rows_from_payload
+        width = PAYLOAD_BYTES_PER_ROW[method](i)
+        chunks = (fn(payload[a * width : min(a + step, n) * width], min(step, n - a), i)
+                  for a in range(0, n, step))
+    out = [torch.cat(p) for p in zip(*chunks)]
     if method == "q4_k":
         codes, scales, mins = out
         return {"codes": pack_bits(codes, -1, 4), "scales": scales, "mins": mins}
@@ -112,41 +147,82 @@ def _kquant_rows(method: str, rows: torch.Tensor):
             "scales": scales}
 
 
-def quantize_plain(w: torch.Tensor, method: str = "q8_0") -> Union[torch.Tensor, Dict]:
-    """[.., in, out] float → packed row layout (module docstring); in dims
-    that miss the Q8_0 block stay float (returned unchanged)."""
+def quantize_plain(w: torch.Tensor, method: str = "q8_0", raw=None) -> Union[torch.Tensor, Dict]:
+    """[.., in, out] float → packed row layout (module docstring), from the
+    snapshot's payload where `raw` holds it; in dims that miss the Q8_0
+    block stay float (returned unchanged)."""
     *lead, i, o = w.shape
     if i % Q8_BLOCK:
         return w
-    rows = w.reshape(-1, i, o).transpose(1, 2).reshape(-1, i)
     method = _resolve(method, i)
-    if method != "q8_0":
-        return {key: t.reshape(*lead, o, -1) for key, t in _kquant_rows(method, rows).items()}
-    codes, scales = q8_rows(rows)
-    return {
-        "codes": codes.reshape(*lead, o, i).contiguous(),
-        "scales": scales.reshape(*lead, o, i // Q8_BLOCK).contiguous(),
-    }
+    n = math.prod(lead) * o
+    payload = raw_payload_for(raw, method, n, i, w.device)
+    rows = None if payload is not None else w.reshape(-1, i, o).transpose(1, 2).reshape(-1, i)
+    return {key: t.reshape(*lead, o, -1).contiguous()
+            for key, t in _row_parts(method, rows, payload, n, i).items()}
 
 
-def quantize_expert_stack(w: torch.Tensor, method: str = "q8_0") -> Union[torch.Tensor, Dict]:
-    """[.., E, in, out] float → packed in-major layout (module docstring);
-    Q8_0 one expert at a time to bound the f32 working set; in dims that
-    miss the Q8_0 block stay float."""
+def quantize_expert_stack(w: torch.Tensor, method: str = "q8_0", raw=None) -> Union[torch.Tensor, Dict]:
+    """[.., E, in, out] float → packed in-major layout (module docstring),
+    from the snapshot's payloads (expert-major) where `raw` holds them;
+    Q8_0 from floats one expert at a time to bound the f32 working set; in
+    dims that miss the Q8_0 block stay float."""
     *lead, i, o = w.shape
     if i % Q8_BLOCK:
         return w
     flat = w.reshape(-1, i, o)
+    g = flat.shape[0]
     method = _resolve(method, i)
-    if method != "q8_0":
-        g = flat.shape[0]
-        packed = _kquant_rows(method, flat.transpose(1, 2).reshape(-1, i))  # rows = output columns
-        return {key: t.reshape(g, o, -1).transpose(1, 2).contiguous().reshape(*lead, -1, o)
-                for key, t in packed.items()}
-    codes = torch.empty(flat.shape, dtype=torch.int8, device=w.device)
-    scales = torch.empty((flat.shape[0], i // Q8_BLOCK, o), dtype=torch.float32, device=w.device)
-    for e in range(flat.shape[0]):
-        c, s = q8_rows(flat[e].t())  # rows = output columns
-        codes[e] = c.t()
-        scales[e] = s.t()
-    return {"codes": codes.reshape(*lead, i, o), "scales": scales.reshape(*lead, i // Q8_BLOCK, o)}
+    payload = raw_payload_for(raw, method, g * o, i, w.device)
+    if method == "q8_0" and payload is None:
+        codes = torch.empty(flat.shape, dtype=torch.int8, device=w.device)
+        scales = torch.empty((g, i // Q8_BLOCK, o), dtype=torch.float32, device=w.device)
+        for e in range(g):
+            c, s = q8_rows(flat[e].t())  # rows = output columns
+            codes[e] = c.t()
+            scales[e] = s.t()
+        return {"codes": codes.reshape(*lead, i, o), "scales": scales.reshape(*lead, i // Q8_BLOCK, o)}
+    rows = None if payload is not None else flat.transpose(1, 2).reshape(-1, i)  # rows = output columns
+    return {key: t.reshape(g, o, -1).transpose(1, 2).contiguous().reshape(*lead, -1, o)
+            for key, t in _row_parts(method, rows, payload, g * o, i).items()}
+
+
+def fused_raw(raw: Dict, group: str, key: str, fused_from: Dict,
+              layers: Optional[Sequence[int]] = None) -> Optional[Dict]:
+    """Raw payloads of `key` (of the given layers, all by default): its own
+    entry, or for a projection fused at init (fusion concatenates along the
+    out dim) the parts' payloads concatenated in fuse order, per layer (per
+    expert for expert stacks), where every part has one with one method.
+    `fused_from` maps a fused key to its source keys."""
+    ent = raw.get((group, key))
+    if ent is not None:
+        picked = ent["layers"] if layers is None else [ent["layers"][l] for l in layers]
+        return {"method": ent["method"], "layers": picked}
+    parts_keys = fused_from.get(key)
+    if parts_keys is None:
+        return None
+    parts = [raw.get((group, k)) for k in parts_keys]
+    if any(p is None for p in parts) or len({p["method"] for p in parts}) != 1:
+        return None
+
+    def cat(payloads):
+        return torch.cat([as_payload(p) for p in payloads])
+
+    out = []
+    for l in range(len(parts[0]["layers"])) if layers is None else layers:
+        first = parts[0]["layers"][l]
+        if isinstance(first, (list, tuple)):  # per-expert nesting
+            out.append([cat([p["layers"][l][e] for p in parts]) for e in range(len(first))])
+        else:
+            out.append(cat([p["layers"][l] for p in parts]))
+    return {"method": parts[0]["method"], "layers": out}
+
+
+def collect_raw_plain(reader, raw: Dict, group: str, key: str, names) -> None:
+    """Record the snapshot's raw payloads of a stacked plain linear when
+    every layer's record exists with one dtype. `names`: the per-layer
+    tensor names (without ``.weight``)."""
+    hits = [reader.raw_quant(f"{name}.weight") for name in names]
+    if not hits or any(h is None for h in hits) or len({h[1] for h in hits}) != 1:
+        return
+    raw[(group, key)] = {"method": hits[0][1].lower(), "layers": [h[0] for h in hits]}

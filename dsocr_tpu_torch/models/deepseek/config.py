@@ -1,6 +1,7 @@
 """DeepSeek-OCR configuration: a jax-free copy of the dataclasses of
-dsocr_tpu/models/deepseek/config.py (same fields and defaults) and of
-``tiny_deepseek_config``. The defaults are the full-width model: SAM
+dsocr_tpu/models/deepseek/config.py (same fields and defaults, and
+``from_dict``/``from_json`` over a published ``config.json``, which tell
+OCR1 from OCR2 as the reference does) and of ``tiny_deepseek_config``. The defaults are the full-width model: SAM
 ViT-B, CLIP-L/14, and a 12-layer DeepSeek-V2 decoder (hidden 1280, 10
 heads of 128, one dense layer, then 64 routed experts top-6 plus 2
 shared experts)."""
@@ -8,7 +9,9 @@ shared experts)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+import json
+import pathlib
+from typing import Any, Mapping, Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,6 +112,11 @@ class DeepseekV2Config:
         first_k = self.first_k_dense_replace or 0
         return layer_idx >= first_k and layer_idx % max(self.moe_layer_freq, 1) == 0
 
+    @classmethod
+    def from_dict(cls, data: Mapping[str, Any]) -> "DeepseekV2Config":
+        fields = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in data.items() if k in fields and v is not None})
+
 
 @dataclasses.dataclass(frozen=True)
 class DeepseekOcrConfig:
@@ -117,7 +125,66 @@ class DeepseekOcrConfig:
     clip: Optional[ClipParams] = dataclasses.field(default_factory=ClipParams)
     projector_n_embed: int = 1280
     projector_input_dim: int = 2048
-    variant: str = "ocr1"  # the port serves OCR1 (SAM + CLIP) only
+    variant: str = "ocr1"  # "ocr1" (SAM + CLIP) | "ocr2"; the port's engine serves OCR1 only
+
+    @classmethod
+    def from_dict(cls, data: Mapping[str, Any]) -> "DeepseekOcrConfig":
+        """The published config.json: the language fields at the top level
+        or under ``language_config`` (which wins), the towers under
+        ``vision_config.width``; a DeepEncoderV2 vision config or a
+        ``qwen2-0-5b`` width makes it OCR2 (no CLIP)."""
+        lang_data = dict(data)
+        if isinstance(data.get("language_config"), Mapping):
+            lang_data.update(data["language_config"])
+        language = DeepseekV2Config.from_dict(lang_data)
+
+        vision = data.get("vision_config") or {}
+        widths = vision.get("width") or {}
+        variant = "ocr1"
+        if (vision.get("model_name") or "").lower() == "deepencoderv2" or "qwen2-0-5b" in widths:
+            variant = "ocr2"
+
+        sam_raw = widths.get("sam_vit_b") or {}
+        sam_kwargs = {dst: sam_raw[src] for src, dst in (
+            ("image_size", "image_size"), ("patch_size", "patch_size"), ("width", "embed_dim"),
+            ("layers", "depth"), ("heads", "num_heads")) if sam_raw.get(src) is not None}
+        if vision.get("image_size") is not None:
+            sam_kwargs["image_size"] = vision["image_size"]
+        if sam_raw.get("downsample_channels"):
+            sam_kwargs["out_channels"] = tuple(sam_raw["downsample_channels"])
+        if sam_raw.get("global_attn_indexes"):
+            sam_kwargs["global_attn_indexes"] = tuple(sam_raw["global_attn_indexes"])
+        sam = SamParams(**sam_kwargs)
+
+        clip = None
+        clip_raw = widths.get("clip-l-14-224")
+        if clip_raw:
+            clip = ClipParams(
+                hidden_size=clip_raw.get("width", 1024),
+                num_layers=clip_raw.get("layers", 24),
+                num_heads=clip_raw.get("heads", 16),
+                image_size=clip_raw.get("image_size", 224),
+                patch_size=clip_raw.get("patch_size", 14),
+            )
+        elif variant == "ocr1":
+            clip = ClipParams()
+
+        proj = data.get("projector_config") or {}
+        if proj.get("projector_type", "linear") != "linear":
+            raise ValueError(f"unsupported projector_type {proj.get('projector_type')}")
+        return cls(
+            language=language,
+            sam=sam,
+            clip=clip,
+            projector_n_embed=proj.get("n_embed", language.hidden_size),
+            projector_input_dim=proj.get("input_dim")
+            or ((clip.hidden_size if clip else 0) + sam.out_channels[1]),
+            variant=variant,
+        )
+
+    @classmethod
+    def from_json(cls, path) -> "DeepseekOcrConfig":
+        return cls.from_dict(json.loads(pathlib.Path(path).read_text()))
 
 
 def tiny_deepseek_config() -> DeepseekOcrConfig:

@@ -66,6 +66,10 @@ from .quantize import quantize_decoder_params
 from .sam import SamEncoder
 
 
+# the state entry under which the loader hands a snapshot's raw payloads
+# to packing (the reference's ``__raw_quant__``)
+RAW_QUANT_KEY = "__raw_quant__"
+
 # views per tower call: 1024 global views (4096 SAM tokens) keep large
 # activations, so few at a time; 640 tiles (1600 tokens) in larger chunks
 GLOBAL_VIEWS_PER_CALL = 4
@@ -115,7 +119,9 @@ class DeepseekOcrEngine:
     ):
         """Random weights from `seed` on the device, or `state` (a
         state_dict, e.g. convert.params_from_jax of a reference engine or
-        of a split decoder tree, which is fused here).
+        of a split decoder tree, which is fused here, or
+        loader.load_deepseek_params of a checkpoint, whose
+        ``RAW_QUANT_KEY`` entry holds a snapshot's payloads for packing).
 
         quantize="q8_0", "q4_k" or "q6_k" packs the decoder's eligible
         weights (under a K-quant, those whose in dim misses 256 as Q8_0):
@@ -142,9 +148,13 @@ class DeepseekOcrEngine:
         if state is None:
             self.model.reset_(torch.Generator(device=self.device).manual_seed(seed))
         else:
+            # the loader's table of snapshot payloads (loader.collect_raw_quant)
+            # reaches packing, so a snapshot serves its published codes
+            state = dict(state)
+            raw = state.pop(RAW_QUANT_KEY, None)
             state = fuse_decoder_params(state)
             if quantize:
-                state = quantize_decoder_params(state, quantize)
+                state = quantize_decoder_params(state, quantize, raw=raw)
             self.model.load_state_dict(state)
         self.model.eval()
         self.params = self.model.decoder  # what SlotRunner hands to slot_step_fn

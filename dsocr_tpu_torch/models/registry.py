@@ -1,0 +1,90 @@
+"""Model loading dispatch: ModelKind + paths → engine
+(dsocr_tpu/models/registry.py).
+
+``load_engine(ModelKind.DEEPSEEK, config_path=..., weights_path=...,
+snapshot_path=...)`` builds a DeepSeek-OCR v1 engine on ``device`` (the
+CUDA card unless the caller names the CPU): weights from a safetensors
+checkpoint, a ``.dsq`` snapshot overriding the linears it holds, or seeded
+random weights without a checkpoint. A quantized snapshot serves packed in
+its own format unless ``quantize`` names another (``_snapshot_quant_method``:
+the header's default dtype). The other families and meshes are not ported
+yet and raise.
+"""
+
+from __future__ import annotations
+
+import pathlib
+from typing import Optional
+
+import torch
+
+from ..core.engine import ModelKind
+
+_DTYPES = {
+    "bfloat16": torch.bfloat16,
+    "bf16": torch.bfloat16,
+    "float32": torch.float32,
+    "f32": torch.float32,
+    "float16": torch.float16,
+    "f16": torch.float16,
+}
+_WAITS = {
+    ModelKind.PADDLE_OCR_VL: "PaddleOCR-VL",
+    ModelKind.DOTS_OCR: "DotsOCR",
+    ModelKind.GLM_OCR: "GLM-OCR",
+}
+
+
+def resolve_dtype(name: Optional[str]) -> torch.dtype:
+    if name is None:
+        return torch.bfloat16
+    dtype = _DTYPES.get(name.lower())
+    if dtype is None:
+        raise ValueError(f"unsupported dtype {name!r}")
+    return dtype
+
+
+def _snapshot_quant_method(snapshot_path) -> Optional[str]:
+    """A snapshot's default dtype → the packed format it serves in."""
+    if not snapshot_path:
+        return None
+    from ..dsq.format import DsqReader
+
+    reader = DsqReader(pathlib.Path(snapshot_path))
+    try:
+        return {"Q8_0": "q8_0", "Q4_K": "q4_k", "Q6_K": "q6_k"}.get(reader.header.default_qdtype)
+    finally:
+        reader.close()
+
+
+def load_engine(
+    kind: ModelKind,
+    config_path=None,
+    weights_path=None,
+    snapshot_path=None,
+    dtype: Optional[str] = None,
+    max_seq_len: int = 8192,
+    mesh=None,
+    quantize: Optional[str] = None,
+    ep: bool = False,
+    kv_quant: Optional[str] = None,
+    device=None,
+):
+    tdtype = resolve_dtype(dtype)
+    if mesh is not None or ep:
+        raise NotImplementedError("meshes and expert parallelism wait for ROADMAP Queue 1 #6")
+    if kind in _WAITS:
+        raise NotImplementedError(f"{_WAITS[kind]} waits for its family's port (ROADMAP Queue 1 #5)")
+    from ..core.device import select_device
+    from .deepseek import DeepseekOcrConfig, DeepseekOcrEngine
+    from .deepseek.loader import load_deepseek_params
+
+    device = select_device(device)
+    cfg = DeepseekOcrConfig.from_json(config_path) if config_path else DeepseekOcrConfig()
+    quantize = quantize or _snapshot_quant_method(snapshot_path)
+    state = None
+    if weights_path:
+        state = load_deepseek_params(weights_path, cfg, dtype=tdtype, snapshot_path=snapshot_path,
+                                     device=device)
+    return DeepseekOcrEngine(cfg, dtype=tdtype, device=device, max_seq_len=max_seq_len,
+                             kv_quant=kv_quant, state=state, quantize=quantize)

@@ -18,6 +18,7 @@ SLICE_MODULES = [
     "dsocr_tpu_torch.core",
     "dsocr_tpu_torch.core.benchmark",
     "dsocr_tpu_torch.core.device",
+    "dsocr_tpu_torch.core.engine",
     "dsocr_tpu_torch.core.params",
     "dsocr_tpu_torch.core.sampling",
     "dsocr_tpu_torch.core.streaming",
@@ -38,13 +39,22 @@ SLICE_MODULES = [
     "dsocr_tpu_torch.ops.kernels.paged_attention",
     "dsocr_tpu_torch.ops.kernels.gather_matmul",
     "dsocr_tpu_torch.ops.kernels.row_matmul",
+    "dsocr_tpu_torch.ops.kernels._lib",
     "dsocr_tpu_torch.dsq",
     "dsocr_tpu_torch.dsq.quant",
     "dsocr_tpu_torch.dsq.serve_quant",
+    "dsocr_tpu_torch.dsq.format",
+    "dsocr_tpu_torch.dsq.runtime",
+    "dsocr_tpu_torch.dsq.adapters",
+    "dsocr_tpu_torch.dsq.cli",
     "dsocr_tpu_torch.image",
+    "dsocr_tpu_torch.image.ops",
     "dsocr_tpu_torch.image.resample",
+    "dsocr_tpu_torch.image.tiling",
     "dsocr_tpu_torch.native",
     "dsocr_tpu_torch.native.resample",
+    "dsocr_tpu_torch.models",
+    "dsocr_tpu_torch.models.registry",
     "dsocr_tpu_torch.models.deepseek",
     "dsocr_tpu_torch.models.deepseek.config",
     "dsocr_tpu_torch.models.deepseek.sam",
@@ -54,12 +64,17 @@ SLICE_MODULES = [
     "dsocr_tpu_torch.models.deepseek.engine",
     "dsocr_tpu_torch.models.deepseek.convert",
     "dsocr_tpu_torch.models.deepseek.quantize",
+    "dsocr_tpu_torch.models.deepseek.loader",
+    "dsocr_tpu_torch.runtime",
     "dsocr_tpu_torch.runtime.kv_cache",
     "dsocr_tpu_torch.runtime.generate",
     "dsocr_tpu_torch.runtime.slots",
     "dsocr_tpu_torch.runtime.paged",
+    "dsocr_tpu_torch.server",
     "dsocr_tpu_torch.server.prefix_cache",
     "dsocr_tpu_torch.server.scheduler",
+    "dsocr_tpu_torch.utils",
+    "dsocr_tpu_torch.utils.safetensors_io",
 ]
 FORBIDDEN = ["jax", "PIL", "safetensors", "ml_dtypes", "tokenizers", "aiohttp", "triton"]
 
@@ -80,6 +95,39 @@ def test_port_imports_no_jax_nor_heavy_deps():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
+def _port_files():
+    root = pathlib.Path(REPO) / "dsocr_tpu_torch"
+    return sorted(p for p in root.rglob("*.py") if "_build" not in p.relative_to(root).parts)
+
+
+def test_import_check_lists_every_port_module():
+    """SLICE_MODULES names every module of the port (``__main__`` runs its
+    command when imported: its imports are the static check's)."""
+    modules = set()
+    for path in _port_files():
+        parts = list(path.relative_to(REPO).with_suffix("").parts)
+        if parts[-1] == "__init__":
+            parts.pop()
+        if parts[-1] != "__main__":
+            modules.add(".".join(parts))
+    assert modules - set(SLICE_MODULES) == set()
+
+
+def test_dsq_module_runs_with_the_missing_packages_blocked():
+    """`python -m dsocr_tpu_torch.dsq --help` with jax, the reference and
+    every package the card's machine lacks made unimportable."""
+    code = (
+        "import runpy, sys\n"
+        f"for name in {FORBIDDEN + ['dsocr_tpu']!r}: sys.modules[name] = None\n"
+        "sys.argv = ['dsq', '--help']\n"
+        "runpy.run_module('dsocr_tpu_torch.dsq', run_name='__main__')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO), timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "export" in out.stdout and "info" in out.stdout
+
+
 def _imported_roots(path: pathlib.Path):
     """Top-level names of every module the file imports (absolute imports;
     the port's relative imports stay inside it)."""
@@ -97,8 +145,7 @@ def test_no_line_imports_jax_nor_heavy_deps(where):
     """Every import statement of chip_smoke.py and of every port module,
     whether it runs at import time or inside a function."""
     root = pathlib.Path(REPO) / where
-    files = [root] if root.is_file() else sorted(
-        p for p in root.rglob("*.py") if "_build" not in p.relative_to(root).parts)
+    files = [root] if root.is_file() else _port_files()
     assert files
     for path in files:
         bad = _imported_roots(path) & set(FORBIDDEN + ["dsocr_tpu"])
