@@ -56,6 +56,13 @@ non-zero (nothing is caught):
             gather_matmul (the split layout's expert gather, gate/up and
             down stacks at 96 and 12 rows, bf16 and f32, two launches
             bit-equal; library time index_select + bmm);
+            PaddleOCR-VL's grouped heads (check_grouped_heads: 16 query
+            heads over 2 KV heads of 128, bf16): flash_prefill_attention
+            at a page's 3,700-token prompt, B 1 and B 4 with left pads
+            0/300/7/1000 (library time SDPA with enable_gqa), and
+            slot_kv_write and slot_decode_attention on Ernie's cache (L 18,
+            B 16, S_max 4096, bf16 and int8, lengths 0 and S − 1 among
+            them), two launches bit-equal;
     host_prep  host image prep of the seeded page (below) on the card's
             host: engine.prepare_vision_input with the native resampler and
             with its NumPy twin, the global view and every tile bit-equal,
@@ -83,8 +90,9 @@ non-zero (nothing is caught):
             wrappers against the rest of the step; and its tower line
             (tower_profile): the vision towers of 16 pages, device ms, the
             SAM attention's share, host ms around the synchronized call;
-    serve_spec  the same burst in 32-step chunks, where the speculation
-            gate opens (at 128-step chunks of 128 tokens it cannot):
+    serve_spec  the same 16 requests at SPEC_MAX_NEW (64) tokens in
+            SPEC_CHUNK (16)-step chunks, where the speculation gate opens
+            (at 128-step chunks of 128 tokens it cannot):
             speculated_chunks must be > 0;
     sched   the same engine, 4 requests of 32 tokens in 8-step chunks:
             streamed against plain (equal tokens, each callback extending
@@ -96,7 +104,7 @@ non-zero (nothing is caught):
     split   the same engine's decoder in the reference's split layout (its
             state split; fusing it gives the engine's weights) over a
             contiguous KVCache: the page's 904-token packet prefilled, then
-            32 greedy steps fed the fused decoder's tokens: logits
+            16 greedy steps fed the fused decoder's tokens: logits
             bit-equal to the fused decoder's and the same greedy tokens;
             then moe_apply(gather_threshold=N), N = 2, 4, 16, at
             layer 1's experts against the same call on the CPU:
@@ -178,6 +186,35 @@ non-zero (nothing is caught):
             cache's, the occupancy, and how many requests' tokens equal 4b's
             (not required: megafused sums the experts in another order);
             then its profile, with a paged runner;
+families  after 4g: DeepSeek-OCR2 and PaddleOCR-VL (families_phase).
+            OCR2 at full width (ocr2_config: SAM with 896 output channels,
+            the 24-layer Qwen2 encoder, the DeepSeek-V2 decoder), seeded,
+            through load_engine on its config.json: the encoder's and
+            SAM's device ms a page, then 8 requests × 64 tokens over 8
+            slots of the page in 1024/768 crop mode (int8 KV):
+            sam_flash_attention, flash_prefill_attention, slot_kv_write and
+            slot_decode_attention must launch. OCR2 from files: the
+            decoder cut to 2 layers (dense, MoE) with a router bias, SAM
+            and the encoder at full depth (~2.8 GB in WEIGHTS_DIR), loaded
+            through load_engine: the page's prefill logits bit-equal to a
+            seeded engine's with the same bias; its Q8_0 snapshot (`dsq
+            export`) serves one request (q8_matmul, q8_gather_matmul).
+            PaddleOCR-VL at full width from files (~1.6 GB bf16): the file
+            engine's 16 greedy tokens equal those of an engine built from
+            the seeded state with its tower cast to f32, as the loader
+            makes of the file; the page smart-resized to max_pixels (94 ×
+            152 patches, 3,572 image tokens): the tower's ms a page, then
+            8 pages × 64 tokens over 8 slots, and again from its Q8_0
+            snapshot through the Paddle adapter (q8_matmul must launch).
+            Then the server with a config.toml naming both families' files
+            and synthetic tokenizer.jsons (DeepSeek-shaped for OCR2, a
+            SentencePiece-shaped one at Paddle's 103,424 ids): one greedy
+            chat request to each id (the second a swap, model_swaps_total
+            counts both loads) equal in text and usage to the in-process
+            scheduler over load_engine of the same files, and the CLI on
+            Paddle's files against engine.decode. Every burst line gives
+            pages/s, TTFT p50, prefill tokens, peak device memory and
+            launches;
 5. parity   the tiny config in f32 with one set of weights, served on the
             card (kernels) and on the CPU (twins): greedy tokens must match;
             again with Q8_0 weights (moe_intermediate_size 32), and with
@@ -193,7 +230,11 @@ non-zero (nothing is caught):
             and weights from files at hidden 256 (FILES_PARITY_SEED's
             checkpoint, its Q4_K and Q6_K snapshots exported on the card),
             loaded on the card and on the CPU: packed tensors bit-equal,
-            greedy tokens equal at 4 slots with int8 KV.
+            greedy tokens equal at 4 slots with int8 KV; and the new
+            families' tiny engines (family_parity: OCR2 behind the tiny
+            Qwen2 encoder, PaddleOCR-VL at 4 query heads over 2 KV heads)
+            at 2 slots, f32 and int8 KV, at FAMILY_PARITY_SEED (held clear
+            of near-ties by tests/test_torch_paddle.py).
 
 Every phase line carries t_s, the script's seconds when it was printed.
 The seeded page's host prep (page_packet) runs once for the script;
@@ -201,8 +242,8 @@ outside the bursts' windows each phase reuses it.
 
 Then a line with the script's total seconds, a {"kernels": [...]} summary
 line (launches: the sum over the ten serving bursts, the sched phase, the
-split phase, the two decode phases and the frontends phase's in-process
-runs), the nvidia-smi
+split phase, the two decode phases, the frontends phase's in-process
+runs and the families phase's bursts and in-process runs), the nvidia-smi
 line, and last
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
 dsocr_tpu_torch package beside this file, it exits non-zero and prints
@@ -228,6 +269,9 @@ MAX_NEW = 128
 N_REQUESTS = 16
 N_SLOTS = 16
 CHUNK = 128
+# serve_spec's depth: half of phase 4's tokens, chunks a quarter of them
+SPEC_MAX_NEW = 64
+SPEC_CHUNK = 16
 PROFILE_ROWS, PROFILE_WAVE, PROFILE_WINDOW = 16, 1024, 16  # rows, positions per row, steps
 TOWER_PAGES = 16  # the profile's tower line: the vision towers of a 16-page burst
 PROMPT = "<image>\nFree OCR."
@@ -827,6 +871,7 @@ def check_kernels(torch, K):
                               case=f"{'int8' if quant else 'bf16'} B={B} S={S} {case} "
                                    f"lengths {int(lengths.min())}-{int(lengths.max())}")
             del caches
+    check_grouped_heads(torch, K, record, randn, gen)
     check_gather_matmul(torch, K, record, randn, gen)
     check_paged_kernels(torch, K, record, randn, gen)
     check_q8_kernels(torch, K, record, randn)
@@ -845,6 +890,63 @@ def check_kernels(torch, K):
         check_sam(bh, s, launch_gen)
         torch.cuda.empty_cache()
     return cases
+
+
+GROUPED_PREFILL = ((1, [0], 3700), (4, [0, 300, 7, 1000], 3700))
+
+
+def check_grouped_heads(torch, K, record, randn, gen):
+    """The attention kernels at PaddleOCR-VL's grouped heads (16 query
+    heads over 2 KV heads of 128, bf16): flash_prefill_attention at a
+    page's ~3,700-token prompt, one row and four with left pads; then
+    slot_kv_write and slot_decode_attention on Ernie's cache (L 18, B 16,
+    S_max 4096, bf16 and int8, lengths 0 and S − 1 among them). Each
+    against its twin, two launches bit-equal, library time SDPA with
+    enable_gqa (none for the int8 attend or the writes)."""
+    import torch.nn.functional as F
+
+    dev = "cuda"
+    H, HKV, D = 16, 2, 128
+    scale = D ** -0.5
+    for b, pads, s in GROUPED_PREFILL:
+        q = randn(b, H, s, D, dtype=torch.bfloat16)
+        k, v = (randn(b, HKV, s, D, dtype=torch.bfloat16) for _ in range(2))
+        pad = torch.tensor(pads, dtype=torch.int32, device=dev)
+        out = K.flash_prefill_attention(q, k, v, pad, scale=scale)
+        require(torch.equal(out, K.flash_prefill_attention(q, k, v, pad, scale=scale)),
+                "flash_prefill_attention (grouped): two launches on the same inputs differ")
+        ref = K.flash_prefill_attention_plain(q, k, v, pad, scale=scale)
+        err = float((out.float() - ref.float()).abs().max())
+        pos = torch.arange(s, device=dev)
+        mask = (pos[None, None, :, None] >= pos[None, None, None, :]) & (
+            pos[None, None, None, :] >= pad[:, None, None, None])
+        keys = sum(p * s + (s - p) * (s - p + 1) // 2 for p in pads)
+        label = f"pad_start={pads}" if any(pads) else "no pads"
+        record("flash_prefill_attention", f"grouped H={H}/{HKV} B={b} S={s} {label}", err, bf16_tol(ref),
+               time_ms(lambda: K.flash_prefill_attention(q, k, v, pad, scale=scale)),
+               time_ms(lambda: K.flash_prefill_attention_plain(q, k, v, pad, scale=scale)),
+               time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale,
+                                                              enable_gqa=True)),
+               bound(nbytes(q, k, v, pad, out), 4 * H * D * keys, "bf16"), deterministic=True)
+        del mask, q, k, v, out, ref
+        torch.cuda.empty_cache()
+    L, B, S = 18, 16, 4096
+    lengths = torch.randint(0, S, (B,), generator=gen, device=dev, dtype=torch.int32)
+    lengths[0], lengths[1] = 0, S - 1
+    layer = 7
+    check_kv_writes(torch, K, record, randn, "slot", (L, B, HKV, S), D, lengths, layer)
+    for quant in (False, True):
+        if quant:
+            caches = tuple(torch.randint(-127, 128, (L, B, HKV, S, D), generator=gen, device=dev,
+                                         dtype=torch.int8) for _ in range(2))
+            caches += tuple(randn(L, B, HKV, S).abs() * 0.02 for _ in range(2))
+        else:
+            caches = tuple(randn(L, B, HKV, S, D, dtype=torch.bfloat16) for _ in range(2)) + (None, None)
+        check_slot_attend(torch, K, record, randn, q=randn(B, H, 1, D, dtype=torch.bfloat16), caches=caches,
+                          layer=layer, lengths=lengths,
+                          case=f"grouped NH={H}/{HKV} {'int8' if quant else 'bf16'} L={L} B={B} S={S}")
+        del caches
+    torch.cuda.empty_cache()
 
 
 def check_kv_writes(torch, K, record, randn, layout, lead, D, lengths, layer, tables=None):
@@ -924,7 +1026,8 @@ def check_slot_attend(torch, K, record, randn, *, q, caches, layer, lengths, cas
     if not quant:
         live = (torch.arange(S, device=q.device)[None, :] <= lengths.long()[:, None])[:, None, None, :]
         kl, vl = k_all[layer], v_all[layer]
-        library = time_ms(lambda: F.scaled_dot_product_attention(q, kl, vl, attn_mask=live, scale=scale))
+        library = time_ms(lambda: F.scaled_dot_product_attention(q, kl, vl, attn_mask=live, scale=scale,
+                                                                 enable_gqa=NH != NKV))
     record("slot_decode_attention", case, err, bf16_tol(ref),
            time_ms(lambda: K.slot_decode_attention(q, *caches, layer, lengths, scale=scale)),
            time_ms(lambda: K.slot_decode_attention_plain(q, *caches, layer, lengths, scale=scale)),
@@ -1272,10 +1375,15 @@ def split_state(torch, state, lang):
     (q/k/v, gate/up, shared gate/up, expert gate/up): fusing it gives
     `state` back."""
     NH, NKV, D, DV = lang.num_attention_heads, lang.resolved_kv_heads, lang.head_dim, lang.resolved_v_head_dim
-    parts = {"qkv_proj": (("q_proj", "k_proj", "v_proj"), (NH * D, NKV * D, NKV * DV)),
-             "gateup_proj": (("gate_proj", "up_proj"), None),
-             "shared_gateup": (("shared_gate", "shared_up"), None),
-             "experts_gateup": (("experts_gate", "experts_up"), None)}
+    return split_fused(torch, state, {"qkv_proj": (("q_proj", "k_proj", "v_proj"), (NH * D, NKV * D, NKV * DV)),
+                                      "gateup_proj": (("gate_proj", "up_proj"), None),
+                                      "shared_gateup": (("shared_gate", "shared_up"), None),
+                                      "experts_gateup": (("experts_gate", "experts_up"), None)})
+
+
+def split_fused(torch, state, parts):
+    """`state` with each fused entry of `parts` ({name: (split names, out
+    sizes or None for halves)}) split along its last dim."""
     out = {}
     for key, value in state.items():
         head, _, name = key.rpartition(".")
@@ -1290,34 +1398,52 @@ def split_state(torch, state, lang):
 
 def config_json(cfg) -> dict:
     """A published-style config.json for `cfg` (DeepseekOcrConfig.from_dict
-    reads it back: the language fields under language_config, SAM and CLIP
-    under vision_config.width, the projector). Only the full-width towers
+    reads it back: the language fields under language_config, SAM and CLIP,
+    or for OCR2 SAM and the qwen2-0-5b encoder of a DeepEncoderV2, under
+    vision_config.width, the projector). Only the full-width towers
     round-trip: the published format has no SAM window or neck width."""
     sam, clip = cfg.sam, cfg.clip
+    width = {"sam_vit_b": {"image_size": sam.image_size, "patch_size": sam.patch_size, "width": sam.embed_dim,
+                           "layers": sam.depth, "heads": sam.num_heads,
+                           "downsample_channels": list(sam.out_channels),
+                           "global_attn_indexes": list(sam.global_attn_indexes)}}
+    vision = {"image_size": sam.image_size, "width": width}
+    if cfg.variant == "ocr2":
+        vision["model_name"] = "deepencoderv2"
+        width["qwen2-0-5b"] = {"dim": sam.out_channels[1]}
+    else:
+        width["clip-l-14-224"] = {"width": clip.hidden_size, "layers": clip.num_layers, "heads": clip.num_heads,
+                                  "image_size": clip.image_size, "patch_size": clip.patch_size}
     return {
         "architectures": ["DeepseekOCRForCausalLM"],
         "language_config": dataclasses.asdict(cfg.language),
-        "vision_config": {"image_size": sam.image_size, "width": {
-            "sam_vit_b": {"image_size": sam.image_size, "patch_size": sam.patch_size, "width": sam.embed_dim,
-                          "layers": sam.depth, "heads": sam.num_heads,
-                          "downsample_channels": list(sam.out_channels),
-                          "global_attn_indexes": list(sam.global_attn_indexes)},
-            "clip-l-14-224": {"width": clip.hidden_size, "layers": clip.num_layers, "heads": clip.num_heads,
-                              "image_size": clip.image_size, "patch_size": clip.patch_size}}},
+        "vision_config": vision,
         "projector_config": {"projector_type": "linear", "n_embed": cfg.projector_n_embed,
                              "input_dim": cfg.projector_input_dim},
     }
 
 
-def hf_tensors(torch, state, cfg):
+def paddle_config_json(cfg) -> dict:
+    """A published-style PaddleOCR-VL config.json (PaddleConfig.from_dict
+    reads it back, the tiny config included: the M-RoPE sections under
+    rope_scaling)."""
+    data = dataclasses.asdict(cfg)
+    data["rope_scaling"] = {"type": "mrope", "mrope_section": list(data.pop("mrope_section"))}
+    data["architectures"] = ["PaddleOCRVLForConditionalGeneration"]
+    return data
+
+
+def hf_tensors(torch, state, cfg, ocr2=None):
     """A model state_dict (fused or split) → (HF checkpoint name, tensor)
     in the loader's table order: the loader's name map inverted (fused
     projections split, [in, out] linears and expert stacks transposed
-    back to [out, in])."""
+    back to [out, in]); OCR2's encoder of `ocr2` (the published widths by
+    default), the routers' biases where the state has them."""
+    from dsocr_tpu_torch.models.deepseek.decoder import has_gate_bias
     from dsocr_tpu_torch.models.deepseek.loader import checkpoint_entries
 
     split = split_state(torch, state, cfg.language)
-    for e in checkpoint_entries(cfg):
+    for e in checkpoint_entries(cfg, ocr2=ocr2, gate_bias=has_gate_bias(state)):
         t = split[e.key]
         if e.experts:
             for j in range(e.experts):
@@ -1326,17 +1452,41 @@ def hf_tensors(torch, state, cfg):
             yield e.name, t.t() if e.transpose else t
 
 
-def write_checkpoint(torch, state, cfg, directory, shards=2):
+def paddle_hf_tensors(torch, state, cfg):
+    """A PaddleOCR-VL state_dict (fused or split) → (HF name, tensor) in
+    the loader's table order (the patch linear back to its conv)."""
+    from dsocr_tpu_torch.models.paddleocr.loader import checkpoint_entries
+
+    D, NH, NKV = cfg.head_dim, cfg.num_attention_heads, cfg.resolved_num_key_value_heads
+    split = split_fused(torch, state, {"qkv_proj": (("q_proj", "k_proj", "v_proj"), (NH * D, NKV * D, NKV * D)),
+                                       "gateup_proj": (("gate_proj", "up_proj"), None)})
+    v = cfg.vision_config
+    for e in checkpoint_entries(cfg):
+        t = split[e.key]
+        if e.key == "vision.patch_embed.w":
+            t = t.t().reshape(v.hidden_size, v.num_channels, v.patch_size, v.patch_size)
+        yield e.name, t.t() if e.transpose else t
+
+
+def write_checkpoint(torch, state, cfg, directory, shards=2, ocr2=None):
     """Write `state` as an HF-named safetensors shard set in `directory`
     (model-0000k-of-0000n.safetensors, split by bytes, and
     model.safetensors.index.json) with its config.json; → (index path,
     config path, bytes of tensor data). Each tensor is copied to the host
-    on its own."""
+    on its own. A PaddleConfig writes a PaddleOCR-VL checkpoint."""
+    if hasattr(cfg, "vision_config"):
+        return write_tensors(torch, list(paddle_hf_tensors(torch, state, cfg)), paddle_config_json(cfg),
+                             directory, shards)
+    return write_tensors(torch, list(hf_tensors(torch, state, cfg, ocr2)), config_json(cfg), directory, shards)
+
+
+def write_tensors(torch, tensors, config_data, directory, shards):
+    """(name, tensor) pairs as a shard set with `config_data` as its
+    config.json (write_checkpoint)."""
     import struct
 
     names = {torch.float32: "F32", torch.float16: "F16", torch.bfloat16: "BF16", torch.int64: "I64",
              torch.int32: "I32", torch.int8: "I8", torch.uint8: "U8"}
-    tensors = list(hf_tensors(torch, state, cfg))
     total = sum(t.numel() * t.element_size() for _, t in tensors)
     weight_map, start = {}, 0
     for k in range(shards):
@@ -1363,7 +1513,7 @@ def write_checkpoint(torch, state, cfg, directory, shards=2):
         json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, fh)
     config = os.path.join(directory, "config.json")
     with open(config, "w") as fh:
-        json.dump(config_json(cfg), fh)
+        json.dump(config_data, fh)
     return index, config, total
 
 
@@ -1972,7 +2122,435 @@ def frontends_phase(torch, K, index, config_path, q8_snapshot, required):
     return launches
 
 
-def split_phase(torch, K, engine, steps=32):
+FAMILY_REQUESTS = 8  # the families' bursts: 8 pages over 8 slots
+FAMILY_MAX_NEW = 64
+PADDLE_IMAGE_SIZE = 0  # no clamp: the seeded page smart-resizes to max_pixels (94 × 152 patches)
+PADDLE_IMAGE_END_ID = 101305  # a stand-in <|IMAGE_END|> id beside the config's vision-start 101304
+FAMILY_ATTENTION = ["flash_prefill_attention", "slot_kv_write", "slot_decode_attention"]
+
+
+class PaddleBenchTokenizer(BenchTokenizer):
+    """BenchTokenizer with PaddleOCR-VL's <|IMAGE_END|>."""
+
+    def token_to_id(self, token):
+        return PADDLE_IMAGE_END_ID if token == "<|IMAGE_END|>" else super().token_to_id(token)
+
+
+def ocr2_config():
+    """DeepSeek-OCR2 at the published widths: the DeepSeek-V2 decoder of
+    OCR1, SAM ViT-B whose last conv gives the Qwen2 encoder's 896
+    channels, the linear projector from 896."""
+    from dsocr_tpu_torch.models.deepseek import DeepseekOcrConfig
+    from dsocr_tpu_torch.models.deepseek.config import SamParams
+
+    return dataclasses.replace(DeepseekOcrConfig(), variant="ocr2", clip=None, sam=SamParams(out_channels=(512, 896)),
+                               projector_input_dim=896)
+
+
+def sentencepiece_tokenizer(path, vocab_size, specials, seed=0, max_len=12):
+    """Write a tokenizer.json of a SentencePiece-converted BPE (PaddleOCR-VL's
+    ERNIE shape): the 256 byte tokens <0xNN> for byte fallback, ▁ and the
+    printable ASCII, seeded random merges filling every id below
+    `vocab_size` that `specials` ({id: content}) leaves free (id 0 is
+    <unk>), the special tokens as added tokens, a Metaspace pre-tokenizer
+    (prepend_scheme first) and ByteFallback + Metaspace + Fuse decoders."""
+    import random
+
+    rng = random.Random(seed)
+    specials = {0: "<unk>", **specials}
+    base = ["▁"] + [chr(c) for c in range(33, 127)]
+    tokens, seen, merges = list(base), set(base) | set(specials.values()), []
+    while len(tokens) < vocab_size - len(specials) - 256:
+        a = tokens[rng.randrange(len(tokens))]
+        b = tokens[rng.randrange(len(base) if rng.random() < 0.75 else len(tokens))]
+        if len(a) + len(b) <= max_len and a + b not in seen:
+            seen.add(a + b)
+            tokens.append(a + b)
+            merges.append([a, b])
+    tokens = [f"<0x{b:02X}>" for b in range(256)] + tokens
+    ids = [i for i in range(vocab_size) if i not in specials]
+    vocab = dict(zip(tokens, ids))
+    vocab.update({content: i for i, content in specials.items()})
+    metaspace = {"type": "Metaspace", "replacement": "▁", "prepend_scheme": "first", "split": True}
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [{"id": i, "content": c, "single_word": False, "lstrip": False, "rstrip": False,
+                          "normalized": False, "special": True} for i, c in sorted(specials.items())],
+        "normalizer": None, "pre_tokenizer": metaspace, "post_processor": None,
+        "decoder": {"type": "Sequence", "decoders": [{"type": "ByteFallback"}, metaspace, {"type": "Fuse"}]},
+        "model": {"type": "BPE", "dropout": None, "unk_token": "<unk>", "continuing_subword_prefix": None,
+                  "end_of_word_suffix": None, "fuse_unk": True, "byte_fallback": True, "ignore_merges": False,
+                  "vocab": vocab, "merges": merges},
+    }
+    with open(path, "w", encoding="utf-8") as fh:
+        json.dump(spec, fh, ensure_ascii=False)
+    return path
+
+
+def family_burst(torch, K, phase, engine, tokenizer, image, vision, *, required, n_requests=FAMILY_REQUESTS,
+                 max_new=FAMILY_MAX_NEW, extra=None):
+    """n_requests copies of `image` through ContinuousScheduler over as many
+    slots (4096-position rows, 128-step chunks), after a warm-up of one
+    request × 8 tokens on the same slots (the engine's first serving: its
+    caches and allocator pools, not measured); the launch counters zeroed
+    just before and read just after, every kernel in `required` must
+    launch. → (launch counts, tokens)."""
+    from dsocr_tpu_torch.core import DecodeParameters
+
+    serve(engine, tokenizer, [image], vision, DecodeParameters(max_new_tokens=8), n_slots=n_requests,
+          max_len=4096, chunk=CHUNK)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    with recording() as rec:
+        t0 = time.perf_counter()
+        outs, sched = serve(engine, tokenizer, [image] * n_requests, vision, DecodeParameters(max_new_tokens=max_new),
+                            n_slots=n_requests, max_len=4096, chunk=CHUNK)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = K.launch_counts()
+    generated = [o.generated_tokens for o in outs]
+    line = {"phase": phase, "quantize": engine.quantize, "kv_quant": engine.kv_quant, "requests": len(outs),
+            "slots": n_requests, "prompt_tokens": outs[0].prompt_tokens if outs else None,
+            "tokens_per_request": [len(g) for g in generated], "wall_s": wall, "pages_per_s": len(outs) / wall,
+            "decode_tok_per_s": sum(map(len, generated)) / wall,
+            "ttft_p50_s": statistics.median(sched.ttft_samples),
+            "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "stage_ms": rec.stage_totals() if rec is not None else None,
+            "launches": {k: v for k, v in launches.items() if v}, "nvidia_smi": smi_line(), **(extra or {})}
+    emit(line)
+    require(len(outs) == n_requests and all(generated), f"{phase}: a request returned no tokens")
+    for name in required:
+        require(launches[name] > 0, f"kernel {name} was not launched in the {phase} burst")
+    return launches, generated
+
+
+def ocr2_prefill_logits(engine, image, vision):
+    """The page through an OCR2 engine's towers and one-row prefill → logits."""
+    vin = engine.prepare_vision_input(image, vision)
+    emb = engine.compute_image_embedding(vin)
+    tokens, mask = engine.build_prompt_tokens(BenchTokenizer(), PROMPT, [vin], [emb], vision)
+    return engine._prefill_rows([(tokens, mask, [emb])])[0]["logits"]
+
+
+def families_phase(torch, K, smi):
+    """DeepSeek-OCR2 and PaddleOCR-VL on the card (the module docstring's
+    `families` phase). → the in-process runs' launch counts."""
+    import shutil
+
+    from dsocr_tpu_torch.core import DecodeParameters, VisionSettings
+    from dsocr_tpu_torch.core.engine import ModelKind
+    from dsocr_tpu_torch.models.deepseek import DeepseekOcrConfig, DeepseekOcrEngine
+    from dsocr_tpu_torch.models.paddleocr import PaddleConfig, PaddleOcrEngine
+    from dsocr_tpu_torch.models.registry import load_engine
+
+    t_phase = time.perf_counter()
+    root = os.path.join(WEIGHTS_DIR, "families")
+    os.makedirs(root, exist_ok=True)
+    free = shutil.disk_usage(root).free
+    require(free >= WEIGHTS_DISK, f"{free} bytes free in {root}; the families phase needs {WEIGHTS_DISK}")
+    page, _ = seeded_page()
+    ocr2_vision = VisionSettings(1024, 768, True)
+    paddle_vision = VisionSettings(1024, PADDLE_IMAGE_SIZE, False)
+    bursts = []
+    kw = dict(dtype="bfloat16", max_seq_len=4096, kv_quant="int8", device="cuda")
+
+    def free_engines():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    try:
+        # 1. OCR2 at full width, seeded, through load_engine on its config.json
+        cfg = ocr2_config()
+        os.makedirs(os.path.join(root, "ocr2_seeded"))
+        seeded_config = os.path.join(root, "ocr2_seeded", "config.json")
+        with open(seeded_config, "w") as fh:
+            json.dump(config_json(cfg), fh)
+        require(DeepseekOcrConfig.from_json(seeded_config) == cfg, "families: the OCR2 config.json does not round-trip")
+        t0 = time.perf_counter()
+        engine = load_engine(ModelKind.DEEPSEEK, config_path=seeded_config, **kw)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        vin = engine.prepare_vision_input(page, ocr2_vision)
+        groups = [engine._pixels(vin.patches), engine._pixels(vin.global_pixels)]
+        sams = [engine.model.sam(g) for g in groups]
+        vision = {"init_s": init_s, "tiles": len(vin.patches), "crop_shape": vin.crop_shape,
+                  "sam_ms_per_page": sum(time_ms(lambda g=g: engine.model.sam(g), reps=2, batches=2)
+                                         for g in groups),
+                  "encoder_ms_per_page": sum(time_ms(lambda f=f: engine.model.ocr2(f), reps=2, batches=2)
+                                             for f in sams),
+                  "image_tokens": int(engine.compute_image_embedding(vin).shape[0])}
+        del groups, sams
+        launches, _ = family_burst(torch, K, "families_ocr2", engine, BenchTokenizer(), page, ocr2_vision,
+                                   required=["sam_flash_attention"] + FAMILY_ATTENTION, extra=vision)
+        bursts.append(launches)
+        del engine
+        free_engines()
+
+        # 2. OCR2 from files: the language depth cut to 2 layers (dense, MoE)
+        # with a router bias; SAM and the encoder at full depth
+        cfg2 = dataclasses.replace(cfg, language=dataclasses.replace(cfg.language, num_hidden_layers=2))
+        seeded = DeepseekOcrEngine(cfg2, dtype=torch.bfloat16, device="cuda", max_seq_len=4096, seed=0,
+                                   kv_quant="int8")
+        state = dict(seeded.model.state_dict())
+        del seeded
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        state["decoder.moe_layers.0.gate_bias"] = (torch.randn(cfg2.language.n_routed_experts, generator=gen,
+                                                               device="cuda") * 0.5).to(torch.bfloat16)
+        ocr2_dir = os.path.join(root, "ocr2")
+        os.makedirs(ocr2_dir)
+        t0 = time.perf_counter()
+        ocr2_index, ocr2_config_path, written = write_checkpoint(torch, state, cfg2, ocr2_dir)
+        write_s = time.perf_counter() - t0
+        biased = DeepseekOcrEngine(cfg2, dtype=torch.bfloat16, device="cuda", max_seq_len=4096, kv_quant="int8",
+                                   state=state)
+        del state
+        want = ocr2_prefill_logits(biased, page, ocr2_vision)
+        del biased
+        free_engines()
+        t0 = time.perf_counter()
+        loaded = load_engine(ModelKind.DEEPSEEK, config_path=ocr2_config_path, weights_path=ocr2_index, **kw)
+        load_s = time.perf_counter() - t0
+        got = ocr2_prefill_logits(loaded, page, ocr2_vision)
+        has_bias = hasattr(loaded.model.decoder.moe_layers[0], "gate_bias")
+        del loaded
+        free_engines()
+        q8 = os.path.join(ocr2_dir, "q8_0.dsq")
+        export_s = export_snapshot(torch, ocr2_index, ocr2_config_path, q8, "q8_0")
+        snap = load_engine(ModelKind.DEEPSEEK, config_path=ocr2_config_path, weights_path=ocr2_index,
+                           snapshot_path=q8, **kw)
+        K.reset_launches()
+        outs, _ = serve(snap, BenchTokenizer(), [page], ocr2_vision, DecodeParameters(max_new_tokens=FAMILY_MAX_NEW),
+                        n_slots=1, max_len=4096, chunk=CHUNK)
+        torch.cuda.synchronize()
+        snap_launches = K.launch_counts()
+        bursts.append(snap_launches)
+        line = {"phase": "families_ocr2_files", "layers": 2, "checkpoint_bytes": written, "write_s": write_s,
+                "load_s": load_s, "router_bias_loaded": has_bias, "prefill_logits_equal": bool(torch.equal(got, want)),
+                "logits_finite": bool(torch.isfinite(got).all()), "q8_export_s": export_s,
+                "q8_snapshot_bytes": os.path.getsize(q8), "q8_quantize": snap.quantize,
+                "q8_tokens": len(outs[0].generated_tokens),
+                "q8_launches": {k: v for k, v in snap_launches.items() if v}}
+        emit(line)
+        require(has_bias and line["prefill_logits_equal"], "families: OCR2 from files differs from the seeded engine")
+        require(snap.quantize == "q8_0" and outs[0].generated_tokens, "families: the OCR2 snapshot served nothing")
+        for name in ("q8_matmul", "q8_gather_matmul", "slot_decode_attention"):
+            require(snap_launches[name] > 0, f"kernel {name} was not launched by the OCR2 snapshot")
+        del snap, got, want
+        os.remove(q8)
+        free_engines()
+
+        # 3. PaddleOCR-VL at full width from files, held to the seeded state
+        # with its tower cast to f32 (what the loader makes of the bf16 file)
+        pcfg = PaddleConfig()
+        seeded = PaddleOcrEngine(pcfg, dtype=torch.bfloat16, device="cuda", max_seq_len=4096, seed=0,
+                                 kv_quant="int8")
+        state = dict(seeded.model.state_dict())
+        del seeded
+        paddle_dir = os.path.join(root, "paddle")
+        os.makedirs(paddle_dir)
+        t0 = time.perf_counter()
+        paddle_index, paddle_config_path, pwritten = write_checkpoint(torch, state, pcfg, paddle_dir)
+        write_s = time.perf_counter() - t0
+        require(PaddleConfig.from_json(paddle_config_path) == pcfg, "families: the Paddle config.json does not round-trip")
+        seeded = PaddleOcrEngine(pcfg, dtype=torch.bfloat16, device="cuda", max_seq_len=4096, kv_quant="int8",
+                                 state={k: v.float() if k.startswith("vision.") else v for k, v in state.items()})
+        del state
+        params = DecodeParameters(max_new_tokens=16)
+        want = seeded.decode(PaddleBenchTokenizer(), PROMPT, [page], paddle_vision, params).generated_tokens
+        del seeded
+        free_engines()
+        t0 = time.perf_counter()
+        engine = load_engine(ModelKind.PADDLE_OCR_VL, config_path=paddle_config_path, weights_path=paddle_index, **kw)
+        load_s = time.perf_counter() - t0
+        got = engine.decode(PaddleBenchTokenizer(), PROMPT, [page], paddle_vision, params).generated_tokens
+        patches = engine.preprocess(page, paddle_vision)
+        group = engine._encode_group([patches])
+        siglip_ms = time_ms(lambda: engine._encode_group([patches]), reps=1, batches=1)
+        emit({"phase": "families_paddle_files", "checkpoint_bytes": pwritten, "write_s": write_s, "load_s": load_s,
+              "tokens_equal": got == want, "tokens": got, "grid_thw": patches.grid_thw,
+              "patches": int(patches.patches.shape[0]), "image_tokens": int(group.shape[1]),
+              "siglip_and_projector_ms_per_page": siglip_ms, "vision_dtype": str(engine.model.vision.patch_embed.w.dtype)})
+        require(got == want, "families: the Paddle file engine's tokens differ from the seeded engine's")
+        del group
+        launches, _ = family_burst(torch, K, "families_paddle", engine, PaddleBenchTokenizer(), page, paddle_vision,
+                                   required=FAMILY_ATTENTION, extra={"grid_thw": patches.grid_thw,
+                                                                     "patches": int(patches.patches.shape[0]),
+                                                                     "siglip_and_projector_ms_per_page": siglip_ms})
+        bursts.append(launches)
+        del engine
+        free_engines()
+        q8 = os.path.join(paddle_dir, "q8_0.dsq")
+        export_s = export_snapshot(torch, paddle_index, paddle_config_path, q8, "q8_0")
+        engine = load_engine(ModelKind.PADDLE_OCR_VL, config_path=paddle_config_path, weights_path=paddle_index,
+                             snapshot_path=q8, **kw)
+        require(engine.quantize == "q8_0", "families: the Paddle snapshot did not serve packed")
+        launches, _ = family_burst(torch, K, "families_paddle_q8", engine, PaddleBenchTokenizer(), page,
+                                   paddle_vision, required=FAMILY_ATTENTION + ["q8_matmul"],
+                                   extra={"q8_export_s": export_s, "q8_snapshot_bytes": os.path.getsize(q8)})
+        bursts.append(launches)
+        del engine
+        os.remove(q8)
+        free_engines()
+
+        # 4. both families through the server and the CLI
+        bursts.append(family_frontends(torch, K, root, (ocr2_index, ocr2_config_path, cfg2),
+                                       (paddle_index, paddle_config_path, pcfg)))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        free_engines()
+    emit({"phase": "families", "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi})
+    return {name: sum(b[name] for b in bursts) for name in bursts[0]}
+
+
+def family_frontends(torch, K, root, ocr2_files, paddle_files):
+    """The server with a config.toml naming deepseek-ocr-2 (the 2-layer
+    checkpoint) and paddleocr-vl, each with a synthetic tokenizer.json of
+    its family's shape at its vocabulary: one greedy chat request to each
+    id (the second a swap) against the in-process scheduler over
+    load_engine of the same files, model_swaps_total, then the CLI on
+    Paddle's files against engine.decode. → launch counts of the
+    in-process runs."""
+    import base64
+
+    from dsocr_tpu_torch.core import DecodeParameters, VisionSettings
+    from dsocr_tpu_torch.core.engine import ModelKind
+    from dsocr_tpu_torch.core.text import render_prompt
+    from dsocr_tpu_torch.image.decode import decode_image
+    from dsocr_tpu_torch.models.registry import load_engine
+    from dsocr_tpu_torch.server.scheduler import ContinuousScheduler
+    from dsocr_tpu_torch.utils.tokenizer import load_tokenizer
+
+    tmp = os.path.join(root, "frontends")
+    os.makedirs(tmp)
+    log_path = os.path.join(tmp, "server.log")
+    server = None
+    t_phase = time.perf_counter()
+
+    def check(name, ok, **fields):
+        emit({"phase": "families_frontends", "check": name, "ok": bool(ok), **fields})
+        if not ok and server is not None:
+            with open(log_path, errors="replace") as fh:
+                print(fh.read()[-20000:], file=sys.stderr)
+        require(ok, f"families frontends: {name} failed: {fields}")
+
+    ocr2_index, ocr2_config_path, cfg2 = ocr2_files
+    paddle_index, paddle_config_path, pcfg = paddle_files
+    lang = cfg2.language
+    t0 = time.perf_counter()
+    toks = {
+        "deepseek-ocr-2": synthetic_tokenizer(os.path.join(tmp, "ocr2_tokenizer.json"), lang.vocab_size, {
+            lang.bos_token_id: "<｜begin▁of▁sentence｜>", lang.eos_token_id: "<｜end▁of▁sentence｜>",
+            IMAGE_TOKEN_ID: "<image>"}),
+        "paddleocr-vl": sentencepiece_tokenizer(os.path.join(tmp, "paddle_tokenizer.json"), pcfg.vocab_size, {
+            pcfg.bos_token_id: "<s>", pcfg.eos_token_id: "</s>", pcfg.image_token_id: "<|IMAGE_PLACEHOLDER|>",
+            pcfg.vision_start_token_id: "<|IMAGE_START|>", PADDLE_IMAGE_END_ID: "<|IMAGE_END|>"}),
+    }
+    files = {"deepseek-ocr-2": (ocr2_config_path, ocr2_index), "paddleocr-vl": (paddle_config_path, paddle_index)}
+    kinds = {"deepseek-ocr-2": ModelKind.DEEPSEEK, "paddleocr-vl": ModelKind.PADDLE_OCR_VL}
+    visions = {"deepseek-ocr-2": VisionSettings(1024, 768, True), "paddleocr-vl": VisionSettings(1024, 640, True)}
+    page, _ = seeded_page()
+    png = write_png(os.path.join(tmp, "page.png"), page)
+    url = "data:image/png;base64," + base64.b64encode(png).decode()
+    toml = os.path.join(tmp, "config.toml")
+    with open(toml, "w") as fh:
+        fh.write('[models]\nactive = "paddleocr-vl"\n\n[inference]\ndevice = "cuda"\n')
+        for model, (config, weights) in files.items():
+            v = visions[model]
+            fh.write(f'\n[models.entries."{model}"]\nconfig = "{config}"\ntokenizer = "{toks[model]}"\n'
+                     f'weights = "{weights}"\n\n[models.entries."{model}".defaults]\nbase_size = {v.base_size}\n'
+                     f'image_size = {v.image_size}\ncrop_mode = {str(v.crop_mode).lower()}\n')
+    files_s = time.perf_counter() - t0
+    decoded = decode_image(png)
+    prompt = render_prompt("plain", "", PROMPT)
+    env = dict(os.environ, PYTHONPATH=HERE, DEEPSEEK_OCR_CACHE_DIR=os.path.join(tmp, "cache"),
+               DEEPSEEK_OCR_CONFIG_DIR=os.path.join(tmp, "cfg"))
+    port = free_port()
+    launches = {}
+    try:
+        t0 = time.perf_counter()
+        with open(log_path, "w") as log:
+            server = subprocess.Popen([sys.executable, "-m", "dsocr_tpu_torch.server", "--config", toml, "--host",
+                                       "127.0.0.1", "--port", str(port), "--device", "cuda"],
+                                      cwd=HERE, env=env, stdout=log, stderr=subprocess.STDOUT)
+        while True:
+            require(server.poll() is None, "families frontends: the server exited at start")
+            require(time.perf_counter() - t0 < SERVER_START_S, "families frontends: the server did not listen")
+            try:
+                if http_call(port, "GET", "/v1/health", timeout=5)[0] == 200:
+                    break
+            except OSError:
+                time.sleep(0.5)
+        check("start", True, start_s=time.perf_counter() - t0, files_s=files_s,
+              tokenizer_bytes={m: os.path.getsize(p) for m, p in toks.items()})
+        for i, model in enumerate(("deepseek-ocr-2", "paddleocr-vl")):
+            t0 = time.perf_counter()
+            status, _, text = http_call(port, "POST", "/v1/chat/completions", chat_body(model, url, FRONTEND_MAX_NEW))
+            server_s = time.perf_counter() - t0
+            reply = json.loads(text)
+            tokenizer = load_tokenizer(toks[model])
+            engine = load_engine(kinds[model], config_path=files[model][0], weights_path=files[model][1],
+                                 max_seq_len=8192)
+            torch.cuda.synchronize()
+            K.reset_launches()
+            want = asyncio.run(ContinuousScheduler(engine, tokenizer).submit(
+                prompt, [decoded], visions[model], DecodeParameters(max_new_tokens=FRONTEND_MAX_NEW)))
+            torch.cuda.synchronize()
+            got_launches = K.launch_counts()
+            launches = {k: launches.get(k, 0) + v for k, v in got_launches.items()}
+            usage = {"prompt_tokens": want.prompt_tokens, "completion_tokens": want.response_tokens,
+                     "total_tokens": want.prompt_tokens + want.response_tokens}
+            got = reply["choices"][0]["message"]["content"] if status == 200 else None
+            swaps = [line for line in http_call(port, "GET", "/metrics")[2].splitlines()
+                     if line.startswith("dsocr_model_swaps_total ")]
+            check(f"chat_{model}", status == 200 and got == want.text and reply["usage"] == usage
+                  and reply.get("model") == model and swaps == [f"dsocr_model_swaps_total {i + 1}"],
+                  status=status, error=None if status == 200 else text[:500], seconds_with_load=server_s,
+                  usage=reply.get("usage"), in_process_usage=usage, text_equal=got == want.text,
+                  text_chars=len(want.text), swaps=swaps,
+                  launches={k: v for k, v in got_launches.items() if v})
+            for name in FAMILY_ATTENTION:
+                require(got_launches[name] > 0, f"kernel {name} was not launched for {model} in-process")
+            if model == "paddleocr-vl":
+                paddle_engine, paddle_tok = engine, tokenizer
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+        server.send_signal(15)
+        server.wait(60)
+        check("server_stop", server.returncode == 0, returncode=server.returncode)
+        server = None
+
+        out_json = os.path.join(tmp, "out.json")
+        t0 = time.perf_counter()
+        cli = subprocess.run([sys.executable, "-m", "dsocr_tpu_torch.cli", "--config", toml, "--model",
+                              "paddleocr-vl", "--prompt", PROMPT, "--image", os.path.join(tmp, "page.png"),
+                              "--max-new-tokens", "32", "--output-json", out_json],
+                             cwd=HERE, env=env, capture_output=True, text=True, timeout=REQUEST_S)
+        cli_s = time.perf_counter() - t0
+        if cli.returncode != 0:
+            print(cli.stderr[-8000:], file=sys.stderr)
+        result = json.load(open(out_json)) if cli.returncode == 0 else {}
+        K.reset_launches()
+        mine = paddle_engine.decode(paddle_tok, prompt, [decoded], visions["paddleocr-vl"],
+                                    DecodeParameters(max_new_tokens=32))
+        torch.cuda.synchronize()
+        launches = {k: launches[k] + v for k, v in K.launch_counts().items()}
+        check("cli_paddleocr-vl", cli.returncode == 0 and result.get("generated_tokens") == mine.generated_tokens
+              and result.get("text") == mine.text, returncode=cli.returncode, seconds=cli_s,
+              tokens=len(mine.generated_tokens), tokens_equal=result.get("generated_tokens") == mine.generated_tokens)
+        del paddle_engine
+    finally:
+        if server is not None:
+            server.kill()
+            server.wait(60)
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "families_frontends", "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi_line()})
+    return launches
+
+
+def split_phase(torch, K, engine, steps=16):
     """The decoder's split layout at full width on the card: the bf16 split
     tree of phase 4's engine (fusing it gives the engine's weights) over a
     contiguous KVCache, prefill of the page's packet (the grouped MoE tier)
@@ -2536,6 +3114,58 @@ def files_parity(torch, cfg, directory, device=None):
     return index, snaps
 
 
+# per family, seeds whose greedy selections all clear 1e-3
+# (tests/test_torch_paddle.py::test_smoke_family_parity_seed_has_no_near_tie)
+FAMILY_PARITY_SEED = {"ocr2": 0, "paddle": 3}
+FAMILY_PARITY_VISION = {"ocr2": (128, 128, False), "paddle": (64, 64, False)}
+
+
+def family_parity_engine(torch, family, device, kv_quant=None, state=None):
+    """Phase 5's tiny f32 engine of a new family ("ocr2": the tiny DeepSeek
+    decoder behind SAM and the tiny Qwen2 encoder; "paddle": the tiny
+    PaddleOCR-VL, 4 query heads over 2 KV heads), FAMILY_PARITY_SEED's
+    weights or `state`."""
+    seed = FAMILY_PARITY_SEED[family]
+    if family == "ocr2":
+        from dsocr_tpu_torch.models.deepseek import DeepseekOcrEngine, tiny_deepseek_config
+        from dsocr_tpu_torch.models.deepseek.ocr2 import tiny_qwen2_encoder_params
+
+        cfg = dataclasses.replace(tiny_deepseek_config(), variant="ocr2", clip=None)
+        return DeepseekOcrEngine(cfg, dtype=torch.float32, device=device, max_seq_len=512, seed=seed,
+                                 kv_quant=kv_quant, state=state, ocr2_params=tiny_qwen2_encoder_params())
+    from dsocr_tpu_torch.models.paddleocr import PaddleOcrEngine, tiny_paddle_config
+
+    return PaddleOcrEngine(tiny_paddle_config(), dtype=torch.float32, device=device, max_seq_len=512,
+                           seed=seed, kv_quant=kv_quant, state=state)
+
+
+def family_parity(torch, K, images, params):
+    """Phase 5's new families at their tiny configs: one set of weights on
+    the CPU and the card, 2 slots, f32 and int8 KV → {key: value} (the
+    `_equal` keys must be true; the attention kernels must launch)."""
+    from dsocr_tpu_torch.core import VisionSettings
+
+    result = {}
+    for family in ("ocr2", "paddle"):
+        state = family_parity_engine(torch, family, "cpu").model.state_dict()
+        vision = VisionSettings(*FAMILY_PARITY_VISION[family])
+        for kv_quant in (None, "int8"):
+            tokens = {}
+            for device in ("cpu", "cuda"):
+                eng = family_parity_engine(torch, family, device, kv_quant, state)
+                K.reset_launches()
+                outs, _ = serve(eng, TinyTokenizer(), images, vision, params, n_slots=2, max_len=256, chunk=8)
+                tokens[device] = [o.generated_tokens for o in outs]
+            key = f"{family}_2slots_{kv_quant or 'f32'}"
+            counts = K.launch_counts()
+            result[f"{key}_equal"] = tokens["cpu"] == tokens["cuda"]
+            result[f"{key}_tokens_cuda"] = tokens["cuda"]
+            result[f"{key}_launches"] = {name: counts[name] for name in
+                                         ("flash_prefill_attention", "slot_kv_write", "slot_decode_attention")}
+            require(all(result[f"{key}_launches"].values()), f"{key}: an attention kernel did not run")
+    return result
+
+
 def parity_phase(torch):
     """Phase 5: tiny config, same weights, CUDA kernels vs CPU twins."""
     import shutil
@@ -2665,6 +3295,7 @@ def parity_phase(torch):
             key = f"decode_{tag}_{'cache' if use_cache else 'nocache'}"
             result[f"{key}_equal"] = tokens["cpu"] == tokens["cuda"]
             result[f"{key}_tokens_cuda"] = tokens["cuda"]
+    result.update(family_parity(torch, K, images, params))
     emit(result)
     require(all(v for k, v in result.items() if k.endswith("_equal")), "CUDA and CPU greedy tokens differ")
 
@@ -2707,15 +3338,16 @@ def main() -> int:
                             towers=True)[0]]
     # Phase 4's gate cannot open: a chunk of 128 steps and 128 new tokens
     # never leave two chunks of budget (emitted + 2 · 128 <= 128). The same
-    # burst in chunks of 32 (the scheduler's default chunk_steps) must
-    # speculate: rows join at chunk boundaries, so the first wave's 4 rows
-    # have emitted 0, 32, 64 or 96 tokens when the other 12 join. Up to 64
-    # opens the gate at once (64 + 2 · 32 <= 128, no free slot); 96 opens
-    # it a chunk later, when those rows have left, no prefill is left and
-    # the other rows have emitted 32.
+    # requests at 64 tokens in chunks of 16 must speculate: rows join at
+    # chunk boundaries, so the first wave's 4 rows have emitted 0, 16, 32
+    # or 48 tokens when the other 12 join, or have left. Up to 32 opens the
+    # gate at once (32 + 2 · 16 <= 64, no free slot); 48 opens it a chunk
+    # later, when those rows have left, no prefill is left and the other
+    # rows have emitted 16; rows that have left open it at the 12's first
+    # chunk.
     bursts.append(serving_phase(torch, K, "serve_spec", engine, n_requests=N_REQUESTS, n_slots=N_SLOTS,
-                                max_new=MAX_NEW, required=attention, unused=codes_in, warmup=False,
-                                chunk=32, speculate=True)[0])
+                                max_new=SPEC_MAX_NEW, required=attention, unused=codes_in, warmup=False,
+                                chunk=SPEC_CHUNK, speculate=True)[0])
     bursts.append(sched_phase(torch, K, engine))
     bursts.append(split_phase(torch, K, engine))
     prefill = ["sam_flash_attention", "flash_prefill_attention"]
@@ -2770,6 +3402,7 @@ def main() -> int:
     del engine
     gc.collect()
     torch.cuda.empty_cache()
+    bursts.append(families_phase(torch, K, smi))
     launches = {name: sum(b[name] for b in bursts) for name in bursts[0]}
     parity_phase(torch)
 

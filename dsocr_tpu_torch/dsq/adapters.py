@@ -4,9 +4,10 @@
 ``ModelAdapter`` {id, supports(config), discover(config, scope) →
 [LinearSpec], recommend_dtype}; ``infer_adapter`` picks one from a
 config.json's contents. Specs use the HF checkpoint names, so snapshots
-interoperate with the reference's. The PaddleOCR-VL and DotsOCR adapters
-come with their model families (ROADMAP Queue 1 #5): Paddle's reads the
-family's config class, which the port has not yet.
+interoperate with the reference's. DeepSeek's lists the decoder (and with
+the projector scope its projector) for OCR1 and OCR2 alike, as the
+reference's does: OCR2's Qwen2 encoder stays float. The DotsOCR adapter
+comes with its model family (ROADMAP Queue 1 #5).
 """
 
 from __future__ import annotations
@@ -91,7 +92,42 @@ class DeepseekOcrAdapter(ModelAdapter):
         return specs
 
 
-ADAPTERS: List[ModelAdapter] = [DeepseekOcrAdapter()]
+class PaddleOcrAdapter(ModelAdapter):
+    id = "paddleocr-vl"
+
+    def supports(self, config) -> bool:
+        archs = config.get("architectures") or []
+        return any("PaddleOCR" in a or "Ernie" in a for a in archs)
+
+    def discover(self, config, scope) -> List[LinearSpec]:
+        """Ernie's q/k/v/o and gate/up/down per layer, an untied lm_head,
+        and with the projector scope mlp_AR's two linears."""
+        from ..models.paddleocr.config import PaddleConfig
+
+        cfg = PaddleConfig.from_dict(config)
+        H, D, NH = cfg.hidden_size, cfg.head_dim, cfg.num_attention_heads
+        NKV, inter = cfg.resolved_num_key_value_heads, cfg.intermediate_size
+        specs: List[LinearSpec] = []
+        for i in range(cfg.num_hidden_layers):
+            base = f"model.layers.{i}"
+            specs += [
+                LinearSpec(f"{base}.self_attn.q_proj", NH * D, H),
+                LinearSpec(f"{base}.self_attn.k_proj", NKV * D, H),
+                LinearSpec(f"{base}.self_attn.v_proj", NKV * D, H),
+                LinearSpec(f"{base}.self_attn.o_proj", H, NH * D),
+                LinearSpec(f"{base}.mlp.gate_proj", inter, H),
+                LinearSpec(f"{base}.mlp.up_proj", inter, H),
+                LinearSpec(f"{base}.mlp.down_proj", H, inter),
+            ]
+        if not cfg.tie_word_embeddings:
+            specs.append(LinearSpec("lm_head", cfg.vocab_size, H))
+        if scope is AdapterScope.TEXT_AND_PROJECTOR:
+            merged = cfg.vision_config.hidden_size * cfg.vision_config.spatial_merge_size ** 2
+            specs += [LinearSpec("mlp_AR.linear_1", merged, merged), LinearSpec("mlp_AR.linear_2", H, merged)]
+        return specs
+
+
+ADAPTERS: List[ModelAdapter] = [DeepseekOcrAdapter(), PaddleOcrAdapter()]
 
 
 def infer_adapter(config: Mapping[str, Any]) -> Optional[ModelAdapter]:

@@ -1,7 +1,8 @@
 """Dynamic crop tiling (dsocr_tpu/image/tiling.py): the (w, h) tile grid
 whose aspect ratio best matches the image, exact ties broken towards the
 larger grid when the image area exceeds half its pixel budget; OCR1
-allows 2..=9 tiles; images no larger than a tile are not cropped."""
+allows 2..=9 tiles, OCR2 2..=6; images no larger than a tile are not
+cropped."""
 
 from __future__ import annotations
 
@@ -25,6 +26,10 @@ class PreprocessParams:
     @classmethod
     def ocr1(cls, base_size: int, tile_size: int) -> "PreprocessParams":
         return cls(tile_size, base_size, 2, 9, tile_size)
+
+    @classmethod
+    def ocr2(cls, base_size: int, tile_size: int) -> "PreprocessParams":
+        return cls(tile_size, base_size, 2, 6, tile_size)
 
 
 @dataclasses.dataclass

@@ -26,7 +26,10 @@ engine's tree holds quarter-plane dicts (``ql_a``, ``ql_b``, ``qh``,
 holding Q0 in the low nibble and Q2 in the high one, ``ql_b`` Q1 and Q3,
 ``qh`` the 2-bit high parts of Q0..Q3 at bits 0, 2, 4 and 6, ``s_i``
 quarter i's scales); each becomes the port's ``codes``/``highs``/
-``scales`` the same way.
+``scales`` the same way. An OCR2 tree holds ``ocr2`` (the Qwen2
+encoder: its [L, ...] layer stacks split per layer, ``ocr2.layers.{i}.*``)
+in place of ``clip`` and ``projector``; a MoE stack's router bias
+(``gate_bias`` [L, E]) splits per layer like the other stacks.
 """
 
 from __future__ import annotations
@@ -125,10 +128,24 @@ def decoder_state_from_jax(decoder: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return _tensors(flat)
 
 
+def split_stacks(prefix: str, stacks: Dict[str, Any], flat: Dict[str, np.ndarray]) -> None:
+    """[L, ...] stacks → ``{prefix}.{i}.{key}`` entries, one per layer."""
+    for key, stack in stacks.items():
+        arr = np.asarray(stack)
+        for i in range(arr.shape[0]):
+            flat[f"{prefix}.{i}.{key}"] = arr[i]
+
+
 def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """{"sam", "clip", "projector", "decoder"} NumPy tree → state_dict."""
+    """{"sam", "clip", "projector" | "ocr2", "decoder"} NumPy tree →
+    state_dict."""
     flat: Dict[str, np.ndarray] = {}
     for part in ("sam", "clip", "projector"):
-        _flatten(part, tree[part], flat)
+        if tree.get(part) is not None:
+            _flatten(part, tree[part], flat)
+    if tree.get("ocr2") is not None:
+        ocr2 = dict(tree["ocr2"])
+        split_stacks("ocr2.layers", ocr2.pop("layers"), flat)
+        _flatten("ocr2", ocr2, flat)
     _decoder_arrays(tree["decoder"], "decoder.", flat)
     return _tensors(flat)

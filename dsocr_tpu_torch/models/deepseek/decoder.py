@@ -17,7 +17,10 @@ matrices, one module per layer (the reference's [L, ...] stacks split):
   gate_proj/up_proj, shared_gate/shared_up and experts_gate/experts_up.
 
 The blocks branch on the layout as the reference's do (decoder.py
-:483-545). With ``quantize="q8_0"``, ``"q4_k"`` or ``"q6_k"`` the
+:483-545). A MoE layer may hold the router's score-correction bias
+(``gate_bias``, the checkpoint's ``e_score_correction_bias``; a decoder
+built with ``gate_bias=True`` or from a state that has one), which the
+router adds to its logits (decoder.py:479). With ``quantize="q8_0"``, ``"q4_k"`` or ``"q6_k"`` the
 eligible weights (quantize.packed_kind) are packed holders instead
 (ops.linear.HOLDERS), each weight in the format it packs with (a
 K-quant's fallback is Q8_0), and the layers dispatch as the reference
@@ -99,6 +102,11 @@ _FUSED = (
 _PACKED_PARTS = ("codes", "scales", "mins", "highs")
 
 
+def has_gate_bias(state: Dict[str, torch.Tensor]) -> bool:
+    """Does a state_dict hold a router score-correction bias?"""
+    return any(key.endswith(".gate_bias") for key in state)
+
+
 def fuse_decoder_params(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Concatenate column-independent projections along their output dims
     (dsocr_tpu/models/deepseek/decoder.py:150) in a state_dict
@@ -158,7 +166,7 @@ def _fill_(w, std: float, gen: torch.Generator, dtype) -> float:
 # them); a layer holds the fused or the split names of each group
 _LAYER_WEIGHTS = (
     "input_layernorm", "post_attention_layernorm", "qkv_proj", "q_proj", "k_proj", "v_proj",
-    "o_proj", "gate_weight", "experts_gateup", "experts_gate", "experts_up", "experts_down",
+    "o_proj", "gate_weight", "gate_bias", "experts_gateup", "experts_gate", "experts_up", "experts_down",
     "shared_gateup", "shared_gate", "shared_up", "shared_down", "gateup_proj", "gate_proj",
     "up_proj", "down_proj",
 )
@@ -166,7 +174,7 @@ _LAYER_WEIGHTS = (
 
 class DecoderLayer(nn.Module):
     def __init__(self, cfg: DeepseekV2Config, moe: bool, dtype, device,
-                 quantize: Optional[str] = None, split: bool = False):
+                 quantize: Optional[str] = None, split: bool = False, gate_bias: bool = False):
         super().__init__()
         H, D, DV = cfg.hidden_size, cfg.head_dim, cfg.resolved_v_head_dim
         NH, NKV = cfg.num_attention_heads, cfg.resolved_kv_heads
@@ -189,6 +197,8 @@ class DecoderLayer(nn.Module):
             E = cfg.n_routed_experts
             MI = cfg.moe_intermediate_size or cfg.intermediate_size
             self.gate_weight = param(E, H, dtype=dtype, device=device)
+            if gate_bias:
+                self.gate_bias = param(E, dtype=dtype, device=device)
             weights("experts_gateup", ("experts_gate", "experts_up"), E, H, outs=(MI, MI))
             self.experts_down = _weight("experts_down", (E, MI, H), dtype, device, quantize)
             SI = MI * (cfg.n_shared_experts or 0)
@@ -203,7 +213,8 @@ class DecoderLayer(nn.Module):
     @torch.no_grad()
     def reset_(self, gen: torch.Generator) -> float:
         """Random init at the reference's scales (decoder.py:57-147): every
-        matrix N(0, fan_in^-1), norms 1, drawn in registration order (a
+        matrix N(0, fan_in^-1), norms 1, a router bias 0, drawn in
+        registration order (a
         packed holder draws its float weight in its place, so one seed
         gives a packed model the float model's weights). Returns the
         seconds spent packing."""
@@ -216,6 +227,8 @@ class DecoderLayer(nn.Module):
                 w.fill_(1.0)
             elif name == "gate_weight":
                 normal_(w, w.shape[-1] ** -0.5, gen)
+            elif name == "gate_bias":
+                w.zero_()
             else:
                 fan_in = (w.float_shape if isinstance(w, Packed) else w.shape)[-2]
                 packing += _fill_(w, fan_in ** -0.5, gen, self.input_layernorm.dtype)
@@ -224,9 +237,10 @@ class DecoderLayer(nn.Module):
 
 class DeepseekDecoder(nn.Module):
     def __init__(self, cfg: DeepseekV2Config, dtype=torch.bfloat16, device=None,
-                 quantize: Optional[str] = None, *, split: bool = False):
+                 quantize: Optional[str] = None, *, split: bool = False, gate_bias: bool = False):
         """The fused layout; ``split`` builds the split one (what
-        ``from_state`` does for a split state)."""
+        ``from_state`` does for a split state); ``gate_bias`` gives every
+        MoE layer a router bias."""
         super().__init__()
         self.cfg = cfg
         num_dense, num_moe = split_layers(cfg)
@@ -238,7 +252,7 @@ class DeepseekDecoder(nn.Module):
             DecoderLayer(cfg, False, dtype, device, quantize, split) for _ in range(num_dense)
         )
         self.moe_layers = nn.ModuleList(
-            DecoderLayer(cfg, True, dtype, device, quantize, split) for _ in range(num_moe)
+            DecoderLayer(cfg, True, dtype, device, quantize, split, gate_bias) for _ in range(num_moe)
         )
         self.quantize_s = 0.0  # seconds spent packing at random init (reset_)
         self.moe_cfg = MoeConfig(
@@ -260,7 +274,7 @@ class DeepseekDecoder(nn.Module):
         quantize = ("q4_k" if "mins" in parts else "q6_k" if "highs" in parts
                     else "q8_0" if "codes" in parts else None)
         split = any(key.endswith(".q_proj") or ".q_proj." in key for key in state)
-        decoder = cls(cfg, dtype, device, quantize, split=split)
+        decoder = cls(cfg, dtype, device, quantize, split=split, gate_bias=has_gate_bias(state))
         decoder.load_state_dict(state)
         return decoder
 
@@ -317,7 +331,8 @@ class DeepseekDecoder(nn.Module):
                                layer.down_proj)
             return (x.float() + mlp.float()).to(x.dtype)
         tokens = normed.reshape(B * S, H)
-        weights, indices = moe_router(tokens, layer.gate_weight, self.moe_cfg)
+        weights, indices = moe_router(tokens, layer.gate_weight, self.moe_cfg,
+                                      aux_bias=getattr(layer, "gate_bias", None))
         gate_up = ((layer.experts_gate, layer.experts_up) if layer.split
                    else (layer.experts_gateup,))
         stacks = (*gate_up, layer.experts_down)

@@ -1,7 +1,10 @@
 """DeepSeek-OCR engine (dsocr_tpu/models/deepseek/engine.py):
 global-view letterbox + crop tiles → SAM → CLIP-on-SAM → projector with
 newline/separator assembly → placeholder prompt (BOS = 0) → prefill →
-decode.
+decode. DeepSeek-OCR2 (``cfg.variant == "ocr2"``) replaces CLIP and the
+projector by the Qwen2 encoder with learned queries (ocr2.py): at most 6
+tiles, every view through SAM → encoder, each image's tokens the flat
+[local…, global, separator] block with flat placeholders.
 
 Two surfaces are ported:
 
@@ -26,7 +29,10 @@ unless DSOCR_FLASH_PREFILL=0, the reference's switch. Views are batched
 through the towers (4 global views or 16 tiles per call) the way the
 reference batches them; the reference's host-link tricks (sparse or
 content-only upload, a transfer pool, streamed prep), decode_batch and
-the mesh path are not carried over.
+the mesh path are not carried over. OCR2's views are pooled by shape
+across the wave's images into encoder calls of at most 4 views at 1024
+pixels and 16 below, as the reference pools them (without its
+power-of-two padding, which only bounds XLA's compilations).
 """
 
 from __future__ import annotations
@@ -53,7 +59,7 @@ from ...runtime.paged import PageAllocator, PagedSlotCache, PagedSlotRunner, new
 from ...runtime.slots import SlotCache, SlotRunner, alloc_slot_cache
 from .clip import ClipEncoder
 from .config import DeepseekOcrConfig
-from .decoder import DeepseekDecoder, fuse_decoder_params
+from .decoder import DeepseekDecoder, fuse_decoder_params, has_gate_bias
 from .fusion import (
     Projector,
     assemble_image_tokens,
@@ -62,6 +68,7 @@ from .fusion import (
     format_global_tokens,
     format_local_tokens,
 )
+from .ocr2 import Ocr2Encoder, Qwen2EncoderParams
 from .quantize import quantize_decoder_params
 from .sam import SamEncoder
 
@@ -88,19 +95,25 @@ class VisionInput:
 
 
 class DeepseekOcrModel(nn.Module):
-    """All weights of one DeepSeek-OCR v1 model; state_dict names follow
-    the reference's parameter tree (see convert.params_from_jax)."""
+    """All weights of one DeepSeek-OCR model: SAM, then CLIP and the
+    projector (OCR1) or the Qwen2 encoder (OCR2, f32 as the reference's
+    init makes it), then the decoder; state_dict names follow the
+    reference's parameter tree (see convert.params_from_jax)."""
 
-    def __init__(self, cfg: DeepseekOcrConfig, dtype, device, quantize: Optional[str] = None):
+    def __init__(self, cfg: DeepseekOcrConfig, dtype, device, quantize: Optional[str] = None,
+                 ocr2: Optional[Qwen2EncoderParams] = None, gate_bias: bool = False):
         super().__init__()
         self.sam = SamEncoder(cfg.sam, dtype, device)
-        self.clip = ClipEncoder(cfg.clip, dtype, device)
-        self.projector = Projector(cfg, dtype, device)
-        self.decoder = DeepseekDecoder(cfg.language, dtype, device, quantize)
+        if cfg.variant == "ocr2":
+            self.ocr2 = Ocr2Encoder(ocr2 or Qwen2EncoderParams(), torch.float32, device)
+        else:
+            self.clip = ClipEncoder(cfg.clip, dtype, device)
+            self.projector = Projector(cfg, dtype, device)
+        self.decoder = DeepseekDecoder(cfg.language, dtype, device, quantize, gate_bias=gate_bias)
 
     @torch.no_grad()
     def reset_(self, gen: torch.Generator) -> None:
-        for part in (self.sam, self.clip, self.projector, self.decoder):
+        for part in self.children():  # registration order
             part.reset_(gen)
 
 
@@ -116,6 +129,7 @@ class DeepseekOcrEngine:
         kv_quant: Optional[str] = None,
         state: Optional[Dict[str, torch.Tensor]] = None,
         quantize: Optional[str] = None,
+        ocr2_params: Optional[Qwen2EncoderParams] = None,
     ):
         """Random weights from `seed` on the device, or `state` (a
         state_dict, e.g. convert.params_from_jax of a reference engine or
@@ -131,9 +145,12 @@ class DeepseekOcrEngine:
         memory is not float plus packed); a `state` may hold packed
         entries (``.codes``/``.scales``, ``.mins`` for Q4_K, ``.highs``
         for Q6_K) or float ones, which are packed on load. `device` None means the CUDA card; the CPU
-        runs only when asked for by name."""
-        if cfg.variant != "ocr1" or cfg.clip is None:
-            raise NotImplementedError("the port serves DeepSeek-OCR v1 (SAM + CLIP) only")
+        runs only when asked for by name. An OCR2 config builds the Qwen2
+        encoder of `ocr2_params` (the published widths by default); a
+        state with router biases (``...gate_bias``) gives the decoder
+        them."""
+        if cfg.variant not in ("ocr1", "ocr2") or (cfg.variant == "ocr1" and cfg.clip is None):
+            raise NotImplementedError(f"unsupported DeepSeek-OCR variant {cfg.variant!r}")
         if kv_quant not in (None, "int8"):
             raise ValueError(f"unsupported kv_quant {kv_quant!r}")
         if quantize not in (None, "q8_0", "q4_k", "q6_k"):
@@ -144,7 +161,9 @@ class DeepseekOcrEngine:
         self.kv_quant = kv_quant
         self.quantize = quantize
         self.max_seq_len = max_seq_len
-        self.model = DeepseekOcrModel(cfg, dtype, self.device, quantize)
+        self.ocr2_cfg = (ocr2_params or Qwen2EncoderParams()) if cfg.variant == "ocr2" else None
+        self.model = DeepseekOcrModel(cfg, dtype, self.device, quantize, self.ocr2_cfg,
+                                      gate_bias=state is not None and has_gate_bias(state))
         if state is None:
             self.model.reset_(torch.Generator(device=self.device).manual_seed(seed))
         else:
@@ -172,18 +191,22 @@ class DeepseekOcrEngine:
         global_view, _ = build_global_view_with_box(image, global_size)
         patches, crop_shape = None, None
         if vision.crop_mode:
-            result = dynamic_preprocess(image, PreprocessParams.ocr1(vision.base_size, vision.image_size))
+            tiling = PreprocessParams.ocr2 if self.cfg.variant == "ocr2" else PreprocessParams.ocr1
+            result = dynamic_preprocess(image, tiling(vision.base_size, vision.image_size))
             crop_shape = result.ratio
             if result.tiles:
                 patches = np.stack([np.transpose(t, (2, 0, 1)) for t in result.tiles])
         return VisionInput(np.transpose(global_view, (2, 0, 1))[None], patches, crop_shape)
 
+    def _pixels(self, pixels_u8: np.ndarray) -> torch.Tensor:
+        """uint8 views [B, 3, S, S] → f32 pixels in [-1, 1] on the device."""
+        u8 = torch.from_numpy(np.ascontiguousarray(pixels_u8)).to(self.device)
+        return (u8.float() / 255.0 - 0.5) / 0.5
+
     @torch.no_grad()
     def _tower(self, pixels_u8: np.ndarray) -> torch.Tensor:
         """uint8 views [B, 3, S, S] → projected tokens [B, n, n_embed] f32."""
-        u8 = torch.from_numpy(np.ascontiguousarray(pixels_u8)).to(self.device)
-        pixels = (u8.float() / 255.0 - 0.5) / 0.5
-        sam_out = self.model.sam(pixels)
+        sam_out = self.model.sam(self._pixels(pixels_u8))
         clip_out = self.model.clip(sam_out)
         return self.model.projector(build_clip_sam_tokens(clip_out, sam_out))
 
@@ -204,11 +227,51 @@ class DeepseekOcrEngine:
         return self._compute_image_embeddings_batched([vin])[0]
 
     @torch.no_grad()
+    def _ocr2_view(self, pixels_u8: np.ndarray) -> torch.Tensor:
+        """uint8 views [B, 3, S, S] → the encoder's query tokens [B, n, 1280]."""
+        return self.model.ocr2(self.model.sam(self._pixels(pixels_u8)))
+
+    @torch.no_grad()
+    def _ocr2_embeddings_batched(self, vins: Sequence[VisionInput]) -> List[torch.Tensor]:
+        """OCR2: every view of the images (tiles in order, then the global
+        view) pooled by shape into encoder calls of at most
+        GLOBAL_VIEWS_PER_CALL views at 1024 pixels and TILES_PER_CALL
+        below; each image's block reassembled as [local…, global,
+        separator] in the model dtype."""
+        entries = []  # (image, is_global, [3, S, S] uint8)
+        for vi, vin in enumerate(vins):
+            if vin.patches is not None:
+                entries += [(vi, False, tile) for tile in np.asarray(vin.patches)]
+            entries.append((vi, True, np.asarray(vin.global_pixels)[0]))
+        groups: Dict[Tuple[int, ...], list] = {}
+        for entry in entries:  # keeps each image's tile order
+            groups.setdefault(entry[2].shape, []).append(entry)
+        locals_: List[List[torch.Tensor]] = [[] for _ in vins]
+        globals_: List[Optional[torch.Tensor]] = [None] * len(vins)
+        for shape, group in groups.items():
+            cap = GLOBAL_VIEWS_PER_CALL if shape[-1] >= 1024 else TILES_PER_CALL
+            for i in range(0, len(group), cap):
+                chunk = group[i : i + cap]
+                out = self._ocr2_view(np.stack([view for _, _, view in chunk]))
+                for (vi, is_global, _), row in zip(chunk, out):
+                    if is_global:
+                        globals_[vi] = row
+                    else:
+                        locals_[vi].append(row)
+        sep = self.model.ocr2.view_seperator.to(self.dtype)[None]
+        return [
+            torch.cat([row.to(self.dtype) for row in locals_[vi]] + [globals_[vi].to(self.dtype), sep])
+            for vi in range(len(vins))
+        ]
+
+    @torch.no_grad()
     def _compute_image_embeddings_batched(self, vins: Sequence[VisionInput]) -> List[torch.Tensor]:
         """One embedding per image, the views of all images pooled through
         the towers in chunks."""
         if not vins:
             return []
+        if self.cfg.variant == "ocr2":
+            return self._ocr2_embeddings_batched(vins)
         global_proj = self._towers_chunked(
             np.concatenate([v.global_pixels for v in vins]), GLOBAL_VIEWS_PER_CALL
         )
@@ -247,7 +310,7 @@ class DeepseekOcrEngine:
             if idx < len(embeddings):
                 placeholders = build_image_placeholders(
                     image_token_id, vision_inputs[idx].crop_shape, vision.base_size,
-                    vision.image_size, vision.crop_mode,
+                    vision.image_size, vision.crop_mode, self.cfg.variant,
                 )
                 if len(placeholders) != embeddings[idx].shape[0]:
                     raise ValueError(

@@ -89,25 +89,26 @@ def build_image_placeholders(
     base_size: int,
     image_size: int,
     crop_mode: bool,
+    variant: str = "ocr1",
 ) -> List[int]:
-    """Host-side OCR1 placeholder layout: PATCH = 16, DOWNSAMPLE = 4; grids
-    carry +1 per row (the newline) and the global grid a trailing +1 (the
-    view separator)."""
+    """Host-side placeholder layout: PATCH = 16, DOWNSAMPLE = 4. OCR1 grids
+    carry +1 per row (the newline); OCR2 grids are flat. Both end with +1
+    (the view separator)."""
     patch, down = 16, 4
     out: List[int] = []
 
-    def grid_with_breaks(rows, cols):
-        out.extend([image_token_id] * (rows * (cols + 1)))
+    def grid(rows, cols):
+        out.extend([image_token_id] * (rows * (cols + (variant == "ocr1"))))
 
     if crop_mode:
         nq_global = math.ceil((base_size // patch) / down)
         nq_local = math.ceil((image_size // patch) / down)
         width_crops, height_crops = crop_shape or (1, 1)
         if width_crops > 1 or height_crops > 1:
-            grid_with_breaks(nq_local * height_crops, nq_local * width_crops)
-        grid_with_breaks(nq_global, nq_global)
+            grid(nq_local * height_crops, nq_local * width_crops)
+        grid(nq_global, nq_global)
     else:
         nq = math.ceil((image_size // patch) / down)
-        grid_with_breaks(nq, nq)
+        grid(nq, nq)
     out.append(image_token_id)
     return out

@@ -1,4 +1,4 @@
-"""DeepSeek-OCR v1 checkpoint → the port's state_dict
+"""DeepSeek-OCR checkpoint → the port's state_dict
 (dsocr_tpu/models/deepseek/loader.py).
 
 The name map is the reference loader's (HF names under ``model.*``:
@@ -18,8 +18,14 @@ reference's do by default (``vision_compute_dtype``). A ``.dsq`` snapshot
 overrides the linears it holds (``dsq/runtime.py: WeightSource``, records
 dequantized on the device to f32, then cast), and ``collect_raw_quant``
 gathers its ggml payloads, which the engine packs directly
-(``engine.RAW_QUANT_KEY``). OCR2 (``load_ocr2_params``) waits for the OCR2
-family.
+(``engine.RAW_QUANT_KEY``). OCR2 has the Qwen2 encoder in place of CLIP
+and the projector (``load_ocr2_params``: ``model.qwen2_model.model.model.*``,
+``model.qwen2_model.query_{768,1024}.weight``, the shared projector name
+and ``model.view_seperator``), read in f32, the dtype the encoder
+computes in (ocr2.py); the reference reads it in the towers' dtype, and
+the published bf16 values are the same in f32. A MoE layer's router
+bias (``mlp.gate.e_score_correction_bias``) loads as ``gate_bias`` where
+the checkpoint has one, in the model dtype as the reference stacks it.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from ...dsq.serve_quant import collect_raw_plain
 from .config import DeepseekOcrConfig
 from .decoder import split_layers
 from .engine import RAW_QUANT_KEY
+from .ocr2 import Qwen2EncoderParams
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,11 +130,38 @@ def projector_entries(cfg: DeepseekOcrConfig) -> List[Entry]:
     ]
 
 
-def decoder_entries(cfg: DeepseekOcrConfig, shared: bool = True) -> List[Entry]:
+def ocr2_entries(p: Qwen2EncoderParams) -> List[Entry]:
+    """OCR2's Qwen2 encoder (model.qwen2_model.*) and its projector; the
+    projector's bias and the view separator are optional (zeros)."""
+    root = "model.qwen2_model"
+    entries = [
+        Entry("ocr2.norm", f"{root}.model.model.norm.weight"),
+        Entry("ocr2.query_768", f"{root}.query_768.weight"),
+        Entry("ocr2.query_1024", f"{root}.query_1024.weight"),
+        Entry("ocr2.projector.w", "model.projector.layers.weight", transpose=True),
+        Entry("ocr2.projector.b", "model.projector.layers.bias", zeros=p.projector_out),
+        Entry("ocr2.view_seperator", "model.view_seperator", zeros=p.projector_out),
+    ]
+    for i in range(p.num_layers):
+        base, key = f"{root}.model.model.layers.{i}", f"ocr2.layers.{i}"
+        entries += [
+            Entry(f"{key}.input_layernorm", f"{base}.input_layernorm.weight"),
+            Entry(f"{key}.post_attention_layernorm", f"{base}.post_attention_layernorm.weight"),
+            *(Entry(f"{key}.{n}_proj", f"{base}.self_attn.{n}_proj.weight", transpose=True)
+              for n in ("q", "k", "v", "o")),
+            *(Entry(f"{key}.{n}_bias", f"{base}.self_attn.{n}_proj.bias") for n in ("q", "k", "v")),
+            *(Entry(f"{key}.{n}", f"{base}.mlp.{n}.weight", transpose=True)
+              for n in ("gate_proj", "up_proj", "down_proj")),
+        ]
+    return entries
+
+
+def decoder_entries(cfg: DeepseekOcrConfig, shared: bool = True, gate_bias: bool = False) -> List[Entry]:
     """The DeepSeek-V2 decoder: embeddings, final norm and lm_head, then
     per layer of each group (``dense_layers``, ``moe_layers``, numbered
     from 0 within the group) the norms and q/k/v/o, the dense MLP or the
-    router, the routed experts and (with `shared`) the shared experts."""
+    router (with `gate_bias` its score-correction bias), the routed
+    experts and (with `shared`) the shared experts."""
     lang = cfg.language
     num_dense, num_moe = split_layers(lang)
     entries = [
@@ -149,6 +183,8 @@ def decoder_entries(cfg: DeepseekOcrConfig, shared: bool = True) -> List[Entry]:
                         for p in ("gate_proj", "up_proj", "down_proj")]
             continue
         entries.append(Entry(f"{key}.gate_weight", f"{base}.mlp.gate.weight"))
+        if gate_bias:
+            entries.append(Entry(f"{key}.gate_bias", f"{base}.mlp.gate.e_score_correction_bias"))
         entries += [Entry(f"{key}.experts_{p}", f"{base}.mlp.experts.{{e}}.{p}_proj.weight",
                           experts=lang.n_routed_experts) for p in ("gate", "up", "down")]
         if shared:
@@ -157,10 +193,14 @@ def decoder_entries(cfg: DeepseekOcrConfig, shared: bool = True) -> List[Entry]:
     return entries
 
 
-def checkpoint_entries(cfg: DeepseekOcrConfig, reader=None) -> List[Entry]:
-    """Every entry of an OCR1 model's state_dict."""
-    return (sam_entries(cfg, reader) + clip_entries(cfg) + projector_entries(cfg)
-            + decoder_entries(cfg, shared=bool(cfg.language.n_shared_experts)))
+def checkpoint_entries(cfg: DeepseekOcrConfig, reader=None, ocr2: Optional[Qwen2EncoderParams] = None,
+                       gate_bias: bool = False) -> List[Entry]:
+    """Every entry of a model's state_dict (OCR2: the encoder of `ocr2`,
+    the published widths by default)."""
+    towers = (ocr2_entries(ocr2 or Qwen2EncoderParams()) if cfg.variant == "ocr2"
+              else clip_entries(cfg) + projector_entries(cfg))
+    return (sam_entries(cfg, reader) + towers
+            + decoder_entries(cfg, shared=bool(cfg.language.n_shared_experts), gate_bias=gate_bias))
 
 
 def _get(reader, name: str, dtype, device) -> torch.Tensor:
@@ -200,16 +240,20 @@ def load_projector_params(reader, cfg: DeepseekOcrConfig, dtype=torch.bfloat16, 
     return _load(reader, projector_entries(cfg), dtype, select_device(device))
 
 
+def load_ocr2_params(reader, p: Optional[Qwen2EncoderParams] = None, device=None):
+    """OCR2's encoder and projector in f32 (the module docstring)."""
+    return _load(reader, ocr2_entries(p or Qwen2EncoderParams()), torch.float32, select_device(device))
+
+
 def load_decoder_params(reader, cfg: DeepseekOcrConfig, dtype=torch.bfloat16, device=None):
-    """The decoder in the split layout. A router score-correction bias
-    (``e_score_correction_bias``) raises: the port's router takes none,
-    and DeepSeek-OCR v1 has none."""
+    """The decoder in the split layout, with the MoE layers' router biases
+    where the checkpoint has them (the first MoE layer's decides)."""
     lang = cfg.language
     num_dense, num_moe = split_layers(lang)
-    if num_moe and f"model.layers.{num_dense}.mlp.gate.e_score_correction_bias" in reader:
-        raise NotImplementedError("the port's MoE router takes no e_score_correction_bias")
+    gate_bias = bool(num_moe) and f"model.layers.{num_dense}.mlp.gate.e_score_correction_bias" in reader
     shared = f"model.layers.{num_dense}.mlp.shared_experts.gate_proj.weight" in reader
-    return _load(reader, decoder_entries(cfg, shared=shared), dtype, select_device(device))
+    return _load(reader, decoder_entries(cfg, shared=shared, gate_bias=gate_bias), dtype,
+                 select_device(device))
 
 
 def collect_raw_quant(reader, cfg: DeepseekOcrConfig) -> Dict:
@@ -253,20 +297,23 @@ def collect_raw_quant(reader, cfg: DeepseekOcrConfig) -> Dict:
 
 
 def load_deepseek_params(weights_path, cfg: DeepseekOcrConfig, dtype=torch.bfloat16, snapshot_path=None,
-                         device=None) -> Dict:
+                         device=None, ocr2: Optional[Qwen2EncoderParams] = None) -> Dict:
     """The state_dict of a safetensors checkpoint (a file or a shard
     index), a ``.dsq`` snapshot overriding the linears it holds; with a
-    snapshot, its payloads under ``RAW_QUANT_KEY`` for quantized serving."""
-    if cfg.variant != "ocr1" or cfg.clip is None:
-        raise NotImplementedError("loading DeepSeek-OCR2 waits for the OCR2 family (ROADMAP Queue 1 #5)")
+    snapshot, its payloads under ``RAW_QUANT_KEY`` for quantized serving.
+    OCR2 reads the encoder of `ocr2` (the published widths by default, as
+    the reference always does)."""
     device = select_device(device)
     reader = WeightSource.open(weights_path, snapshot_path, device)
     state = {
         **load_sam_params(reader, cfg, dtype, device),
         **load_decoder_params(reader, cfg, dtype, device),
-        **load_clip_params(reader, cfg, dtype, device),
-        **load_projector_params(reader, cfg, dtype, device),
     }
+    if cfg.variant == "ocr2":
+        state.update(load_ocr2_params(reader, ocr2, device))
+    else:
+        state.update(load_clip_params(reader, cfg, dtype, device))
+        state.update(load_projector_params(reader, cfg, dtype, device))
     if snapshot_path is not None:
         raw = collect_raw_quant(reader, cfg)
         if raw:

@@ -1,14 +1,14 @@
 """Model loading dispatch: ModelKind + paths → engine
 (dsocr_tpu/models/registry.py).
 
-``load_engine(ModelKind.DEEPSEEK, config_path=..., weights_path=...,
-snapshot_path=...)`` builds a DeepSeek-OCR v1 engine on ``device`` (the
-CUDA card unless the caller names the CPU): weights from a safetensors
-checkpoint, a ``.dsq`` snapshot overriding the linears it holds, or seeded
-random weights without a checkpoint. A quantized snapshot serves packed in
-its own format unless ``quantize`` names another (``_snapshot_quant_method``:
-the header's default dtype). The other families and meshes are not ported
-yet and raise.
+``load_engine(kind, config_path=..., weights_path=..., snapshot_path=...)``
+builds a DeepSeek-OCR engine (v1 or OCR2, as its config.json says) or a
+PaddleOCR-VL engine on ``device`` (the CUDA card unless the caller names
+the CPU): weights from a safetensors checkpoint, a ``.dsq`` snapshot
+overriding the linears it holds, or seeded random weights without a
+checkpoint. A quantized snapshot serves packed in its own format unless
+``quantize`` names another (``_snapshot_quant_method``: the header's
+default dtype). DotsOCR, GLM-OCR and meshes are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -29,7 +29,6 @@ _DTYPES = {
     "f16": torch.float16,
 }
 _WAITS = {
-    ModelKind.PADDLE_OCR_VL: "PaddleOCR-VL",
     ModelKind.DOTS_OCR: "DotsOCR",
     ModelKind.GLM_OCR: "GLM-OCR",
 }
@@ -76,12 +75,24 @@ def load_engine(
     if kind in _WAITS:
         raise NotImplementedError(f"{_WAITS[kind]} waits for its family's port (ROADMAP Queue 1 #5)")
     from ..core.device import select_device
+
+    device = select_device(device)
+    quantize = quantize or _snapshot_quant_method(snapshot_path)
+    if kind is ModelKind.PADDLE_OCR_VL:
+        from .paddleocr import PaddleConfig, PaddleOcrEngine
+        from .paddleocr.loader import load_paddle_params
+
+        cfg = PaddleConfig.from_json(config_path) if config_path else PaddleConfig()
+        state = None
+        if weights_path:
+            state = load_paddle_params(weights_path, cfg, dtype=tdtype, snapshot_path=snapshot_path,
+                                       device=device)
+        return PaddleOcrEngine(cfg, dtype=tdtype, device=device, max_seq_len=max_seq_len,
+                               kv_quant=kv_quant, state=state, quantize=quantize)
     from .deepseek import DeepseekOcrConfig, DeepseekOcrEngine
     from .deepseek.loader import load_deepseek_params
 
-    device = select_device(device)
     cfg = DeepseekOcrConfig.from_json(config_path) if config_path else DeepseekOcrConfig()
-    quantize = quantize or _snapshot_quant_method(snapshot_path)
     state = None
     if weights_path:
         state = load_deepseek_params(weights_path, cfg, dtype=tdtype, snapshot_path=snapshot_path,

@@ -119,12 +119,16 @@ class SlotHarvest:
 class SlotRunner:
     """Owns the token-level loop over a SlotState; the engine provides
     step_fn and the prefill that makes a row's KV block. An EOS token
-    ends its row and is never appended. Not thread-safe: drive it from
-    one scheduler task."""
+    ends its row and is never appended (``emit_eos=False``, DeepSeek), or
+    is appended and ends the row after its step (``emit_eos=True``,
+    Paddle); an EOS as the first token ends the request empty either way,
+    as the reference's join does. Not thread-safe: drive it from one
+    scheduler task."""
 
-    def __init__(self, step_fn: SlotStepFn, *, eos_ids: Tuple[int, ...]):
+    def __init__(self, step_fn: SlotStepFn, *, eos_ids: Tuple[int, ...], emit_eos: bool = False):
         self.step_fn = step_fn
         self.eos_ids = tuple(eos_ids)
+        self.emit_eos = emit_eos
 
     # -- state --------------------------------------------------------------
 
@@ -171,6 +175,8 @@ class SlotRunner:
         s.ctx_len += inc
         s.budget -= inc
         alive = act.clone()
+        if self.emit_eos:  # the EOS was appended above; the row ends now
+            alive &= ~self._is_eos(s.current)
         feed = torch.where(act, s.current, torch.zeros_like(s.current))
         logits = self.step_fn(model_params, feed, s.cache, s.pos)
         # only rows that appended a real token keep their KV write
@@ -180,7 +186,8 @@ class SlotRunner:
             logits, s.context, s.ctx_len, s.sampling, ngram_max=NGRAM_MAX,
             generator=s.generator, any_sample=any(s.row_samples),
         )
-        alive &= ~self._is_eos(nxt)
+        if not self.emit_eos:
+            alive &= ~self._is_eos(nxt)
         alive &= s.budget > 0
         s.current.copy_(torch.where(alive, nxt, s.current))
         s.active.copy_(alive)

@@ -5,18 +5,25 @@ which the card's machine lacks).
 ``load_tokenizer(path)`` → ``TokenizerAdapter`` with the reference's
 surface: ``encode(text)`` without special tokens, ``decode(ids,
 skip_special_tokens)`` and ``token_to_id``. It gives the ids and text of
-the Rust library for what a DeepSeek-shaped byte-level BPE needs:
+the Rust library for what a DeepSeek-shaped byte-level BPE and a
+SentencePiece-converted BPE (PaddleOCR-VL's ERNIE shape: a Metaspace
+pre-tokenizer, or Prepend + Replace normalizers, over byte fallback) need:
 
 - the model: ``BPE`` (merge ranks, ``unk_token``, ``fuse_unk``,
   ``byte_fallback``, ``ignore_merges``, ``continuing_subword_prefix``,
   ``end_of_word_suffix``; merges as "a b" strings or [a, b] pairs);
-- normalizers: none, ``NFC``, ``NFKC``, ``Sequence``;
+- normalizers: none, ``NFC``, ``NFKC``, ``Prepend`` (before a non-empty
+  text), ``Replace`` (a string or regex pattern), ``Sequence``;
 - pre-tokenizers: ``Split`` (string or Oniguruma regex, every
   ``behavior``, ``invert``; utils/onig_regex.py translates the regex),
   ``ByteLevel`` (``add_prefix_space``, ``use_regex`` with GPT-2's
-  pattern), ``Digits``, ``Sequence``;
+  pattern), ``Digits``, ``Metaspace`` (``replacement``, ``prepend_scheme``
+  ``always``/``first``/``never`` or the older ``add_prefix_space``,
+  ``split``; ``first`` prepends only to the piece that starts the input),
+  ``Sequence``;
 - decoders: ``ByteLevel``, ``ByteFallback``, ``Fuse``, ``Strip``,
-  ``Replace``, ``Sequence`` (none: tokens joined by spaces);
+  ``Replace``, ``Metaspace``, ``Sequence`` (none: tokens joined by
+  spaces);
 - added tokens, matched leftmost-longest before normalization (those with
   ``normalized`` after it), with ``special``, ``lstrip``, ``rstrip`` and
   ``single_word``.
@@ -115,10 +122,10 @@ def _find_matches(pattern, text: str) -> List[Tuple[int, int, bool]]:
     return out
 
 
-def _split(text: str, pattern, behavior: str, invert: bool = False) -> List[str]:
+def _split_spans(text: str, pattern, behavior: str, invert: bool = False) -> List[Tuple[str, int]]:
     """NormalizedString::split: `text` cut at `pattern`'s matches by
     `behavior` (removed, isolated, merged_with_previous, merged_with_next,
-    contiguous); empty pieces dropped."""
+    contiguous); empty pieces dropped. → [(piece, its start in text)]."""
     matches = [(a, b, m != invert) for a, b, m in _find_matches(pattern, text)]
     behavior = behavior.lower().replace("mergedwith", "merged_with_")
     if behavior == "isolated":
@@ -145,7 +152,7 @@ def _split(text: str, pattern, behavior: str, invert: bool = False) -> List[str]
         pieces.reverse()
     else:
         raise UnsupportedTokenizer(f"unsupported split behavior {behavior!r}")
-    return [text[a:b] for a, b in pieces if b > a]
+    return [(text[a:b], a) for a, b in pieces if b > a]
 
 
 def _pattern(spec) -> object:
@@ -165,6 +172,11 @@ def _normalizer(spec) -> Optional[Callable[[str], str]]:
     kind = spec.get("type")
     if kind in ("NFC", "NFKC"):
         return lambda text: unicodedata.normalize(kind, text)
+    if kind == "Prepend":
+        prepend = spec["prepend"]
+        return lambda text: prepend + text if text else text
+    if kind == "Replace":
+        return _replace(spec)
     if kind == "Sequence":
         steps = [_normalizer(s) for s in spec["normalizers"]]
         steps = [s for s in steps if s is not None]
@@ -178,11 +190,54 @@ def _normalizer(spec) -> Optional[Callable[[str], str]]:
     raise _unsupported("normalizer", spec)
 
 
+def _replace(spec) -> Callable[[str], str]:
+    """Every match of the pattern (a string, or a regex) replaced by the
+    content."""
+    pattern, content = _pattern(spec["pattern"]), spec["content"]
+    if isinstance(pattern, str):
+        return lambda text: text.replace(pattern, content) if pattern else text
+    return lambda text: pattern.sub(lambda _m: content, text)
+
+
 def _byte_level_map(piece: str) -> str:
     return "".join(BYTES_CHAR[b] for b in piece.encode("utf-8"))
 
 
-def _pre_tokenizer(spec) -> List[Callable[[str], List[str]]]:
+# a pre-tokenizer step: (piece, does it start the input?) → such pieces
+Piece = Tuple[str, bool]
+
+
+def _split_step(pattern, behavior: str, invert: bool = False) -> Callable[[str, bool], List[Piece]]:
+    def run(piece: str, at_start: bool) -> List[Piece]:
+        return [(p, at_start and a == 0) for p, a in _split_spans(piece, pattern, behavior, invert)]
+
+    return run
+
+
+def _metaspace(spec) -> Callable[[str, bool], List[Piece]]:
+    """The library's Metaspace: spaces → the replacement, the replacement
+    prepended by the scheme (``first``: only to the piece that starts the
+    input), then (``split``) a cut before every replacement."""
+    rep = spec["replacement"]
+    scheme = spec.get("prepend_scheme")
+    if scheme is None:  # the older field
+        scheme = "always" if spec.get("add_prefix_space", True) else "never"
+    if scheme not in ("always", "first", "never"):
+        raise UnsupportedTokenizer(f"unsupported Metaspace prepend_scheme {scheme!r}")
+    split = bool(spec.get("split", True))
+
+    def run(piece: str, at_start: bool) -> List[Piece]:
+        piece = piece.replace(" ", rep)
+        if not piece.startswith(rep) and (scheme == "always" or (scheme == "first" and at_start)):
+            piece = rep + piece
+        if not split:
+            return [(piece, at_start)]
+        return [(p, at_start and a == 0) for p, a in _split_spans(piece, rep, "merged_with_next")]
+
+    return run
+
+
+def _pre_tokenizer(spec) -> List[Callable[[str, bool], List[Piece]]]:
     """A pre-tokenizer → its steps, each one piece → pieces."""
     if spec is None:
         return []
@@ -190,22 +245,25 @@ def _pre_tokenizer(spec) -> List[Callable[[str], List[str]]]:
     if kind == "Sequence":
         return [step for s in spec["pretokenizers"] for step in _pre_tokenizer(s)]
     if kind == "Split":
-        pattern, behavior, invert = _pattern(spec["pattern"]), spec["behavior"], bool(spec.get("invert"))
-        return [lambda piece: _split(piece, pattern, behavior, invert)]
+        return [_split_step(_pattern(spec["pattern"]), spec["behavior"], bool(spec.get("invert")))]
     if kind == "Digits":
         behavior = "isolated" if spec.get("individual_digits") else "contiguous"
-        return [lambda piece: _split(piece, lambda ch: category(ch)[0] == "N", behavior)]
+        return [_split_step(lambda ch: category(ch)[0] == "N", behavior)]
+    if kind == "Metaspace":
+        return [_metaspace(spec)]
     if kind == "ByteLevel":
         prefix, regex = bool(spec.get("add_prefix_space")), spec.get("use_regex", True)
         gpt2 = compile_onig(GPT2_PATTERN) if regex else None
 
-        def split(piece: str) -> List[str]:
+        def split(piece: str, at_start: bool) -> List[Piece]:
             if prefix and not piece.startswith(" "):
                 piece = " " + piece
-            return _split(piece, gpt2, "isolated") if regex else [piece]
+            if not regex:
+                return [(piece, at_start)]
+            return [(p, at_start and a == 0) for p, a in _split_spans(piece, gpt2, "isolated")]
 
         # the byte mapping runs after every piece was split
-        return [split, lambda piece: [_byte_level_map(piece)]]
+        return [split, lambda piece, at_start: [(_byte_level_map(piece), at_start)]]
     raise _unsupported("pre-tokenizer", spec)
 
 
@@ -286,6 +344,19 @@ def _decoder(spec) -> Optional[Callable[[List[str]], List[str]]]:
         if isinstance(pattern, str):
             return lambda tokens: [t.replace(pattern, content) for t in tokens]
         return lambda tokens: [pattern.sub(lambda _m: content, t) for t in tokens]
+    if kind == "Metaspace":
+        rep = spec["replacement"]
+        scheme = spec.get("prepend_scheme")
+        if scheme is None:
+            scheme = "always" if spec.get("add_prefix_space", True) else "never"
+
+        def metaspace(tokens: List[str]) -> List[str]:
+            # the library drops every replacement of the first token, not
+            # only a leading one, unless the scheme is never
+            return [t.replace(rep, "" if i == 0 and scheme != "never" else " ")
+                    for i, t in enumerate(tokens)]
+
+        return metaspace
     if kind == "Sequence":
         steps = [_decoder(s) for s in spec["decoders"]]
 
@@ -472,22 +543,28 @@ class TokenizerAdapter:
         return out
 
     def encode(self, text: str) -> List[int]:
-        """Ids of `text` without special tokens added around it."""
+        """Ids of `text` without special tokens added around it. Each piece
+        carries whether it starts the input (what Metaspace's ``first``
+        scheme reads)."""
         ids: List[int] = []
+        at = 0
         for raw, tid in self._find_added(text, self._raw_re):
+            raw_start, at = at == 0, at + len(raw)
             if tid is not None:
                 ids.append(tid)
                 continue
             if self.normalizer is not None:
                 raw = self.normalizer(raw)
+            norm_at = 0
             for piece, tid2 in self._find_added(raw, self._norm_re):
+                piece_start, norm_at = raw_start and norm_at == 0, norm_at + len(piece)
                 if tid2 is not None:
                     ids.append(tid2)
                     continue
-                pieces = [piece] if piece else []
+                pieces = [(piece, piece_start)] if piece else []
                 for step in self.pre_tokenizer:
-                    pieces = [p for q in pieces for p in step(q) if p]
-                for p in pieces:
+                    pieces = [p for q in pieces for p in step(*q) if p[0]]
+                for p, _ in pieces:
                     ids.extend(self.model.tokenize(p))
         return ids
 

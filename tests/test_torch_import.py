@@ -63,6 +63,7 @@ SLICE_MODULES = [
     "dsocr_tpu_torch.image.ops",
     "dsocr_tpu_torch.image.resample",
     "dsocr_tpu_torch.image.tiling",
+    "dsocr_tpu_torch.image.smart_resize",
     "dsocr_tpu_torch.native",
     "dsocr_tpu_torch.native.resample",
     "dsocr_tpu_torch.models",
@@ -77,6 +78,16 @@ SLICE_MODULES = [
     "dsocr_tpu_torch.models.deepseek.convert",
     "dsocr_tpu_torch.models.deepseek.quantize",
     "dsocr_tpu_torch.models.deepseek.loader",
+    "dsocr_tpu_torch.models.deepseek.ocr2",
+    "dsocr_tpu_torch.models.paddleocr",
+    "dsocr_tpu_torch.models.paddleocr.config",
+    "dsocr_tpu_torch.models.paddleocr.vision",
+    "dsocr_tpu_torch.models.paddleocr.projector",
+    "dsocr_tpu_torch.models.paddleocr.decoder",
+    "dsocr_tpu_torch.models.paddleocr.quantize",
+    "dsocr_tpu_torch.models.paddleocr.engine",
+    "dsocr_tpu_torch.models.paddleocr.loader",
+    "dsocr_tpu_torch.models.paddleocr.convert",
     "dsocr_tpu_torch.runtime",
     "dsocr_tpu_torch.runtime.kv_cache",
     "dsocr_tpu_torch.runtime.generate",

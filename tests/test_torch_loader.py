@@ -21,7 +21,8 @@ made by the reference's exporter.
   here, and so does its checkpoint writer against the reference's reader.
 - The registry: resolve_dtype, the snapshot's default method, the families
   and meshes not ported raising; config.json parsing equals the
-  reference's, OCR2 included.
+  reference's, OCR2 included (OCR2 and PaddleOCR-VL loading:
+  tests/test_torch_ocr2.py, tests/test_torch_paddle.py).
 """
 
 import asyncio
@@ -261,7 +262,7 @@ def test_registry(files, tmp_path):
         assert registry._snapshot_quant_method(path) == jax_registry._snapshot_quant_method(path)
     assert {registry._snapshot_quant_method(p) for p in snaps.values()} == {"q8_0", "q4_k", "q6_k"}
     assert registry._snapshot_quant_method(None) is None
-    for kind in (ModelKind.PADDLE_OCR_VL, ModelKind.DOTS_OCR, ModelKind.GLM_OCR):
+    for kind in (ModelKind.DOTS_OCR, ModelKind.GLM_OCR):  # PaddleOCR-VL: tests/test_torch_paddle.py
         with pytest.raises(NotImplementedError, match="Queue 1 #5"):
             registry.load_engine(kind, device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 #6"):
@@ -283,7 +284,8 @@ def test_config_from_dict_equals_reference():
         got, want = DeepseekOcrConfig.from_dict(data), JaxConfig.from_dict(data)
         assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert DeepseekOcrConfig.from_dict(ocr2).variant == "ocr2"
-    with pytest.raises(NotImplementedError, match="OCR2"):
+    # OCR2 loads (tests/test_torch_ocr2.py); a missing file raises in the reader
+    with pytest.raises(FileNotFoundError):
         load_deepseek_params("unused.safetensors", DeepseekOcrConfig.from_dict(ocr2), device="cpu")
     with pytest.raises(ValueError, match="projector_type"):
         DeepseekOcrConfig.from_dict({"projector_config": {"projector_type": "mlp"}})

@@ -498,3 +498,137 @@ def test_swap_frees_the_old_engine_before_the_factory(tiny):
         assert "dsocr_model_swaps_total 3" in server.request("GET", "/metrics")[2]
     finally:
         server.close()
+
+
+# -- (c) the new families: tiny OCR2 and PaddleOCR-VL engines ---------------------------------
+
+FAMILY_SETTINGS = {"models": {"entries": {
+    "deepseek-ocr-2": {"defaults": {"base_size": 128, "image_size": 128, "crop_mode": False,
+                                    "no_repeat_ngram_size": 0}},
+    "paddleocr-vl": {"defaults": {"no_repeat_ngram_size": 0}}}}}
+
+
+def paddle_tokenizer_json(path):
+    """A SentencePiece-shaped BPE (Metaspace, byte fallback) inside the tiny
+    Paddle config's 256 ids: <unk>, <s>, </s>, a few byte tokens,
+    printable ASCII and ▁, merges, and <|IMAGE_END|> at 252 (the config's
+    image and vision-start ids, 250 and 251, are not text)."""
+    vocab = {"<unk>": 0, "<s>": 1, "</s>": 2}
+    for b in range(0x20):
+        vocab[f"<0x{b:02X}>"] = len(vocab)
+    for ch in ["▁"] + [chr(c) for c in range(33, 127)]:
+        vocab[ch] = len(vocab)
+    merges = []
+    for a, b in [("▁", "F"), ("r", "e"), ("re", "e"), ("▁F", "ree"), ("▁", "O"), ("C", "R"), ("▁O", "CR"),
+                 ("▁", "t"), ("h", "e"), ("▁t", "he"), ("▁", "a"), ("i", "n"), ("o", "n")]:
+        merges.append((a, b))
+        vocab[a + b] = len(vocab)
+    assert len(vocab) < 250
+    tok = Tokenizer(models.BPE(vocab, merges, unk_token="<unk>", byte_fallback=True, fuse_unk=True))
+    tok.pre_tokenizer = pre_tokenizers.Metaspace(prepend_scheme="first")
+    tok.decoder = decoders.Sequence([decoders.Metaspace(prepend_scheme="first"), decoders.ByteFallback(),
+                                     decoders.Fuse()])
+    tok.add_special_tokens(["<|IMAGE_END|>"])
+    spec = json.loads(tok.to_str())
+    spec["added_tokens"][0]["id"] = 252
+    spec["model"]["vocab"]["<|IMAGE_END|>"] = 252
+    path.write_text(json.dumps(spec))
+    return path
+
+
+@pytest.fixture(scope="module")
+def families(tmp_path_factory, tiny):
+    import dataclasses as dc
+
+    from dsocr_tpu.models.deepseek.ocr2 import tiny_qwen2_encoder_params as jax_tiny_q
+    from dsocr_tpu.models.paddleocr import PaddleOcrEngine as JaxPaddle
+    from dsocr_tpu.models.paddleocr.config import tiny_paddle_config as jax_tiny_paddle
+    from dsocr_tpu_torch.models.deepseek.ocr2 import tiny_qwen2_encoder_params
+    from dsocr_tpu_torch.models.paddleocr import PaddleOcrEngine, tiny_paddle_config
+    from dsocr_tpu_torch.models.paddleocr import params_from_jax as paddle_from_jax
+
+    jax_ocr2 = JaxEngine(dc.replace(jax_tiny(), variant="ocr2", clip=None), dtype=jnp.float32, max_seq_len=512,
+                         ocr2_params=jax_tiny_q())
+    ocr2_state = params_from_jax(jax.device_get(jax_ocr2.params))
+    jax_paddle = JaxPaddle(jax_tiny_paddle(), dtype=jnp.float32, max_seq_len=512)
+    paddle_state = paddle_from_jax(jax.device_get(jax_paddle.params))
+    paddle_path = paddle_tokenizer_json(tmp_path_factory.mktemp("paddle") / "tokenizer.json")
+    ocr2_path = tiny[2]
+
+    def port(model_id):
+        if model_id == "deepseek-ocr-2":
+            engine = DeepseekOcrEngine(dc.replace(tiny_deepseek_config(), variant="ocr2", clip=None),
+                                       dtype=torch.float32, device="cpu", max_seq_len=512, state=ocr2_state,
+                                       ocr2_params=tiny_qwen2_encoder_params())
+            return LoadedModel(model_id, engine, load_tokenizer(ocr2_path), ModelKind.DEEPSEEK)
+        engine = PaddleOcrEngine(tiny_paddle_config(), dtype=torch.float32, device="cpu", max_seq_len=512,
+                                 state=paddle_state)
+        return LoadedModel(model_id, engine, load_tokenizer(paddle_path), ModelKind.PADDLE_OCR_VL)
+
+    def ref(model_id):
+        if model_id == "deepseek-ocr-2":
+            return RefLoaded(model_id=model_id, engine=jax_ocr2, tokenizer=ref_load_tokenizer(ocr2_path),
+                             kind=RefKind.DEEPSEEK)
+        return RefLoaded(model_id=model_id, engine=jax_paddle, tokenizer=ref_load_tokenizer(paddle_path),
+                         kind=RefKind.PADDLE_OCR_VL)
+
+    return port, ref, paddle_path
+
+
+def test_paddle_tokenizer_reads_alike(families):
+    path = families[2]
+    ref, mine = Tokenizer.from_file(str(path)), load_tokenizer(path)
+    for text in ("Free OCR.", "the\tOCR ünïcode 東", "x<|IMAGE_END|>y"):
+        assert mine.encode(text) == ref.encode(text, add_special_tokens=False).ids
+    ids = list(range(256))
+    assert mine.decode(ids) == ref.decode(ids) and mine.decode(ids, False) == ref.decode(ids, False)
+    assert mine.token_to_id("<|IMAGE_END|>") == ref.token_to_id("<|IMAGE_END|>") == 252
+
+
+@pytest.mark.parametrize("model", ["deepseek-ocr-2", "paddleocr-vl"])
+def test_new_families_answer_equal(families, model, monkeypatch):
+    for name in ("DSOCR_MAX_INFLIGHT", "DSOCR_PREFIX_CACHE", "DSOCR_PAGED_KV", "DSOCR_SLOTS"):
+        monkeypatch.delenv(name, raising=False)
+    port_factory, ref_factory, _ = families
+    ref_state = RefState(RefConfig.from_mapping(FAMILY_SETTINGS), allow_download=False, engine_factory=ref_factory)
+    server = PortServer(AppState(AppConfig.from_mapping(FAMILY_SETTINGS), engine_factory=port_factory))
+    try:
+        cases = [("/v1/chat/completions", chat(model, max_tokens=10), False),
+                 ("/v1/chat/completions", chat(model, True, max_tokens=10), True),
+                 ("/v1/responses", responses_body(model, max_output_tokens=10), False),
+                 ("/v1/responses", responses_body(model, True, max_output_tokens=10), True)]
+        refs = ref_requests(ref_state, [("POST", path, body) for path, body, _ in cases])
+        for (path, body, sse), ref in zip(cases, refs):
+            port = server.request("POST", path, body)
+            same_answer(ref, port, sse=sse)
+            if not sse:
+                usage = json.loads(port[2])["usage"]
+                assert usage["prompt_tokens"] > 0 and usage["completion_tokens"] > 0
+    finally:
+        server.close()
+
+
+def test_swap_between_the_new_families_frees_the_old_engine(families):
+    """deepseek-ocr-2 → paddleocr-vl → deepseek-ocr-2: each factory finds
+    the previous engine unreferenced, and /metrics counts the swaps."""
+    port_factory = families[0]
+    built = []
+
+    def factory(model_id):
+        gc.collect()
+        if built:
+            assert built[-1]() is None, "the old engine is still referenced"
+        loaded = port_factory(model_id)
+        built.append(weakref.ref(loaded.engine))
+        return loaded
+
+    server = PortServer(AppState(AppConfig.from_mapping(FAMILY_SETTINGS), engine_factory=factory))
+    try:
+        for model in ("deepseek-ocr-2", "paddleocr-vl", "deepseek-ocr-2"):
+            status, _, text = server.request("POST", "/v1/chat/completions", chat(model, max_tokens=3))
+            assert status == 200, text
+            assert json.loads(text)["model"] == model
+        assert len(built) == 3
+        assert "dsocr_model_swaps_total 3" in server.request("GET", "/metrics")[2]
+    finally:
+        server.close()

@@ -328,3 +328,99 @@ def test_single_word_neighbours_over_every_code_point(tmp_path):
         assert [_is_word_char(c) for c in chars] == ref
     for text in ("éQQ", "QQ_", "Ⓐ QQ", "x\u200dQQ", "😀QQ😀", "1QQ", "١QQ"):
         _same_encode(tok, mine, text)
+
+
+# -- SentencePiece-converted shapes (PaddleOCR-VL's ERNIE tokenizer) -------------------------
+
+SP_SPECIALS = ["<unk>", "<s>", "</s>", "<|IMAGE_START|>", "<|IMAGE_END|>"]
+BYTES = [f"<0x{b:02X}>" for b in range(256)]
+
+
+def _sentencepiece_metaspace(tmp_path, scheme="always", split=True):
+    """tokenizers' SentencePieceBPETokenizer (NFKC, Metaspace pre-tokenizer
+    and decoder), trained with the byte tokens so that BPE falls back to
+    bytes, with the scheme and split under test and special tokens
+    added."""
+    sp = tokenizers.SentencePieceBPETokenizer(unk_token="<unk>", fuse_unk=True)
+    sp.train_from_iterator(corpus(), vocab_size=700, special_tokens=SP_SPECIALS + BYTES, show_progress=False)
+    spec = json.loads(sp._tokenizer.to_str())
+    spec["model"]["byte_fallback"] = True
+    for key in ("pre_tokenizer", "decoder"):
+        spec[key].update(prepend_scheme=scheme, split=split)
+    tok = Tokenizer.from_str(json.dumps(spec))
+    tok.add_tokens([AddedToken("ocr", normalized=True)])
+    path = tmp_path / f"sp_{scheme}_{split}.json"
+    tok.save(str(path))
+    return tok, path
+
+
+def _sentencepiece_converted(tmp_path):
+    """The shape transformers' slow-to-fast conversion gives a SentencePiece
+    BPE: Prepend("▁") + Replace(" ", "▁") normalizers, no pre-tokenizer,
+    byte fallback, decoded by Replace + ByteFallback + Fuse + Strip."""
+    tok = Tokenizer(models.BPE(unk_token="<unk>", byte_fallback=True, fuse_unk=True))
+    tok.normalizer = normalizers.Sequence([normalizers.Prepend("▁"), normalizers.Replace(" ", "▁")])
+    tok.decoder = decoders.Sequence([decoders.Replace("▁", " "), decoders.ByteFallback(), decoders.Fuse(),
+                                     decoders.Strip(" ", 1, 0)])
+    trainer = trainers.BpeTrainer(vocab_size=700, special_tokens=SP_SPECIALS + BYTES, show_progress=False)
+    tok.train_from_iterator(corpus(), trainer)
+    path = tmp_path / "sp_converted.json"
+    tok.save(str(path))
+    return tok, path
+
+
+@pytest.fixture(scope="module")
+def sentencepiece(tmp_path_factory):
+    out = {}
+    for scheme in ("always", "first", "never"):
+        for split in (True, False):
+            tok, path = _sentencepiece_metaspace(tmp_path_factory.mktemp("sp"), scheme, split)
+            out[f"metaspace_{scheme}_{split}"] = (tok, load_tokenizer(path))
+    tok, path = _sentencepiece_converted(tmp_path_factory.mktemp("spc"))
+    out["converted"] = (tok, load_tokenizer(path))
+    return out
+
+
+SP_SHAPES = [f"metaspace_{s}_{p}" for s in ("always", "first", "never") for p in (True, False)] + ["converted"]
+SP_FIXED = FIXED + ["<|IMAGE_END|>", "a <|IMAGE_START|> b<|IMAGE_END|>c", "▁already▁marked", "ocr ocr",
+                    "  ", "\u0000\u0007 control", "x<|IMAGE_END|> ocr"]
+
+
+@pytest.mark.parametrize("shape", SP_SHAPES)
+def test_sentencepiece_shapes_encode_and_decode(sentencepiece, shape):
+    ref, mine = sentencepiece[shape]
+    for text in SP_FIXED:
+        _same_encode(ref, mine, text)
+    ids = [i for text in SP_FIXED for i in ref.encode(text, add_special_tokens=False).ids]
+    for n in range(0, len(ids) + 1, 7):
+        _same_decode(ref, mine, ids[:n])
+    _same_decode(ref, mine, np.random.default_rng(1).integers(0, ref.get_vocab_size() + 5, 300).tolist())
+    assert any(ref.id_to_token(i) in BYTES for i in ref.encode("\u0a85 \u16a0", add_special_tokens=False).ids)
+    for token in SP_SPECIALS + ["<0x41>", "▁the", "ocr", "nope"]:
+        assert mine.token_to_id(token) == ref.token_to_id(token), token
+
+
+@settings(max_examples=60, deadline=None, suppress_health_check=[HealthCheck.function_scoped_fixture])
+@given(text=st.text(max_size=30), shape=st.sampled_from(SP_SHAPES))
+def test_sentencepiece_shapes_hypothesis(sentencepiece, text, shape):
+    ref, mine = sentencepiece[shape]
+    _same_encode(ref, mine, text)
+    ids = ref.encode(text, add_special_tokens=False).ids
+    for n in range(len(ids) + 1):
+        _same_decode(ref, mine, ids[:n])
+
+
+@pytest.mark.parametrize("where, value, name", [
+    ("pre_tokenizer", {"type": "Metaspace", "replacement": "▁", "prepend_scheme": "sometimes", "split": True},
+     "sometimes"),
+    ("normalizer", {"type": "Precompiled", "precompiled_charsmap": ""}, "Precompiled"),
+    ("normalizer", {"type": "Strip", "strip_left": True, "strip_right": True}, "Strip"),
+    ("pre_tokenizer", {"type": "UnicodeScripts"}, "UnicodeScripts"),
+])
+def test_unsupported_sentencepiece_components_raise_by_name(tmp_path, where, value, name):
+    _, path = _sentencepiece_converted(tmp_path)
+    spec = _spec(path)
+    spec[where] = value
+    path.write_text(json.dumps(spec))
+    with pytest.raises(UnsupportedTokenizer, match=name):
+        load_tokenizer(path)

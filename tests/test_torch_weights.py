@@ -312,7 +312,8 @@ def test_export_default_model_id_and_unknown_config(tmp_path, capsys):
     if not torch.cuda.is_available():  # the card unless --device names the CPU
         with pytest.raises(RuntimeError, match="no CUDA GPU"):
             cli.main(base + ["--output", str(tmp_path / "x.dsq")])
-    config.write_text(json.dumps({"architectures": ["PaddleOCRVLForConditionalGeneration"]}))
+    # an architecture no adapter supports (PaddleOCR-VL has one since PaddleOcrAdapter)
+    config.write_text(json.dumps({"architectures": ["UnknownOcrForCausalLM"]}))
     capsys.readouterr()
     assert cli.main(base + ["--output", str(tmp_path / "x.dsq"), "--device", "cpu"]) == 1
     assert "no adapter" in capsys.readouterr().err
