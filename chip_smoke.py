@@ -56,13 +56,19 @@ non-zero (nothing is caught):
             gather_matmul (the split layout's expert gather, gate/up and
             down stacks at 96 and 12 rows, bf16 and f32, two launches
             bit-equal; library time index_select + bmm);
-            PaddleOCR-VL's grouped heads (check_grouped_heads: 16 query
-            heads over 2 KV heads of 128, bf16): flash_prefill_attention
-            at a page's 3,700-token prompt, B 1 and B 4 with left pads
-            0/300/7/1000 (library time SDPA with enable_gqa), and
-            slot_kv_write and slot_decode_attention on Ernie's cache (L 18,
-            B 16, S_max 4096, bf16 and int8, lengths 0 and S − 1 among
-            them), two launches bit-equal;
+            the new families' grouped heads (check_grouped_heads,
+            GROUPED_HEADS, D 128, bf16): PaddleOCR-VL's 16 query heads over
+            2, DotsOCR's 12 over 2 and GLM-OCR's 16 over 8;
+            flash_prefill_attention at a page's 3,700-token prompt (and for
+            Dots and GLM at 6,200), B 1 and B 4 with left pads 0/300/7/1000
+            (library time SDPA with enable_gqa), and slot_kv_write and
+            slot_decode_attention on each family's cache (L 18, 28 and 24,
+            B 16, S_max 4096, 4096 and 8192, bf16 and int8, lengths 0 and
+            S − 1 among them), two launches bit-equal; the three row
+            formats at DotsOCR's packed shapes (check_dots_rows,
+            DOTS_ROW_CASES: qkv 1536 → 2048, gate/up 1536 → 17920, down
+            8960 → 1536 with an odd count of K-quant super-blocks, the
+            untied lm_head 1536 → 151936, at N 1, 16 and 1024);
     host_prep  host image prep of the seeded page (below) on the card's
             host: engine.prepare_vision_input with the native resampler and
             with its NumPy twin, the global view and every tile bit-equal,
@@ -123,7 +129,7 @@ non-zero (nothing is caught):
             on the card by `dsq export`, each loaded through load_engine
             in its header's format: every packed tensor equal to the
             port's packing, on the card, of the floats it stands for
-            (snapshot_floats); the Q6_K engine serves the 16 × 128 burst
+            (snapshot_floats); the Q6_K engine serves an 8 × 128 burst
             (`serve_q6k_snapshot`: the row matmul and the dense sweep must
             launch) and its profile; bytes and seconds of each write,
             export and load, free disk, peak host RSS and device GiB;
@@ -140,7 +146,7 @@ non-zero (nothing is caught):
             load_tokenizer of the same files (the PNG decoded by
             image/decode.py bit-equal to the page); its streamed twin on
             /v1/responses (the deltas join to the text, the events in the
-            reference's order); 8 requests and 2 streams of 128 tokens at
+            reference's order); 4 requests and 2 streams of 128 tokens at
             once (all 200; pages/s, latency p50/max, time to the first
             delta); the swap to deepseek-ocr-q8k (model_swaps_total 2, the
             server's device memory lower after it); an unknown model, a
@@ -162,16 +168,18 @@ non-zero (nothing is caught):
             launches of each selection count);
 4d. serve_q4k        packed Q4_K decoder weights from the same seed (the
             routed experts' down projection, in dim 896, packs as Q8_0):
-            16 requests × 128 tokens over 16 slots, the dense tier:
+            8 requests × 128 tokens over 16 slots (the step's 16 rows
+            select 96 experts), the dense tier:
             q4k_matmul, q4k_dense_experts and q8_dense_experts_perx must
             launch; then its profile;
 4e. serve_q4k_gather the same Q4_K engine, 4 requests × 32 tokens over 4
             slots: q4k_gather_matmul and q8_gather_matmul must launch;
             then its `_trace` line;
 4f. serve_q6k        packed Q6_K decoder weights from the same seed (the
-            experts' down projection again Q8_0): 16 requests × 128 tokens
+            experts' down projection again Q8_0): 8 requests × 128 tokens
             over 16 slots, the dense tier: q6k_matmul, q6k_dense_experts
-            and q8_dense_experts_perx must launch; then its profile;
+            and q8_dense_experts_perx must launch (its format's profile is
+            serve_q6k_snapshot's, at the same shapes);
 4g. serve_q6k_gather the same Q6_K engine, 4 requests × 32 tokens over 4
             slots: q6k_gather_matmul and q8_gather_matmul must launch;
             then its `_trace` line;
@@ -190,7 +198,7 @@ families  after 4g: DeepSeek-OCR2 and PaddleOCR-VL (families_phase).
             OCR2 at full width (ocr2_config: SAM with 896 output channels,
             the 24-layer Qwen2 encoder, the DeepSeek-V2 decoder), seeded,
             through load_engine on its config.json: the encoder's and
-            SAM's device ms a page, then 8 requests × 64 tokens over 8
+            SAM's device ms a page, then 4 requests × 64 tokens over 4
             slots of the page in 1024/768 crop mode (int8 KV):
             sam_flash_attention, flash_prefill_attention, slot_kv_write and
             slot_decode_attention must launch. OCR2 from files: the
@@ -204,7 +212,7 @@ families  after 4g: DeepSeek-OCR2 and PaddleOCR-VL (families_phase).
             the seeded state with its tower cast to f32, as the loader
             makes of the file; the page smart-resized to max_pixels (94 ×
             152 patches, 3,572 image tokens): the tower's ms a page, then
-            8 pages × 64 tokens over 8 slots, and again from its Q8_0
+            4 pages × 64 tokens over 4 slots, and again from its Q8_0
             snapshot through the Paddle adapter (q8_matmul must launch).
             Then the server with a config.toml naming both families' files
             and synthetic tokenizer.jsons (DeepSeek-shaped for OCR2, a
@@ -215,6 +223,31 @@ families  after 4g: DeepSeek-OCR2 and PaddleOCR-VL (families_phase).
             Paddle's files against engine.decode. Every burst line gives
             pages/s, TTFT p50, prefill tokens, peak device memory and
             launches;
+families2  after families: DotsOCR and GLM-OCR (families2_phase), each
+            seeded at full width through load_engine on a written
+            config.json (GLM's with its preprocessor_config.json), the
+            f32 tower's weights rounded to bf16 values (what a published
+            checkpoint holds), the seeded page at its pixel budget (Dots
+            ~14,400 patches, 3,600 image tokens; GLM ~24,576 patches over
+            two temporal frames, 6,144 image tokens): the tower's device ms
+            a page, then 4 pages × 64 tokens over 4 slots (int8 KV, GLM's
+            rows 8192 positions) after a one-request warm-up; Dots again
+            with Q8_0 weights (q8_matmul must launch). Dots from files:
+            the bf16 engine's checkpoint (the tower in bf16, ~5.5 GB in
+            WEIGHTS_DIR) through load_engine, 16 greedy tokens equal to
+            the seeded engine's, and its Q8_0 snapshot (`dsq export`
+            through the Dots adapter) equal to the seeded Q8_0 engine's.
+            GLM: a sampled request through ContinuousScheduler fails with
+            the engine's ValueError; from files (~4.3 GB), 16 tokens equal
+            to the seeded engine's. Then the server with a config.toml
+            naming dots-ocr and glm-ocr (synthetic byte-level
+            tokenizer.jsons at 151,936 and 59,392 ids with each family's
+            special tokens, DSOCR_SLOT_SEQ 8192): one greedy chat request
+            to each id (the second a swap) equal in text and usage to the
+            in-process scheduler over load_engine of the same files, then
+            the CLI on each against engine.decode. Every burst line gives
+            pages/s, TTFT p50, the tower's ms a page, peak device memory
+            and launches; the files lines their bytes and seconds;
 5. parity   the tiny config in f32 with one set of weights, served on the
             card (kernels) and on the CPU (twins): greedy tokens must match;
             again with Q8_0 weights (moe_intermediate_size 32), and with
@@ -232,9 +265,10 @@ families  after 4g: DeepSeek-OCR2 and PaddleOCR-VL (families_phase).
             loaded on the card and on the CPU: packed tensors bit-equal,
             greedy tokens equal at 4 slots with int8 KV; and the new
             families' tiny engines (family_parity: OCR2 behind the tiny
-            Qwen2 encoder, PaddleOCR-VL at 4 query heads over 2 KV heads)
-            at 2 slots, f32 and int8 KV, at FAMILY_PARITY_SEED (held clear
-            of near-ties by tests/test_torch_paddle.py).
+            Qwen2 encoder, PaddleOCR-VL, DotsOCR and GLM-OCR at 4 query
+            heads over 2 KV heads) at 2 slots, f32 and int8 KV, at
+            FAMILY_PARITY_SEED (held clear of near-ties by
+            tests/test_torch_paddle.py and tests/test_torch_glm.py).
 
 Every phase line carries t_s, the script's seconds when it was printed.
 The seeded page's host prep (page_packet) runs once for the script;
@@ -243,7 +277,8 @@ outside the bursts' windows each phase reuses it.
 Then a line with the script's total seconds, a {"kernels": [...]} summary
 line (launches: the sum over the ten serving bursts, the sched phase, the
 split phase, the two decode phases, the frontends phase's in-process
-runs and the families phase's bursts and in-process runs), the nvidia-smi
+runs and the families and families2 phases' bursts and in-process
+runs), the nvidia-smi
 line, and last
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
 dsocr_tpu_torch package beside this file, it exits non-zero and prints
@@ -262,12 +297,17 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import Any, Callable, NamedTuple
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 T_START = time.perf_counter()
 MAX_NEW = 128
 N_REQUESTS = 16
 N_SLOTS = 16
+# the Q4_K and Q6_K bursts and the Q6_K snapshot's: 8 requests over the 16
+# slots (the step still runs 16 rows, so the dense expert tier), cut from
+# 16 for the time of the families2 phase
+CUT_REQUESTS = 8
 CHUNK = 128
 # serve_spec's depth: half of phase 4's tokens, chunks a quarter of them
 SPEC_MAX_NEW = 64
@@ -872,6 +912,7 @@ def check_kernels(torch, K):
                                    f"lengths {int(lengths.min())}-{int(lengths.max())}")
             del caches
     check_grouped_heads(torch, K, record, randn, gen)
+    check_dots_rows(torch, K, record, randn)
     check_gather_matmul(torch, K, record, randn, gen)
     check_paged_kernels(torch, K, record, randn, gen)
     check_q8_kernels(torch, K, record, randn)
@@ -893,60 +934,117 @@ def check_kernels(torch, K):
 
 
 GROUPED_PREFILL = ((1, [0], 3700), (4, [0, 300, 7, 1000], 3700))
+# the grouped-head cases: (family, query heads, KV heads, layers, slot
+# positions, prefill cases (B, pad starts, S)). PaddleOCR-VL's ratio 8 at a
+# page's ~3,700-token prompt; DotsOCR's 12 over 2 (ratio 6) and GLM-OCR's
+# 16 over 8 (ratio 2) at ~3,700 and ~6,200 tokens, Dots' and GLM's pages
+GROUPED_HEADS = (
+    ("paddle", 16, 2, 18, 4096, GROUPED_PREFILL),
+    ("dots", 12, 2, 28, 4096, GROUPED_PREFILL + ((1, [0], 6200), (4, [0, 300, 7, 1000], 6200))),
+    ("glm", 16, 8, 24, 8192, GROUPED_PREFILL + ((1, [0], 6200), (4, [0, 300, 7, 1000], 6200))),
+)
 
 
 def check_grouped_heads(torch, K, record, randn, gen):
-    """The attention kernels at PaddleOCR-VL's grouped heads (16 query
-    heads over 2 KV heads of 128, bf16): flash_prefill_attention at a
-    page's ~3,700-token prompt, one row and four with left pads; then
-    slot_kv_write and slot_decode_attention on Ernie's cache (L 18, B 16,
-    S_max 4096, bf16 and int8, lengths 0 and S − 1 among them). Each
-    against its twin, two launches bit-equal, library time SDPA with
-    enable_gqa (none for the int8 attend or the writes)."""
+    """The attention kernels at the grouped heads of the new families
+    (GROUPED_HEADS, D 128, bf16): flash_prefill_attention at a page's
+    prompt, one row and four with left pads; then slot_kv_write and
+    slot_decode_attention on the family's slot cache (L layers, B 16, bf16
+    and int8, lengths 0 and S − 1 among them). Each against its twin, two
+    launches bit-equal, library time SDPA with enable_gqa (none for the
+    int8 attend or the writes). The twin and SDPA (an [S, S] mask) are
+    timed over 2 × 2 calls."""
     import torch.nn.functional as F
 
     dev = "cuda"
-    H, HKV, D = 16, 2, 128
+    D = 128
     scale = D ** -0.5
-    for b, pads, s in GROUPED_PREFILL:
-        q = randn(b, H, s, D, dtype=torch.bfloat16)
-        k, v = (randn(b, HKV, s, D, dtype=torch.bfloat16) for _ in range(2))
-        pad = torch.tensor(pads, dtype=torch.int32, device=dev)
-        out = K.flash_prefill_attention(q, k, v, pad, scale=scale)
-        require(torch.equal(out, K.flash_prefill_attention(q, k, v, pad, scale=scale)),
-                "flash_prefill_attention (grouped): two launches on the same inputs differ")
-        ref = K.flash_prefill_attention_plain(q, k, v, pad, scale=scale)
-        err = float((out.float() - ref.float()).abs().max())
-        pos = torch.arange(s, device=dev)
-        mask = (pos[None, None, :, None] >= pos[None, None, None, :]) & (
-            pos[None, None, None, :] >= pad[:, None, None, None])
-        keys = sum(p * s + (s - p) * (s - p + 1) // 2 for p in pads)
-        label = f"pad_start={pads}" if any(pads) else "no pads"
-        record("flash_prefill_attention", f"grouped H={H}/{HKV} B={b} S={s} {label}", err, bf16_tol(ref),
-               time_ms(lambda: K.flash_prefill_attention(q, k, v, pad, scale=scale)),
-               time_ms(lambda: K.flash_prefill_attention_plain(q, k, v, pad, scale=scale)),
-               time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale,
-                                                              enable_gqa=True)),
-               bound(nbytes(q, k, v, pad, out), 4 * H * D * keys, "bf16"), deterministic=True)
-        del mask, q, k, v, out, ref
+    for family, H, HKV, L, S, prefills in GROUPED_HEADS:
+        for b, pads, s in prefills:
+            q = randn(b, H, s, D, dtype=torch.bfloat16)
+            k, v = (randn(b, HKV, s, D, dtype=torch.bfloat16) for _ in range(2))
+            pad = torch.tensor(pads, dtype=torch.int32, device=dev)
+            out = K.flash_prefill_attention(q, k, v, pad, scale=scale)
+            require(torch.equal(out, K.flash_prefill_attention(q, k, v, pad, scale=scale)),
+                    f"flash_prefill_attention ({family} grouped): two launches on the same inputs differ")
+            ref = K.flash_prefill_attention_plain(q, k, v, pad, scale=scale)
+            err, tol = float((out.float() - ref.float()).abs().max()), bf16_tol(ref)
+            del ref
+            pos = torch.arange(s, device=dev)
+            mask = (pos[None, None, :, None] >= pos[None, None, None, :]) & (
+                pos[None, None, None, :] >= pad[:, None, None, None])
+            keys = sum(p * s + (s - p) * (s - p + 1) // 2 for p in pads)
+            label = f"pad_start={pads}" if any(pads) else "no pads"
+            slow = dict(reps=2, batches=2)  # the twin's [S, S] f32 scores and SDPA's mask: seconds a case
+            record("flash_prefill_attention", f"grouped {family} H={H}/{HKV} B={b} S={s} {label}", err, tol,
+                   time_ms(lambda: K.flash_prefill_attention(q, k, v, pad, scale=scale)),
+                   time_ms(lambda: K.flash_prefill_attention_plain(q, k, v, pad, scale=scale), **slow),
+                   time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale,
+                                                                  enable_gqa=True), **slow),
+                   bound(nbytes(q, k, v, pad, out), 4 * H * D * keys, "bf16"), deterministic=True)
+            del mask, q, k, v, out
+            torch.cuda.empty_cache()
+        B = 16
+        lengths = torch.randint(0, S, (B,), generator=gen, device=dev, dtype=torch.int32)
+        lengths[0], lengths[1] = 0, S - 1
+        layer = L // 2 - 2
+        check_kv_writes(torch, K, record, randn, "slot", (L, B, HKV, S), D, lengths, layer)
+        for quant in (False, True):
+            if quant:
+                caches = tuple(torch.randint(-127, 128, (L, B, HKV, S, D), generator=gen, device=dev,
+                                             dtype=torch.int8) for _ in range(2))
+                caches += tuple(randn(L, B, HKV, S).abs() * 0.02 for _ in range(2))
+            else:
+                caches = tuple(randn(L, B, HKV, S, D, dtype=torch.bfloat16) for _ in range(2)) + (None, None)
+            check_slot_attend(torch, K, record, randn, q=randn(B, H, 1, D, dtype=torch.bfloat16), caches=caches,
+                              layer=layer, lengths=lengths,
+                              case=f"grouped {family} NH={H}/{HKV} {'int8' if quant else 'bf16'} L={L} B={B} "
+                                   f"S={S}")
+            del caches
         torch.cuda.empty_cache()
-    L, B, S = 18, 16, 4096
-    lengths = torch.randint(0, S, (B,), generator=gen, device=dev, dtype=torch.int32)
-    lengths[0], lengths[1] = 0, S - 1
-    layer = 7
-    check_kv_writes(torch, K, record, randn, "slot", (L, B, HKV, S), D, lengths, layer)
-    for quant in (False, True):
-        if quant:
-            caches = tuple(torch.randint(-127, 128, (L, B, HKV, S, D), generator=gen, device=dev,
-                                         dtype=torch.int8) for _ in range(2))
-            caches += tuple(randn(L, B, HKV, S).abs() * 0.02 for _ in range(2))
-        else:
-            caches = tuple(randn(L, B, HKV, S, D, dtype=torch.bfloat16) for _ in range(2)) + (None, None)
-        check_slot_attend(torch, K, record, randn, q=randn(B, H, 1, D, dtype=torch.bfloat16), caches=caches,
-                          layer=layer, lengths=lengths,
-                          case=f"grouped NH={H}/{HKV} {'int8' if quant else 'bf16'} L={L} B={B} S={S}")
-        del caches
-    torch.cuda.empty_cache()
+
+
+# DotsOCR's packed decoder at the row matmuls (case, N, K, M): qkv, gate/up,
+# down (K 8,960: 35 K-quant super-blocks, an odd count) and the untied
+# lm_head, at one request's step, the 16-slot step and a 1024-row prefill
+DOTS_ROW_CASES = tuple((case, n, k, m) for case, k, m in (("qkv", 1536, 2048), ("gateup", 1536, 17920),
+                                                          ("down", 8960, 1536), ("lm_head", 1536, 151936))
+                       for n in (1, 16, 1024))
+
+
+def check_dots_rows(torch, K, record, randn):
+    """q8_matmul, q4k_matmul and q6k_matmul at DOTS_ROW_CASES against their
+    twins (tolerance q8_tol), two launches bit-equal, library time
+    torch.matmul on the dequantized bf16 weight."""
+    from dsocr_tpu_torch.dsq.serve_quant import quantize_plain
+    from dsocr_tpu_torch.ops.kernels import kquant_matmul
+
+    for method in ("q8_0", "q4_k", "q6_k"):
+        fmt = {"q8_0": "q8", "q4_k": "q4k", "q6_k": "q6k"}[method]
+        matmul, plain = getattr(K, f"{fmt}_matmul"), getattr(K, f"{fmt}_matmul_plain")
+        for case, n, k, m in DOTS_ROW_CASES:
+            p = quantize_plain(randn(k, m, dtype=torch.bfloat16, std=k ** -0.5), method)
+            if method == "q8_0":
+                packed = (p["codes"], p["scales"])
+                w = p["codes"].float() * p["scales"].repeat_interleave(32, dim=1)
+            else:
+                parts = kquant_matmul.Q4K_PARTS if method == "q4_k" else kquant_matmul.Q6K_PARTS
+                packed = tuple(p[name] for name, _, _ in parts)
+                w = getattr(kquant_matmul, f"dequant_{fmt}")(*packed, -1).float()
+            x = randn(n, k, dtype=torch.bfloat16)
+            out = matmul(x, *packed)
+            require(torch.equal(out, matmul(x, *packed)),
+                    f"{fmt}_matmul dots {case} N={n}: two launches on the same inputs differ")
+            err = float((out - plain(x, *packed)).abs().max())
+            tol = q8_tol(torch.matmul(x.float().abs(), w.abs().t()))
+            wt = w.to(torch.bfloat16).t()
+            del w
+            record(f"{fmt}_matmul", f"dots {case} N={n} K={k} M={m}", err, tol,
+                   time_ms(lambda: matmul(x, *packed)), time_ms(lambda: plain(x, *packed), reps=3),
+                   time_ms(lambda: torch.matmul(x, wt)),
+                   bound(nbytes(x, out, *packed), 2 * n * k * m, "bf16"), deterministic=True)
+            del out, wt, p, packed
+        torch.cuda.empty_cache()
 
 
 def check_kv_writes(torch, K, record, randn, layout, lead, D, lengths, layer, tables=None):
@@ -1191,7 +1289,7 @@ def host_prep_phase(torch, engine, pages=N_REQUESTS):
     NumPy twin (resize_bicubic_numpy swapped in): the global view and every
     tile bit-equal, and HOST_PREP_SIZES (source H, W → output W, H) of
     seeded images resized both ways bit-equal; the seconds a page of each
-    (median of 3); then a 16-page prep wave through the engine's prefill
+    (the native's median of 3, the twin's one run); then a 16-page prep wave through the engine's prefill
     (its thread pool of up to 8; slot.prepare_inputs of a BenchRecorder,
     towers and prefill after it not counted), and os.cpu_count()."""
     import numpy as np
@@ -1201,19 +1299,19 @@ def host_prep_phase(torch, engine, pages=N_REQUESTS):
 
     image, vision = seeded_page()
 
-    def prep_seconds():
+    def prep_seconds(runs):
         times, vin = [], None
-        for _ in range(3):
+        for _ in range(runs):
             t0 = time.perf_counter()
             vin = engine.prepare_vision_input(image, vision)
             times.append(time.perf_counter() - t0)
         return statistics.median(times), times, vin
 
-    native_s, native_runs, native_vin = prep_seconds()
+    native_s, native_runs, native_vin = prep_seconds(3)
     native = resample.resize_bicubic_native
     resample.resize_bicubic_native = resample.resize_bicubic_numpy
     try:
-        twin_s, twin_runs, twin_vin = prep_seconds()
+        twin_s, twin_runs, twin_vin = prep_seconds(1)  # one run: the NumPy twin is the slow path
     finally:
         resample.resize_bicubic_native = native
     rng = np.random.default_rng(5)
@@ -1383,7 +1481,8 @@ def split_state(torch, state, lang):
 
 def split_fused(torch, state, parts):
     """`state` with each fused entry of `parts` ({name: (split names, out
-    sizes or None for halves)}) split along its last dim."""
+    sizes or None for halves, or [-1] to rename it to its one name)})
+    split along its last dim."""
     out = {}
     for key, value in state.items():
         head, _, name = key.rpartition(".")
@@ -1391,6 +1490,9 @@ def split_fused(torch, state, parts):
             out[key] = value
             continue
         names, sizes = parts[name]
+        if sizes == [-1]:  # a rename
+            out[f"{head}.{names[0]}"] = value
+            continue
         pieces = torch.split(value, sizes or value.shape[-1] // 2, dim=-1)
         out.update({f"{head}.{n}": p.contiguous() for n, p in zip(names, pieces)})
     return out
@@ -1468,15 +1570,89 @@ def paddle_hf_tensors(torch, state, cfg):
         yield e.name, t.t() if e.transpose else t
 
 
+def dots_config_json(cfg) -> dict:
+    """A published-style DotsOCR config.json: the Qwen2 fields at the top
+    level, the tower under vision_config (DotsConfig.from_dict reads both,
+    and the image and EOS ids; the DSQ adapter reads the top level)."""
+    return {**dataclasses.asdict(cfg.text), "architectures": ["DotsOCRForCausalLM"],
+            "vision_config": dataclasses.asdict(cfg.vision), "image_token_id": cfg.image_token_id,
+            "eos_token_id": cfg.eos_token_id}
+
+
+def glm_config_json(cfg) -> dict:
+    """A published-style GLM-OCR config.json (text_config with its
+    rope_parameters and EOS ids, vision_config, the scaffold's image and
+    video ids); glm_preprocessor_json gives the file beside it."""
+    text = dataclasses.asdict(cfg.text)
+    text["rope_parameters"] = {"mrope_section": list(text.pop("mrope_section")),
+                               "partial_rotary_factor": text.pop("partial_rotary_factor"),
+                               "rope_theta": text.pop("rope_theta")}
+    text["eos_token_id"] = list(text.pop("eos_token_ids"))
+    return {"architectures": ["GlmOcrForConditionalGeneration"], "text_config": text,
+            "vision_config": dataclasses.asdict(cfg.vision),
+            **{key: getattr(cfg, key) for key in ("image_token_id", "image_start_token_id", "image_end_token_id",
+                                                  "video_start_token_id", "video_end_token_id")}}
+
+
+def glm_preprocessor_json(cfg) -> dict:
+    return {"size": {"shortest_edge": cfg.min_pixels, "longest_edge": cfg.max_pixels},
+            "image_mean": list(cfg.image_mean), "image_std": list(cfg.image_std)}
+
+
+def dots_hf_tensors(torch, state, cfg):
+    """A DotsOCR state_dict (fused or split) → (HF name, tensor) in the
+    loader's table order."""
+    from dsocr_tpu_torch.models.dots.loader import checkpoint_entries
+
+    t = cfg.text
+    sizes = (t.num_attention_heads * t.head_dim, t.num_key_value_heads * t.head_dim,
+             t.num_key_value_heads * t.head_dim)
+    split = split_fused(torch, state, {"qkv_proj": (("q_proj", "k_proj", "v_proj"), sizes),
+                                       "qkv_bias": (("q_bias", "k_bias", "v_bias"), sizes),
+                                       "gateup_proj": (("gate_proj", "up_proj"), None)})
+    for e in checkpoint_entries(cfg):
+        yield e.name, split[e.key].t() if e.transpose else split[e.key]
+
+
+def glm_hf_tensors(torch, state, cfg):
+    """A GLM-OCR state_dict (fused or the reference's names) → (HF name,
+    tensor) in the loader's table order (the patch linear back to its
+    conv)."""
+    from dsocr_tpu_torch.models.glm.loader import checkpoint_entries
+
+    t, v = cfg.text, cfg.vision
+    sizes = (t.num_attention_heads * t.head_dim, t.num_key_value_heads * t.head_dim,
+             t.num_key_value_heads * t.head_dim)
+    split = split_fused(torch, state, {"qkv_proj": (("q_proj", "k_proj", "v_proj"), sizes),
+                                       "qkv_bias": (("q_bias", "k_bias", "v_bias"), sizes),
+                                       "gateup_proj": (("gate_up_proj",), [-1])})
+    for e in checkpoint_entries(cfg):
+        w = split[e.key]
+        if e.key == "vision.patch_embed.w":
+            w = w.t().reshape(v.hidden_size, v.in_channels, v.temporal_patch_size, v.patch_size, v.patch_size)
+        yield e.name, w.t() if e.transpose else w
+
+
 def write_checkpoint(torch, state, cfg, directory, shards=2, ocr2=None):
     """Write `state` as an HF-named safetensors shard set in `directory`
     (model-0000k-of-0000n.safetensors, split by bytes, and
     model.safetensors.index.json) with its config.json; → (index path,
     config path, bytes of tensor data). Each tensor is copied to the host
-    on its own. A PaddleConfig writes a PaddleOCR-VL checkpoint."""
-    if hasattr(cfg, "vision_config"):
+    on its own. A PaddleConfig writes a PaddleOCR-VL checkpoint, a
+    DotsConfig a DotsOCR one and a GlmConfig a GLM-OCR one (with its
+    preprocessor_config.json)."""
+    family = type(cfg).__name__
+    if family == "PaddleConfig":
         return write_tensors(torch, list(paddle_hf_tensors(torch, state, cfg)), paddle_config_json(cfg),
                              directory, shards)
+    if family == "DotsConfig":
+        return write_tensors(torch, list(dots_hf_tensors(torch, state, cfg)), dots_config_json(cfg), directory,
+                             shards)
+    if family == "GlmConfig":
+        with open(os.path.join(directory, "preprocessor_config.json"), "w") as fh:
+            json.dump(glm_preprocessor_json(cfg), fh)
+        return write_tensors(torch, list(glm_hf_tensors(torch, state, cfg)), glm_config_json(cfg), directory,
+                             shards)
     return write_tensors(torch, list(hf_tensors(torch, state, cfg, ocr2)), config_json(cfg), directory, shards)
 
 
@@ -1601,7 +1777,7 @@ def weights_phase(torch, K, engine, required, unused, then=None):
     Q8_0 and a Q6_K snapshot on the card, each loaded through load_engine
     in the header's format: every packed tensor must equal the port's own
     packing, on the card, of the floats it stands for (snapshot_floats);
-    the Q6_K engine then serves the 16 × 128 burst (its serving line and
+    the Q6_K engine then serves an 8 × 128 burst (its serving line and
     profile; the kernels in `required` must launch, none in `unused`). The line gives
     the bytes and seconds of each write, export and load, the free disk
     before the phase, peak host RSS and peak device GiB. The files live in
@@ -1677,7 +1853,7 @@ def weights_phase(torch, K, engine, required, unused, then=None):
             del expected, got
             reader.close()
             if method == "q6_k" and not failures:
-                launches = serving_phase(torch, K, "serve_q6k_snapshot", loaded, n_requests=N_REQUESTS,
+                launches = serving_phase(torch, K, "serve_q6k_snapshot", loaded, n_requests=CUT_REQUESTS,
                                          n_slots=N_SLOTS, max_new=MAX_NEW, required=required, unused=unused,
                                          warmup=False, profile=True)[0]
             del loaded
@@ -1709,7 +1885,7 @@ TOKENIZER_SPLITS = (
     r"| ?[\p{P}\p{S}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+",
 )
 FRONTEND_MAX_NEW = 64
-FRONTEND_BURST = 8  # non-streaming requests of the burst, beside 2 streaming ones
+FRONTEND_BURST = 4  # non-streaming requests of the burst, beside 2 streaming ones (8 before families2)
 SERVER_START_S = 120
 REQUEST_S = 600
 
@@ -1878,7 +2054,7 @@ def frontends_phase(torch, K, index, config_path, q8_snapshot, required):
     ContinuousScheduler over load_engine and load_tokenizer of the same
     files (the PNG decoded bit-equal to the page); its streamed twin on
     /v1/responses (the deltas join to the text, the events in the
-    reference's order); a burst of 8 requests and 2 streams at once; the
+    reference's order); a burst of 4 requests and 2 streams at once; the
     swap to the snapshot (model_swaps_total 2, the server's device memory
     lower after it than before); the error shapes; then the CLI's tokens
     against engine.decode in-process. One line per check; the launch
@@ -2014,7 +2190,7 @@ def frontends_phase(torch, K, index, config_path, q8_snapshot, required):
               status=status, events=len(events), deltas=len(kinds) - 3, first_delta_s=first, seconds=total,
               order=order, deltas_equal_text=normalize_text(joined) == want.text)
 
-        # a concurrent burst: 8 requests and 2 streams at once
+        # a concurrent burst: 4 requests and 2 streams at once
         results = [None] * (FRONTEND_BURST + 2)
 
         def plain(i):
@@ -2122,7 +2298,7 @@ def frontends_phase(torch, K, index, config_path, q8_snapshot, required):
     return launches
 
 
-FAMILY_REQUESTS = 8  # the families' bursts: 8 pages over 8 slots
+FAMILY_REQUESTS = 4  # the families' bursts: 4 pages over 4 slots (8 before the DotsOCR/GLM-OCR phase)
 FAMILY_MAX_NEW = 64
 PADDLE_IMAGE_SIZE = 0  # no clamp: the seeded page smart-resizes to max_pixels (94 × 152 patches)
 PADDLE_IMAGE_END_ID = 101305  # a stand-in <|IMAGE_END|> id beside the config's vision-start 101304
@@ -2188,9 +2364,9 @@ def sentencepiece_tokenizer(path, vocab_size, specials, seed=0, max_len=12):
 
 
 def family_burst(torch, K, phase, engine, tokenizer, image, vision, *, required, n_requests=FAMILY_REQUESTS,
-                 max_new=FAMILY_MAX_NEW, extra=None):
+                 max_new=FAMILY_MAX_NEW, extra=None, max_len=4096):
     """n_requests copies of `image` through ContinuousScheduler over as many
-    slots (4096-position rows, 128-step chunks), after a warm-up of one
+    slots (max_len-position rows, 128-step chunks), after a warm-up of one
     request × 8 tokens on the same slots (the engine's first serving: its
     caches and allocator pools, not measured); the launch counters zeroed
     just before and read just after, every kernel in `required` must
@@ -2198,14 +2374,14 @@ def family_burst(torch, K, phase, engine, tokenizer, image, vision, *, required,
     from dsocr_tpu_torch.core import DecodeParameters
 
     serve(engine, tokenizer, [image], vision, DecodeParameters(max_new_tokens=8), n_slots=n_requests,
-          max_len=4096, chunk=CHUNK)
+          max_len=max_len, chunk=CHUNK)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
     with recording() as rec:
         t0 = time.perf_counter()
         outs, sched = serve(engine, tokenizer, [image] * n_requests, vision, DecodeParameters(max_new_tokens=max_new),
-                            n_slots=n_requests, max_len=4096, chunk=CHUNK)
+                            n_slots=n_requests, max_len=max_len, chunk=CHUNK)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = K.launch_counts()
@@ -2223,6 +2399,70 @@ def family_burst(torch, K, phase, engine, tokenizer, image, vision, *, required,
     for name in required:
         require(launches[name] > 0, f"kernel {name} was not launched in the {phase} burst")
     return launches, generated
+
+
+def family_profile(torch, phase, engine, pre, max_len, *, mrope=False, qkv=False):
+    """Where the time goes in a family's burst, at its shape: a prefill
+    wave of FAMILY_REQUESTS rows of the page's prompt (`pre`, its length
+    padded to 128; seeded embeddings, positions 0..S−1 on every axis)
+    through the decoder, host ms around the synchronized call (median of 3
+    after a warm-up) and device ms under torch.profiler; then decode steps
+    on FAMILY_REQUESTS slots of max_len positions joined with `pre`, rows
+    that never end: host ms a step (median of 3 windows of 8 steps), and
+    device ms, busy share and kernel events a step under torch.profiler
+    over 4 steps; peak device GiB. With `qkv` (GLM), layer 0's q/k/v
+    product at the step's rows and at the wave's, as served (the weight
+    held in f32) and with the weight in bf16 cast to f32 at every call:
+    device ms of each."""
+    from dsocr_tpu_torch.core import DecodeParameters
+
+    t0 = time.perf_counter()
+    dec = engine.model.decoder
+    rows, n_prompt = FAMILY_REQUESTS, len(pre["prompt_ids"])
+    S = -(-n_prompt // 128) * 128
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    embeds = (torch.randn((rows, S, dec.cfg.hidden_size), generator=gen, device="cuda") * 0.02).to(engine.dtype)
+    positions = torch.arange(S, device="cuda")[None].expand(rows, S)
+    if mrope:
+        positions = positions[None].expand(3, rows, S)
+    last = torch.full((rows,), n_prompt - 1, device="cuda")
+
+    def wave():
+        with torch.no_grad():
+            dec.prefill(embeds, positions, last_index=last)
+
+    wave()
+    line = {"phase": phase, "quantize": engine.quantize, "rows": rows, "prompt_tokens": n_prompt,
+            "wave_positions": S, "prefill_wave_ms": statistics.median(synced_ms(torch, wave, 1) for _ in range(3))}
+    line["prefill_device_ms"], _, line["prefill_top"] = traced(torch, wave, 1)
+    del embeds
+    runner, cache = engine.make_slot_runner(), engine.new_slot_cache(rows, max_len)
+    runner.eos_ids = ()
+    state = runner.init_state(cache, max_len)
+    runner.join_many(state, list(range(rows)), [pre] * rows, [DecodeParameters()] * rows, [max_len - S] * rows,
+                     [None] * rows)
+    chunk = lambda n: runner.run_chunk(dec, state, n)  # noqa: E731
+    chunk(4)
+    windows = [synced_ms(torch, lambda: chunk(8), 8) for _ in range(3)]
+    line["decode_step_ms"], line["decode_step_ms_windows"] = statistics.median(windows), windows
+    events = []
+    line["step_device_ms"], traced_ms, line["step_top"] = traced(torch, lambda: chunk(4), 4, events)
+    line["step_busy_share"] = line["step_device_ms"] / traced_ms
+    line["step_launches"] = sum(e.count for e in events) / 4  # kernel events a step
+    if qkv:
+        w32 = dec.layers[0].qkv_proj
+        w16 = w32.to(engine.dtype)
+        for name, n in (("step", rows), ("wave", rows * S)):
+            x = torch.randn((n, dec.cfg.hidden_size), generator=gen, device="cuda").to(engine.dtype).float()
+            line[f"qkv_{name}_held_f32_ms"] = time_ms(lambda: torch.matmul(x, w32))
+            line[f"qkv_{name}_cast_each_call_ms"] = time_ms(lambda: torch.matmul(x, w16.float()))
+            del x
+    line.update(peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30, seconds=time.perf_counter() - t0,
+                nvidia_smi=smi_line())
+    emit(line)
+    require(line["prefill_device_ms"] > 0 and line["step_device_ms"] > 0, f"{phase}: the profiler saw no device time")
 
 
 def ocr2_prefill_logits(engine, image, vision):
@@ -2394,8 +2634,21 @@ def families_phase(torch, K, smi):
         free_engines()
 
         # 4. both families through the server and the CLI
-        bursts.append(family_frontends(torch, K, root, (ocr2_index, ocr2_config_path, cfg2),
-                                       (paddle_index, paddle_config_path, pcfg)))
+        lang = cfg2.language
+        bursts.append(family_frontends(torch, K, root, "families_frontends", {
+            "deepseek-ocr-2": FrontendModel(
+                ModelKind.DEEPSEEK, ocr2_index, ocr2_config_path,
+                lambda path: synthetic_tokenizer(path, lang.vocab_size, {
+                    lang.bos_token_id: "<｜begin▁of▁sentence｜>", lang.eos_token_id: "<｜end▁of▁sentence｜>",
+                    IMAGE_TOKEN_ID: "<image>"}),
+                VisionSettings(1024, 768, True), False),
+            "paddleocr-vl": FrontendModel(
+                ModelKind.PADDLE_OCR_VL, paddle_index, paddle_config_path,
+                lambda path: sentencepiece_tokenizer(path, pcfg.vocab_size, {
+                    pcfg.bos_token_id: "<s>", pcfg.eos_token_id: "</s>",
+                    pcfg.image_token_id: "<|IMAGE_PLACEHOLDER|>", pcfg.vision_start_token_id: "<|IMAGE_START|>",
+                    PADDLE_IMAGE_END_ID: "<|IMAGE_END|>"}),
+                VisionSettings(1024, 640, True), True)}, page))
     finally:
         shutil.rmtree(root, ignore_errors=True)
         free_engines()
@@ -2403,18 +2656,235 @@ def families_phase(torch, K, smi):
     return {name: sum(b[name] for b in bursts) for name in bursts[0]}
 
 
-def family_frontends(torch, K, root, ocr2_files, paddle_files):
-    """The server with a config.toml naming deepseek-ocr-2 (the 2-layer
-    checkpoint) and paddleocr-vl, each with a synthetic tokenizer.json of
-    its family's shape at its vocabulary: one greedy chat request to each
-    id (the second a swap) against the in-process scheduler over
-    load_engine of the same files, model_swaps_total, then the CLI on
-    Paddle's files against engine.decode. → launch counts of the
-    in-process runs."""
-    import base64
+FAMILIES2_TOKENS = 16  # the files cases' greedy tokens through engine.decode
+GLM_SLOT_SEQ = 8192  # a GLM page's ~6,160-token prompt and its new tokens
+FRONTEND_SLOT_SEQ = GLM_SLOT_SEQ  # the front ends' slot rows (past the default 4096 for GLM)
+DOTS_SPECIALS = {151643: "<|endoftext|>", 151652: "<|img|>", 151653: "<|endofimg|>", 151665: "<|imgpad|>"}
+GLM_SPECIALS = {59246: "<|endoftext|>", 59248: "[gMASK]", 59250: "<sop>", 59253: "<|user|>", 59254: "<|assistant|>",
+                59255: "<|observation|>", 59256: "<|begin_of_image|>", 59257: "<|image|>", 59258: "<|end_of_image|>",
+                59259: "<|begin_of_video|>", 59260: "<|end_of_video|>"}
+
+
+def round_tower_(torch, engine):
+    """Round the engine's f32 tower weights to bf16 values in place: what
+    a published bf16 checkpoint holds and the loader reads back in f32, so
+    a file engine holds the same values."""
+    with torch.no_grad():
+        for p in engine.model.vision.parameters():
+            p.copy_(p.to(torch.bfloat16).float())
+
+
+def file_state(torch, engine):
+    """The engine's state_dict in bf16, as it is written: the tower and
+    GLM's q/k/v, which the engine holds in f32, too."""
+    return {k: v.to(torch.bfloat16) if v.dtype == torch.float32 else v for k, v in engine.model.state_dict().items()}
+
+
+def families2_phase(torch, K, smi):
+    """DotsOCR and GLM-OCR on the card at the published widths, on the
+    seeded page (the module docstring's `families2` phase). → the
+    in-process runs' launch counts."""
+    import shutil
 
     from dsocr_tpu_torch.core import DecodeParameters, VisionSettings
     from dsocr_tpu_torch.core.engine import ModelKind
+    from dsocr_tpu_torch.models.dots import DotsConfig
+    from dsocr_tpu_torch.models.glm import GlmConfig
+    from dsocr_tpu_torch.models.glm.engine import preprocess_glm_image_raw
+    from dsocr_tpu_torch.models.registry import load_engine
+    from dsocr_tpu_torch.server.scheduler import ContinuousScheduler
+
+    t_phase = time.perf_counter()
+    root = os.path.join(WEIGHTS_DIR, "families2")
+    os.makedirs(root, exist_ok=True)
+    free = shutil.disk_usage(root).free
+    require(free >= WEIGHTS_DISK, f"{free} bytes free in {root}; the families2 phase needs {WEIGHTS_DISK}")
+    dots_cfg, glm_cfg = DotsConfig(), GlmConfig()
+    page = seeded_page()[0]
+    vision = VisionSettings(1024, 0, False)  # no clamp: the page smart-resizes to the pixel budget
+    kw = dict(dtype="bfloat16", max_seq_len=GLM_SLOT_SEQ, kv_quant="int8", device="cuda")
+    tok = BenchTokenizer()
+    params = DecodeParameters(max_new_tokens=FAMILIES2_TOKENS)
+    bursts = []
+
+    def free_engines():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def towers(encode):
+        """(tower ms a page: device time of one encode of the page, after
+        one untimed; its merged tokens)."""
+        merged = encode()
+        return time_ms(encode, reps=1, batches=1), int(merged.shape[0])
+
+    def decoded(engine):
+        return engine.decode(tok, PROMPT, [page], vision, params).generated_tokens
+
+    try:
+        # 1. DotsOCR at full width, seeded, through load_engine on its config.json
+        dots_dir = os.path.join(root, "dots")
+        os.makedirs(dots_dir)
+        config = os.path.join(dots_dir, "config.json")
+        with open(config, "w") as fh:
+            json.dump(dots_config_json(dots_cfg), fh)
+        require(DotsConfig.from_json(config) == dots_cfg, "families2: the Dots config.json does not round-trip")
+        t0 = time.perf_counter()
+        engine = load_engine(ModelKind.DOTS_OCR, config_path=config, **kw)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        round_tower_(torch, engine)
+        tower_ms, tokens = towers(lambda: engine.encode_images([page], vision)[0][0])
+        grid = engine._prep(vision)
+        launches, _ = family_burst(torch, K, "families2_dots", engine, tok, page, vision, required=FAMILY_ATTENTION,
+                                   extra={"init_s": init_s, "tower_ms_per_page": tower_ms, "image_tokens": tokens,
+                                          "max_pixels": grid.max_pixels})
+        bursts.append(launches)
+        family_profile(torch, "families2_dots_profile", engine, engine.prefill_for_slot(tok, PROMPT, [page], vision),
+                       4096)
+        want = decoded(engine)
+        t0 = time.perf_counter()
+        dots_index, _, written = write_checkpoint(torch, file_state(torch, engine), dots_cfg, dots_dir)
+        write_s = time.perf_counter() - t0
+        del engine
+        free_engines()
+        engine = load_engine(ModelKind.DOTS_OCR, config_path=config, quantize="q8_0", **kw)
+        round_tower_(torch, engine)
+        launches, _ = family_burst(torch, K, "families2_dots_q8", engine, tok, page, vision,
+                                   required=FAMILY_ATTENTION + ["q8_matmul"])
+        bursts.append(launches)
+        family_profile(torch, "families2_dots_q8_profile", engine,
+                       engine.prefill_for_slot(tok, PROMPT, [page], vision), 4096)
+        want_q8 = decoded(engine)
+        del engine
+        free_engines()
+
+        # 2. DotsOCR from files: the checkpoint, then its Q8_0 snapshot
+        t0 = time.perf_counter()
+        engine = load_engine(ModelKind.DOTS_OCR, config_path=config, weights_path=dots_index, **kw)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        K.reset_launches()
+        got = decoded(engine)
+        bursts.append(K.launch_counts())
+        del engine
+        free_engines()
+        q8 = os.path.join(dots_dir, "q8_0.dsq")
+        export_s = export_snapshot(torch, dots_index, config, q8, "q8_0")
+        t0 = time.perf_counter()
+        engine = load_engine(ModelKind.DOTS_OCR, config_path=config, weights_path=dots_index, snapshot_path=q8, **kw)
+        torch.cuda.synchronize()
+        snap_load_s = time.perf_counter() - t0
+        K.reset_launches()
+        got_q8 = decoded(engine)
+        snap_launches = K.launch_counts()
+        bursts.append(snap_launches)
+        line = {"phase": "families2_dots_files", "checkpoint_bytes": written, "write_s": write_s, "load_s": load_s,
+                "tokens_equal": got == want, "tokens": got, "q8_export_s": export_s,
+                "q8_snapshot_bytes": os.path.getsize(q8), "q8_load_s": snap_load_s, "q8_quantize": engine.quantize,
+                "q8_tokens_equal": got_q8 == want_q8, "q8_tokens": got_q8, "nvidia_smi": smi}
+        emit(line)
+        require(got == want, "families2: the Dots file engine's tokens differ from the seeded engine's")
+        require(engine.quantize == "q8_0" and got_q8 == want_q8,
+                "families2: the Dots Q8_0 snapshot's tokens differ from the seeded Q8_0 engine's")
+        require(snap_launches["q8_matmul"] > 0, "families2: q8_matmul did not launch for the Dots snapshot")
+        del engine
+        os.remove(q8)
+        free_engines()
+
+        # 3. GLM-OCR at full width, seeded, through load_engine on its config.json
+        glm_dir = os.path.join(root, "glm")
+        os.makedirs(glm_dir)
+        glm_config = os.path.join(glm_dir, "config.json")
+        with open(glm_config, "w") as fh:
+            json.dump(glm_config_json(glm_cfg), fh)
+        with open(os.path.join(glm_dir, "preprocessor_config.json"), "w") as fh:
+            json.dump(glm_preprocessor_json(glm_cfg), fh)
+        require(GlmConfig.from_json(glm_config) == glm_cfg, "families2: the GLM config.json does not round-trip")
+        t0 = time.perf_counter()
+        engine = load_engine(ModelKind.GLM_OCR, config_path=glm_config, **kw)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        round_tower_(torch, engine)
+        tower_ms, tokens = towers(lambda: engine.encode_images([page])[0])
+        launches, _ = family_burst(torch, K, "families2_glm", engine, tok, page, vision, required=FAMILY_ATTENTION,
+                                   max_len=GLM_SLOT_SEQ,
+                                   extra={"init_s": init_s, "tower_ms_per_page": tower_ms, "image_tokens": tokens,
+                                          "grid_thw": preprocess_glm_image_raw(page, glm_cfg)[1]})
+        bursts.append(launches)
+        family_profile(torch, "families2_glm_profile", engine, engine.prefill_for_slot(tok, PROMPT, [page], vision),
+                       GLM_SLOT_SEQ, mrope=True, qkv=True)
+        want = decoded(engine)
+        sched = ContinuousScheduler(engine, tok, n_slots=2, max_len=GLM_SLOT_SEQ)
+        refused = None
+        try:
+            asyncio.run(sched.submit(PROMPT, [page], vision, DecodeParameters(max_new_tokens=4, do_sample=True,
+                                                                               temperature=0.7)))
+        except ValueError as err:
+            refused = str(err)
+        emit({"phase": "families2_glm_sampled", "refused": refused})
+        require(refused is not None and "greedy" in refused, "families2: a sampled GLM request was not refused")
+        t0 = time.perf_counter()
+        glm_index, _, written = write_checkpoint(torch, file_state(torch, engine), glm_cfg, glm_dir)
+        write_s = time.perf_counter() - t0
+        del engine, sched
+        free_engines()
+
+        # 4. GLM-OCR from files
+        t0 = time.perf_counter()
+        engine = load_engine(ModelKind.GLM_OCR, config_path=glm_config, weights_path=glm_index, **kw)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        K.reset_launches()
+        got = decoded(engine)
+        bursts.append(K.launch_counts())
+        emit({"phase": "families2_glm_files", "checkpoint_bytes": written, "write_s": write_s, "load_s": load_s,
+              "tokens_equal": got == want, "tokens": got, "nvidia_smi": smi})
+        require(got == want, "families2: the GLM file engine's tokens differ from the seeded engine's")
+        del engine
+        free_engines()
+
+        # 5. both families through the server and the CLI
+        bursts.append(family_frontends(torch, K, root, "families2_frontends", {
+            "dots-ocr": FrontendModel(ModelKind.DOTS_OCR, dots_index, config,
+                                      lambda path: synthetic_tokenizer(path, dots_cfg.text.vocab_size, DOTS_SPECIALS),
+                                      VisionSettings(1024, 640, False), True),
+            "glm-ocr": FrontendModel(ModelKind.GLM_OCR, glm_index, glm_config,
+                                     lambda path: synthetic_tokenizer(path, glm_cfg.text.vocab_size, GLM_SPECIALS),
+                                     VisionSettings(336, 336, False), True)}, page))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        free_engines()
+    emit({"phase": "families2", "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi})
+    return {name: sum(b[name] for b in bursts) for name in bursts[0]}
+
+
+class FrontendModel(NamedTuple):
+    """One model id of family_frontends: its kind, checkpoint index and
+    config.json, a writer of its tokenizer.json (path → path), its
+    vision settings, and whether the CLI runs it too."""
+
+    kind: Any
+    index: str
+    config: str
+    tokenizer: Callable[[str], str]
+    vision: Any
+    cli: bool
+
+
+def family_frontends(torch, K, root, phase, models, page):
+    """The server with a config.toml naming `models` ({id: FrontendModel},
+    files written by the calling phase) with their synthetic
+    tokenizer.jsons and vision defaults, slot rows of FRONTEND_SLOT_SEQ
+    positions: one greedy chat request to each id in order (each after the
+    first a swap), its text and usage equal to the in-process scheduler's
+    over load_engine of the same files, model_swaps_total counting the
+    loads; then the CLI on each id with `cli` set against engine.decode of
+    the in-process engine its chat check loaded. The CLI runs start in
+    their own processes beside the server, before its first request, so
+    their seconds overlap it. → launch counts of the in-process runs."""
+    import base64
+
+    from dsocr_tpu_torch.core import DecodeParameters
     from dsocr_tpu_torch.core.text import render_prompt
     from dsocr_tpu_torch.image.decode import decode_image
     from dsocr_tpu_torch.models.registry import load_engine
@@ -2428,54 +2898,56 @@ def family_frontends(torch, K, root, ocr2_files, paddle_files):
     t_phase = time.perf_counter()
 
     def check(name, ok, **fields):
-        emit({"phase": "families_frontends", "check": name, "ok": bool(ok), **fields})
+        emit({"phase": phase, "check": name, "ok": bool(ok), **fields})
         if not ok and server is not None:
             with open(log_path, errors="replace") as fh:
                 print(fh.read()[-20000:], file=sys.stderr)
-        require(ok, f"families frontends: {name} failed: {fields}")
+        require(ok, f"{phase}: {name} failed: {fields}")
 
-    ocr2_index, ocr2_config_path, cfg2 = ocr2_files
-    paddle_index, paddle_config_path, pcfg = paddle_files
-    lang = cfg2.language
     t0 = time.perf_counter()
-    toks = {
-        "deepseek-ocr-2": synthetic_tokenizer(os.path.join(tmp, "ocr2_tokenizer.json"), lang.vocab_size, {
-            lang.bos_token_id: "<｜begin▁of▁sentence｜>", lang.eos_token_id: "<｜end▁of▁sentence｜>",
-            IMAGE_TOKEN_ID: "<image>"}),
-        "paddleocr-vl": sentencepiece_tokenizer(os.path.join(tmp, "paddle_tokenizer.json"), pcfg.vocab_size, {
-            pcfg.bos_token_id: "<s>", pcfg.eos_token_id: "</s>", pcfg.image_token_id: "<|IMAGE_PLACEHOLDER|>",
-            pcfg.vision_start_token_id: "<|IMAGE_START|>", PADDLE_IMAGE_END_ID: "<|IMAGE_END|>"}),
-    }
-    files = {"deepseek-ocr-2": (ocr2_config_path, ocr2_index), "paddleocr-vl": (paddle_config_path, paddle_index)}
-    kinds = {"deepseek-ocr-2": ModelKind.DEEPSEEK, "paddleocr-vl": ModelKind.PADDLE_OCR_VL}
-    visions = {"deepseek-ocr-2": VisionSettings(1024, 768, True), "paddleocr-vl": VisionSettings(1024, 640, True)}
-    page, _ = seeded_page()
+    toks = {model: m.tokenizer(os.path.join(tmp, f"{model}_tokenizer.json")) for model, m in models.items()}
     png = write_png(os.path.join(tmp, "page.png"), page)
     url = "data:image/png;base64," + base64.b64encode(png).decode()
     toml = os.path.join(tmp, "config.toml")
     with open(toml, "w") as fh:
-        fh.write('[models]\nactive = "paddleocr-vl"\n\n[inference]\ndevice = "cuda"\n')
-        for model, (config, weights) in files.items():
-            v = visions[model]
-            fh.write(f'\n[models.entries."{model}"]\nconfig = "{config}"\ntokenizer = "{toks[model]}"\n'
-                     f'weights = "{weights}"\n\n[models.entries."{model}".defaults]\nbase_size = {v.base_size}\n'
+        fh.write(f'[models]\nactive = "{next(iter(models))}"\n\n[inference]\ndevice = "cuda"\n')
+        for model, m in models.items():
+            v = m.vision
+            fh.write(f'\n[models.entries."{model}"]\nconfig = "{m.config}"\ntokenizer = "{toks[model]}"\n'
+                     f'weights = "{m.index}"\n\n[models.entries."{model}".defaults]\nbase_size = {v.base_size}\n'
                      f'image_size = {v.image_size}\ncrop_mode = {str(v.crop_mode).lower()}\n')
     files_s = time.perf_counter() - t0
     decoded = decode_image(png)
     prompt = render_prompt("plain", "", PROMPT)
     env = dict(os.environ, PYTHONPATH=HERE, DEEPSEEK_OCR_CACHE_DIR=os.path.join(tmp, "cache"),
-               DEEPSEEK_OCR_CONFIG_DIR=os.path.join(tmp, "cfg"))
+               DEEPSEEK_OCR_CONFIG_DIR=os.path.join(tmp, "cfg"), DSOCR_SLOT_SEQ=str(FRONTEND_SLOT_SEQ))
     port = free_port()
     launches = {}
+    clis = {}  # model → (the CLI's process, its output json, its log, its start)
+    kept = {}  # model → the in-process (engine, tokenizer) its CLI run is held against
+
+    def in_process(model):
+        m = models[model]
+        return (load_engine(m.kind, config_path=m.config, weights_path=m.index, max_seq_len=FRONTEND_SLOT_SEQ,
+                            device="cuda"), load_tokenizer(toks[model]))
+
     try:
+        for model in (model for model, m in models.items() if m.cli):
+            out_json, cli_log = os.path.join(tmp, f"{model}.json"), os.path.join(tmp, f"{model}_cli.log")
+            with open(cli_log, "w") as log:
+                clis[model] = (subprocess.Popen(
+                    [sys.executable, "-m", "dsocr_tpu_torch.cli", "--config", toml, "--model", model, "--prompt",
+                     PROMPT, "--image", os.path.join(tmp, "page.png"), "--max-new-tokens", "32", "--output-json",
+                     out_json, "--device", "cuda"], cwd=HERE, env=env, stdout=log, stderr=subprocess.STDOUT),
+                    out_json, cli_log, time.perf_counter())
         t0 = time.perf_counter()
         with open(log_path, "w") as log:
             server = subprocess.Popen([sys.executable, "-m", "dsocr_tpu_torch.server", "--config", toml, "--host",
                                        "127.0.0.1", "--port", str(port), "--device", "cuda"],
                                       cwd=HERE, env=env, stdout=log, stderr=subprocess.STDOUT)
         while True:
-            require(server.poll() is None, "families frontends: the server exited at start")
-            require(time.perf_counter() - t0 < SERVER_START_S, "families frontends: the server did not listen")
+            require(server.poll() is None, f"{phase}: the server exited at start")
+            require(time.perf_counter() - t0 < SERVER_START_S, f"{phase}: the server did not listen")
             try:
                 if http_call(port, "GET", "/v1/health", timeout=5)[0] == 200:
                     break
@@ -2483,18 +2955,16 @@ def family_frontends(torch, K, root, ocr2_files, paddle_files):
                 time.sleep(0.5)
         check("start", True, start_s=time.perf_counter() - t0, files_s=files_s,
               tokenizer_bytes={m: os.path.getsize(p) for m, p in toks.items()})
-        for i, model in enumerate(("deepseek-ocr-2", "paddleocr-vl")):
+        for i, model in enumerate(models):
             t0 = time.perf_counter()
             status, _, text = http_call(port, "POST", "/v1/chat/completions", chat_body(model, url, FRONTEND_MAX_NEW))
             server_s = time.perf_counter() - t0
             reply = json.loads(text)
-            tokenizer = load_tokenizer(toks[model])
-            engine = load_engine(kinds[model], config_path=files[model][0], weights_path=files[model][1],
-                                 max_seq_len=8192)
+            engine, tokenizer = in_process(model)
             torch.cuda.synchronize()
             K.reset_launches()
-            want = asyncio.run(ContinuousScheduler(engine, tokenizer).submit(
-                prompt, [decoded], visions[model], DecodeParameters(max_new_tokens=FRONTEND_MAX_NEW)))
+            want = asyncio.run(ContinuousScheduler(engine, tokenizer, max_len=FRONTEND_SLOT_SEQ).submit(
+                prompt, [decoded], models[model].vision, DecodeParameters(max_new_tokens=FRONTEND_MAX_NEW)))
             torch.cuda.synchronize()
             got_launches = K.launch_counts()
             launches = {k: launches.get(k, 0) + v for k, v in got_launches.items()}
@@ -2507,12 +2977,11 @@ def family_frontends(torch, K, root, ocr2_files, paddle_files):
                   and reply.get("model") == model and swaps == [f"dsocr_model_swaps_total {i + 1}"],
                   status=status, error=None if status == 200 else text[:500], seconds_with_load=server_s,
                   usage=reply.get("usage"), in_process_usage=usage, text_equal=got == want.text,
-                  text_chars=len(want.text), swaps=swaps,
-                  launches={k: v for k, v in got_launches.items() if v})
+                  text_chars=len(want.text), swaps=swaps, launches={k: v for k, v in got_launches.items() if v})
             for name in FAMILY_ATTENTION:
                 require(got_launches[name] > 0, f"kernel {name} was not launched for {model} in-process")
-            if model == "paddleocr-vl":
-                paddle_engine, paddle_tok = engine, tokenizer
+            if model in clis:
+                kept[model] = (engine, tokenizer)
             del engine
             gc.collect()
             torch.cuda.empty_cache()
@@ -2520,33 +2989,35 @@ def family_frontends(torch, K, root, ocr2_files, paddle_files):
         server.wait(60)
         check("server_stop", server.returncode == 0, returncode=server.returncode)
         server = None
-
-        out_json = os.path.join(tmp, "out.json")
-        t0 = time.perf_counter()
-        cli = subprocess.run([sys.executable, "-m", "dsocr_tpu_torch.cli", "--config", toml, "--model",
-                              "paddleocr-vl", "--prompt", PROMPT, "--image", os.path.join(tmp, "page.png"),
-                              "--max-new-tokens", "32", "--output-json", out_json],
-                             cwd=HERE, env=env, capture_output=True, text=True, timeout=REQUEST_S)
-        cli_s = time.perf_counter() - t0
-        if cli.returncode != 0:
-            print(cli.stderr[-8000:], file=sys.stderr)
-        result = json.load(open(out_json)) if cli.returncode == 0 else {}
-        K.reset_launches()
-        mine = paddle_engine.decode(paddle_tok, prompt, [decoded], visions["paddleocr-vl"],
-                                    DecodeParameters(max_new_tokens=32))
-        torch.cuda.synchronize()
-        launches = {k: launches[k] + v for k, v in K.launch_counts().items()}
-        check("cli_paddleocr-vl", cli.returncode == 0 and result.get("generated_tokens") == mine.generated_tokens
-              and result.get("text") == mine.text, returncode=cli.returncode, seconds=cli_s,
-              tokens=len(mine.generated_tokens), tokens_equal=result.get("generated_tokens") == mine.generated_tokens)
-        del paddle_engine
+        for model, (cli, out_json, cli_log, started) in clis.items():
+            returncode = cli.wait(REQUEST_S)
+            cli_s = time.perf_counter() - started
+            if returncode != 0:
+                with open(cli_log, errors="replace") as fh:
+                    print(fh.read()[-8000:], file=sys.stderr)
+            result = json.load(open(out_json)) if returncode == 0 else {}
+            engine, tokenizer = kept.pop(model)
+            K.reset_launches()
+            mine = engine.decode(tokenizer, prompt, [decoded], models[model].vision,
+                                 DecodeParameters(max_new_tokens=32))
+            torch.cuda.synchronize()
+            launches = {k: launches[k] + v for k, v in K.launch_counts().items()}
+            check(f"cli_{model}", returncode == 0 and result.get("generated_tokens") == mine.generated_tokens
+                  and result.get("text") == mine.text, returncode=returncode, seconds=cli_s,
+                  tokens=len(mine.generated_tokens),
+                  tokens_equal=result.get("generated_tokens") == mine.generated_tokens)
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
     finally:
-        if server is not None:
-            server.kill()
-            server.wait(60)
+        for proc in [server] + [cli for cli, *_ in clis.values()]:
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait(60)
+        kept.clear()
         gc.collect()
         torch.cuda.empty_cache()
-    emit({"phase": "families_frontends", "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi_line()})
+    emit({"phase": phase, "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi_line()})
     return launches
 
 
@@ -2640,7 +3111,10 @@ def split_phase(torch, K, engine, steps=16):
     return gather_launches
 
 
-GATHER_STEPS = 16
+# the gather tier's traces, short for the smoke's time: the decode phase's
+# traced steps, and the new tokens of the burst that gather_trace runs again
+GATHER_STEPS = 8
+GATHER_TRACE_NEW = 8
 
 
 def is_gather_kernel(name: str) -> bool:
@@ -2655,7 +3129,7 @@ def decode_phase(torch, K, engine, smi, required, max_new=MAX_NEW):
     max_new greedy tokens (after a warm-up prefill and 4 steps of the same
     path), the launch counters zeroed just before and read just after;
     every kernel in `required` must have launched. With packed weights,
-    16 more warm-up steps under torch.profiler give the gather tier's
+    GATHER_STEPS more warm-up steps under torch.profiler give the gather tier's
     device ms a token beside the step's (`gather`)."""
     from dsocr_tpu_torch.core import DecodeParameters
     from dsocr_tpu_torch.runtime.kv_cache import bump_length
@@ -2670,7 +3144,7 @@ def decode_phase(torch, K, engine, smi, required, max_new=MAX_NEW):
         for _ in range(4):
             logits, cache, _ = engine._step_fn(engine.model.decoder, logits.argmax(dim=-1), cache, None)
         gather = None
-        if engine.quantize:  # the gather tier's device ms a token, from 16 traced steps
+        if engine.quantize:  # the gather tier's device ms a token, from GATHER_STEPS traced steps
             state = [logits, cache]
 
             def steps():
@@ -2759,7 +3233,7 @@ def serving_phase(torch, K, phase, engine, *, n_requests, n_slots, max_new, requ
     reports its pool and, against `same_as` (another burst's tokens), how
     many requests gave the same tokens. With `profile`, profile_phase
     follows on the page's packet (with `towers`, its tower line too); with
-    `trace_gather`, gather_trace on the same burst. → (launch counts,
+    `trace_gather`, gather_trace on the burst's requests. → (launch counts,
     tokens per request)."""
     from dsocr_tpu_torch.core import DecodeParameters
     from dsocr_tpu_torch.runtime.paged import PagedSlotCache
@@ -2835,13 +3309,15 @@ def serving_phase(torch, K, phase, engine, *, n_requests, n_slots, max_new, requ
     if profile:
         profile_phase(torch, K, engine, pre, paged=isinstance(cache, PagedSlotCache), towers=towers)
     if trace_gather:
-        gather_trace(torch, K, phase, engine, lambda: serve(engine, tok, [image] * n_requests, vision, params,
-                                                            n_slots=n_slots, max_len=max_len, chunk=CHUNK))
+        gather_trace(torch, K, phase, engine, lambda: serve(
+            engine, tok, [image] * n_requests, vision, DecodeParameters(max_new_tokens=min(max_new, GATHER_TRACE_NEW)),
+            n_slots=n_slots, max_len=max_len, chunk=CHUNK))
     return launches, generated
 
 
 def gather_trace(torch, K, phase, engine, burst):
-    """The gather tier in a burst: `burst` once more under torch.profiler,
+    """The gather tier in a burst: `burst` (the burst's requests at
+    GATHER_TRACE_NEW tokens) once more under torch.profiler,
     every gather wrapper's idx kept (a copy on the card). Emits the tier's
     device ms and launches (per decode step: two a MoE layer), and for
     each selection count its launches and their distinct in-range experts
@@ -2916,6 +3392,15 @@ def wrapper_host_ms(K, fn) -> float:
     with wrapped_kernels(K, timer):
         fn()
     return sum(spent) * 1e3
+
+
+def synced_ms(torch, fn, n_calls: int) -> float:
+    """Host ms per call of fn, synchronized before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n_calls
 
 
 def traced(torch, fn, n_calls: int, kernels_out=None):
@@ -3018,17 +3503,10 @@ def profile_phase(torch, K, engine, pre, paged=False, towers=False):
         with torch.no_grad():
             dec.prefill(embeds, positions, rope, last_index=last)
 
-    def host_ms(fn, n_calls):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3 / n_calls
-
     t0 = time.perf_counter()
     wave()
     line = {"phase": "profile", "quantize": engine.quantize, "paged": paged,
-            "prefill_wave_ms": statistics.median(host_ms(wave, 1) for _ in range(3))}
+            "prefill_wave_ms": statistics.median(synced_ms(torch, wave, 1) for _ in range(3))}
     t1 = time.perf_counter()
     line["prefill_device_ms"], _, line["prefill_top"] = traced(torch, wave, 1)
     seconds = {"waves": t1 - t0, "traced_wave": time.perf_counter() - t1}
@@ -3047,7 +3525,7 @@ def profile_phase(torch, K, engine, pre, paged=False, towers=False):
                      [budget] * rows, [None] * rows)
     chunk = lambda n: runner.run_chunk(dec, state, n)  # noqa: E731
     chunk(8)
-    windows = [host_ms(lambda: chunk(window), window) for _ in range(4)]
+    windows = [synced_ms(torch, lambda: chunk(window), window) for _ in range(4)]
     line["decode_step_ms"], line["decode_step_ms_windows"] = statistics.median(windows), windows
     t1 = time.perf_counter()
     step_events = []
@@ -3058,7 +3536,7 @@ def profile_phase(torch, K, engine, pre, paged=False, towers=False):
     t1 = time.perf_counter()
     K.reset_launches()
     spent = []
-    step_ms = host_ms(lambda: spent.append(wrapper_host_ms(K, lambda: chunk(window))), window)
+    step_ms = synced_ms(torch, lambda: spent.append(wrapper_host_ms(K, lambda: chunk(window))), window)
     line["wrapper_calls_per_step"] = sum(K.launch_counts().values()) / window
     line["wrapper_host_ms_per_step"] = spent[0] / window
     line["rest_host_ms_per_step"] = step_ms - spent[0] / window
@@ -3115,15 +3593,21 @@ def files_parity(torch, cfg, directory, device=None):
 
 
 # per family, seeds whose greedy selections all clear 1e-3
-# (tests/test_torch_paddle.py::test_smoke_family_parity_seed_has_no_near_tie)
-FAMILY_PARITY_SEED = {"ocr2": 0, "paddle": 3}
-FAMILY_PARITY_VISION = {"ocr2": (128, 128, False), "paddle": (64, 64, False)}
+# (test_smoke_family_parity_seed_has_no_near_tie in tests/test_torch_paddle.py
+# and tests/test_torch_glm.py)
+FAMILY_PARITY_SEED = {"ocr2": 0, "paddle": 3, "dots": 11, "glm": 4}
+FAMILY_PARITY_VISION = {"ocr2": (128, 128, False), "paddle": (64, 64, False), "dots": (64, 64, False),
+                        "glm": (64, 64, False)}
+# Dots' smart-resize keeps its 147,384-pixel floor: a 60 × 60 image takes
+# 196 tokens, so its rows need more than 256 positions
+FAMILY_PARITY_SLOT_SEQ = {"dots": 512}
 
 
 def family_parity_engine(torch, family, device, kv_quant=None, state=None):
     """Phase 5's tiny f32 engine of a new family ("ocr2": the tiny DeepSeek
     decoder behind SAM and the tiny Qwen2 encoder; "paddle": the tiny
-    PaddleOCR-VL, 4 query heads over 2 KV heads), FAMILY_PARITY_SEED's
+    PaddleOCR-VL, 4 query heads over 2 KV heads; "dots" and "glm": the tiny
+    DotsOCR and GLM-OCR, 4 query heads over 2), FAMILY_PARITY_SEED's
     weights or `state`."""
     seed = FAMILY_PARITY_SEED[family]
     if family == "ocr2":
@@ -3133,6 +3617,16 @@ def family_parity_engine(torch, family, device, kv_quant=None, state=None):
         cfg = dataclasses.replace(tiny_deepseek_config(), variant="ocr2", clip=None)
         return DeepseekOcrEngine(cfg, dtype=torch.float32, device=device, max_seq_len=512, seed=seed,
                                  kv_quant=kv_quant, state=state, ocr2_params=tiny_qwen2_encoder_params())
+    if family == "dots":
+        from dsocr_tpu_torch.models.dots import DotsOcrEngine, tiny_dots_config
+
+        return DotsOcrEngine(tiny_dots_config(), dtype=torch.float32, device=device, max_seq_len=512, seed=seed,
+                             kv_quant=kv_quant, state=state, quantize=None)
+    if family == "glm":
+        from dsocr_tpu_torch.models.glm import GlmOcrEngine, tiny_glm_config
+
+        return GlmOcrEngine(tiny_glm_config(), dtype=torch.float32, device=device, max_seq_len=512, seed=seed,
+                            kv_quant=kv_quant, state=state)
     from dsocr_tpu_torch.models.paddleocr import PaddleOcrEngine, tiny_paddle_config
 
     return PaddleOcrEngine(tiny_paddle_config(), dtype=torch.float32, device=device, max_seq_len=512,
@@ -3146,7 +3640,7 @@ def family_parity(torch, K, images, params):
     from dsocr_tpu_torch.core import VisionSettings
 
     result = {}
-    for family in ("ocr2", "paddle"):
+    for family in FAMILY_PARITY_SEED:
         state = family_parity_engine(torch, family, "cpu").model.state_dict()
         vision = VisionSettings(*FAMILY_PARITY_VISION[family])
         for kv_quant in (None, "int8"):
@@ -3154,7 +3648,8 @@ def family_parity(torch, K, images, params):
             for device in ("cpu", "cuda"):
                 eng = family_parity_engine(torch, family, device, kv_quant, state)
                 K.reset_launches()
-                outs, _ = serve(eng, TinyTokenizer(), images, vision, params, n_slots=2, max_len=256, chunk=8)
+                outs, _ = serve(eng, TinyTokenizer(), images, vision, params, n_slots=2,
+                                max_len=FAMILY_PARITY_SLOT_SEQ.get(family, 256), chunk=8)
                 tokens[device] = [o.generated_tokens for o in outs]
             key = f"{family}_2slots_{kv_quant or 'f32'}"
             counts = K.launch_counts()
@@ -3382,7 +3877,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     engine = full_width_engine(torch, quantize="q4_k")
     bursts.append(serving_phase(
-        torch, K, "serve_q4k", engine, n_requests=N_REQUESTS, n_slots=N_SLOTS, max_new=MAX_NEW,
+        torch, K, "serve_q4k", engine, n_requests=CUT_REQUESTS, n_slots=N_SLOTS, max_new=MAX_NEW,
         required=attention + ["q4k_matmul", "q4k_dense_experts", "q8_dense_experts_perx"],
         unused=codes_in, warmup=False, profile=True)[0])
     bursts.append(serving_phase(
@@ -3393,9 +3888,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     engine = full_width_engine(torch, quantize="q6_k")
     bursts.append(serving_phase(
-        torch, K, "serve_q6k", engine, n_requests=N_REQUESTS, n_slots=N_SLOTS, max_new=MAX_NEW,
+        torch, K, "serve_q6k", engine, n_requests=CUT_REQUESTS, n_slots=N_SLOTS, max_new=MAX_NEW,
         required=attention + ["q6k_matmul", "q6k_dense_experts", "q8_dense_experts_perx"],
-        unused=codes_in, warmup=False, profile=True)[0])
+        unused=codes_in, warmup=False)[0])  # Q6_K's profile: serve_q6k_snapshot's engine, the same shapes
     bursts.append(serving_phase(
         torch, K, "serve_q6k_gather", engine, n_requests=4, n_slots=4, max_new=32,
         required=["q6k_gather_matmul", "q8_gather_matmul"], warmup=False, trace_gather=True)[0])
@@ -3403,6 +3898,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     bursts.append(families_phase(torch, K, smi))
+    bursts.append(families2_phase(torch, K, smi))
     launches = {name: sum(b[name] for b in bursts) for name in bursts[0]}
     parity_phase(torch)
 

@@ -6,8 +6,10 @@
 config.json's contents. Specs use the HF checkpoint names, so snapshots
 interoperate with the reference's. DeepSeek's lists the decoder (and with
 the projector scope its projector) for OCR1 and OCR2 alike, as the
-reference's does: OCR2's Qwen2 encoder stays float. The DotsOCR adapter
-comes with its model family (ROADMAP Queue 1 #5).
+reference's does: OCR2's Qwen2 encoder stays float. PaddleOCR-VL's and
+DotsOCR's list their decoders (Dots' read from the config's top level, as
+the published config.json keeps its Qwen2 fields there). GLM-OCR has no
+adapter, as the reference has none.
 """
 
 from __future__ import annotations
@@ -127,7 +129,40 @@ class PaddleOcrAdapter(ModelAdapter):
         return specs
 
 
-ADAPTERS: List[ModelAdapter] = [DeepseekOcrAdapter(), PaddleOcrAdapter()]
+class DotsOcrAdapter(ModelAdapter):
+    id = "dots-ocr"
+
+    def supports(self, config) -> bool:
+        archs = config.get("architectures") or []
+        return any("Dots" in a for a in archs)
+
+    def discover(self, config, scope) -> List[LinearSpec]:
+        """Qwen2's q/k/v/o and gate/up/down per layer and an untied
+        lm_head, with the published model's values where the config
+        leaves a field out."""
+        H = config.get("hidden_size", 1536)
+        NH = config.get("num_attention_heads", 12)
+        D = config.get("head_dim", H // NH)
+        NKV = config.get("num_key_value_heads", NH)
+        inter = config.get("intermediate_size", 8960)
+        specs: List[LinearSpec] = []
+        for i in range(config.get("num_hidden_layers", 28)):
+            base = f"model.layers.{i}"
+            specs += [
+                LinearSpec(f"{base}.self_attn.q_proj", NH * D, H),
+                LinearSpec(f"{base}.self_attn.k_proj", NKV * D, H),
+                LinearSpec(f"{base}.self_attn.v_proj", NKV * D, H),
+                LinearSpec(f"{base}.self_attn.o_proj", H, NH * D),
+                LinearSpec(f"{base}.mlp.gate_proj", inter, H),
+                LinearSpec(f"{base}.mlp.up_proj", inter, H),
+                LinearSpec(f"{base}.mlp.down_proj", H, inter),
+            ]
+        if not config.get("tie_word_embeddings", False):
+            specs.append(LinearSpec("lm_head", config.get("vocab_size", 151936), H))
+        return specs
+
+
+ADAPTERS: List[ModelAdapter] = [DeepseekOcrAdapter(), PaddleOcrAdapter(), DotsOcrAdapter()]
 
 
 def infer_adapter(config: Mapping[str, Any]) -> Optional[ModelAdapter]:

@@ -73,6 +73,12 @@ class PaddleConfig:
         return self.num_key_value_heads or self.num_attention_heads
 
     @property
+    def attention_bias(self) -> bool:
+        """Ernie's q/k/v projections have no biases (the shared decoder's
+        switch)."""
+        return False
+
+    @property
     def doubled_sections(self) -> Tuple[int, int, int]:
         return tuple(s * 2 for s in self.mrope_section)
 

@@ -42,8 +42,9 @@ from ...runtime.generate import GenerateParams, Generator, clamp_new_tokens
 from ...runtime.kv_cache import KVCache, bump_length, init_kv_cache
 from ...runtime.slots import SlotCache, SlotRunner, alloc_slot_cache
 from ..deepseek.engine import RAW_QUANT_KEY, round_up
+from ..gqa_decoder import fuse_gqa_params
 from .config import PaddleConfig
-from .decoder import ErnieDecoder, compute_position_ids, fuse_ernie_params
+from .decoder import ErnieDecoder, compute_position_ids
 from .projector import PaddleProjector
 from .quantize import quantize_ernie_params
 from .vision import SiglipTower
@@ -111,7 +112,7 @@ class PaddleOcrEngine:
             state = dict(state)
             raw = state.pop(RAW_QUANT_KEY, None)
             vision_dtype = state["vision.patch_embed.w"].dtype
-            state = fuse_ernie_params(state)
+            state = fuse_gqa_params(state)
             if quantize:
                 state = quantize_ernie_params(state, quantize, raw=raw)
         self.model = PaddleOcrModel(cfg, dtype, self.device, quantize, vision_dtype)

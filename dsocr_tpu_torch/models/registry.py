@@ -2,13 +2,15 @@
 (dsocr_tpu/models/registry.py).
 
 ``load_engine(kind, config_path=..., weights_path=..., snapshot_path=...)``
-builds a DeepSeek-OCR engine (v1 or OCR2, as its config.json says) or a
-PaddleOCR-VL engine on ``device`` (the CUDA card unless the caller names
-the CPU): weights from a safetensors checkpoint, a ``.dsq`` snapshot
-overriding the linears it holds, or seeded random weights without a
-checkpoint. A quantized snapshot serves packed in its own format unless
-``quantize`` names another (``_snapshot_quant_method``: the header's
-default dtype). DotsOCR, GLM-OCR and meshes are not ported yet and raise.
+builds a DeepSeek-OCR engine (v1 or OCR2, as its config.json says), a
+PaddleOCR-VL, a DotsOCR or a GLM-OCR engine on ``device`` (the CUDA card
+unless the caller names the CPU): weights from a safetensors checkpoint,
+a ``.dsq`` snapshot overriding the linears it holds, or seeded random
+weights without a checkpoint. A quantized snapshot serves packed in its
+own format unless ``quantize`` names another (``_snapshot_quant_method``:
+the header's default dtype); GLM-OCR serves float only and takes no
+``quantize``, as the reference's branch passes none. Meshes are not
+ported yet and raise.
 """
 
 from __future__ import annotations
@@ -27,10 +29,6 @@ _DTYPES = {
     "f32": torch.float32,
     "float16": torch.float16,
     "f16": torch.float16,
-}
-_WAITS = {
-    ModelKind.DOTS_OCR: "DotsOCR",
-    ModelKind.GLM_OCR: "GLM-OCR",
 }
 
 
@@ -72,12 +70,30 @@ def load_engine(
     tdtype = resolve_dtype(dtype)
     if mesh is not None or ep:
         raise NotImplementedError("meshes and expert parallelism wait for ROADMAP Queue 1 #6")
-    if kind in _WAITS:
-        raise NotImplementedError(f"{_WAITS[kind]} waits for its family's port (ROADMAP Queue 1 #5)")
     from ..core.device import select_device
 
     device = select_device(device)
+    if kind is ModelKind.GLM_OCR:
+        from .glm import GlmConfig, GlmOcrEngine
+        from .glm.loader import load_glm_params
+
+        cfg = GlmConfig.from_json(config_path) if config_path else GlmConfig()
+        state = None
+        if weights_path:
+            state = load_glm_params(weights_path, cfg, dtype=tdtype, snapshot_path=snapshot_path, device=device)
+        return GlmOcrEngine(cfg, dtype=tdtype, device=device, max_seq_len=max_seq_len, kv_quant=kv_quant,
+                            state=state)
     quantize = quantize or _snapshot_quant_method(snapshot_path)
+    if kind is ModelKind.DOTS_OCR:
+        from .dots import DotsConfig, DotsOcrEngine
+        from .dots.loader import load_dots_params
+
+        cfg = DotsConfig.from_json(config_path) if config_path else DotsConfig()
+        state = None
+        if weights_path:
+            state = load_dots_params(weights_path, cfg, dtype=tdtype, snapshot_path=snapshot_path, device=device)
+        return DotsOcrEngine(cfg, dtype=tdtype, device=device, max_seq_len=max_seq_len, kv_quant=kv_quant,
+                             state=state, quantize=quantize)
     if kind is ModelKind.PADDLE_OCR_VL:
         from .paddleocr import PaddleConfig, PaddleOcrEngine
         from .paddleocr.loader import load_paddle_params

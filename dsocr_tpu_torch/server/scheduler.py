@@ -304,6 +304,12 @@ class ContinuousScheduler:
         return pre
 
     def _validate_job(self, job: _SlotJob) -> None:
+        """Raise for params the slot runtime cannot honor exactly: the
+        engine's own refusals first (GLM serves greedy only), then an
+        n-gram window past the runtime's."""
+        validate = getattr(self.engine, "validate_slot_params", None)
+        if validate is not None:
+            validate(job.params)
         ngram = job.params.no_repeat_ngram_size
         if ngram and ngram > NGRAM_MAX:
             raise ValueError(

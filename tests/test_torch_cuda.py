@@ -882,3 +882,73 @@ def test_dense_sweeps_take_x_off_a_16_byte_boundary(dev, method, x_dtype):
     got = perx(xe, *packed)
     assert torch.equal(got, perx(xe, *packed))
     _q8_close(got, getattr(K, f"{fmt}_dense_experts_perx_plain")(xe, *packed), _abs_bound(xe, w))
+
+
+# DotsOCR's and GLM-OCR's decoders: 12 query heads over 2 KV heads (ratio
+# 6) and 16 over 8 (ratio 2), D 128, the prefill with left pads and the
+# slot step's write and attend; two launches bit-equal.
+@pytest.mark.parametrize("H,Hkv", [(12, 2), (16, 8)])
+@pytest.mark.parametrize("B,S,pads", [(1, 700, [0]), (3, 517, [0, 130, 516])])
+def test_prefill_kernel_at_the_new_head_ratios(dev, H, Hkv, B, S, pads):
+    rng = np.random.default_rng(H * S)
+    q = _randn(rng, B, H, S, 128, std=0.5).to(dev, torch.bfloat16)
+    k = _randn(rng, B, Hkv, S, 128, std=0.5).to(dev, torch.bfloat16)
+    v = _randn(rng, B, Hkv, S, 128).to(dev, torch.bfloat16)
+    pad = torch.tensor(pads, dtype=torch.int32, device=dev)
+    got = K.flash_prefill_attention(q, k, v, pad, scale=128 ** -0.5)
+    assert torch.equal(got, K.flash_prefill_attention(q, k, v, pad, scale=128 ** -0.5))
+    _close(got, K.flash_prefill_attention_plain(q, k, v, pad, scale=128 ** -0.5))
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+@pytest.mark.parametrize("NH,NKV,L", [(12, 2, 28), (16, 8, 24)])
+def test_slot_write_and_attend_at_the_new_head_ratios(dev, kind, NH, NKV, L):
+    import chip_smoke
+
+    rng = np.random.default_rng(NH + NKV)
+    B, S, D = 16, 600, 128
+    caches = _slot_caches(rng, L, B, NKV, S, D, kind, dev)
+    twins = [None if c is None else c.clone() for c in caches]
+    lengths = torch.from_numpy(rng.integers(0, S - 1, size=B).astype(np.int32))
+    lengths[0], lengths[1] = 0, S - 1
+    lengths = lengths.to(dev)
+    k, v = chip_smoke.kv_tokens(torch, _randn(rng, B, 1, 3 * NKV * D).to(dev, torch.bfloat16), NKV, D)
+    K.slot_kv_write(*caches, k, v, L - 1, lengths)
+    K.slot_kv_write_plain(*twins, k, v, L - 1, lengths)
+    assert all(a is None or torch.equal(a, b) for a, b in zip(caches, twins))
+    q = _randn(rng, B, NH, 1, D).to(dev, torch.bfloat16)
+    got = K.slot_decode_attention(q, *caches, L - 1, lengths, scale=D ** -0.5)
+    assert torch.equal(got, K.slot_decode_attention(q, *caches, L - 1, lengths, scale=D ** -0.5))
+    _close(got, K.slot_decode_attention_plain(q, *caches, L - 1, lengths, scale=D ** -0.5))
+
+
+# DotsOCR's packed linears: qkv 1536 → 2048 and down 8960 → 1536 (35
+# K-quant super-blocks, an odd count) at the GEMV's N 1 and 16 and the
+# GEMM's 1024, and the untied lm_head 1536 → 151936 at one row.
+@pytest.mark.parametrize("method", ["q8_0", "q4_k", "q6_k"])
+@pytest.mark.parametrize("n,k,m", [(n, k, m) for n in (1, 16, 1024) for k, m in ((1536, 2048), (8960, 1536))]
+                         + [(1, 1536, 151936)])
+def test_row_matmul_at_the_dots_shapes(dev, method, n, k, m):
+    fn, plain = _row_fns(method)
+    packed = _row_packed(np.random.default_rng(n + k), method, (), k, m, dev)
+    x = _randn(np.random.default_rng(2), n, k).to(dev, torch.bfloat16)
+    got = fn(x, *packed)
+    assert torch.equal(got, fn(x, *packed))
+    want = plain(x, *packed)
+    bound = _abs_bound(x, _row_weight(method, packed).t())
+    assert float((got - want).abs().max()) <= 1e-5 * float(bound.max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segment_attention_on_the_card_matches_the_cpu(dev, dtype):
+    """The towers' frame attention: SDPA on the fused backends on the card
+    against the CPU's plain attention, frames of mixed lengths."""
+    from dsocr_tpu_torch.ops.packed_attention import segment_attention
+
+    rng = np.random.default_rng(0)
+    seg = np.repeat(np.arange(4), [300, 128, 300, 77])
+    q, k, v = (_randn(rng, len(seg), 4, 128) for _ in range(3))
+    want = segment_attention(q.to(dtype), k.to(dtype), v.to(dtype), seg)
+    got = segment_attention(*(t.to(dev, dtype) for t in (q, k, v)), seg)
+    assert got.dtype == dtype
+    _close(got.cpu(), want)

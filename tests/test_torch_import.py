@@ -41,6 +41,7 @@ SLICE_MODULES = [
     "dsocr_tpu_torch.ops.linear",
     "dsocr_tpu_torch.ops.moe",
     "dsocr_tpu_torch.ops.resize",
+    "dsocr_tpu_torch.ops.packed_attention",
     "dsocr_tpu_torch.ops.kernels",
     "dsocr_tpu_torch.ops.kernels.sam_attention",
     "dsocr_tpu_torch.ops.kernels.prefill_attention",
@@ -68,6 +69,8 @@ SLICE_MODULES = [
     "dsocr_tpu_torch.native.resample",
     "dsocr_tpu_torch.models",
     "dsocr_tpu_torch.models.registry",
+    "dsocr_tpu_torch.models.gqa_decoder",
+    "dsocr_tpu_torch.models.gqa_quantize",
     "dsocr_tpu_torch.models.deepseek",
     "dsocr_tpu_torch.models.deepseek.config",
     "dsocr_tpu_torch.models.deepseek.sam",
@@ -88,6 +91,21 @@ SLICE_MODULES = [
     "dsocr_tpu_torch.models.paddleocr.engine",
     "dsocr_tpu_torch.models.paddleocr.loader",
     "dsocr_tpu_torch.models.paddleocr.convert",
+    "dsocr_tpu_torch.models.dots",
+    "dsocr_tpu_torch.models.dots.config",
+    "dsocr_tpu_torch.models.dots.vision",
+    "dsocr_tpu_torch.models.dots.decoder",
+    "dsocr_tpu_torch.models.dots.quantize",
+    "dsocr_tpu_torch.models.dots.engine",
+    "dsocr_tpu_torch.models.dots.loader",
+    "dsocr_tpu_torch.models.dots.convert",
+    "dsocr_tpu_torch.models.glm",
+    "dsocr_tpu_torch.models.glm.config",
+    "dsocr_tpu_torch.models.glm.vision",
+    "dsocr_tpu_torch.models.glm.decoder",
+    "dsocr_tpu_torch.models.glm.engine",
+    "dsocr_tpu_torch.models.glm.loader",
+    "dsocr_tpu_torch.models.glm.convert",
     "dsocr_tpu_torch.runtime",
     "dsocr_tpu_torch.runtime.kv_cache",
     "dsocr_tpu_torch.runtime.generate",
@@ -309,3 +327,42 @@ def test_wrappers_refuse_to_fall_back(wrapper):
     with pytest.raises((ValueError, RuntimeError, NotImplementedError)):
         _MISPLACED_CALLS[wrapper](K)
     assert K.launch_counts() == before
+
+
+def test_segment_attention_refuses_other_devices():
+    """The towers' frame attention runs the plain twin on CPU tensors and
+    the fused SDPA backends on CUDA ones; any other device raises."""
+    from dsocr_tpu_torch.ops.packed_attention import segment_attention
+
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        segment_attention(_meta(8, 2, 16), _meta(8, 2, 16), _meta(8, 2, 16), [0] * 4 + [1] * 4)
+
+
+@pytest.mark.parametrize("kind", ["DOTS_OCR", "GLM_OCR"])
+def test_new_families_load_on_the_card_unless_told(kind, monkeypatch):
+    """load_engine of DotsOCR and GLM-OCR without a device means the card
+    (raising without one), and builds on the CPU only when named; the
+    loaders' default device is the card too."""
+    from dsocr_tpu_torch.core.engine import ModelKind
+    from dsocr_tpu_torch.models import registry
+    from dsocr_tpu_torch.models.dots import loader as dots_loader
+    from dsocr_tpu_torch.models.glm import loader as glm_loader
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        registry.load_engine(getattr(ModelKind, kind))
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        (dots_loader.load_dots_params if kind == "DOTS_OCR" else glm_loader.load_glm_params)(
+            "missing.safetensors", None)
+    built = {}
+
+    class Double:
+        def __init__(self, cfg, **kw):
+            built.update(kw)
+
+    family = "dots" if kind == "DOTS_OCR" else "glm"
+    module = __import__(f"dsocr_tpu_torch.models.{family}", fromlist=["x"])
+    monkeypatch.setattr(module, "DotsOcrEngine" if family == "dots" else "GlmOcrEngine", Double)
+    registry.load_engine(getattr(ModelKind, kind), device="cpu")
+    assert built["device"].type == "cpu" and built["state"] is None

@@ -262,9 +262,9 @@ def test_registry(files, tmp_path):
         assert registry._snapshot_quant_method(path) == jax_registry._snapshot_quant_method(path)
     assert {registry._snapshot_quant_method(p) for p in snaps.values()} == {"q8_0", "q4_k", "q6_k"}
     assert registry._snapshot_quant_method(None) is None
-    for kind in (ModelKind.DOTS_OCR, ModelKind.GLM_OCR):  # PaddleOCR-VL: tests/test_torch_paddle.py
-        with pytest.raises(NotImplementedError, match="Queue 1 #5"):
-            registry.load_engine(kind, device="cpu")
+    for kind in (ModelKind.DOTS_OCR, ModelKind.GLM_OCR):  # ported; their meshes wait like DeepSeek's
+        with pytest.raises(NotImplementedError, match="Queue 1 #6"):
+            registry.load_engine(kind, mesh="dp=1,mp=2", device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 #6"):
         registry.load_engine(ModelKind.DEEPSEEK, mesh="dp=1,mp=2", device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 #6"):

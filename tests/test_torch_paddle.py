@@ -443,9 +443,9 @@ def test_load_engine_ocr2_through_the_registry(tmp_path, monkeypatch):
     assert engine.cfg.variant == "ocr2"
     want = seeded.model.state_dict()
     assert all(torch.equal(v, want[k]) for k, v in engine.model.state_dict().items())
-    for kind in (ModelKind.DOTS_OCR, ModelKind.GLM_OCR):
-        with pytest.raises(NotImplementedError, match="Queue 1 #5"):
-            registry.load_engine(kind, device="cpu")
+    for kind in (ModelKind.DOTS_OCR, ModelKind.GLM_OCR):  # ported; meshes still wait
+        with pytest.raises(NotImplementedError, match="Queue 1 #6"):
+            registry.load_engine(kind, mesh="dp=1,mp=2", device="cpu")
 
 
 @pytest.mark.parametrize("kv_quant", [None, "int8"])

@@ -5,6 +5,7 @@ workspace, and what row_launch hands the CUDA library (a stand-in
 library records the call; no card is needed)."""
 
 import ctypes
+import pathlib
 import math
 
 import pytest
@@ -157,3 +158,37 @@ def test_row_launch_skips_empty_products(monkeypatch):
     parts = (torch.zeros((96, 256), dtype=torch.int8), torch.zeros((96, 8)))
     out, calls, _, launches, _ = _launch(monkeypatch, x, parts)
     assert out.shape == (0, 96) and calls == [] and launches == 0
+
+
+def test_gemv_smem_is_the_kernels_and_long_k_splits_rows():
+    """csrc/row_matmul.cu's launch_gemv asks for 8·NT·(K padded to 128 + 8)
+    bf16 x values and 8·16·8·NT f32 partial sums (NT = 1 for N ≤ 8, else
+    2). DotsOCR's down projection (K 8,960) at 16 rows would need 295 KB
+    against the card's 227 KB: the GEMV runs it 8 rows a launch; a K too
+    long for 8 rows takes the GEMM; DeepSeek's longest (6,848) still fits
+    16 rows."""
+    source = (pathlib.Path(rm.__file__).parents[2] / "csrc" / "row_matmul.cu").read_text()
+    assert "const size_t smem = (size_t)8 * NT * (kx + 8) * 2 + (size_t)GV_WARPS * 16 * 8 * NT * 4;" in source
+    assert rm.gemv_smem(16, 8960) == 16 * 8968 * 2 + 8 * 16 * 8 * 2 * 4 > rm.GEMV_SMEM_BYTES
+    assert rm.gemv_smem(8, 8960) < rm.GEMV_SMEM_BYTES
+    for n in (1, 8):
+        assert rm.row_plan(n, 8960, 1536).rows == n
+    for n in (9, 16):
+        plan = rm.row_plan(n, 8960, 1536)
+        assert plan.path == "gemv" and plan.rows == 8
+    assert rm.row_plan(16, 6848, 1280).rows == 16
+    assert rm.row_plan(16, 1536, 151936).rows == 16
+    long_k = rm.row_plan(4, 16384, 1024)
+    assert long_k.path == "gemm" and long_k.workspace == (1024, 16384) and long_k.rows == 4
+    assert rm.row_plan(16, 8960, 1536, smem_bytes=300 * 1024).rows == 16
+
+
+def test_row_launch_runs_long_k_in_row_chunks(monkeypatch):
+    n, k, m = 13, 8960, 64
+    x = torch.randn((n, k), generator=torch.Generator().manual_seed(0)).to(torch.bfloat16)
+    parts = (torch.zeros((m, k), dtype=torch.int8), torch.zeros((m, k // 32)))
+    out, calls, _, launches, _ = _launch(monkeypatch, x, parts)
+    assert launches == 2 and len(calls) == 2
+    for (_, x_ptr, _, _, _, ws_ptr, out_ptr, N, K, M, _, _), r0, rows in zip(calls, (0, 8), (8, 5)):
+        assert (x_ptr, out_ptr, N, K, M, ws_ptr) == (x.data_ptr() + r0 * k * 2, out.data_ptr() + r0 * m * 4, rows,
+                                                     k, m, None)

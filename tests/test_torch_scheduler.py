@@ -692,3 +692,38 @@ def test_bench_recorder_matches_the_reference(tmp_path):
         out[name] = data
     assert out["port"] == out["ref"]
     assert (tmp_path / "port.json").read_text().startswith("{")
+
+
+# -- the engine's own refusals ------------------------------------------------------------
+
+
+class _GreedyOnly:
+    """The tiny engine behind the hook GLM-OCR's engine has: sampling is
+    refused before the request joins."""
+
+    def __init__(self, engine):
+        self._engine = engine
+        self.asked = []
+
+    def __getattr__(self, name):
+        return getattr(self._engine, name)
+
+    def validate_slot_params(self, params):
+        self.asked.append(params.do_sample)
+        if params.do_sample or params.temperature != 0.0:
+            raise ValueError("this backend requires greedy decoding (do_sample=false)")
+
+
+def test_engine_validate_slot_params_refuses_before_the_join(engine, ref):
+    """As the reference's scheduler does, the port's asks the engine's
+    validate_slot_params first: the sampled request fails alone with the
+    hook's ValueError, the greedy ones beside it finish with the
+    reference's tokens."""
+    greedy = _GreedyOnly(engine)
+    sched = ContinuousScheduler(greedy, _Tok(), n_slots=2, max_len=256, chunk_steps=4)
+    requests = [("<image>\nFree OCR.", 1, 6, ()), ("<image>\nFree OCR.", 2, 6, (("do_sample", True),)),
+                ("<image>\nFree OCR.", 3, 6, ())]
+    outs = _serve(sched, requests)
+    assert isinstance(outs[1], ValueError) and "greedy" in str(outs[1])
+    assert _tokens([outs[0], outs[2]]) == ref([requests[0], requests[2]])
+    assert sorted(greedy.asked) == [False, False, True]

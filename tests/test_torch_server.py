@@ -632,3 +632,94 @@ def test_swap_between_the_new_families_frees_the_old_engine(families):
         assert "dsocr_model_swaps_total 3" in server.request("GET", "/metrics")[2]
     finally:
         server.close()
+
+
+def test_engine_refusal_is_a_400(tiny):
+    """An engine whose validate_slot_params refuses sampling (GLM-OCR's
+    hook): a sampled chat request is a 400 naming the refusal, and a
+    greedy one beside it a 200."""
+    _, state, path = tiny
+
+    class GreedyOnly(DeepseekOcrEngine):
+        def validate_slot_params(self, params):
+            if params.do_sample or params.temperature != 0.0:
+                raise ValueError("GLM backend requires greedy decoding (do_sample=false)")
+
+    def factory(model_id):
+        engine = GreedyOnly(tiny_deepseek_config(), dtype=torch.float32, device="cpu", max_seq_len=512,
+                            state=state)
+        return LoadedModel(model_id, engine, load_tokenizer(path), ModelKind.DEEPSEEK)
+
+    server = PortServer(AppState(AppConfig.from_mapping(TINY_SETTINGS), engine_factory=factory))
+    try:
+        status, _, text = server.request("POST", "/v1/chat/completions",
+                                         chat("deepseek-ocr", max_tokens=4, temperature=0.8, do_sample=True))
+        assert status == 400 and "greedy decoding" in json.loads(text)["error"]["message"]
+        assert server.request("POST", "/v1/chat/completions", chat("deepseek-ocr", max_tokens=4))[0] == 200
+    finally:
+        server.close()
+
+
+# -- (d) DotsOCR and GLM-OCR: tiny engines behind both servers ------------------------------
+
+DOTS_GLM_SETTINGS = {"models": {"entries": {
+    "dots-ocr": {"defaults": {"image_size": 64, "no_repeat_ngram_size": 0}},
+    "glm-ocr": {"defaults": {"no_repeat_ngram_size": 0}}}}}
+
+
+@pytest.fixture(scope="module")
+def dots_glm(tiny):
+    """Tiny DotsOCR and GLM-OCR engines of both packages on the same
+    weights, behind the tiny byte-level tokenizer."""
+    from dsocr_tpu.models.dots import DotsOcrEngine as JaxDots
+    from dsocr_tpu.models.dots.config import tiny_dots_config as jax_tiny_dots
+    from dsocr_tpu.models.glm import GlmOcrEngine as JaxGlm
+    from dsocr_tpu.models.glm.config import tiny_glm_config as jax_tiny_glm
+    from dsocr_tpu_torch.models import dots, glm
+
+    path = tiny[2]
+    jax_engines = {"dots-ocr": JaxDots(jax_tiny_dots(), dtype=jnp.float32, max_seq_len=1024),
+                   "glm-ocr": JaxGlm(jax_tiny_glm(), dtype=jnp.float32, max_seq_len=1024)}
+    states = {"dots-ocr": dots.params_from_jax(jax.device_get(jax_engines["dots-ocr"].params)),
+              "glm-ocr": glm.params_from_jax(jax.device_get(jax_engines["glm-ocr"].params))}
+    kinds = {"dots-ocr": (ModelKind.DOTS_OCR, RefKind.DOTS_OCR), "glm-ocr": (ModelKind.GLM_OCR, RefKind.GLM_OCR)}
+
+    def port(model_id):
+        if model_id == "dots-ocr":
+            engine = dots.DotsOcrEngine(dots.tiny_dots_config(), dtype=torch.float32, device="cpu",
+                                        max_seq_len=1024, state=states[model_id])
+        else:
+            engine = glm.GlmOcrEngine(glm.tiny_glm_config(), dtype=torch.float32, device="cpu", max_seq_len=1024,
+                                      state=states[model_id])
+        return LoadedModel(model_id, engine, load_tokenizer(path), kinds[model_id][0])
+
+    def ref(model_id):
+        return RefLoaded(model_id=model_id, engine=jax_engines[model_id], tokenizer=ref_load_tokenizer(path),
+                         kind=kinds[model_id][1])
+
+    return port, ref
+
+
+@pytest.mark.parametrize("model", ["dots-ocr", "glm-ocr"])
+def test_dots_and_glm_answer_equal(dots_glm, model, monkeypatch):
+    """Chat and responses, plain and streamed, equal to the reference
+    server's; for GLM a sampled request is the same 400 in both."""
+    for name in ("DSOCR_MAX_INFLIGHT", "DSOCR_PREFIX_CACHE", "DSOCR_PAGED_KV", "DSOCR_SLOTS"):
+        monkeypatch.delenv(name, raising=False)
+    port_factory, ref_factory = dots_glm
+    ref_state = RefState(RefConfig.from_mapping(DOTS_GLM_SETTINGS), allow_download=False, engine_factory=ref_factory)
+    server = PortServer(AppState(AppConfig.from_mapping(DOTS_GLM_SETTINGS), engine_factory=port_factory))
+    try:
+        cases = [("/v1/chat/completions", chat(model, max_tokens=8), False),
+                 ("/v1/chat/completions", chat(model, True, max_tokens=8), True),
+                 ("/v1/responses", responses_body(model, max_output_tokens=8), False)]
+        if model == "glm-ocr":
+            cases.append(("/v1/chat/completions", chat(model, max_tokens=8, temperature=0.7, do_sample=True), False))
+        refs = ref_requests(ref_state, [("POST", path, body) for path, body, _ in cases])
+        for (path, body, sse), want in zip(cases, refs):
+            got = server.request("POST", path, body)
+            same_answer(want, got, sse=sse)
+        if model == "glm-ocr":
+            assert got[0] == 400 and "greedy" in json.loads(got[2])["error"]["message"]
+    finally:
+        server.close()
