@@ -54,8 +54,10 @@ non-zero (nothing is caught):
             launches bit-equal, beside it the two-kernel sweep it replaces,
             sweep_ms) and
             gather_matmul (the split layout's expert gather, gate/up and
-            down stacks at 96 and 12 rows, bf16 and f32, two launches
-            bit-equal; library time index_select + bmm);
+            down stacks at 96, 12 and 1 rows, and 96 rows on 4 experts,
+            bf16 and f32, two launches bit-equal; library time
+            index_select + bmm; each timed hot, the same stack call after
+            call, and cold, rotating among copies of the stack);
             the new families' grouped heads (check_grouped_heads,
             GROUPED_HEADS, D 128, bf16): PaddleOCR-VL's 16 query heads over
             2, DotsOCR's 12 over 2 and GLM-OCR's 16 over 8;
@@ -291,7 +293,9 @@ import asyncio
 import contextlib
 import dataclasses
 import gc
+import itertools
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -1133,26 +1137,53 @@ def check_slot_attend(torch, K, record, randn, *, q, caches, layer, lengths, cas
            deterministic=True)
 
 
+L2_BYTES = 50e6  # the H100's L2 cache
+
+
+def cold_stacks(w, read_bytes: float):
+    """w and enough copies of it that, taken in turn, the calls between two
+    uses of one copy read twice the L2 (read_bytes a call): each call finds
+    its slabs in device memory, as a layer's call would."""
+    return [w] + [w.clone() for _ in range(math.ceil(2 * L2_BYTES / read_bytes))]
+
+
+def in_turn(fn, stacks):
+    """A call of fn on each of `stacks` in turn."""
+    turn = itertools.cycle(stacks)
+    return lambda: fn(next(turn))
+
+
 def check_gather_matmul(torch, K, record, randn, gen):
     """Phase 3, gather_matmul: the split layout's expert gather at full
     width, gate/up [N·6, 1280] × [64, 1280, 896] and down [N·6, 896] ×
     [64, 896, 1280], for 16 and 2 tokens at top-6 (96 and 12 rows, experts
-    repeated across tokens), bf16 and f32 stacks. Tolerance 1e-5 ·
+    repeated across tokens), one row, and 96 rows on 4 experts (tasks past
+    16 selections of one expert), bf16 and f32 stacks. Tolerance 1e-5 ·
     max(|x| @ |W|) (f32 sums in another order); two launches bit-equal.
     Bound: the distinct selected experts' slabs, each read once, over
     3.35 TB/s (the line gives the per-row bytes too); library: index_select
-    of the selected slabs and one bmm, which the port never calls."""
+    of the selected slabs and one bmm, which the port never calls. The
+    kernel and the library are timed hot (ms, library_ms: the same stack
+    every call, its slabs in the L2 where they fit) and cold (ms_cold,
+    library_ms_cold: cold_stacks in turn)."""
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
         stacks = {"gateup": randn(64, 1280, 896, dtype=dtype, std=1280 ** -0.5),
                   "down": randn(64, 896, 1280, dtype=dtype, std=896 ** -0.5)}
+        draws = []
         for rows in (96, 12):
             logits = randn(rows // 6, 64)
-            idx = torch.topk(logits, 6, dim=-1).indices.reshape(-1).to(torch.int32)
+            draws.append((f"{rows} rows", torch.topk(logits, 6, dim=-1).indices.reshape(-1).to(torch.int32)))
+        four = torch.randperm(64, generator=gen, device="cuda")[:4]
+        draws.append(("96 rows on 4 experts",
+                      four[torch.randint(0, 4, (96,), generator=gen, device="cuda")].to(torch.int32)))
+        draws.append(("1 row", torch.randint(0, 64, (1,), generator=gen, device="cuda", dtype=torch.int32)))
+        for label, idx in draws:
             for case, w in stacks.items():
-                cases.append((dtype, rows, case, w, idx))
-    for dtype, rows, case, w, idx in cases:
+                cases.append((dtype, label, case, w, idx))
+    for dtype, label, case, w, idx in cases:
         E, H, I = w.shape
+        rows = idx.numel()
         x = randn(rows, H, dtype=dtype)
         out = K.gather_matmul(x, w, idx)
         require(torch.equal(out, K.gather_matmul(x, w, idx)),
@@ -1161,16 +1192,20 @@ def check_gather_matmul(torch, K, record, randn, gen):
         tol = q8_tol(torch.bmm(x.float().abs()[:, None], w[idx.long()].float().abs()))
         distinct = torch.unique(idx).numel()
         slab = H * I * w.element_size()
-        record("gather_matmul", f"{case} {rows} rows E={E} H={H} I={I} {str(dtype)[6:]}",
+        copies = cold_stacks(w, distinct * slab)
+        record("gather_matmul", f"{case} {label} E={E} H={H} I={I} {str(dtype)[6:]}",
                float((out - ref).abs().max()), tol,
                time_ms(lambda: K.gather_matmul(x, w, idx)),
                time_ms(lambda: K.gather_matmul_plain(x, w, idx)),
                time_ms(lambda: torch.bmm(x[:, None], w.index_select(0, idx))),
                bound(nbytes(x, idx, out) + distinct * slab, 2 * rows * H * I,
                      "bf16" if dtype == torch.bfloat16 else "f32"),
-               distinct_experts=distinct, bytes_per_row_slabs=rows * slab,
+               ms_cold=time_ms(in_turn(lambda s: K.gather_matmul(x, s, idx), copies)),
+               library_ms_cold=time_ms(in_turn(lambda s: torch.bmm(x[:, None], s.index_select(0, idx)),
+                                               copies)),
+               stacks_cold=len(copies), distinct_experts=distinct, bytes_per_row_slabs=rows * slab,
                bytes_distinct_slabs=distinct * slab, deterministic=True)
-        del out, ref
+        del out, ref, copies
     del cases, stacks
     torch.cuda.empty_cache()
 

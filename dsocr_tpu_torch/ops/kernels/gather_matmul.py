@@ -8,24 +8,32 @@ ops/moe.py's gather tier, ``moe_apply(..., gather_threshold=N)`` on the
 decoder's split layout: gate and up at [N·6, 1280] × [64, 1280, 896] and
 down at [N·6, 896] × [64, 896, 1280] at full width.
 
-What bounds it on the H100: device-memory bytes. Each row reads one
-expert's [H, I] slab and does 2 FLOPs per weight, far below the ~295
-FLOPs per byte where the tensor cores would be the limit. Counted per
-row, the slabs are N·H·I·elem bytes (N·K = 96 rows of gate at bf16:
-96 · 1280 · 896 · 2 = 220 MB, 66 µs at 3.35 TB/s); counted per distinct
-expert, each slab is read once, ``#distinct(idx) · H·I·elem`` (at most
-64 slabs, 147 MB, 44 µs). The bound is the second.
+What bounds it on the H100: device-memory bytes. Each selected expert's
+[H, I] slab must be read once, and each weight then takes part in one
+product per selection of its expert: 2 FLOPs a weight a selection, far
+below the ~295 FLOPs per byte where the tensor cores would be the limit.
+Counted per distinct expert, the bytes are ``#distinct(idx) · H·I·elem``:
+at full width gate/up, 48 distinct experts of 96 selections in bf16 are
+110 MB (33 µs at 3.35 TB/s), 11 of 12 in f32 50.5 MB (15 µs). That is the
+bound; reading a slab once per selection instead (220 MB at 96 bf16 rows)
+is what the design avoids.
 
-What the design does (csrc/gather_matmul.cu): one block per (row, tile
-of 128 columns); the block loads its own idx[n] (no scalar prefetch, no
-masked-sum row select, no 128-multiple tile picker: any N, H and I),
-stages x[n] in shared memory and reads the slab along the contiguous I
-axis, 32 neighbouring elements per warp load; the eight warps split H
-and their partial sums are added in warp order, so two launches give
-the same bits. It reads a slab once per row that selects it, not once
-per expert: rows that share an expert hit the 50 MB L2 at best. A later
-design groups rows by expert (sort idx, one block per expert and column
-tile over all its rows) so each slab crosses device memory once.
+What the design does (csrc/gather_matmul.cu): blocks group the
+selections by expert from idx themselves (no host sort, no sync), up to
+16 selections of one expert a task (the 17th starts the next), so a
+slab's column tile crosses device memory once per 16 of its selections;
+the slab streams through a ring of 16 KB stages (3 for a bf16 stack, 2
+for f32) filled by 16-byte cp.async copies (narrower where I or the
+pointer allow no 16; zero past H and I); where
+few experts are selected, a cluster of 2 to 8 blocks splits each task's
+K and adds its sums in rank order through distributed shared memory.
+bf16 x with bf16 w runs on mma.sync (products exact in f32, f32 sums);
+any f32 operand runs on FFMA with f32 products, as the reference's
+``dot_general`` multiplies: rounding x or w to bf16 would break the
+tolerance of 1e-5 · max(|x| @ |W|), and TF32 would need three products
+a weight to keep f32. The summation order is fixed and no sum crosses
+rows, so two launches give the same bits and a row's bits do not depend
+on which other selections share its expert. Any N, H and I.
 
 An index outside [0, E) reads nothing: the kernel writes a zero row, and
 so does the plain version.

@@ -3,7 +3,7 @@
 
     python3 kernel_variants.py '{"base": [], "two_stages": [["constexpr int PF_STAGES = 3;",
                                                  "constexpr int PF_STAGES = 2;"]]}' \
-        [prefill|decode|row|sam|experts|gather|megafused|kvwrite[,...]]
+        [prefill|decode|row|sam|experts|gather|gmm|megafused|kvwrite[,...]]
 
 Each variant is a list of text substitutions applied to a copy of
 dsocr_tpu_torch/csrc/ under dsocr_tpu_torch/_build/variants/<name>/ (an
@@ -30,7 +30,9 @@ MIN_BLOCKS_LO, MIN_BLOCKS_HI), and, for `gather`, the gather tier
 (q8/q4k/q6k_gather_matmul, the same stacks) at chip_smoke's
 GATHER_DRAWS (6, 24 and 60 routed selections, and 24 and 60 that share
 one top-6; KSPLIT_MIN, KSPLIT_MAX, SPLIT_MIN_STAGES, MIN_BLOCKS_HI), and,
-for `megafused`, q8_moe_megafused on one full-width MoE layer at N 16, 11
+for `gmm`, gather_matmul (csrc/gather_matmul.cu) at phase 3's eight
+full-width cases (gate/up and down, 96 and 12 rows, bf16 and f32) on cold
+slabs (chip_smoke.cold_stacks taken in turn), and, for `megafused`, q8_moe_megafused on one full-width MoE layer at N 16, 11
 and 32 with the two-kernel sweep beside it, and at N 16 on 32 and 16 of
 its experts (csrc/moe_megafused.cu's CLUSTER and MIN_BLOCKS,
 expert_sweep.cuh's STAGES), and, for `kvwrite`,
@@ -161,6 +163,19 @@ def cases(torch, K, F, which):
                     out.append((f"{fmt}_gather_matmul {case} {chip_smoke.gather_case(sel, sets)} E64 K{k} M{m}",
                                 lambda x=x, packed=packed, idx=idx, fn=fn: fn(x, *packed, idx),
                                 plain(x, *packed, idx)))
+    if {"all", "gmm"} & which:
+        import chip_smoke
+
+        for dtype in (torch.bfloat16, torch.float32):
+            for case, h, i in (("gateup", 1280, 896), ("down", 896, 1280)):
+                w = randn(64, h, i, dtype=dtype) * h ** -0.5
+                for rows in (96, 12):
+                    idx = torch.topk(randn(rows // 6, 64), 6, dim=-1).indices.reshape(-1).to(torch.int32)
+                    x = randn(rows, h, dtype=dtype)
+                    copies = chip_smoke.cold_stacks(w, torch.unique(idx).numel() * h * i * w.element_size())
+                    out.append((f"gather_matmul {case} {rows} rows {str(dtype)[6:]} cold",
+                                chip_smoke.in_turn(lambda s, x=x, idx=idx: K.gather_matmul(x, s, idx), copies),
+                                K.gather_matmul_plain(x, w, idx)))
     if {"all", "megafused"} & which:
         from dsocr_tpu_torch.dsq.serve_quant import quantize_expert_stack
 

@@ -842,6 +842,54 @@ def test_gather_matmul_kernel_matches_twin_and_repeats(dev, x_dtype, w_dtype, e,
     assert float((got - want).abs().max()) <= 1e-5 * float(bound.max())
 
 
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["96 on 4 experts", "40 on one expert"])
+def test_gather_matmul_kernel_takes_tasks_past_16_selections(dev, x_dtype, w_dtype, case):
+    """More than 16 selections of one expert start further tasks: 96
+    selections on 4 experts at the full width's gate/up, and one expert
+    taking 40 of 44 at H 3000 and I 130 (beside 3 others and an index
+    outside the stack). The twin within 1e-5 · max(|x| @ |W|), two
+    launches bit-equal."""
+    rng = np.random.default_rng(len(case))
+    if case == "96 on 4 experts":
+        e, h, i = 64, 1280, 896
+        idx = rng.choice(rng.permutation(e)[:4], size=96)
+    else:
+        e, h, i = 8, 3000, 130
+        idx = rng.permutation(np.concatenate([np.full(40, 5), [0, 2, 7, e]]))
+    x = _randn(rng, idx.size, h).to(dev, x_dtype)
+    w = _randn(rng, e, h, i, std=h ** -0.5).to(dev, w_dtype)
+    idx = torch.from_numpy(idx.astype(np.int32)).to(dev)
+    got = K.gather_matmul(x, w, idx)
+    assert torch.equal(got, K.gather_matmul(x, w, idx))
+    outside = idx == e
+    assert torch.equal(got[outside], torch.zeros_like(got[outside]))
+    bound = torch.bmm(x.float().abs()[:, None], w[idx.long().clamp(max=e - 1)].float().abs())[:, 0]
+    assert float((got - K.gather_matmul_plain(x, w, idx)).abs().max()) <= 1e-5 * float(bound.max())
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+def test_gather_matmul_row_bits_do_not_depend_on_its_expert_mates(dev, x_dtype, w_dtype):
+    """Row 20's bits stay the same as 0, 5, 16 and 19 of the rows below it
+    move onto its expert: its place in its task's list moves, past 16 into
+    a second task (N stays 24, so the launch's K split stays)."""
+    rng = np.random.default_rng(3)
+    e, n, h, i, row = 64, 24, 1280, 896, 20
+    x = _randn(rng, n, h).to(dev, x_dtype)
+    w = _randn(rng, e, h, i, std=h ** -0.5).to(dev, w_dtype)
+    base = rng.permutation(e)[:n].astype(np.int32)
+    want = None
+    for moved in (0, 5, 16, 19):
+        idx = base.copy()
+        idx[:moved] = base[row]
+        got = K.gather_matmul(x, w, torch.from_numpy(idx).to(dev))[row]
+        if want is None:
+            want = got
+        assert torch.equal(got, want), moved
+
+
 def test_gather_matmul_raises_on_bad_inputs(dev):
     x = torch.zeros((4, 32), device=dev)
     w = torch.zeros((3, 32, 48), device=dev)

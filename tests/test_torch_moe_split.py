@@ -3,8 +3,9 @@ same inputs made from numpy seeds:
 
 - ``gather_matmul_plain`` (the twin of the gather_matmul CUDA kernel)
   against the Pallas ``gather_matmul`` in interpret mode, with repeated and
-  unused experts, bf16 and f32 for x and w; an index outside [0, E)
-  gives a zero row, as the kernel writes;
+  unused experts, bf16 and f32 for x and w, and at the kernel's edges
+  (more than 16 selections of one expert, all on one, H 3000, I 130, N
+  1); an index outside [0, E) gives a zero row, as the kernel writes;
 - every ``moe_apply`` tier (single, gather through gather_matmul at
   ``gather_threshold=N``, dense, sorted grouped) against the reference's
   ``moe_apply``, and a spy that the gather tier calls gather_matmul three
@@ -15,7 +16,8 @@ same inputs made from numpy seeds:
   and the dense sweep, each projection through its own format's kernel.
 
 Tolerances: f32 sums in another order, atol = rtol = 1e-5 (1e-6 for the
-gather twin, one [1, H] @ [H, I] product per row). The bf16 tier cases run
+gather twin, one [1, H] @ [H, I] product per row, at H 64; 1e-5 at H
+3000). The bf16 tier cases run
 the port in bf16 against the reference in f32 on the same bf16 values
 (XLA's CPU backend has no bf16 x bf16 → f32 dot): 2^-6 of the largest
 output, a few bf16 roundings of gate, up, inter and the output.
@@ -74,6 +76,41 @@ def test_gather_twin_matches_pallas(n, i_dim, x_dtype, w_dtype):
     got = gather_matmul(xt, wt, torch.from_numpy(idx))  # a CPU tensor: the twin
     assert got.dtype == torch.float32 and got.shape == (n, i_dim)
     np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=1e-6)
+
+
+# the kernel's edges: one expert taking 20 of 24 selections (tasks of 16 and
+# 4), every selection on one expert, an H that is no multiple of a 64-row
+# ring stage, an I that is no multiple of 128 or 4, one selection
+_GATHER_EDGES = {  # case: (N, H, I)
+    "20 on one expert": (24, 64, 48),
+    "all on one expert": (12, 64, 48),
+    "H 3000": (5, 3000, 48),
+    "I 130": (5, 64, 130),
+    "N 1": (1, 64, 48),
+}
+
+
+@pytest.mark.parametrize("x_dtype,w_dtype", [("bf16", "bf16"), ("f32", "f32"), ("bf16", "f32"),
+                                             ("f32", "bf16")])
+@pytest.mark.parametrize("case", list(_GATHER_EDGES))
+def test_gather_twin_matches_pallas_at_the_kernel_edges(case, x_dtype, w_dtype):
+    n, H, i_dim = _GATHER_EDGES[case]
+    rng = np.random.default_rng(sorted(_GATHER_EDGES).index(case))
+    E = 8
+    xj, xt = _pair(rng.normal(size=(n, H)), x_dtype)
+    wj, wt = _pair(rng.normal(size=(E, H, i_dim)) * H ** -0.5, w_dtype)
+    if case == "20 on one expert":
+        idx = rng.permutation(np.concatenate([np.full(20, 3), rng.choice([0, 1, 5, 7], size=4)]))
+    elif case == "all on one expert":
+        idx = np.full(n, 6)
+    else:
+        idx = rng.integers(0, 5, size=n)
+    idx = idx.astype(np.int32)
+    want = np.asarray(jax_gather_matmul(xj, wj, jnp.asarray(idx), interpret=True))
+    got = gather_matmul(xt, wt, torch.from_numpy(idx))  # a CPU tensor: the twin
+    assert got.dtype == torch.float32 and got.shape == (n, i_dim)
+    tol = 1e-5 if H > 64 else 1e-6  # f32 sums of 3000 terms in another order
+    np.testing.assert_allclose(got.numpy(), want, atol=tol, rtol=tol)
 
 
 def test_gather_twin_writes_zero_rows_outside_the_stack():
