@@ -77,6 +77,9 @@ non-zero (nothing is caught):
             and seeded images at a few sizes resized both ways bit-equal;
             seconds a page of each (median of 3), a 16-page prep wave
             through the engine's prefill (its thread pool), os.cpu_count();
+            then (host_prep_jpeg) the two JPEG page fixtures decoded on
+            the host, median ms of 3, their digests equal to Pillow's, and
+            the PNG of the baseline's pixels decoded, beside the card;
 4. serve    DeepSeek-OCR v1 at full width (DeepseekOcrConfig(), bf16
             weights from a seeded torch.Generator, int8 KV): 16 requests
             of 128 new tokens through ContinuousScheduler.submit over 16
@@ -151,10 +154,17 @@ non-zero (nothing is caught):
             reference's order); 4 requests and 2 streams of 128 tokens at
             once (all 200; pages/s, latency p50/max, time to the first
             delta); the swap to deepseek-ocr-q8k (model_swaps_total 2, the
-            server's device memory lower after it); an unknown model, a
-            prompt without an image, a JPEG, a body over 50 MB and a client
-            leaving mid-stream; then `python -m dsocr_tpu_torch.cli` with
-            --output-json, its tokens equal to engine.decode's in-process.
+            server's device memory lower after it); the baseline JPEG page
+            fixture (tests/data/, the page's size) as a data:image/jpeg
+            URL on deepseek-ocr-q8k, its text equal to an in-process
+            scheduler's over the snapshot on decode_image of the JPEG and
+            to the server's answer to the PNG of those pixels (both
+            fixtures' digests equal Pillow's); an unknown model, a prompt
+            without an image, a broken and an arithmetic-coded JPEG (400s
+            naming them), a body over 50 MB and a client leaving
+            mid-stream; then `python -m dsocr_tpu_torch.cli` on the
+            JPEG page with --output-json, its tokens equal to
+            engine.decode's in-process on the decoded pixels.
             One line per check; the launches of the in-process runs count;
 4b. serve_q8         the same with packed Q8_0 decoder weights (quantized
             on the card from the same seed): 16 requests × 128 tokens over
@@ -1373,6 +1383,32 @@ def host_prep_phase(torch, engine, pages=N_REQUESTS):
     emit(line)
     require(line["global_view_equal"] and line["tiles_equal"] and all(sizes_equal),
             "the native resize differs from its NumPy twin")
+    host_prep_jpeg()
+
+
+def host_prep_jpeg():
+    """The JPEG page fixtures decoded on the host (image/decode.py over
+    native/jpeg.cpp): bytes, shape, the median host ms of 3 decodes and
+    the pixels' sha256 against Pillow's; the PNG of the baseline's pixels
+    decoded the same way; beside os.cpu_count() and the card."""
+    import hashlib
+
+    import numpy as np
+
+    files, pixels = {}, {}
+    for name, (raw, entry) in jpeg_pages().items():
+        pixels[name], ms, runs = decode_timed(raw)
+        files[name] = {"bytes": len(raw), "shape": list(pixels[name].shape), "decode_ms": ms, "decode_ms_runs": runs,
+                       "sha256_equal": hashlib.sha256(pixels[name].tobytes()).hexdigest() == entry["sha256"]}
+    baseline = pixels["page_baseline.jpg"]
+    png = png_bytes(baseline)
+    png_pixels, png_ms, png_runs = decode_timed(png)
+    jpeg_line = {"phase": "host_prep_jpeg", "cpu_count": os.cpu_count(), "nvidia_smi": smi_line(), "files": files,
+                 "png_of_baseline_bytes": len(png), "png_decode_ms": png_ms, "png_decode_ms_runs": png_runs,
+                 "png_equal": bool(np.array_equal(png_pixels, baseline))}
+    emit(jpeg_line)
+    require(all(f["sha256_equal"] for f in files.values()) and jpeg_line["png_equal"],
+            "a JPEG page fixture decoded to other pixels than Pillow's")
 
 
 class InjectedFault(RuntimeError):
@@ -1981,7 +2017,7 @@ def synthetic_tokenizer(path, vocab_size, specials, seed=0, max_len=16):
     return path
 
 
-def write_png(path, image):
+def png_bytes(image) -> bytes:
     """An RGB uint8 [H, W, 3] image as an 8-bit truecolor PNG (filter 0)."""
     import struct
     import zlib
@@ -1994,11 +2030,43 @@ def write_png(path, image):
         return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
 
     rows = np.concatenate([np.zeros((h, 1), np.uint8), np.ascontiguousarray(image).reshape(h, w * 3)], axis=1)
-    data = (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
             + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
+
+
+def write_png(path, image):
+    """png_bytes of `image` written to `path` → the bytes."""
+    data = png_bytes(image)
     with open(path, "wb") as fh:
         fh.write(data)
     return data
+
+
+JPEG_PAGES = os.path.join(HERE, "tests", "data")  # written by tests/data/make_jpeg_pages.py with Pillow
+
+
+def jpeg_pages():
+    """The JPEG page fixtures → {name: (bytes, their entry in
+    jpeg_pages.json: shape, bytes, the sha256 of Pillow's RGB)}."""
+    with open(os.path.join(JPEG_PAGES, "jpeg_pages.json")) as fh:
+        meta = json.load(fh)
+    out = {}
+    for name, entry in meta["files"].items():
+        with open(os.path.join(JPEG_PAGES, name), "rb") as fh:
+            out[name] = (fh.read(), entry)
+    return out
+
+
+def decode_timed(raw, runs=3):
+    """decode_image of `raw` `runs` times → (pixels, median ms, each run's ms)."""
+    from dsocr_tpu_torch.image.decode import decode_image
+
+    times, pixels = [], None
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        pixels = decode_image(raw)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return pixels, statistics.median(times), times
 
 
 def free_port() -> int:
@@ -2091,10 +2159,14 @@ def frontends_phase(torch, K, index, config_path, q8_snapshot, required):
     /v1/responses (the deltas join to the text, the events in the
     reference's order); a burst of 4 requests and 2 streams at once; the
     swap to the snapshot (model_swaps_total 2, the server's device memory
-    lower after it than before); the error shapes; then the CLI's tokens
-    against engine.decode in-process. One line per check; the launch
-    counts of the in-process runs are returned (`required` must launch)."""
+    lower after it than before); the JPEG page fixture on the snapshot
+    against an in-process scheduler over it and the PNG of its pixels; the
+    error shapes (a broken and an arithmetic-coded JPEG among them); then
+    the CLI's tokens on the JPEG page against engine.decode in-process.
+    One line per check; the launch counts of the in-process runs are
+    returned (`required` must launch)."""
     import base64
+    import hashlib
     import shutil
     import socket
     import tempfile
@@ -2139,6 +2211,11 @@ def frontends_phase(torch, K, index, config_path, q8_snapshot, required):
         page, vision = seeded_page()
         png = write_png(os.path.join(tmp, "page.png"), page)
         url = "data:image/png;base64," + base64.b64encode(png).decode()
+        pages = jpeg_pages()
+        jpeg = pages["page_baseline.jpg"][0]
+        with open(os.path.join(tmp, "page.jpg"), "wb") as fh:
+            fh.write(jpeg)
+        jpeg_url = "data:image/jpeg;base64," + base64.b64encode(jpeg).decode()
         paths = "".join(f'{key} = "{value}"\n' for key, value in
                         (("config", config), ("tokenizer", tok_path), ("weights", index)))
         toml = os.path.join(tmp, "config.toml")
@@ -2153,9 +2230,16 @@ def frontends_phase(torch, K, index, config_path, q8_snapshot, required):
         engine = load_engine(ModelKind.DEEPSEEK, config_path=config, weights_path=index, max_seq_len=8192)
         load_s = time.perf_counter() - t0
         decoded = decode_image(png)
-        check("files", np.array_equal(decoded, page), files_s=files_s, png_bytes=len(png),
+        jpeg_pixels = decode_image(jpeg)
+        jpeg_png = png_bytes(jpeg_pixels)
+        jpeg_png_url = "data:image/png;base64," + base64.b64encode(jpeg_png).decode()
+        digests = {name: hashlib.sha256(decode_image(raw).tobytes()).hexdigest() == entry["sha256"]
+                   for name, (raw, entry) in pages.items()}
+        check("files", np.array_equal(decoded, page) and all(digests.values())
+              and list(jpeg_pixels.shape) == list(page.shape), files_s=files_s, png_bytes=len(png),
               tokenizer_bytes=os.path.getsize(tok_path), tokenizer_ids=tokenizer.vocab_size,
-              in_process_load_s=load_s, png_equals_page=bool(np.array_equal(decoded, page)))
+              in_process_load_s=load_s, png_equals_page=bool(np.array_equal(decoded, page)),
+              jpeg_bytes=len(jpeg), jpeg_png_bytes=len(jpeg_png), jpeg_digests_equal=digests)
         prompt = render_prompt("plain", "", PROMPT)
 
         port = free_port()
@@ -2272,11 +2356,45 @@ def frontends_phase(torch, K, index, config_path, q8_snapshot, required):
               seconds_with_load=swap_s, swaps=swaps, server_mib_before=before[0], server_mib_after=after[0],
               card_mib_before=before[1], card_mib_after=after[1])
 
+        # the JPEG page on the snapshot: against the PNG of its pixels and an in-process scheduler
+        t0 = time.perf_counter()
+        status_j, _, text_j = http_call(port, "POST", "/v1/chat/completions",
+                                        chat_body("deepseek-ocr-q8k", jpeg_url, FRONTEND_MAX_NEW))
+        jpeg_s = time.perf_counter() - t0
+        status_p, _, text_p = http_call(port, "POST", "/v1/chat/completions",
+                                        chat_body("deepseek-ocr-q8k", jpeg_png_url, FRONTEND_MAX_NEW))
+        reply_j = json.loads(text_j) if status_j == 200 else {}
+        reply_p = json.loads(text_p) if status_p == 200 else {}
+        got_j = reply_j.get("choices", [{}])[0].get("message", {}).get("content")
+        got_p = reply_p.get("choices", [{}])[0].get("message", {}).get("content")
+        q8_path = os.path.join(model_dir, "deepseek-ocr-q8k", "snapshot.dsq")
+        q8_engine = load_engine(ModelKind.DEEPSEEK, config_path=config, weights_path=index, snapshot_path=q8_path,
+                                max_seq_len=8192)
+        torch.cuda.synchronize()
+        K.reset_launches()
+        sched = ContinuousScheduler(q8_engine, tokenizer)
+        want_j = asyncio.run(sched.submit(prompt, [jpeg_pixels], vision,
+                                          DecodeParameters(max_new_tokens=FRONTEND_MAX_NEW)))
+        torch.cuda.synchronize()
+        q8_launches = K.launch_counts()
+        launches = {k: launches[k] + q8_launches[k] for k in launches}
+        del sched, q8_engine
+        gc.collect()
+        check("jpeg", status_j == 200 and status_p == 200 and got_j == want_j.text and got_p == got_j
+              and reply_j["usage"]["prompt_tokens"] == want_j.prompt_tokens,
+              status=status_j, png_status=status_p, seconds=jpeg_s, usage=reply_j.get("usage"),
+              in_process_prompt_tokens=want_j.prompt_tokens, text_equal_in_process=got_j == want_j.text,
+              text_equal_png=got_p == got_j, text_chars=len(want_j.text))
+
         # the error shapes
         unknown = http_call(port, "POST", "/v1/chat/completions", chat_body("bogus", url, 8))
         fallback = http_call(port, "POST", "/v1/chat/completions", chat_body("deepseek-ocr-q8k", None, 8, text="hi"))
-        jpeg_url = "data:image/jpeg;base64," + base64.b64encode(b"\xff\xd8\xff\xe0" + bytes(64)).decode()
-        jpeg = http_call(port, "POST", "/v1/chat/completions", chat_body("deepseek-ocr-q8k", jpeg_url, 8))
+        broken_url = "data:image/jpeg;base64," + base64.b64encode(b"\xff\xd8\xff\xe0" + bytes(64)).decode()
+        broken = http_call(port, "POST", "/v1/chat/completions", chat_body("deepseek-ocr-q8k", broken_url, 8))
+        arith = bytearray(jpeg)
+        arith[arith.index(b"\xff\xc0") + 1] = 0xC9  # SOF0 → SOF9: arithmetic coding
+        arith_url = "data:image/jpeg;base64," + base64.b64encode(bytes(arith)).decode()
+        arith_reply = http_call(port, "POST", "/v1/chat/completions", chat_body("deepseek-ocr-q8k", arith_url, 8))
         big = http_call(port, "POST", "/v1/chat/completions", raw=b"x" * (50 * 2 ** 20 + 1))
         sock = socket.create_connection(("127.0.0.1", port), timeout=REQUEST_S)
         raw = json.dumps(chat_body("deepseek-ocr-q8k", url, FRONTEND_MAX_NEW, stream=True)).encode()
@@ -2291,9 +2409,12 @@ def frontends_phase(torch, K, index, config_path, q8_snapshot, required):
         after_leave = http_call(port, "POST", "/v1/chat/completions", chat_body("deepseek-ocr-q8k", url, 8))
         fallback_text = json.loads(fallback[2])["choices"][0]["message"]["content"] if fallback[0] == 200 else ""
         check("errors", unknown[0] == 400 and fallback[0] == 200 and "Image Required" in fallback_text
-              and jpeg[0] == 400 and "JPEG" in json.loads(jpeg[2])["error"]["message"] and big[0] == 413
-              and after_leave[0] == 200 and server.poll() is None,
-              unknown=unknown[0], fallback=fallback[0], jpeg=jpeg[0], jpeg_message=jpeg[2][:200],
+              and broken[0] == 400 and "JPEG" in json.loads(broken[2])["error"]["message"]
+              and arith_reply[0] == 400
+              and "arithmetic-coded JPEG (SOF9)" in json.loads(arith_reply[2])["error"]["message"]
+              and big[0] == 413 and after_leave[0] == 200 and server.poll() is None,
+              unknown=unknown[0], fallback=fallback[0], jpeg=broken[0], jpeg_message=broken[2][:200],
+              arithmetic=arith_reply[0], arithmetic_message=arith_reply[2][:200],
               over_50mb=big[0], after_client_left=after_leave[0])
         server.send_signal(15)
         server.wait(60)
@@ -2304,7 +2425,7 @@ def frontends_phase(torch, K, index, config_path, q8_snapshot, required):
         out_json = os.path.join(tmp, "out.json")
         t0 = time.perf_counter()
         cli = subprocess.run([sys.executable, "-m", "dsocr_tpu_torch.cli", "--config", toml, "--model",
-                              "deepseek-ocr", "--prompt", PROMPT, "--image", os.path.join(tmp, "page.png"),
+                              "deepseek-ocr", "--prompt", PROMPT, "--image", os.path.join(tmp, "page.jpg"),
                               "--max-new-tokens", "32", "--output-json", out_json],
                              cwd=HERE, env=env, capture_output=True, text=True, timeout=REQUEST_S)
         cli_s = time.perf_counter() - t0
@@ -2312,7 +2433,7 @@ def frontends_phase(torch, K, index, config_path, q8_snapshot, required):
             print(cli.stderr[-8000:], file=sys.stderr)
         result = json.load(open(out_json)) if cli.returncode == 0 else {}
         K.reset_launches()
-        mine = engine.decode(tokenizer, prompt, [decoded], vision, DecodeParameters(max_new_tokens=32))
+        mine = engine.decode(tokenizer, prompt, [jpeg_pixels], vision, DecodeParameters(max_new_tokens=32))
         torch.cuda.synchronize()
         decode_launches = K.launch_counts()
         launches = {k: launches[k] + decode_launches[k] for k in launches}

@@ -5,9 +5,9 @@
 config.toml and the flags' overrides → the model's files (local only:
 config/resolver.py) → load_engine on the card (``--device cpu`` for the
 host) → the prompt through the conversation template → the image count
-checked against the ``<image>`` slots → PNGs decoded by image/decode.py
-→ ``engine.decode`` with the deltas streamed to stdout (UTF-8 safe) →
-a throughput line on stderr, ``--output-json`` (the result) and
+checked against the ``<image>`` slots → PNG or JPEG pages decoded by
+image/decode.py → ``engine.decode`` with the deltas streamed to stdout
+(UTF-8 safe) → a throughput line on stderr, ``--output-json`` (the result) and
 ``--bench-output`` (the stage timings of core/benchmark.py). ``--quiet``
 keeps stdout to the text. ``weights snapshot`` prints the port's
 ``dsq export`` command for a model's checkpoint.

@@ -12,7 +12,8 @@ there is no quiet fall back to the NumPy twin.
 ctypes releases the GIL for the length of each call, so the engine's
 prep threads resize pages in parallel. ``build(source)`` compiles any
 C++ source of this directory the same way (image/decode.py builds
-``png.cpp``, its PNG unfiltering, through it).
+``png.cpp`` and ``jpeg.cpp``, its PNG unfiltering and JPEG decoding,
+through it).
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
 """The port's CLI (python -m dsocr_tpu_torch.cli) against the reference's
 on the same tiny files: a checkpoint, config.json, tokenizer.json and a
-PNG in a cache directory; `weights snapshot`; the image-slot check."""
+PNG and a JPEG page in a cache directory; `weights snapshot`; the
+image-slot check."""
 
 import json
 import subprocess
@@ -36,6 +37,7 @@ def home(tmp_path_factory):
     tiny_tokenizer_json(mdir / "tokenizer.json")
     page = np.random.default_rng(0).integers(0, 256, (60, 70, 3), dtype=np.uint8)
     Image.fromarray(page).save(root / "page.png")
+    Image.fromarray(page).save(root / "page.jpg", quality=90)
     return root
 
 
@@ -57,6 +59,14 @@ def test_output_json_equals_reference(env, tmp_path, capsys, prompt, new):
     ref, port = (json.loads((tmp_path / f"{n}.json").read_text()) for n in ("ref", "port"))
     assert port == ref
     assert 0 < port["response_tokens"] <= new and port["prompt_tokens"] > 0
+
+
+def test_output_json_equals_reference_for_a_jpeg(env, tmp_path, capsys):
+    argv = ARGS + ["--prompt", "<image>\nFree OCR.", "--image", str(env / "page.jpg"), "--max-new-tokens", "8"]
+    assert ref_main(argv + ["--output-json", str(tmp_path / "ref.json")]) == 0
+    assert main(argv + ["--output-json", str(tmp_path / "port.json")]) == 0
+    ref, port = (json.loads((tmp_path / f"{n}.json").read_text()) for n in ("ref", "port"))
+    assert port == ref and port["prompt_tokens"] > 0
 
 
 def test_streamed_stdout_and_bench_output(env, tmp_path, capsys):

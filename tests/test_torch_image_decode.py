@@ -1,10 +1,12 @@
 """The port's PNG decoder (dsocr_tpu_torch/image/decode.py) bit-equal to
 Pillow's ``Image.open(...).convert("RGB")``: PNGs written by Pillow, and
 by hand for every color type and bit depth, each filter type, Adam7 and
-split IDAT chunks, with and without tRNS; broken PNGs and the formats it
-does not read raise by name."""
+split IDAT chunks, with and without tRNS; broken PNGs, the formats it
+does not read and the JPEG variants it refuses raise by name (JPEG itself:
+tests/test_torch_jpeg.py)."""
 
 import io
+import re
 import struct
 import zlib
 
@@ -201,8 +203,7 @@ def test_bad_filter_type_raises():
         decode_image(raw)
 
 
-@pytest.mark.parametrize("fmt, name", [("JPEG", "JPEG"), ("GIF", "GIF"), ("WEBP", "WebP"), ("BMP", "BMP"),
-                                       ("TIFF", "TIFF")])
+@pytest.mark.parametrize("fmt, name", [("GIF", "GIF"), ("WEBP", "WebP"), ("BMP", "BMP"), ("TIFF", "TIFF")])
 def test_other_formats_raise_by_name(fmt, name):
     buf = io.BytesIO()
     try:
@@ -211,6 +212,20 @@ def test_other_formats_raise_by_name(fmt, name):
         pytest.skip(f"this Pillow cannot write {fmt}")
     with pytest.raises(UnsupportedImageFormat, match=name) as err:
         decode_image(buf.getvalue())
+    assert err.value.format == name
+
+
+@pytest.mark.parametrize("sof, precision, name", [
+    (0xC9, 8, "arithmetic-coded JPEG (SOF9)"), (0xC3, 8, "lossless JPEG (SOF3)"),
+    (0xC5, 8, "hierarchical JPEG (SOF5)"), (0xC0, 12, "12-bit JPEG")])
+def test_refused_jpeg_variants_raise_by_name(sof, precision, name):
+    buf = io.BytesIO()
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(buf, format="JPEG")
+    raw = bytearray(buf.getvalue())
+    at = raw.index(b"\xff\xc0")
+    raw[at + 1], raw[at + 4] = sof, precision
+    with pytest.raises(UnsupportedImageFormat, match=re.escape(name)) as err:
+        decode_image(bytes(raw))
     assert err.value.format == name
 
 

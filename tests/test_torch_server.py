@@ -229,12 +229,17 @@ def test_fake_engine_metrics_counters_equal(fake):
 
 
 def test_jpeg_data_url_is_a_400_naming_jpeg(fake):
+    """A JPEG variant the decoder refuses (arithmetic coding: the SOF0
+    marker patched to SOF9) is a 400 that names it."""
     _, server = fake
+    raw = bytearray(base64.standard_b64decode(data_url(fmt="JPEG").split(",", 1)[1]))
+    raw[raw.index(b"\xff\xc0") + 1] = 0xC9
     body = chat()
-    body["messages"][0]["content"][1]["image_url"]["url"] = data_url(fmt="JPEG")
+    body["messages"][0]["content"][1]["image_url"]["url"] = ("data:image/jpeg;base64,"
+                                                             + base64.standard_b64encode(bytes(raw)).decode())
     status, _, text = server.request("POST", "/v1/chat/completions", body)
     assert status == 400
-    assert "JPEG" in json.loads(text)["error"]["message"]
+    assert "arithmetic-coded JPEG (SOF9)" in json.loads(text)["error"]["message"]
 
 
 # -- the HTTP layer -----------------------------------------------------------------------
@@ -419,6 +424,23 @@ def test_real_engine_answers_equal(real, case):
             assert [e["type"] for e in (evs[0], evs[-2])] == ["response.created", "response.completed"]
             text = "".join(e["delta"] for e in evs[1:-2])
             assert normalize_text(text) == evs[-2]["response"]["output"][0]["content"][0]["text"]
+
+
+@pytest.mark.parametrize("progressive", [False, True])
+def test_real_engine_jpeg_data_url_answers_equal(real, progressive):
+    """A JPEG page (decoded by Pillow in the reference's app, natively in
+    the port's) answers 200 with the same body."""
+    ref_state, server = real
+    img = np.random.default_rng(3).integers(0, 256, (60, 70, 3), dtype=np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, format="JPEG", quality=90, progressive=progressive)
+    body = chat("deepseek-ocr", max_tokens=12)
+    body["messages"][0]["content"][1]["image_url"]["url"] = ("data:image/jpeg;base64,"
+                                                             + base64.standard_b64encode(buf.getvalue()).decode())
+    ref, port = ref_request(ref_state, "POST", "/v1/chat/completions", body), \
+        server.request("POST", "/v1/chat/completions", body)
+    assert port[0] == 200
+    same_answer(ref, port)
 
 
 def test_real_engine_503_with_retry_after(real, monkeypatch):
