@@ -2442,6 +2442,72 @@ def frontends_phase(torch, K, index, config_path, q8_snapshot, required):
               returncode=cli.returncode, seconds=cli_s, tokens=len(mine.generated_tokens),
               tokens_equal=result.get("generated_tokens") == mine.generated_tokens,
               text_equal=result.get("text") == mine.text)
+
+        # (d) of the mesh phase: the server under --mesh with an int8 KV
+        # cache, against the same request on the in-process engine with one
+        mesh_log = os.path.join(tmp, "server_mesh.log")
+        mesh_port = free_port()
+        t0 = time.perf_counter()
+        with open(mesh_log, "w") as log:
+            server = subprocess.Popen([sys.executable, "-m", "dsocr_tpu_torch.server", "--config", toml, "--host",
+                                       "127.0.0.1", "--port", str(mesh_port), "--device", "cuda", "--mesh", MESH,
+                                       "--kv-quant", "int8"],
+                                      cwd=HERE, env=env, stdout=log, stderr=subprocess.STDOUT)
+        log_path = mesh_log
+        while True:
+            require(server.poll() is None, "frontends: the mesh server exited at start")
+            require(time.perf_counter() - t0 < SERVER_START_S, "frontends: the mesh server did not listen in time")
+            try:
+                if http_call(mesh_port, "GET", "/v1/health", timeout=5)[0] == 200:
+                    break
+            except OSError:
+                time.sleep(0.5)
+        mesh_start_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        status, _, text = http_call(mesh_port, "POST", "/v1/chat/completions",
+                                    chat_body("deepseek-ocr", url, FRONTEND_MAX_NEW))
+        mesh_first_s = time.perf_counter() - t0
+        mesh_mib = gpu_memory_mib(server.pid)
+        server.send_signal(15)
+        server.wait(60)
+        stopped = server.returncode
+        server = None
+        with open(mesh_log, errors="replace") as fh:
+            backend = [line.strip() for line in fh if "mesh of 2 ranks" in line]
+        reply = json.loads(text) if status == 200 else {}
+        got = reply.get("choices", [{}])[0].get("message", {}).get("content")
+        margins = []
+        step = engine.slot_step_fn
+
+        def spy(decoder, token_ids, cache, pos):
+            logits = step(decoder, token_ids, cache, pos)
+            margins.append(top2_margin(torch, logits)[int(cache.lengths.argmax())])
+            return logits
+
+        engine.kv_quant, engine.slot_step_fn = "int8", spy
+        try:
+            sched = ContinuousScheduler(engine, tokenizer)
+            want_m = asyncio.run(sched.submit(prompt, [decoded], vision,
+                                              DecodeParameters(max_new_tokens=FRONTEND_MAX_NEW)))
+            del sched
+        finally:
+            engine.kv_quant = None
+            del engine.slot_step_fn
+        same = [t for t in range(len(want_m.generated_tokens) + 1) if got is not None and got.startswith(
+            normalize_text(tokenizer.decode(want_m.generated_tokens[:t], skip_special_tokens=True)))]
+        first = max(same, default=0)
+        # token t came from the packet (t = 0, margin not kept here) or decode step t - 1
+        margin = margins[first - 1] if got != want_m.text and 0 < first <= len(margins) else None
+        near_tie = margin is not None and margin < MESH_LOGIT_TOL
+        least, least_step = mesh_seed_margin(margins)
+        check("mesh_server", status == 200 and stopped == 0 and least > MESH_LOGIT_TOL
+              and (got == want_m.text or near_tie),
+              status=status, mesh=MESH, kv_quant="int8", backend=backend[:1], start_s=mesh_start_s,
+              seconds_with_load=mesh_first_s, rank0_mib=mesh_mib[0], card_mib=mesh_mib[1],
+              text_equal_single_process=got == want_m.text, text_chars=len(want_m.text),
+              first_differing_step=first if got != want_m.text else None, single_process_top2_margin=margin,
+              min_top2_margin=least, min_margin_step=least_step + 1, logit_tol=MESH_LOGIT_TOL,
+              stopped=stopped)
         del engine
     finally:
         if server is not None:
@@ -3202,7 +3268,7 @@ def split_phase(torch, K, engine, steps=16):
     build_s = time.perf_counter() - t0
     _, _, tokens, mask, emb = page_packet(engine)
     s_pad = -(-len(tokens) // 128) * 128
-    embeds = engine._row_embeds(tokens, mask, [emb], s_pad)[None]
+    embeds = engine._embeds_rows([(tokens, mask, [emb])], s_pad)
     lens = torch.tensor([len(tokens)], device="cuda")
 
     K.reset_launches()
@@ -3293,7 +3359,7 @@ def decode_phase(torch, K, engine, smi, required, max_new=MAX_NEW):
     image, vision, tokens, mask, emb = page_packet(engine)
     s_pad = -(-len(tokens) // 128) * 128
     with torch.no_grad():
-        logits, cache = engine._prefill(engine._row_embeds(tokens, mask, [emb], s_pad)[None],
+        logits, cache = engine._prefill(engine._embeds_rows([(tokens, mask, [emb])], s_pad),
                                         engine.new_kv_cache(1, s_pad + 8 + GATHER_STEPS),
                                         torch.tensor([len(tokens)], device="cuda"))
         cache = bump_length(cache, len(tokens))
@@ -3951,6 +4017,213 @@ def parity_phase(torch):
     require(all(v for k, v in result.items() if k.endswith("_equal")), "CUDA and CPU greedy tokens differ")
 
 
+MESH = "dp=1,mp=2"  # two ranks sharing the one card
+MESH_REQUESTS, MESH_NEW, MESH_SLOTS = 4, 64, 4  # (a), (b): 4 × 64 over 4 slots
+MESH_PAGED = (2, 32)  # (c): 2 × 32 over 2 slots, DSOCR_PAGED_KV=1
+MESH_STEPS = 16  # decode steps of the per-step line
+# bf16 logit tolerance between a mesh and the single-process engine, about
+# twice the largest prefill-logit difference read on the card (0.032): the
+# prefill logits must agree within it, and a token may differ only where
+# the single-process top-2 margin is below it (a greedy near-tie). The
+# seed must be clear of near-ties (mesh_seed_margin): every margin of a
+# case above it, so that no differing token can pass
+MESH_LOGIT_TOL = 0.0625
+MESH_DEADLINE_S = 600.0
+MESH_REFS = {}  # case → the single-process engine's tokens, margins and prefill logits
+
+
+def mesh_reference(torch, engine, case, n_requests, n_slots, max_new, paged=False):
+    """Case `case` of the mesh phase on the single-process `engine`: its
+    burst's tokens, the top-2 logit margin of every token (the first from
+    the page's packet, then each decode step's on its longest row) and
+    the page's prefill logits, kept in MESH_REFS."""
+    from dsocr_tpu_torch.core import DecodeParameters
+
+    image, vision, tokens, mask, emb = page_packet(engine)
+    pre = engine._prefill_rows([(tokens, mask, [emb])])[0]
+    margins = [top2_margin(torch, pre["logits"][None])[0]]
+    step = engine.slot_step_fn
+
+    def spy(decoder, token_ids, cache, pos):
+        logits = step(decoder, token_ids, cache, pos)
+        margins.append(top2_margin(torch, logits)[int(cache.lengths.argmax())])
+        return logits
+
+    engine.slot_step_fn = engine.slot_step_fn_paged = spy
+    try:
+        with environ(DSOCR_PAGED_KV="1" if paged else "0"):
+            outs, _ = serve(engine, BenchTokenizer(), [image] * n_requests, vision,
+                            DecodeParameters(max_new_tokens=max_new), n_slots=n_slots,
+                            max_len=mesh_max_len(engine, tokens, max_new), chunk=CHUNK)
+    finally:
+        del engine.slot_step_fn, engine.slot_step_fn_paged
+    MESH_REFS[case] = dict(tokens=[o.generated_tokens for o in outs], margins=margins,
+                           logits=pre["logits"].float().cpu())
+    least, step = mesh_seed_margin(margins)
+    emit({"phase": "mesh_reference", "case": case, "tokens": len(margins), "min_top2_margin": least,
+          "at_step": step, "logit_tol": MESH_LOGIT_TOL})
+    require(least > MESH_LOGIT_TOL, f"mesh case {case}: the seed has a greedy near-tie (top-2 margin "
+            f"{least} at step {step}, not above {MESH_LOGIT_TOL})")
+
+
+def mesh_seed_margin(margins):
+    """The least single-process top-2 margin of a case and its step; the
+    seed is clear of near-ties when it is above MESH_LOGIT_TOL."""
+    step = min(range(len(margins)), key=margins.__getitem__)
+    return margins[step], step
+
+
+def top2_margin(torch, logits):
+    top = torch.topk(logits.float(), 2, dim=-1).values
+    return (top[..., 0] - top[..., 1]).tolist()
+
+
+def mesh_max_len(engine, tokens, max_new):
+    s_pad = -(-len(tokens) // 128) * 128
+    return min(engine.max_seq_len, -(-(s_pad + max_new) // 512) * 512)
+
+
+def mesh_parity(ref, got):
+    """Each request's tokens against the single-process burst's; where one
+    differs, its first differing step and the single-process top-2 margin
+    there (→ (fields, ok): ok when equal, or the margin is below
+    MESH_LOGIT_TOL)."""
+    want = ref["tokens"][0]
+    equal = [g == want for g in got]
+    fields = {"requests_equal": sum(equal), "tokens_equal_single_process": all(equal)}
+    ok = True
+    for g in got:
+        if g == want:
+            continue
+        first = next((i for i, (a, b) in enumerate(zip(g, want)) if a != b), min(len(g), len(want)))
+        margin = ref["margins"][first] if first < len(ref["margins"]) else None
+        fields.setdefault("first_differing_step", first)
+        fields.setdefault("single_process_top2_margin", margin)
+        ok = ok and margin is not None and margin < MESH_LOGIT_TOL
+    return fields, ok
+
+
+def mesh_burst(torch, phase, engine, case, n_requests, n_slots, max_new, required, unused=()):
+    """Case `case` on the mesh engine: the burst through ContinuousScheduler
+    with every rank's counters zeroed just before and read just after (each
+    kernel in `required` launched on every rank, none in `unused`), its
+    tokens against the single-process burst's (mesh_parity), the page's
+    prefill logits against the single-process ones within MESH_LOGIT_TOL,
+    then MESH_STEPS decode steps of the page's packet in every slot: per
+    step, each rank's launches and collectives and rank 0's host ms. →
+    rank 0's launch counts."""
+    from dsocr_tpu_torch.core import DecodeParameters
+
+    ref = MESH_REFS[case]
+    runtime = engine.mesh_runtime
+    image, vision, tokens, mask, emb = page_packet(engine)
+    max_len = mesh_max_len(engine, tokens, max_new)
+    torch.cuda.synchronize()
+    runtime.stats(reset=True)
+    t0 = time.perf_counter()
+    outs, sched = serve(engine, BenchTokenizer(), [image] * n_requests, vision,
+                        DecodeParameters(max_new_tokens=max_new), n_slots=n_slots, max_len=max_len, chunk=CHUNK)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ranks = runtime.stats(reset=True)
+    got = [o.generated_tokens for o in outs]
+    parity, parity_ok = mesh_parity(ref, got)
+    pre = engine._prefill_rows([(tokens, mask, [emb])])[0]
+    logits = pre["logits"].float().cpu()
+    diff = float((logits - ref["logits"]).abs().max())
+
+    # the per-step line: the packet in every slot, steps that never end
+    if os.environ.get("DSOCR_PAGED_KV") == "1":
+        runner, cache = engine.make_paged_slot_runner(n_slots, max_len)
+    else:
+        runner, cache = engine.make_slot_runner(), engine.new_slot_cache(n_slots, max_len)
+    runner.eos_ids = ()
+    state = runner.init_state(cache, max_len)
+    runner.join_many(state, list(range(n_slots)), [pre] * n_slots, [DecodeParameters()] * n_slots,
+                     [max_len - len(tokens)] * n_slots, [None] * n_slots)
+    runner.run_chunk(engine.params, state, 4)
+    torch.cuda.synchronize()
+    runtime.stats(reset=True)
+    step_ms = synced_ms(torch, lambda: runner.run_chunk(engine.params, state, MESH_STEPS), MESH_STEPS)
+    per_step = runtime.stats(reset=True)
+    del state, cache, runner
+    emit({"phase": phase, "quantize": engine.quantize, "mesh": MESH if not engine.mesh.ep else MESH + ",ep",
+          "backend": runtime.ranks.backend, "requests": len(outs), "slots": n_slots, "new_tokens": max_new,
+          "wall_s": wall, "tokens_per_request": [len(g) for g in got], **parity,
+          "prefill_logits_max_abs_diff": diff, "logit_tol": MESH_LOGIT_TOL,
+          "ranks": [{"rank": r, "device": f"cuda:{st['device_index']}", "peak_mib": st["peak_mib"],
+                     "burst_launches": {k: v for k, v in st["launches"].items() if v},
+                     "burst_collectives": st["collectives"],
+                     "launches_per_step": {k: v / MESH_STEPS for k, v in per_step[r]["launches"].items() if v},
+                     "collectives_per_step": {k: v / MESH_STEPS for k, v in per_step[r]["collectives"].items()}}
+                    for r, st in enumerate(ranks)],
+          "host_ms_per_step": step_ms,
+          "host_ms_per_step_note": "two ranks sharing one card — not a multi-card figure"})
+    require(len(outs) == n_requests, f"{phase}: not every request completed")
+    require(bool(torch.isfinite(logits).all()), f"{phase}: non-finite logits")
+    require(diff < MESH_LOGIT_TOL, f"{phase}: prefill logits {diff} off the single-process engine's")
+    require(parity_ok, f"{phase}: tokens differ from the single-process engine's where it was not a near-tie: {parity}")
+    for r, st in enumerate(ranks):
+        for name in required:
+            require(st["launches"][name] > 0, f"{phase}: kernel {name} was not launched on rank {r}")
+        for name in unused:
+            require(st["launches"][name] == 0, f"{phase}: kernel {name} was launched on rank {r}")
+    return ranks[0]["launches"]
+
+
+def mesh_phase(torch, K, smi, attention, codes_in):
+    """DeepSeek-OCR v1 at full width over two ranks on the one card
+    (dp=1, mp=2), the seeded weights and page: (a) bf16 TP with int8 KV,
+    a 4 × 64 burst over 4 slots, (c) the same engine with DSOCR_PAGED_KV=1
+    at 2 × 32, then (b) Q8_0 expert-parallel (``ep``) at 4 × 64; one set
+    of rank processes for the three. Each held to MESH_REFS (the
+    single-process engine's bursts on the same weights). Case (d), the
+    server under --mesh, runs in the frontends phase. → rank 0's launch
+    counts of the three bursts."""
+    from dsocr_tpu_torch.models.deepseek import DeepseekOcrConfig, DeepseekOcrEngine
+    from dsocr_tpu_torch.parallel import launch
+
+    t_phase = t0 = time.perf_counter()
+    ranks = launch.start(2, "cuda", deadline=MESH_DEADLINE_S)
+    start_s = time.perf_counter() - t0
+    bursts = []
+    try:
+        def build(**kw):
+            t = time.perf_counter()
+            engine = DeepseekOcrEngine(DeepseekOcrConfig(), dtype=torch.bfloat16, device="cuda", max_seq_len=4096,
+                                       seed=0, kv_quant="int8", ranks=ranks, **kw)
+            torch.cuda.synchronize()
+            stats = engine.mesh_runtime.stats(reset=True)
+            emit({"phase": "mesh_init", "mesh": kw["mesh"], "quantize": kw.get("quantize"),
+                  "backend": ranks.backend, "start_s": start_s, "init_s": time.perf_counter() - t,
+                  "peak_mib": [st["peak_mib"] for st in stats],
+                  "devices": [f"cuda:{st['device_index']}" for st in stats],
+                  "heads_per_rank": engine.model.decoder.n_heads,
+                  "experts_per_rank": engine.model.decoder.shard.experts, "nvidia_smi": smi})
+            return engine
+
+        engine = build(mesh=MESH)
+        bursts.append(mesh_burst(torch, "mesh_tp", engine, "a", MESH_REQUESTS, MESH_SLOTS, MESH_NEW,
+                                 required=attention, unused=codes_in))
+        with environ(DSOCR_PAGED_KV="1"):
+            bursts.append(mesh_burst(torch, "mesh_tp_paged", engine, "c", MESH_PAGED[0], MESH_PAGED[0],
+                                     MESH_PAGED[1], required=["paged_kv_write", "paged_decode_attention"],
+                                     unused=codes_in + ["slot_kv_write", "slot_decode_attention"]))
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        engine = build(mesh=MESH + ",ep", quantize="q8_0")
+        bursts.append(mesh_burst(torch, "mesh_ep_q8", engine, "b", MESH_REQUESTS, MESH_SLOTS, MESH_NEW,
+                                 required=attention + ["q8_matmul", "q8_gather_matmul"], unused=codes_in))
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        ranks.close()
+    emit({"phase": "mesh", "seconds": time.perf_counter() - t_phase})
+    return bursts
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "dsocr_tpu_torch")):
         print("chip_smoke: the dsocr_tpu_torch package is not beside this script", file=sys.stderr)
@@ -3983,6 +4256,8 @@ def main() -> int:
     codes_in = ["slot_kv_update", "paged_kv_update"]
     attention = ["sam_flash_attention", "flash_prefill_attention"] + slot
     engine = full_width_engine(torch)
+    mesh_reference(torch, engine, "a", MESH_REQUESTS, MESH_SLOTS, MESH_NEW)
+    mesh_reference(torch, engine, "c", MESH_PAGED[0], MESH_PAGED[0], MESH_PAGED[1], paged=True)
     host_prep_phase(torch, engine)
     bursts = [serving_phase(torch, K, "serve", engine, n_requests=N_REQUESTS, n_slots=N_SLOTS,
                             max_new=MAX_NEW, required=attention, unused=codes_in, profile=True,
@@ -4020,6 +4295,7 @@ def main() -> int:
         required=["q8_gather_matmul"], warmup=False, trace_gather=True)[0])
     bursts.append(decode_phase(torch, K, engine, smi,
                                required=prefill + ["q8_matmul", "q8_gather_matmul"]))
+    mesh_reference(torch, engine, "b", MESH_REQUESTS, MESH_SLOTS, MESH_NEW)
     # the same engine with a shared page pool that holds 12 of the 16 rows
     # (9 pages each of 108) and the megafused expert chain
     with environ(DSOCR_PAGED_KV="1", DSOCR_Q8_MEGAFUSED="1", DSOCR_POOL_PAGES="108"):
@@ -4031,6 +4307,7 @@ def main() -> int:
     del engine
     gc.collect()
     torch.cuda.empty_cache()
+    bursts += mesh_phase(torch, K, smi, attention, codes_in)
     engine = full_width_engine(torch, quantize="q4_k")
     bursts.append(serving_phase(
         torch, K, "serve_q4k", engine, n_requests=CUT_REQUESTS, n_slots=N_SLOTS, max_new=MAX_NEW,

@@ -69,7 +69,7 @@ def run_weights_snapshot(args) -> int:
 def run_inference(args) -> int:
     from ..core.runtime_device import apply_device_selection
     from ..image.decode import decode_image
-    from ..models.registry import load_engine
+    from ..models.registry import check_mesh, load_engine
     from ..utils.logging import init_logging
     from ..utils.tokenizer import load_tokenizer
 
@@ -106,6 +106,7 @@ def run_inference(args) -> int:
               file=sys.stderr)
         return 1
 
+    check_mesh(entry.kind, args.mesh)  # before any file is resolved
     if args.model_config or args.tokenizer or args.weights:
         def given(value):
             return pathlib.Path(value) if value else None
@@ -142,8 +143,13 @@ def run_inference(args) -> int:
             print(delta, end="", flush=True)
 
     t0 = time.perf_counter()
-    outcome = engine.decode(tokenizer, rendered, images, vision, settings.decode,
-                            stream=None if args.output_json else stream)
+    try:
+        outcome = engine.decode(tokenizer, rendered, images, vision, settings.decode,
+                                stream=None if args.output_json else stream)
+    finally:
+        close = getattr(engine, "close", None)
+        if close is not None:  # --mesh: stop the follower ranks
+            close()
     wall = time.perf_counter() - t0
     if not args.output_json:
         final_delta = tracker.advance(outcome.text, is_final=True)

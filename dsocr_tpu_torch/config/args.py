@@ -1,8 +1,9 @@
 """The argparse groups that the CLI and the server share
 (dsocr_tpu/config/args.py): the same flags, so a command line means the
 same to both packages. ``--device`` takes cuda or cpu here (None: the
-config's, which defaults to cuda); ``--mesh`` is accepted and raises in
-load_engine until meshes are ported."""
+config's, which defaults to cuda); ``--mesh dp=N,mp=M[,ep]`` serves
+DeepSeek-OCR over dp × mp rank processes (load_engine), this process
+rank 0."""
 
 from __future__ import annotations
 
@@ -21,7 +22,8 @@ def add_common_model_args(parser: argparse.ArgumentParser) -> None:
     group.add_argument("--weights", default=None, help="safetensors weights path")
     group.add_argument("--snapshot", default=None, help="DSQ snapshot path")
     group.add_argument("--mesh", default=None,
-                       help="device mesh spec for sharded execution, e.g. dp=1,mp=4 (not ported: raises)")
+                       help="mesh spec for sharded execution over rank processes, e.g. dp=1,mp=2 "
+                            "(add ,ep for expert parallelism; DeepSeek-OCR only)")
     group.add_argument("--kv-quant", default=None, choices=("int8",),
                        help="quantize the serving KV cache (slot runtime): int8 codes + per-token scales")
 

@@ -32,3 +32,4 @@ class ModelLoadArgs:
     snapshot_path: Optional[pathlib.Path] = None
     device: Optional[str] = None
     dtype: str = "bfloat16"
+    mesh: Optional[str] = None  # "dp=N,mp=M[,ep]": rank processes (models/registry.py)

@@ -49,12 +49,27 @@ attention reads and writes K/V:
   PagedSlotCache (the reference's ``page_tables`` branch, decoder.py
   :244-252, :324-381, :403-429: the new token quantized for an int8
   pool, q attending in f32).
+
+Under a mesh (dsocr_tpu_torch/parallel) a decoder holds one rank's shard
+of the split layout (``shard_decoder``; its ``shard`` a DecoderShard):
+q/k/v split by whole heads and o_proj by its input rows, dense and shared
+gate/up by intermediate columns and down by rows, the routed float
+experts over their intermediate dim (or, with ``ep``, and always for
+packed stacks, over E: selections of other ranks' experts are clipped
+and weighted zero, the reference's ``_ep_localize``), embed_tokens by
+vocab rows (a masked lookup, then a sum) and lm_head by vocab columns.
+Each block's partial sums meet in one f32 all-reduce over the rank's mp
+group: one after o_proj, one after the MLP; a part that mp does not
+divide stays whole on every rank (attention where mp does not divide the
+heads). The logits stay vocab-local: the engine's mesh runtime gathers
+them to rank 0.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -133,6 +148,83 @@ def fuse_decoder_params(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tenso
     return out
 
 
+def unfuse_decoder_params(state: Dict[str, torch.Tensor], cfg: DeepseekV2Config) -> Dict[str, torch.Tensor]:
+    """fuse_decoder_params undone: each fused projection split back into
+    its parts along the axis it was concatenated on (views of it). A
+    split state passes through."""
+    NH, NKV = cfg.num_attention_heads, cfg.resolved_kv_heads
+    sizes = {"qkv_proj": (NH * cfg.head_dim, NKV * cfg.head_dim, NKV * cfg.resolved_v_head_dim)}
+    out = dict(state)
+    for key in state:
+        head, _, name = key.rpartition(".")
+        part = ""
+        if name in _PACKED_PARTS:
+            part = "." + name
+            head, _, name = head.rpartition(".")
+        for names, fused in _FUSED:
+            if name != fused:
+                continue
+            axis = -2 if part and fused not in EXPERT_KEYS else -1
+            t = out.pop(key)
+            split = sizes.get(fused, (t.shape[axis] // 2,) * 2)
+            for n, piece in zip(names, torch.split(t, list(split), dim=axis), strict=True):
+                out[f"{head}.{n}{part}"] = piece
+    return out
+
+
+@dataclasses.dataclass
+class DecoderShard:
+    """One rank's share of the decoder under a mesh: local sizes, which
+    parts mp splits, and the collectives (``comm``: parallel/comm.py's
+    Comm). A part that mp does not split is held whole."""
+
+    comm: Any
+    n_heads: int
+    n_kv_heads: int
+    attn_split: bool
+    dense_inter: int
+    dense_split: bool
+    moe_inter: int
+    shared_inter: int
+    shared_split: bool
+    experts: int  # routed experts held (all, or E / mp under expert parallelism)
+    expert_offset: int
+    experts_split: Optional[str]  # "I" (intermediate dim), "E" (experts) or None
+    vocab: int
+    vocab_offset: int
+    vocab_split: bool
+
+
+def decoder_shard(cfg: DeepseekV2Config, mesh, rank: int, comm, packed: bool) -> DecoderShard:
+    """Rank `rank`'s DecoderShard: a dimension splits over mp where mp
+    divides it (parallel/mesh.py's rules); packed serving splits only
+    the routed experts, over E."""
+    mp = mesh.mp
+    _, m = mesh.coords(rank)
+    NH, NKV = cfg.num_attention_heads, cfg.resolved_kv_heads
+    E = cfg.n_routed_experts or 0
+    MI = cfg.moe_intermediate_size or cfg.intermediate_size
+    SI = MI * (cfg.n_shared_experts or 0)
+    I, V = cfg.intermediate_size, cfg.vocab_size  # noqa: E741
+    tp = not packed
+
+    def div(n: int) -> bool:
+        return tp and n % mp == 0
+
+    attn = div(NH) and div(NKV)
+    ep = (mesh.ep or packed) and E % mp == 0
+    experts_split = "E" if ep else ("I" if div(MI) and not mesh.ep else None)
+    return DecoderShard(
+        comm=comm, n_heads=NH // mp if attn else NH, n_kv_heads=NKV // mp if attn else NKV,
+        attn_split=attn, dense_inter=I // mp if div(I) else I, dense_split=div(I),
+        moe_inter=MI // mp if experts_split == "I" else MI,
+        shared_inter=SI // mp if div(SI) else SI, shared_split=div(SI),
+        experts=E // mp if ep else E, expert_offset=m * (E // mp) if ep else 0,
+        experts_split=experts_split, vocab=V // mp if div(V) else V,
+        vocab_offset=m * (V // mp) if div(V) else 0, vocab_split=div(V),
+    )
+
+
 def _weight(name: str, shape, dtype, device, quantize: Optional[str]):
     """A float parameter, or the holder of the format `quantize` packs it
     with (a Q8_0 fallback under a K-quant where the in dim misses 256)."""
@@ -174,10 +266,13 @@ _LAYER_WEIGHTS = (
 
 class DecoderLayer(nn.Module):
     def __init__(self, cfg: DeepseekV2Config, moe: bool, dtype, device,
-                 quantize: Optional[str] = None, split: bool = False, gate_bias: bool = False):
+                 quantize: Optional[str] = None, split: bool = False, gate_bias: bool = False,
+                 shard: Optional[DecoderShard] = None):
         super().__init__()
         H, D, DV = cfg.hidden_size, cfg.head_dim, cfg.resolved_v_head_dim
         NH, NKV = cfg.num_attention_heads, cfg.resolved_kv_heads
+        if shard is not None:
+            NH, NKV = shard.n_heads, shard.n_kv_heads
         self.moe = moe
         self.split = split
 
@@ -196,17 +291,19 @@ class DecoderLayer(nn.Module):
         if moe:
             E = cfg.n_routed_experts
             MI = cfg.moe_intermediate_size or cfg.intermediate_size
+            SI = MI * (cfg.n_shared_experts or 0)
             self.gate_weight = param(E, H, dtype=dtype, device=device)
             if gate_bias:
                 self.gate_bias = param(E, dtype=dtype, device=device)
+            if shard is not None:
+                E, MI, SI = shard.experts, shard.moe_inter, shard.shared_inter
             weights("experts_gateup", ("experts_gate", "experts_up"), E, H, outs=(MI, MI))
             self.experts_down = _weight("experts_down", (E, MI, H), dtype, device, quantize)
-            SI = MI * (cfg.n_shared_experts or 0)
             if SI:
                 weights("shared_gateup", ("shared_gate", "shared_up"), H, outs=(SI, SI))
                 self.shared_down = _weight("shared_down", (SI, H), dtype, device, quantize)
         else:
-            I = cfg.intermediate_size  # noqa: E741
+            I = shard.dense_inter if shard is not None else cfg.intermediate_size  # noqa: E741
             weights("gateup_proj", ("gate_proj", "up_proj"), H, outs=(I, I))
             self.down_proj = param(I, H, dtype=dtype, device=device)
 
@@ -237,22 +334,31 @@ class DecoderLayer(nn.Module):
 
 class DeepseekDecoder(nn.Module):
     def __init__(self, cfg: DeepseekV2Config, dtype=torch.bfloat16, device=None,
-                 quantize: Optional[str] = None, *, split: bool = False, gate_bias: bool = False):
+                 quantize: Optional[str] = None, *, split: bool = False, gate_bias: bool = False,
+                 shard: Optional[DecoderShard] = None):
         """The fused layout; ``split`` builds the split one (what
         ``from_state`` does for a split state); ``gate_bias`` gives every
-        MoE layer a router bias."""
+        MoE layer a router bias; ``shard`` (split layout only) builds one
+        rank's shard of it (``shard_decoder``)."""
         super().__init__()
+        if shard is not None and not split:
+            raise ValueError("a decoder shard holds the split layout")
         self.cfg = cfg
+        self.shard = shard
+        self.n_heads = shard.n_heads if shard is not None else cfg.num_attention_heads
+        self.n_kv_heads = shard.n_kv_heads if shard is not None else cfg.resolved_kv_heads
         num_dense, num_moe = split_layers(cfg)
-        H, V = cfg.hidden_size, cfg.vocab_size
+        H = cfg.hidden_size
+        V = shard.vocab if shard is not None else cfg.vocab_size
         self.embed_tokens = param(V, H, dtype=dtype, device=device)
         self.norm = param(H, dtype=dtype, device=device)
         self.lm_head = _weight("lm_head", (H, V), dtype, device, quantize)
         self.dense_layers = nn.ModuleList(
-            DecoderLayer(cfg, False, dtype, device, quantize, split) for _ in range(num_dense)
+            DecoderLayer(cfg, False, dtype, device, quantize, split, shard=shard) for _ in range(num_dense)
         )
         self.moe_layers = nn.ModuleList(
-            DecoderLayer(cfg, True, dtype, device, quantize, split, gate_bias) for _ in range(num_moe)
+            DecoderLayer(cfg, True, dtype, device, quantize, split, gate_bias, shard=shard)
+            for _ in range(num_moe)
         )
         self.quantize_s = 0.0  # seconds spent packing at random init (reset_)
         self.moe_cfg = MoeConfig(
@@ -296,10 +402,26 @@ class DeepseekDecoder(nn.Module):
 
     # -- blocks -------------------------------------------------------------
 
+    def embed(self, token_ids: torch.Tensor) -> torch.Tensor:
+        """Token embeddings [..., H] in the table's dtype; a vocab shard
+        looks up the ids it holds, zeros elsewhere, and sums over mp."""
+        shard = self.shard
+        if shard is None or not shard.vocab_split:
+            return self.embed_tokens[token_ids]
+        local = token_ids - shard.vocab_offset
+        hit = (local >= 0) & (local < shard.vocab)
+        rows = self.embed_tokens[local.clamp(0, shard.vocab - 1)] * hit[..., None].to(self.dtype)
+        return shard.comm.all_reduce_f32(rows).to(self.dtype)
+
+    def _reduce(self, partial: torch.Tensor, split: bool) -> torch.Tensor:
+        """A block's output in f32: summed over mp when `split` (its
+        partial sums), as it is otherwise."""
+        return self.shard.comm.all_reduce_f32(partial) if split else partial.float()
+
     def _qkv(self, x, layer, cos, sin):
         cfg = self.cfg
         B, S, _ = x.shape
-        NH, NKV, D, DV = cfg.num_attention_heads, cfg.resolved_kv_heads, cfg.head_dim, cfg.resolved_v_head_dim
+        NH, NKV, D, DV = self.n_heads, self.n_kv_heads, cfg.head_dim, cfg.resolved_v_head_dim
         normed = rms_norm(x, layer.input_layernorm, cfg.rms_norm_eps)
         if layer.split:
             q, k, v = (project(normed, w) for w in (layer.q_proj, layer.k_proj, layer.v_proj))
@@ -324,15 +446,23 @@ class DeepseekDecoder(nn.Module):
 
     def _mlp(self, x, layer):
         cfg = self.cfg
+        shard = self.shard
         B, S, H = x.shape
         normed = rms_norm(x, layer.post_attention_layernorm, cfg.rms_norm_eps)
         if not layer.moe:
             mlp = self._swiglu(x, normed, layer, "gateup_proj", ("gate_proj", "up_proj"),
                                layer.down_proj)
-            return (x.float() + mlp.float()).to(x.dtype)
+            mlp = self._reduce(mlp, shard is not None and shard.dense_split)
+            return (x.float() + mlp).to(x.dtype)
         tokens = normed.reshape(B * S, H)
         weights, indices = moe_router(tokens, layer.gate_weight, self.moe_cfg,
                                       aux_bias=getattr(layer, "gate_bias", None))
+        if shard is not None and shard.experts_split == "E":
+            # the reference's _ep_localize: other ranks' selections weigh 0
+            local = indices - shard.expert_offset
+            weights = torch.where((local >= 0) & (local < shard.experts), weights,
+                                  torch.zeros_like(weights))
+            indices = local.clamp(0, shard.experts - 1)
         gate_up = ((layer.experts_gate, layer.experts_up) if layer.split
                    else (layer.experts_gateup,))
         stacks = (*gate_up, layer.experts_down)
@@ -342,11 +472,21 @@ class DeepseekDecoder(nn.Module):
         else:  # float stacks, or prefill of packed (or mixed) ones: bf16 weights
             apply = moe_apply if layer.split else moe_apply_fused
             routed = apply(tokens, weights, indices, *(dequant_stack(w).to(x.dtype) for w in stacks))
-        out = routed.float()
+        shared = None
         if hasattr(layer, "shared_down"):
             shared = self._swiglu(x, normed, layer, "shared_gateup", ("shared_gate", "shared_up"),
-                                  layer.shared_down)
-            out = out + shared.reshape(B * S, H).float()
+                                  layer.shared_down).reshape(B * S, H).float()
+        if shard is None:
+            out = routed.float() if shared is None else routed.float() + shared
+        else:  # the partial sums meet in one all-reduce; whole parts add after it
+            parts = [(routed, shard.experts_split is not None)]
+            if shared is not None:
+                parts.append((shared, shard.shared_split))
+            split = [p.float() for p, s in parts if s]
+            out = self._reduce(sum(split[1:], split[0]), True) if split else None
+            for p, s in parts:
+                if not s:
+                    out = p.float() if out is None else out + p.float()
         return (x.float() + out.reshape(B, S, H)).to(x.dtype)
 
     def _layers(self, x, positions, rope, attend):
@@ -355,15 +495,16 @@ class DeepseekDecoder(nn.Module):
         returns the attention [B, S, NH*DV]."""
         cos = rope[0][positions][:, None]
         sin = rope[1][positions][:, None]
+        split = self.shard is not None and self.shard.attn_split
         for li, layer in enumerate(self.layers()):
             q, k, v = self._qkv(x, layer, cos, sin)
-            attn = project(attend(li, q, k, v), layer.o_proj)
-            x = self._mlp((x.float() + attn.float()).to(x.dtype), layer)
+            attn = self._reduce(project(attend(li, q, k, v), layer.o_proj), split)
+            x = self._mlp((x.float() + attn).to(x.dtype), layer)
         return x
 
     def _logits(self, x, last_index: Optional[torch.Tensor], full_logits: bool = False) -> torch.Tensor:
         """f32 logits at every position ([B, S, V]) or at last_index ([B, V],
-        default the last position)."""
+        default the last position); a vocab shard's own columns."""
         x = rms_norm(x, self.norm, self.cfg.rms_norm_eps)
         if full_logits:
             rows = x.reshape(-1, x.shape[-1])
@@ -441,7 +582,7 @@ class DeepseekDecoder(nn.Module):
         masked out entirely."""
         cfg = self.cfg
         B, S, _ = embeds.shape
-        cache = init_kv_cache(cfg.num_hidden_layers, B, cfg.resolved_kv_heads, S, cfg.head_dim,
+        cache = init_kv_cache(cfg.num_hidden_layers, B, self.n_kv_heads, S, cfg.head_dim,
                               cfg.resolved_v_head_dim, embeds.dtype, embeds.device)
         logits, cache = self.forward(embeds, positions, cache, rope, last_index=last_index,
                                      flash_prefill=True)
@@ -470,3 +611,36 @@ class DeepseekDecoder(nn.Module):
             )
 
         return self._logits(self._layers(embeds, positions, rope, attend), None)
+
+
+def shard_decoder(decoder: DeepseekDecoder, mesh, rank: int, comm,
+                  quantize: Optional[str] = None) -> DeepseekDecoder:
+    """Rank `rank`'s shard of a whole decoder (either layout, float or
+    packed with `quantize`): its state split into the split layout, each
+    parameter cut by parallel/mesh.py's rule where its DecoderShard
+    splits that part, loaded into a split decoder of the local shapes."""
+    from ...parallel.mesh import deepseek_param_shardings, shard_tensor
+
+    cfg = decoder.cfg
+    packed = quantize is not None
+    shard = decoder_shard(cfg, mesh, rank, comm, packed)
+    splits = {
+        "embed_tokens": shard.vocab_split, "lm_head": shard.vocab_split,
+        "q_proj": shard.attn_split, "k_proj": shard.attn_split, "v_proj": shard.attn_split,
+        "o_proj": shard.attn_split, "gate_proj": shard.dense_split, "up_proj": shard.dense_split,
+        "down_proj": shard.dense_split, "shared_gate": shard.shared_split,
+        "shared_up": shard.shared_split, "shared_down": shard.shared_split,
+        **dict.fromkeys(("experts_gate", "experts_up", "experts_down"), shard.experts_split is not None),
+    }
+    state = unfuse_decoder_params(decoder.state_dict(), cfg)
+    specs = deepseek_param_shardings({k: tuple(t.shape) for k, t in state.items()}, mesh,
+                                     ep=shard.experts_split == "E", packed=packed)
+    local = {}
+    for name, t in state.items():
+        parts = name.split(".")
+        leaf = parts[-2] if parts[-1] in _PACKED_PARTS else parts[-1]
+        local[name] = shard_tensor(t, specs[name], mesh, rank) if splits.get(leaf, False) else t
+    out = DeepseekDecoder(cfg, decoder.dtype, decoder.embed_tokens.device, quantize, split=True,
+                          gate_bias=has_gate_bias(state), shard=shard)
+    out.load_state_dict(local)
+    return out

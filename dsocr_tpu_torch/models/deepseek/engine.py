@@ -20,6 +20,16 @@ Two surfaces are ported:
   bench recorder times under the reference's names (slot.prepare_inputs,
   slot.vision_towers, slot.prefill_rows).
 
+``mesh="dp=…,mp=…[,ep]"`` serves the same surfaces over dp × mp rank
+processes (dsocr_tpu_torch/parallel): this process is rank 0 and runs
+everything the single-process engine runs; the followers it spawns (or
+the ``ranks`` it is given) build the same engine and mirror the sharded
+device work (models/deepseek/mesh.py). Each rank builds the whole model
+(from `seed`, `state` or `state_fn(device)`), then keeps its shard of the
+decoder in the split layout (decoder.shard_decoder); the towers are
+replicated and split their views over every rank. Packed weights under
+a mesh need ``ep``, as in the reference.
+
 The engine serves the decoder's fused layout: a split state (the
 reference's init or loader layout) is fused at init, as the reference's
 engine does without a mesh. ``quantize="q8_0"``, ``"q4_k"`` or
@@ -28,8 +38,8 @@ packed on the device. Prefill attends through flash_prefill_attention
 unless DSOCR_FLASH_PREFILL=0, the reference's switch. Views are batched
 through the towers (4 global views or 16 tiles per call) the way the
 reference batches them; the reference's host-link tricks (sparse or
-content-only upload, a transfer pool, streamed prep), decode_batch and
-the mesh path are not carried over. OCR2's views are pooled by shape
+content-only upload, a transfer pool, streamed prep) and decode_batch are
+not carried over. OCR2's views are pooled by shape
 across the wave's images into encoder calls of at most 4 views at 1024
 pixels and 16 below, as the reference pools them (without its
 power-of-two padding, which only bounds XLA's compilations).
@@ -40,6 +50,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -130,6 +141,9 @@ class DeepseekOcrEngine:
         state: Optional[Dict[str, torch.Tensor]] = None,
         quantize: Optional[str] = None,
         ocr2_params: Optional[Qwen2EncoderParams] = None,
+        mesh=None,
+        ranks=None,
+        state_fn=None,
     ):
         """Random weights from `seed` on the device, or `state` (a
         state_dict, e.g. convert.params_from_jax of a reference engine or
@@ -148,16 +162,49 @@ class DeepseekOcrEngine:
         runs only when asked for by name. An OCR2 config builds the Qwen2
         encoder of `ocr2_params` (the published widths by default); a
         state with router biases (``...gate_bias``) gives the decoder
-        them."""
+        them.
+
+        `mesh` (a spec "dp=N,mp=M[,ep]" or a parallel.mesh.Mesh) shards
+        the decoder over rank processes (the module docstring); `ranks`
+        are running ranks (parallel.launch.start), else this engine starts
+        and owns its own (``close`` stops them); `state_fn(device)` makes
+        the state on each rank instead of `state`."""
         if cfg.variant not in ("ocr1", "ocr2") or (cfg.variant == "ocr1" and cfg.clip is None):
             raise NotImplementedError(f"unsupported DeepSeek-OCR variant {cfg.variant!r}")
         if kv_quant not in (None, "int8"):
             raise ValueError(f"unsupported kv_quant {kv_quant!r}")
         if quantize not in (None, "q8_0", "q4_k", "q6_k"):
             raise ValueError(f"unsupported quantize {quantize!r}")
+        from ...parallel.mesh import parse_mesh_spec
+
+        mesh = parse_mesh_spec(mesh)
+        if mesh is not None and quantize and not mesh.ep:
+            raise NotImplementedError(
+                "quantized serving under a mesh is expert-parallel only (add ep to the mesh spec): "
+                "the packed expert kernels run on each rank's experts; attention and the shared "
+                "projections stay replicated")
         self.cfg = cfg
         self.dtype = dtype
         self.device = select_device(device)
+        self.mesh = mesh
+        self.mesh_runtime = None
+        self._owned_ranks = None
+        if mesh is not None:
+            if ranks is None:
+                from ...parallel import launch
+
+                ranks = self._owned_ranks = launch.start(mesh.size, self.device)
+                weakref.finalize(self, ranks.kill)  # an engine dropped unclosed, or failing below
+            if ranks.world != mesh.size:
+                raise ValueError(f"mesh {mesh.dp}x{mesh.mp} needs {mesh.size} ranks, not {ranks.world}")
+            if ranks.is_leader:
+                follower_state = None if state is None else {k: v.cpu() for k, v in state.items()}
+                ranks.build(DeepseekOcrEngine, dict(
+                    cfg=cfg, dtype=dtype, max_seq_len=max_seq_len, seed=seed, kv_quant=kv_quant,
+                    state=follower_state, quantize=quantize, ocr2_params=ocr2_params, mesh=mesh,
+                    state_fn=state_fn))
+            if state_fn is not None:
+                state = state_fn(self.device)
         self.kv_quant = kv_quant
         self.quantize = quantize
         self.max_seq_len = max_seq_len
@@ -176,12 +223,39 @@ class DeepseekOcrEngine:
                 state = quantize_decoder_params(state, quantize, raw=raw)
             self.model.load_state_dict(state)
         self.model.eval()
+        if mesh is not None:
+            self._shard(mesh, ranks)
         self.params = self.model.decoder  # what SlotRunner hands to slot_step_fn
         lang = cfg.language
         self._rope = build_rope_tables(max_seq_len, lang.rope_dim, lang.rope_theta, self.device)
         self._flash_prefill = os.environ.get("DSOCR_FLASH_PREFILL", "1") != "0"
         # seconds of each stage of the last decode() (the reference's Timer names)
         self.decode_stages: Dict[str, float] = {}
+
+    def _shard(self, mesh, ranks) -> None:
+        """Keep this rank's shard of the decoder; start the mesh runtime."""
+        from ...parallel.comm import Comm
+        from .decoder import shard_decoder
+        from .mesh import DeepseekMesh
+
+        comm = Comm(mesh, ranks.rank)
+        whole = self.model.decoder
+        self.model.decoder = shard_decoder(whole, mesh, ranks.rank, comm, self.quantize)
+        del whole
+        self.mesh_runtime = DeepseekMesh(self, ranks, comm)
+
+    @property
+    def alive(self) -> bool:
+        """False once a mesh engine's ranks are down (a failed call, a
+        hung rank, close): it cannot serve again, and a server loads the
+        model anew (server/state.py)."""
+        return self.mesh_runtime is None or not self.mesh_runtime.ranks.closed
+
+    def close(self) -> None:
+        """Stop the rank processes this engine started (a mesh engine)."""
+        if self._owned_ranks is not None:
+            ranks, self._owned_ranks = self._owned_ranks, None
+            ranks.close()
 
     # -- vision -----------------------------------------------------------------
 
@@ -211,6 +285,9 @@ class DeepseekOcrEngine:
         return self.model.projector(build_clip_sam_tokens(clip_out, sam_out))
 
     def _towers_chunked(self, views: np.ndarray, chunk: int) -> torch.Tensor:
+        if self.mesh_runtime is not None:  # each chunk split over every rank
+            return torch.cat([self.mesh_runtime.towers("_tower", views[i : i + chunk])
+                              for i in range(0, len(views), chunk)])
         return torch.cat([self._tower(views[i : i + chunk]) for i in range(0, len(views), chunk)])
 
     def _assemble(self, global_proj, local_proj, crop_shape) -> torch.Tensor:
@@ -229,6 +306,12 @@ class DeepseekOcrEngine:
     @torch.no_grad()
     def _ocr2_view(self, pixels_u8: np.ndarray) -> torch.Tensor:
         """uint8 views [B, 3, S, S] → the encoder's query tokens [B, n, 1280]."""
+        if self.mesh_runtime is not None:
+            return self.mesh_runtime.towers("_ocr2_local", pixels_u8)
+        return self._ocr2_local(pixels_u8)
+
+    @torch.no_grad()
+    def _ocr2_local(self, pixels_u8: np.ndarray) -> torch.Tensor:
         return self.model.ocr2(self.model.sam(self._pixels(pixels_u8)))
 
     @torch.no_grad()
@@ -326,10 +409,14 @@ class DeepseekOcrEngine:
     def slot_step_fn(self, decoder, token_ids, cache: SlotCache, pos):
         """Row r's token is written at cache.lengths[r] and attends
         [0, lengths[r]]; its RoPE position is pos[r]."""
-        embeds = decoder.embed_tokens[token_ids][:, None, :].to(self.dtype)
+        if self.mesh_runtime is not None:
+            return self.mesh_runtime.slot_step(token_ids, cache, pos)
+        embeds = decoder.embed(token_ids)[:, None, :].to(self.dtype)
         return decoder.slot_step(embeds, pos[:, None], self._rope, cache)
 
     def new_slot_cache(self, n_slots: int, max_len: int) -> SlotCache:
+        if self.mesh_runtime is not None:
+            return self.mesh_runtime.alloc_slots(n_slots, max_len)
         lang = self.cfg.language
         return alloc_slot_cache(
             lang.num_hidden_layers, n_slots, lang.resolved_kv_heads, max_len,
@@ -338,7 +425,12 @@ class DeepseekOcrEngine:
 
     def make_slot_runner(self) -> SlotRunner:
         eos = self.cfg.language.eos_token_id
-        return SlotRunner(self.slot_step_fn, eos_ids=(eos,) if eos is not None else ())
+        eos_ids = (eos,) if eos is not None else ()
+        if self.mesh_runtime is not None:
+            from ...parallel.runtime import MeshSlotRunner
+
+            return MeshSlotRunner(self.slot_step_fn, eos_ids=eos_ids, mesh=self.mesh_runtime)
+        return SlotRunner(self.slot_step_fn, eos_ids=eos_ids)
 
     # -- paged slot surface (a shared page pool instead of per-slot rows) -------
 
@@ -358,14 +450,20 @@ class DeepseekOcrEngine:
         page_size = page_size or int(os.environ.get("DSOCR_PAGE_SIZE", "128"))
         p_max = -(-max_len // page_size)
         n_pages = n_pages or int(os.environ.get("DSOCR_POOL_PAGES", str(n_slots * p_max)))
+        eos = lang.eos_token_id
+        eos_ids = (eos,) if eos is not None else ()
+        if self.mesh_runtime is not None:
+            from ...parallel.runtime import MeshPagedSlotRunner
+
+            cache = self.mesh_runtime.alloc_pool(n_pages, page_size, n_slots, p_max)
+            return MeshPagedSlotRunner(self.slot_step_fn_paged, eos_ids=eos_ids,
+                                       allocator=PageAllocator(n_pages), mesh=self.mesh_runtime), cache
         cache = new_page_pool(
             lang.num_hidden_layers, n_pages, lang.resolved_kv_heads, lang.head_dim,
             lang.resolved_v_head_dim, page_size, n_slots, p_max, self.dtype, self.kv_quant,
             self.device,
         )
-        eos = lang.eos_token_id
-        runner = PagedSlotRunner(self.slot_step_fn_paged, eos_ids=(eos,) if eos is not None else (),
-                                 allocator=PageAllocator(n_pages))
+        runner = PagedSlotRunner(self.slot_step_fn_paged, eos_ids=eos_ids, allocator=PageAllocator(n_pages))
         return runner, cache
 
     def prefill_for_slot(self, tokenizer, prompt, images, vision, extra_tokens=None) -> dict:
@@ -432,28 +530,33 @@ class DeepseekOcrEngine:
         """rows = [(tokens, image_mask, embeddings)] sharing one s_pad
         bucket; right-padded to it (pad keys are causally unreachable from
         real queries, and decode overwrites their KV)."""
+        if self.mesh_runtime is not None:
+            return self.mesh_runtime.prefill_packets(rows)
         s_pad = round_up(len(rows[0][0]), 128)
-        embeds = torch.stack([self._row_embeds(t, m, e, s_pad) for t, m, e in rows])
-        return self._prefill_packets([t for t, _, _ in rows], embeds)
+        return self._prefill_packets([t for t, _, _ in rows], self._embeds_rows(rows, s_pad))
 
     # -- single-request decode ----------------------------------------------------
 
     def new_kv_cache(self, batch: int, max_len: int) -> KVCache:
+        """A KVCache of this rank's KV heads (all of them without a mesh)."""
         lang = self.cfg.language
-        return init_kv_cache(lang.num_hidden_layers, batch, lang.resolved_kv_heads, max_len,
+        return init_kv_cache(lang.num_hidden_layers, batch, self.model.decoder.n_kv_heads, max_len,
                              lang.head_dim, lang.resolved_v_head_dim, self.dtype, self.device)
 
     @torch.no_grad()
-    def _row_embeds(self, tokens, image_mask, embeddings, s_pad: int) -> torch.Tensor:
-        """[s_pad, H]: the tokens' embeddings, zero-token padded, with the
-        image embeddings at the mask's positions (a context longer than
-        the mask is text past it)."""
-        padded = np.zeros(s_pad, np.int64)
-        padded[: len(tokens)] = tokens
-        out = self.model.decoder.embed_tokens[torch.from_numpy(padded).to(self.device)].to(self.dtype)
-        if embeddings:
-            idx = np.nonzero(np.asarray(image_mask, bool))[0]
-            out[torch.from_numpy(idx).to(self.device)] = torch.cat(embeddings).to(self.dtype)
+    def _embeds_rows(self, rows, s_pad: int) -> torch.Tensor:
+        """[B, s_pad, H] for rows [(tokens, mask, embeddings)]: one lookup
+        for every row (a vocab shard's lookup and sum under a mesh), then
+        each row's image embeddings at its mask's positions (a context
+        longer than the mask is text past it)."""
+        padded = np.zeros((len(rows), s_pad), np.int64)
+        for i, (tokens, _, _) in enumerate(rows):
+            padded[i, : len(tokens)] = tokens
+        out = self.model.decoder.embed(torch.from_numpy(padded).to(self.device)).to(self.dtype)
+        for i, (_, mask, embeddings) in enumerate(rows):
+            if embeddings:
+                idx = np.nonzero(np.asarray(mask, bool))[0]
+                out[i, torch.from_numpy(idx).to(self.device)] = torch.cat(embeddings).to(self.dtype)
         return out
 
     @torch.no_grad()
@@ -477,14 +580,12 @@ class DeepseekOcrEngine:
             for i, toks in enumerate(token_lists)
         ]
 
-    def _prefill_single(self, tokens, embeds: torch.Tensor) -> dict:
-        """The join packet of one row, embeds [s_pad, H]."""
-        return self._prefill_packets([tokens], embeds[None])[0]
-
     def _step_fn(self, decoder, token_ids, cache: KVCache, pos_state):
         """One token per row at position cache.length → (logits, cache
         bumped by one, pos_state)."""
-        embeds = decoder.embed_tokens[token_ids][:, None, :].to(self.dtype)
+        if self.mesh_runtime is not None:
+            return self.mesh_runtime.kv_step(token_ids, cache), bump_length(cache, 1), pos_state
+        embeds = decoder.embed(token_ids)[:, None, :].to(self.dtype)
         positions = torch.full((token_ids.shape[0], 1), cache.length, device=token_ids.device)
         logits, cache = decoder(embeds, positions, cache, self._rope)
         return logits, bump_length(cache, 1), pos_state
@@ -520,17 +621,18 @@ class DeepseekOcrEngine:
                                                       vision)
         prompt_len = len(tokens)
 
-        def build_embeds(context, s_pad):
-            return self._row_embeds(context, image_mask, embeddings, s_pad)
-
         if not params.use_cache:
-            return self._decode_without_cache(tokenizer, tokens, build_embeds, params, stream)
+            return self._decode_without_cache(tokenizer, tokens, image_mask, embeddings, params, stream)
         s_pad = round_up(prompt_len, 128)
         max_new = clamp_new_tokens(s_pad, params.max_new_tokens, self.max_seq_len)
         max_len = min(self.max_seq_len, round_up(s_pad + max_new + 8, 128))
         t0 = time.perf_counter()
-        logits, cache = self._prefill(build_embeds(tokens, s_pad)[None], self.new_kv_cache(1, max_len),
-                                      torch.tensor([prompt_len], device=self.device))
+        if self.mesh_runtime is not None:
+            logits, cache = self.mesh_runtime.prefill_kv(tokens, image_mask, embeddings, s_pad, max_len)
+        else:
+            logits, cache = self._prefill(self._embeds_rows([(tokens, image_mask, embeddings)], s_pad),
+                                          self.new_kv_cache(1, max_len),
+                                          torch.tensor([prompt_len], device=self.device))
         cache = bump_length(cache, prompt_len)
         t0 = self._stage("decode.prefill", t0, logits)
         eos = self.cfg.language.eos_token_id
@@ -555,7 +657,7 @@ class DeepseekOcrEngine:
             truncated=max_new < params.max_new_tokens,
         )
 
-    def _decode_without_cache(self, tokenizer, tokens, embeds_fn, params: DecodeParameters,
+    def _decode_without_cache(self, tokenizer, tokens, image_mask, embeddings, params: DecodeParameters,
                               stream) -> DecodeOutcome:
         """The debug path: recompute the whole prefix every step, the
         selection on the host (the reference's generate_without_cache)."""
@@ -564,7 +666,7 @@ class DeepseekOcrEngine:
         rng = np.random.default_rng(params.seed or 0)
         eos = self.cfg.language.eos_token_id
         for _ in range(params.max_new_tokens):
-            pre = self._prefill_single(context, embeds_fn(context, round_up(len(context), 128)))
+            pre = self._prefill_rows([(context, image_mask, embeddings)])[0]
             current = select_token_id_host(pre["logits"].float().cpu().numpy(), params, context, rng)
             if eos is not None and current == eos:
                 break

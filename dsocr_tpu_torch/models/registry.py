@@ -9,18 +9,25 @@ a ``.dsq`` snapshot overriding the linears it holds, or seeded random
 weights without a checkpoint. A quantized snapshot serves packed in its
 own format unless ``quantize`` names another (``_snapshot_quant_method``:
 the header's default dtype); GLM-OCR serves float only and takes no
-``quantize``, as the reference's branch passes none. Meshes are not
-ported yet and raise.
+``quantize``, as the reference's branch passes none.
+
+``mesh="dp=N,mp=M[,ep]"`` (parse_mesh_spec) serves DeepSeek-OCR (v1 or
+OCR2) over dp × mp rank processes: this process is rank 0 and spawns the
+followers, each of which loads the same files itself (``state_fn``).
+PaddleOCR-VL, DotsOCR and GLM-OCR under a mesh raise: their dp meshes
+wait for ROADMAP Queue 1 #6.
 """
 
 from __future__ import annotations
 
+import functools
 import pathlib
 from typing import Optional
 
 import torch
 
 from ..core.engine import ModelKind
+from ..parallel.mesh import parse_mesh_spec
 
 _DTYPES = {
     "bfloat16": torch.bfloat16,
@@ -54,6 +61,21 @@ def _snapshot_quant_method(snapshot_path) -> Optional[str]:
         reader.close()
 
 
+def check_mesh(kind: ModelKind, mesh, ep: bool = False):
+    """The Mesh that `mesh` (a spec, a Mesh or None) and `ep` ask for;
+    raises for a family that cannot serve under one."""
+    mesh = parse_mesh_spec(mesh)
+    if ep:
+        if mesh is None:
+            raise ValueError("ep (expert parallelism) needs a mesh")
+        mesh = parse_mesh_spec(f"dp={mesh.dp},mp={mesh.mp},ep")
+    if mesh is not None and kind is not ModelKind.DEEPSEEK:
+        raise NotImplementedError(
+            f"{kind.value} under a mesh waits for ROADMAP Queue 1 #6 (its dp mesh: slot-cache "
+            "shardings and quant_partition's row-sharded packed matmuls); DeepSeek-OCR serves under one")
+    return mesh
+
+
 def load_engine(
     kind: ModelKind,
     config_path=None,
@@ -68,8 +90,7 @@ def load_engine(
     device=None,
 ):
     tdtype = resolve_dtype(dtype)
-    if mesh is not None or ep:
-        raise NotImplementedError("meshes and expert parallelism wait for ROADMAP Queue 1 #6")
+    mesh = check_mesh(kind, mesh, ep)
     from ..core.device import select_device
 
     device = select_device(device)
@@ -109,9 +130,18 @@ def load_engine(
     from .deepseek.loader import load_deepseek_params
 
     cfg = DeepseekOcrConfig.from_json(config_path) if config_path else DeepseekOcrConfig()
-    state = None
-    if weights_path:
+    state = state_fn = None
+    if weights_path and mesh is not None:  # every rank reads the files itself
+        state_fn = functools.partial(_deepseek_state, weights_path, cfg, tdtype, snapshot_path)
+    elif weights_path:
         state = load_deepseek_params(weights_path, cfg, dtype=tdtype, snapshot_path=snapshot_path,
                                      device=device)
     return DeepseekOcrEngine(cfg, dtype=tdtype, device=device, max_seq_len=max_seq_len,
-                             kv_quant=kv_quant, state=state, quantize=quantize)
+                             kv_quant=kv_quant, state=state, quantize=quantize, mesh=mesh,
+                             state_fn=state_fn)
+
+
+def _deepseek_state(weights_path, cfg, dtype, snapshot_path, device):
+    from .deepseek.loader import load_deepseek_params
+
+    return load_deepseek_params(weights_path, cfg, dtype=dtype, snapshot_path=snapshot_path, device=device)

@@ -1,0 +1,35 @@
+"""Meshes on torch.distributed (dsocr_tpu/parallel): a ("dp", "mp") grid
+of rank processes, one per shard. ``mesh`` holds the grid and the
+sharding rules, ``comm`` the collectives, ``launch`` the rank processes
+and ``runtime`` the machinery by which rank 0 serves and the followers
+mirror its sharded device work (models/deepseek/mesh.py's operations)."""
+
+from .mesh import (
+    Mesh,
+    cache_sharding,
+    deepseek_param_shardings,
+    make_mesh,
+    parse_mesh_spec,
+    pool_scale_sharding,
+    pool_sharding,
+    row_cache_sharding,
+    scale_sharding,
+    shard_tensor,
+    slot_cache_sharding,
+    slot_scale_sharding,
+)
+
+__all__ = [
+    "Mesh",
+    "cache_sharding",
+    "deepseek_param_shardings",
+    "make_mesh",
+    "parse_mesh_spec",
+    "pool_scale_sharding",
+    "pool_sharding",
+    "row_cache_sharding",
+    "scale_sharding",
+    "shard_tensor",
+    "slot_cache_sharding",
+    "slot_scale_sharding",
+]

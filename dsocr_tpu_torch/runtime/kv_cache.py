@@ -29,6 +29,7 @@ class KVCache(NamedTuple):
     length: int  # number of valid positions
     k_scale: Optional[torch.Tensor] = None  # [L, B, H_kv, S_max] f32 (slot steps only)
     v_scale: Optional[torch.Tensor] = None
+    mesh_id: Optional[int] = None  # under a mesh: the followers' id of their shards
 
     @property
     def max_len(self) -> int:

@@ -4,7 +4,9 @@
 
 config.toml (created with the defaults when missing) → AppState → the
 routes on server/http.py. The reference's flags, and ``--device`` (cuda,
-the default, or cpu). The model loads at its first request. One line is
+the default, or cpu). ``--mesh dp=N,mp=M[,ep]`` serves DeepSeek-OCR over
+dp × mp rank processes: this process is rank 0 and serves; each model
+load spawns the followers and a swap stops them (server/state.py). The model loads at its first request. One line is
 logged once the server listens; SIGTERM or SIGINT stops it cleanly.
 """
 
@@ -47,20 +49,19 @@ async def serve(state, host: str, port: int, stop: asyncio.Event = None) -> None
         await stop.wait()
     finally:
         await server.close()
+        await state.unload()  # a mesh engine's followers stop with it
         logger.info("stopped")
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    from ..core.engine import ModelKind
     from ..core.runtime_device import apply_device_selection
-    from ..models.registry import load_engine
+    from ..parallel.mesh import parse_mesh_spec
     from ..utils.logging import init_logging
     from .state import AppState
 
     init_logging()
-    if args.mesh:
-        load_engine(ModelKind.DEEPSEEK, mesh=args.mesh)  # raises: meshes are not ported
+    mesh = parse_mesh_spec(args.mesh)  # a malformed spec fails before the server starts
     path = pathlib.Path(args.config) if args.config else VirtualFileSystem().config_file()
     config = AppConfig.load_or_init(path)
     if args.model:
@@ -69,6 +70,6 @@ def main(argv=None) -> int:
     port = args.port if args.port is not None else config.server.port
     device = apply_device_selection(args.device or config.inference.device)
     state = AppState(config, max_seq_len=args.max_seq_len, kv_quant=args.kv_quant,
-                     prefix_cache=args.prefix_cache, device=device)
+                     prefix_cache=args.prefix_cache, device=device, mesh=mesh)
     asyncio.run(serve(state, host, port))
     return 0

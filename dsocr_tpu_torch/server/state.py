@@ -14,6 +14,12 @@ drops its runner and slot cache) and drops every reference to the old
 engine, then frees the card's cached blocks, before the factory builds
 the new engine: two full-width engines do not fit one card's budget side
 by side. The reference replaced its engine after loading the new one.
+Under a mesh (``mesh``: models/registry.py's load_engine) the old
+engine's rank processes stop at the swap (``engine.close``) and the new
+engine spawns its own. A failed call tears a mesh's ranks down
+(parallel/runtime.py): the requests it held fail, and the next request
+finds the engine no longer ``alive`` and loads the model anew, with new
+ranks.
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ import torch
 from ..config import AppConfig, VirtualFileSystem, prepare_model_paths
 from ..config.app import InferenceSettings
 from ..core.engine import ModelKind
-from ..models.registry import load_engine
+from ..models.registry import check_mesh, load_engine
 from ..utils.tokenizer import load_tokenizer
 from .messages import ApiError
 from .scheduler import ContinuousScheduler
@@ -78,6 +84,7 @@ class AppState:
 
     def _default_factory(self, model_id: str) -> LoadedModel:
         entry = self.config.models.entries[model_id]
+        check_mesh(entry.kind, self.mesh)
         paths = prepare_model_paths(self.config, model_id, vfs=self.vfs)
         engine = load_engine(entry.kind, config_path=paths.config, weights_path=paths.weights,
                              snapshot_path=paths.snapshot, dtype=self.model_settings(model_id).precision,
@@ -86,11 +93,19 @@ class AppState:
         return LoadedModel(model_id=model_id, engine=engine, tokenizer=load_tokenizer(paths.tokenizer),
                            kind=entry.kind)
 
+    async def unload(self) -> None:
+        """Drop the resident model (at shutdown)."""
+        async with self._lock:
+            await self._unload()
+
     async def _unload(self) -> None:
         """Stop the old scheduler and drop the old engine (the docstring)."""
         if self._scheduler is not None:
             await self._scheduler.close()
+        close = getattr(self._loaded.engine, "close", None) if self._loaded is not None else None
         self._scheduler = self._loaded = None
+        if close is not None:  # a mesh engine's followers
+            close()
         gc.collect()
         if torch.cuda.is_available():
             torch.cuda.empty_cache()
@@ -98,6 +113,9 @@ class AppState:
     async def ensure_model_loaded(self, model_id: str) -> LoadedModel:
         self.validate_model(model_id)
         async with self._lock:
+            if self._loaded is not None and not getattr(self._loaded.engine, "alive", True):
+                logger.warning("model %s lost its mesh ranks; loading it anew", self._loaded.model_id)
+                await self._unload()
             if self._loaded is None or self._loaded.model_id != model_id:
                 if self._loaded is not None:
                     logger.info("swapping model %s -> %s", self._loaded.model_id, model_id)

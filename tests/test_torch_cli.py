@@ -115,8 +115,9 @@ def test_tpu_device_and_mesh_raise(env, tmp_path):
     argv = ["--config", str(config), "--prompt", "<image>", "--image", str(env / "page.png"), "--quiet"]
     with pytest.raises(ValueError, match=r"'tpu'; expected one of \['cuda', 'cpu'\]"):
         main(argv)
-    with pytest.raises(NotImplementedError, match="Queue 1 #6"):
-        main(ARGS + ["--prompt", "<image>", "--image", str(env / "page.png"), "--mesh", "dp=1,mp=4"])
+    with pytest.raises(NotImplementedError, match="Queue 1 #6"):  # DeepSeek's mesh: test_torch_mesh_launch.py
+        main(ARGS[:1] + ["paddleocr-vl"] + ARGS[2:] + ["--prompt", "<image>", "--image", str(env / "page.png"),
+                                                       "--mesh", "dp=1,mp=4"])
 
 
 def test_module_entry_points_help():

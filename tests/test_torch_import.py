@@ -82,6 +82,7 @@ SLICE_MODULES = [
     "dsocr_tpu_torch.models.deepseek.quantize",
     "dsocr_tpu_torch.models.deepseek.loader",
     "dsocr_tpu_torch.models.deepseek.ocr2",
+    "dsocr_tpu_torch.models.deepseek.mesh",
     "dsocr_tpu_torch.models.paddleocr",
     "dsocr_tpu_torch.models.paddleocr.config",
     "dsocr_tpu_torch.models.paddleocr.vision",
@@ -106,6 +107,11 @@ SLICE_MODULES = [
     "dsocr_tpu_torch.models.glm.engine",
     "dsocr_tpu_torch.models.glm.loader",
     "dsocr_tpu_torch.models.glm.convert",
+    "dsocr_tpu_torch.parallel",
+    "dsocr_tpu_torch.parallel.mesh",
+    "dsocr_tpu_torch.parallel.comm",
+    "dsocr_tpu_torch.parallel.launch",
+    "dsocr_tpu_torch.parallel.runtime",
     "dsocr_tpu_torch.runtime",
     "dsocr_tpu_torch.runtime.kv_cache",
     "dsocr_tpu_torch.runtime.generate",
@@ -146,6 +152,46 @@ def test_port_imports_no_jax_nor_heavy_deps():
     )
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_mesh_ranks_import_no_jax_nor_heavy_deps(tmp_path):
+    """A two-rank mesh serves a tiny engine with jax, the reference and
+    every package the card's machine lacks made unimportable in rank 0
+    and in the spawned follower (which starts from rank 0's sys.path,
+    here led by stand-ins that raise when imported), and answers as the
+    single-process engine."""
+    poison = tmp_path / "poison"
+    for name in FORBIDDEN + ["dsocr_tpu"]:
+        (poison / name).mkdir(parents=True)
+        (poison / name / "__init__.py").write_text(f"raise ImportError('{name} imported by a mesh rank')\n")
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {str(poison)!r})\n"
+        "import numpy as np, torch\n"
+        "from dsocr_tpu_torch.core import DecodeParameters, VisionSettings\n"
+        "from dsocr_tpu_torch.models.deepseek import DeepseekOcrEngine, tiny_deepseek_config\n"
+        "class Tok:\n"
+        "    def encode(self, t): return [ord(c) % 100 for c in t]\n"
+        "    def decode(self, ids, skip_special_tokens=True): return ' '.join(map(str, ids))\n"
+        "    def token_to_id(self, t): return 127 if t == '<image>' else None\n"
+        "if __name__ == '__main__':\n"
+        "    img = np.random.default_rng(0).integers(0, 256, (60, 60, 3), dtype=np.uint8)\n"
+        "    args = (Tok(), '<image>x', [img], VisionSettings(64, 64, False),\n"
+        "            DecodeParameters(max_new_tokens=4, no_repeat_ngram_size=None))\n"
+        "    kw = dict(dtype=torch.float32, device='cpu', max_seq_len=512, seed=3)\n"
+        "    one = DeepseekOcrEngine(tiny_deepseek_config(), **kw).decode(*args)\n"
+        "    mesh = DeepseekOcrEngine(tiny_deepseek_config(), mesh='dp=1,mp=2', **kw)\n"
+        "    got = mesh.decode(*args)\n"
+        "    mesh.close()\n"
+        "    assert got.generated_tokens == one.generated_tokens, (got, one)\n"
+        f"    print(sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN + ['dsocr_tpu']!r}))\n"
+    )
+    script = tmp_path / "mesh_ranks.py"
+    script.write_text(code)
+    out = subprocess.run([sys.executable, str(script)], capture_output=True, text=True, cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO), timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
 def _port_files():

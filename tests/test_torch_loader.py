@@ -20,7 +20,7 @@ made by the reference's exporter.
   against the port's packing of the floats the snapshot stands for) holds
   here, and so does its checkpoint writer against the reference's reader.
 - The registry: resolve_dtype, the snapshot's default method, the families
-  and meshes not ported raising; config.json parsing equals the
+  and meshes raising for the families that wait for one; config.json parsing equals the
   reference's, OCR2 included (OCR2 and PaddleOCR-VL loading:
   tests/test_torch_ocr2.py, tests/test_torch_paddle.py).
 """
@@ -262,13 +262,13 @@ def test_registry(files, tmp_path):
         assert registry._snapshot_quant_method(path) == jax_registry._snapshot_quant_method(path)
     assert {registry._snapshot_quant_method(p) for p in snaps.values()} == {"q8_0", "q4_k", "q6_k"}
     assert registry._snapshot_quant_method(None) is None
-    for kind in (ModelKind.DOTS_OCR, ModelKind.GLM_OCR):  # ported; their meshes wait like DeepSeek's
+    for kind in (ModelKind.DOTS_OCR, ModelKind.GLM_OCR):  # ported; their meshes wait for Queue 1 #6
         with pytest.raises(NotImplementedError, match="Queue 1 #6"):
             registry.load_engine(kind, mesh="dp=1,mp=2", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 #6"):
-        registry.load_engine(ModelKind.DEEPSEEK, mesh="dp=1,mp=2", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 #6"):
+    with pytest.raises(ValueError, match="needs a mesh"):  # DeepSeek serves under one (test_torch_mesh*.py)
         registry.load_engine(ModelKind.DEEPSEEK, ep=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="expert-parallel only"):  # packed serving needs ep
+        registry.load_engine(ModelKind.DEEPSEEK, mesh="dp=1,mp=2", quantize="q8_0", device="cpu")
     if not torch.cuda.is_available():  # the card unless the caller names the CPU
         with pytest.raises(RuntimeError, match="no CUDA GPU"):
             registry.load_engine(ModelKind.DEEPSEEK, weights_path=files["tiny"][2])
