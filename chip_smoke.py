@@ -66,11 +66,16 @@ non-zero (nothing is caught):
             (library time SDPA with enable_gqa), and slot_kv_write and
             slot_decode_attention on each family's cache (L 18, 28 and 24,
             B 16, S_max 4096, 4096 and 8192, bf16 and int8, lengths 0 and
-            S − 1 among them), two launches bit-equal; the three row
-            formats at DotsOCR's packed shapes (check_dots_rows,
+            S − 1 among them), two launches bit-equal; the same at a
+            mesh rank's heads (MESH_GROUPED_HEADS: 8 over 1, 6 over 1, 8
+            over 4; a 4-row wave, 4 slots); the three row
+            formats at DotsOCR's packed shapes (check_rows,
             DOTS_ROW_CASES: qkv 1536 → 2048, gate/up 1536 → 17920, down
             8960 → 1536 with an odd count of K-quant super-blocks, the
-            untied lm_head 1536 → 151936, at N 1, 16 and 1024);
+            untied lm_head 1536 → 151936, at N 1, 16 and 1024) and
+            q8_matmul at PaddleOCR-VL's four (PADDLE_ROW_CASES: 1024 →
+            2560, 2048 → 1024, 1024 → 6144, 3072 → 1024 at N 2 and 4, a
+            dp rank's rows and the whole step's);
     host_prep  host image prep of the seeded page (below) on the card's
             host: engine.prepare_vision_input with the native resampler and
             with its NumPy twin, the global view and every tile bit-equal,
@@ -129,12 +134,12 @@ non-zero (nothing is caught):
             ~6.7 GB in the ignored dsocr_tpu_torch/_build/weights/; the
             phase needs WEIGHTS_DISK free and fails without it), loaded
             through load_engine (bf16, int8 KV): every tensor, the page's
-            prefill logits and engine.decode's 32 greedy tokens equal to
+            prefill logits and engine.decode's 16 greedy tokens equal to
             the seeded engine's; then a Q8_0 and a Q6_K snapshot exported
             on the card by `dsq export`, each loaded through load_engine
             in its header's format: every packed tensor equal to the
             port's packing, on the card, of the floats it stands for
-            (snapshot_floats); the Q6_K engine serves an 8 × 128 burst
+            (snapshot_floats); the Q6_K engine serves a 4 × 64 burst
             (`serve_q6k_snapshot`: the row matmul and the dense sweep must
             launch) and its profile; bytes and seconds of each write,
             export and load, free disk, peak host RSS and device GiB;
@@ -210,7 +215,7 @@ families  after 4g: DeepSeek-OCR2 and PaddleOCR-VL (families_phase).
             OCR2 at full width (ocr2_config: SAM with 896 output channels,
             the 24-layer Qwen2 encoder, the DeepSeek-V2 decoder), seeded,
             through load_engine on its config.json: the encoder's and
-            SAM's device ms a page, then 4 requests × 64 tokens over 4
+            SAM's device ms a page, then 4 requests × 32 tokens over 4
             slots of the page in 1024/768 crop mode (int8 KV):
             sam_flash_attention, flash_prefill_attention, slot_kv_write and
             slot_decode_attention must launch. OCR2 from files: the
@@ -224,7 +229,7 @@ families  after 4g: DeepSeek-OCR2 and PaddleOCR-VL (families_phase).
             the seeded state with its tower cast to f32, as the loader
             makes of the file; the page smart-resized to max_pixels (94 ×
             152 patches, 3,572 image tokens): the tower's ms a page, then
-            4 pages × 64 tokens over 4 slots, and again from its Q8_0
+            4 pages × 32 tokens over 4 slots, and again from its Q8_0
             snapshot through the Paddle adapter (q8_matmul must launch).
             Then the server with a config.toml naming both families' files
             and synthetic tokenizer.jsons (DeepSeek-shaped for OCR2, a
@@ -242,7 +247,7 @@ families2  after families: DotsOCR and GLM-OCR (families2_phase), each
             checkpoint holds), the seeded page at its pixel budget (Dots
             ~14,400 patches, 3,600 image tokens; GLM ~24,576 patches over
             two temporal frames, 6,144 image tokens): the tower's device ms
-            a page, then 4 pages × 64 tokens over 4 slots (int8 KV, GLM's
+            a page, then 4 pages × 32 tokens over 4 slots (int8 KV, GLM's
             rows 8192 positions) after a one-request warm-up; Dots again
             with Q8_0 weights (q8_matmul must launch). Dots from files:
             the bf16 engine's checkpoint (the tower in bf16, ~5.5 GB in
@@ -260,6 +265,25 @@ families2  after families: DotsOCR and GLM-OCR (families2_phase), each
             the CLI on each against engine.decode. Every burst line gives
             pages/s, TTFT p50, the tower's ms a page, peak device memory
             and launches; the files lines their bytes and seconds;
+            (h) of mesh_dense: a second server under --mesh dp=1,mp=2
+            answers a 32-token dots-ocr request (MESH_SERVER_TEXT) with
+            the in-process text, every top-2 margin of that answer's
+            steps above MESH_LOGIT_TOL;
+mesh      after 4h: DeepSeek-OCR v1 over two ranks sharing the card
+            (mesh_phase: bf16 tensor-parallel with int8 KV, the same paged,
+            Q8_0 expert-parallel), each burst against the single-process
+            engine's (mesh_reference); the server under --mesh runs in
+            frontends;
+mesh_dense  after families2: PaddleOCR-VL, DotsOCR and GLM-OCR over two
+            ranks sharing the card, one rank set (mesh_dense_phase,
+            MESH_DENSE): (e) Paddle Q8_0 at dp=2 (slot rows over dp), (f)
+            Dots Q8_0 and (g) GLM bf16 at mp=2 (KV heads over mp), 4 × 32
+            over 4 slots, int8 KV, each held to the single-process burst
+            on the same seeded weights taken in families (e) and families2
+            (f, g) (mesh_reference: every top-2 margin above
+            MESH_LOGIT_TOL); each case's line gives each rank's launches a
+            step and a burst, collectives a step, peak MiB, slot-cache
+            share, host ms a step, init_s and the least margin;
 5. parity   the tiny config in f32 with one set of weights, served on the
             card (kernels) and on the CPU (twins): greedy tokens must match;
             again with Q8_0 weights (moe_intermediate_size 32), and with
@@ -289,8 +313,8 @@ outside the bursts' windows each phase reuses it.
 Then a line with the script's total seconds, a {"kernels": [...]} summary
 line (launches: the sum over the ten serving bursts, the sched phase, the
 split phase, the two decode phases, the frontends phase's in-process
-runs and the families and families2 phases' bursts and in-process
-runs), the nvidia-smi
+runs, the families and families2 phases' bursts and in-process
+runs, and rank 0's in the mesh and mesh_dense bursts), the nvidia-smi
 line, and last
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
 dsocr_tpu_torch package beside this file, it exits non-zero and prints
@@ -322,6 +346,7 @@ N_SLOTS = 16
 # slots (the step still runs 16 rows, so the dense expert tier), cut from
 # 16 for the time of the families2 phase
 CUT_REQUESTS = 8
+SNAPSHOT_BURST = (4, 64)  # serve_q6k_snapshot's requests × tokens (8 × 128 before the mesh_dense phase)
 CHUNK = 128
 # serve_spec's depth: half of phase 4's tokens, chunks a quarter of them
 SPEC_MAX_NEW = 64
@@ -926,7 +951,9 @@ def check_kernels(torch, K):
                                    f"lengths {int(lengths.min())}-{int(lengths.max())}")
             del caches
     check_grouped_heads(torch, K, record, randn, gen)
-    check_dots_rows(torch, K, record, randn)
+    check_grouped_heads(torch, K, record, randn, gen, cases=MESH_GROUPED_HEADS, B=4, label="mesh rank")
+    check_rows(torch, K, record, randn)
+    check_rows(torch, K, record, randn, "paddle", PADDLE_ROW_CASES, methods=("q8_0",))
     check_gather_matmul(torch, K, record, randn, gen)
     check_paged_kernels(torch, K, record, randn, gen)
     check_q8_kernels(torch, K, record, randn)
@@ -959,21 +986,32 @@ GROUPED_HEADS = (
 )
 
 
-def check_grouped_heads(torch, K, record, randn, gen):
+# a mesh rank's heads in the mesh_dense phase (dp=1, mp=2): PaddleOCR-VL's
+# 16 over 2 as 8 over 1, DotsOCR's 12 over 2 as 6 over 1, GLM-OCR's 16 over
+# 8 as 8 over 4; the 4-row prefill wave of a burst (no pads) and the step
+# of its 4 slots
+MESH_GROUPED_HEADS = (
+    ("paddle", 8, 1, 18, 4096, ((4, [0, 0, 0, 0], 3700),)),
+    ("dots", 6, 1, 28, 4096, ((4, [0, 0, 0, 0], 3700),)),
+    ("glm", 8, 4, 24, 8192, ((4, [0, 0, 0, 0], 6200),)),
+)
+
+
+def check_grouped_heads(torch, K, record, randn, gen, cases=GROUPED_HEADS, B=16, label="grouped"):
     """The attention kernels at the grouped heads of the new families
-    (GROUPED_HEADS, D 128, bf16): flash_prefill_attention at a page's
-    prompt, one row and four with left pads; then slot_kv_write and
-    slot_decode_attention on the family's slot cache (L layers, B 16, bf16
-    and int8, lengths 0 and S − 1 among them). Each against its twin, two
-    launches bit-equal, library time SDPA with enable_gqa (none for the
-    int8 attend or the writes). The twin and SDPA (an [S, S] mask) are
-    timed over 2 × 2 calls."""
+    (`cases`: GROUPED_HEADS, or a mesh rank's MESH_GROUPED_HEADS; D 128,
+    bf16): flash_prefill_attention at a page's prompt, one row and four
+    with left pads; then slot_kv_write and slot_decode_attention on the
+    family's slot cache (L layers, B rows, bf16 and int8, lengths 0 and S −
+    1 among them). Each against its twin, two launches bit-equal, library
+    time SDPA with enable_gqa (none for the int8 attend or the writes). The
+    twin and SDPA (an [S, S] mask) are timed over 2 × 2 calls."""
     import torch.nn.functional as F
 
     dev = "cuda"
     D = 128
     scale = D ** -0.5
-    for family, H, HKV, L, S, prefills in GROUPED_HEADS:
+    for family, H, HKV, L, S, prefills in cases:
         for b, pads, s in prefills:
             q = randn(b, H, s, D, dtype=torch.bfloat16)
             k, v = (randn(b, HKV, s, D, dtype=torch.bfloat16) for _ in range(2))
@@ -988,9 +1026,9 @@ def check_grouped_heads(torch, K, record, randn, gen):
             mask = (pos[None, None, :, None] >= pos[None, None, None, :]) & (
                 pos[None, None, None, :] >= pad[:, None, None, None])
             keys = sum(p * s + (s - p) * (s - p + 1) // 2 for p in pads)
-            label = f"pad_start={pads}" if any(pads) else "no pads"
+            pads_label = f"pad_start={pads}" if any(pads) else "no pads"
             slow = dict(reps=2, batches=2)  # the twin's [S, S] f32 scores and SDPA's mask: seconds a case
-            record("flash_prefill_attention", f"grouped {family} H={H}/{HKV} B={b} S={s} {label}", err, tol,
+            record("flash_prefill_attention", f"{label} {family} H={H}/{HKV} B={b} S={s} {pads_label}", err, tol,
                    time_ms(lambda: K.flash_prefill_attention(q, k, v, pad, scale=scale)),
                    time_ms(lambda: K.flash_prefill_attention_plain(q, k, v, pad, scale=scale), **slow),
                    time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale,
@@ -998,7 +1036,6 @@ def check_grouped_heads(torch, K, record, randn, gen):
                    bound(nbytes(q, k, v, pad, out), 4 * H * D * keys, "bf16"), deterministic=True)
             del mask, q, k, v, out
             torch.cuda.empty_cache()
-        B = 16
         lengths = torch.randint(0, S, (B,), generator=gen, device=dev, dtype=torch.int32)
         lengths[0], lengths[1] = 0, S - 1
         layer = L // 2 - 2
@@ -1012,7 +1049,7 @@ def check_grouped_heads(torch, K, record, randn, gen):
                 caches = tuple(randn(L, B, HKV, S, D, dtype=torch.bfloat16) for _ in range(2)) + (None, None)
             check_slot_attend(torch, K, record, randn, q=randn(B, H, 1, D, dtype=torch.bfloat16), caches=caches,
                               layer=layer, lengths=lengths,
-                              case=f"grouped {family} NH={H}/{HKV} {'int8' if quant else 'bf16'} L={L} B={B} "
+                              case=f"{label} {family} NH={H}/{HKV} {'int8' if quant else 'bf16'} L={L} B={B} "
                                    f"S={S}")
             del caches
         torch.cuda.empty_cache()
@@ -1026,17 +1063,25 @@ DOTS_ROW_CASES = tuple((case, n, k, m) for case, k, m in (("qkv", 1536, 2048), (
                        for n in (1, 16, 1024))
 
 
-def check_dots_rows(torch, K, record, randn):
-    """q8_matmul, q4k_matmul and q6k_matmul at DOTS_ROW_CASES against their
-    twins (tolerance q8_tol), two launches bit-equal, library time
-    torch.matmul on the dequantized bf16 weight."""
+# PaddleOCR-VL's packed decoder under the mesh_dense phase's dp=2: q8_matmul
+# on a rank's 2 of 4 slot rows, and on 4 (a replicated row, or dp 1)
+PADDLE_ROW_CASES = tuple((case, n, k, m) for case, k, m in (("qkv", 1024, 2560), ("o", 2048, 1024),
+                                                            ("gateup", 1024, 6144), ("down", 3072, 1024))
+                         for n in (2, 4))
+
+
+def check_rows(torch, K, record, randn, family="dots", cases=DOTS_ROW_CASES, methods=("q8_0", "q4_k", "q6_k")):
+    """q8_matmul, q4k_matmul and q6k_matmul (`methods`) at a family's row
+    cases (case, N, K, M) against their twins (tolerance q8_tol), two
+    launches bit-equal, library time torch.matmul on the dequantized bf16
+    weight."""
     from dsocr_tpu_torch.dsq.serve_quant import quantize_plain
     from dsocr_tpu_torch.ops.kernels import kquant_matmul
 
-    for method in ("q8_0", "q4_k", "q6_k"):
+    for method in methods:
         fmt = {"q8_0": "q8", "q4_k": "q4k", "q6_k": "q6k"}[method]
         matmul, plain = getattr(K, f"{fmt}_matmul"), getattr(K, f"{fmt}_matmul_plain")
-        for case, n, k, m in DOTS_ROW_CASES:
+        for case, n, k, m in cases:
             p = quantize_plain(randn(k, m, dtype=torch.bfloat16, std=k ** -0.5), method)
             if method == "q8_0":
                 packed = (p["codes"], p["scales"])
@@ -1048,12 +1093,12 @@ def check_dots_rows(torch, K, record, randn):
             x = randn(n, k, dtype=torch.bfloat16)
             out = matmul(x, *packed)
             require(torch.equal(out, matmul(x, *packed)),
-                    f"{fmt}_matmul dots {case} N={n}: two launches on the same inputs differ")
+                    f"{fmt}_matmul {family} {case} N={n}: two launches on the same inputs differ")
             err = float((out - plain(x, *packed)).abs().max())
             tol = q8_tol(torch.matmul(x.float().abs(), w.abs().t()))
             wt = w.to(torch.bfloat16).t()
             del w
-            record(f"{fmt}_matmul", f"dots {case} N={n} K={k} M={m}", err, tol,
+            record(f"{fmt}_matmul", f"{family} {case} N={n} K={k} M={m}", err, tol,
                    time_ms(lambda: matmul(x, *packed)), time_ms(lambda: plain(x, *packed), reps=3),
                    time_ms(lambda: torch.matmul(x, wt)),
                    bound(nbytes(x, out, *packed), 2 * n * k * m, "bf16"), deterministic=True)
@@ -1848,7 +1893,7 @@ def weights_phase(torch, K, engine, required, unused, then=None):
     Q8_0 and a Q6_K snapshot on the card, each loaded through load_engine
     in the header's format: every packed tensor must equal the port's own
     packing, on the card, of the floats it stands for (snapshot_floats);
-    the Q6_K engine then serves an 8 × 128 burst (its serving line and
+    the Q6_K engine then serves a SNAPSHOT_BURST burst (its serving line and
     profile; the kernels in `required` must launch, none in `unused`). The line gives
     the bytes and seconds of each write, export and load, the free disk
     before the phase, peak host RSS and peak device GiB. The files live in
@@ -1895,7 +1940,7 @@ def weights_phase(torch, K, engine, required, unused, then=None):
         ckpt["prefill_logits_equal"] = torch.equal(*(prefill_logits(e) for e in (engine, loaded)))
         image, vision = seeded_page()
         decoded = [e.decode(BenchTokenizer(), PROMPT, [image], vision,
-                            DecodeParameters(max_new_tokens=32)).generated_tokens for e in (engine, loaded)]
+                            DecodeParameters(max_new_tokens=16)).generated_tokens for e in (engine, loaded)]
         ckpt.update(decode_tokens=len(decoded[1]), decode_tokens_equal=decoded[0] == decoded[1])
         failures += [] if not differ else ["the loaded checkpoint's tensors differ"]
         failures += [] if ckpt["prefill_logits_equal"] else ["the loaded checkpoint's prefill logits differ"]
@@ -1924,8 +1969,8 @@ def weights_phase(torch, K, engine, required, unused, then=None):
             del expected, got
             reader.close()
             if method == "q6_k" and not failures:
-                launches = serving_phase(torch, K, "serve_q6k_snapshot", loaded, n_requests=CUT_REQUESTS,
-                                         n_slots=N_SLOTS, max_new=MAX_NEW, required=required, unused=unused,
+                launches = serving_phase(torch, K, "serve_q6k_snapshot", loaded, n_requests=SNAPSHOT_BURST[0],
+                                         n_slots=N_SLOTS, max_new=SNAPSHOT_BURST[1], required=required, unused=unused,
                                          warmup=False, profile=True)[0]
             del loaded
             gc.collect()
@@ -2521,7 +2566,7 @@ def frontends_phase(torch, K, index, config_path, q8_snapshot, required):
 
 
 FAMILY_REQUESTS = 4  # the families' bursts: 4 pages over 4 slots (8 before the DotsOCR/GLM-OCR phase)
-FAMILY_MAX_NEW = 64
+FAMILY_MAX_NEW = 32  # 64 before the mesh_dense phase
 PADDLE_IMAGE_SIZE = 0  # no clamp: the seeded page smart-resizes to max_pixels (94 × 152 patches)
 PADDLE_IMAGE_END_ID = 101305  # a stand-in <|IMAGE_END|> id beside the config's vision-start 101304
 FAMILY_ATTENTION = ["flash_prefill_attention", "slot_kv_write", "slot_decode_attention"]
@@ -2854,6 +2899,7 @@ def families_phase(torch, K, smi):
         del engine
         os.remove(q8)
         free_engines()
+        dense_mesh_reference(torch, "e")  # mesh_dense's case (e) on one process
 
         # 4. both families through the server and the CLI
         lang = cfg2.language
@@ -2977,6 +3023,7 @@ def families2_phase(torch, K, smi):
         family_profile(torch, "families2_dots_q8_profile", engine,
                        engine.prefill_for_slot(tok, PROMPT, [page], vision), 4096)
         want_q8 = decoded(engine)
+        mesh_reference(torch, engine, "f", *MESH_DENSE_BURST, page=dense_case_page(engine, "dots"))
         del engine
         free_engines()
 
@@ -3064,6 +3111,7 @@ def families2_phase(torch, K, smi):
         require(got == want, "families2: the GLM file engine's tokens differ from the seeded engine's")
         del engine
         free_engines()
+        dense_mesh_reference(torch, "g")  # mesh_dense's case (g) on one process
 
         # 5. both families through the server and the CLI
         bursts.append(family_frontends(torch, K, root, "families2_frontends", {
@@ -3072,7 +3120,7 @@ def families2_phase(torch, K, smi):
                                       VisionSettings(1024, 640, False), True),
             "glm-ocr": FrontendModel(ModelKind.GLM_OCR, glm_index, glm_config,
                                      lambda path: synthetic_tokenizer(path, glm_cfg.text.vocab_size, GLM_SPECIALS),
-                                     VisionSettings(336, 336, False), True)}, page))
+                                     VisionSettings(336, 336, False), True)}, page, mesh_model=MESH_SERVER_MODEL))
     finally:
         shutil.rmtree(root, ignore_errors=True)
         free_engines()
@@ -3093,14 +3141,18 @@ class FrontendModel(NamedTuple):
     cli: bool
 
 
-def family_frontends(torch, K, root, phase, models, page):
+def family_frontends(torch, K, root, phase, models, page, mesh_model=None):
     """The server with a config.toml naming `models` ({id: FrontendModel},
     files written by the calling phase) with their synthetic
     tokenizer.jsons and vision defaults, slot rows of FRONTEND_SLOT_SEQ
     positions: one greedy chat request to each id in order (each after the
     first a swap), its text and usage equal to the in-process scheduler's
     over load_engine of the same files, model_swaps_total counting the
-    loads; then the CLI on each id with `cli` set against engine.decode of
+    loads; then, for `mesh_model`, a second server under ``--mesh MESH``
+    answering a chat request of MESH_SERVER_TEXT for MESH_SERVER_NEW tokens
+    with the in-process (single-process) text and usage, every top-2
+    margin of that in-process answer's steps above MESH_LOGIT_TOL;
+    then the CLI on each id with `cli` set against engine.decode of
     the in-process engine its chat check loaded. The CLI runs start in
     their own processes beside the server, before its first request, so
     their seconds overlap it. → launch counts of the in-process runs."""
@@ -3202,7 +3254,7 @@ def family_frontends(torch, K, root, phase, models, page):
                   text_chars=len(want.text), swaps=swaps, launches={k: v for k, v in got_launches.items() if v})
             for name in FAMILY_ATTENTION:
                 require(got_launches[name] > 0, f"kernel {name} was not launched for {model} in-process")
-            if model in clis:
+            if model in clis or model == mesh_model:
                 kept[model] = (engine, tokenizer)
             del engine
             gc.collect()
@@ -3211,6 +3263,62 @@ def family_frontends(torch, K, root, phase, models, page):
         server.wait(60)
         check("server_stop", server.returncode == 0, returncode=server.returncode)
         server = None
+        if mesh_model is not None:  # (h) of the mesh_dense phase: the server under --mesh
+            # its request on the in-process engine, each step's top-2 margin kept
+            engine, tokenizer = kept[mesh_model]
+            margins, step = [], engine.slot_step_fn
+
+            def spy(decoder, token_ids, cache, pos):
+                logits = step(decoder, token_ids, cache, pos)
+                margins.append(top2_margin(torch, logits)[int(cache.lengths.argmax())])
+                return logits
+
+            engine.slot_step_fn = spy
+            try:
+                want_m = asyncio.run(ContinuousScheduler(engine, tokenizer, max_len=FRONTEND_SLOT_SEQ).submit(
+                    render_prompt("plain", "", "<image>\n" + MESH_SERVER_TEXT), [decoded], models[mesh_model].vision,
+                    DecodeParameters(max_new_tokens=MESH_SERVER_NEW)))
+            finally:
+                del engine.slot_step_fn
+            del engine
+            if mesh_model not in clis:
+                kept.pop(mesh_model)
+            log_path = os.path.join(tmp, "server_mesh.log")
+            mesh_port = free_port()
+            t0 = time.perf_counter()
+            with open(log_path, "w") as log:
+                server = subprocess.Popen([sys.executable, "-m", "dsocr_tpu_torch.server", "--config", toml, "--host",
+                                           "127.0.0.1", "--port", str(mesh_port), "--device", "cuda", "--mesh", MESH],
+                                          cwd=HERE, env=env, stdout=log, stderr=subprocess.STDOUT)
+            while True:
+                require(server.poll() is None, f"{phase}: the mesh server exited at start")
+                require(time.perf_counter() - t0 < SERVER_START_S, f"{phase}: the mesh server did not listen")
+                try:
+                    if http_call(mesh_port, "GET", "/v1/health", timeout=5)[0] == 200:
+                        break
+                except OSError:
+                    time.sleep(0.5)
+            start_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            status, _, text = http_call(mesh_port, "POST", "/v1/chat/completions",
+                                        chat_body(mesh_model, url, MESH_SERVER_NEW, text=MESH_SERVER_TEXT))
+            mesh_s = time.perf_counter() - t0
+            mesh_mib = gpu_memory_mib(server.pid)
+            server.send_signal(15)
+            server.wait(60)
+            stopped = server.returncode
+            server = None
+            reply = json.loads(text) if status == 200 else {}
+            got = reply.get("choices", [{}])[0].get("message", {}).get("content")
+            least, least_step = mesh_seed_margin(margins)
+            usage = {"prompt_tokens": want_m.prompt_tokens, "completion_tokens": want_m.response_tokens,
+                     "total_tokens": want_m.prompt_tokens + want_m.response_tokens}
+            check("mesh_server", status == 200 and stopped == 0 and got == want_m.text
+                  and reply.get("usage") == usage and least > MESH_LOGIT_TOL, model=mesh_model, status=status,
+                  mesh=MESH, error=None if status == 200 else text[:500], start_s=start_s, seconds_with_load=mesh_s,
+                  rank0_mib=mesh_mib[0], card_mib=mesh_mib[1], text_equal_single_process=got == want_m.text,
+                  usage=reply.get("usage"), in_process_usage=usage, min_top2_margin=least,
+                  min_margin_step=least_step + 1, logit_tol=MESH_LOGIT_TOL, stopped=stopped)
         for model, (cli, out_json, cli_log, started) in clis.items():
             returncode = cli.wait(REQUEST_S)
             cli_s = time.perf_counter() - started
@@ -4032,15 +4140,29 @@ MESH_DEADLINE_S = 600.0
 MESH_REFS = {}  # case → the single-process engine's tokens, margins and prefill logits
 
 
-def mesh_reference(torch, engine, case, n_requests, n_slots, max_new, paged=False):
-    """Case `case` of the mesh phase on the single-process `engine`: its
-    burst's tokens, the top-2 logit margin of every token (the first from
-    the page's packet, then each decode step's on its longest row) and
-    the page's prefill logits, kept in MESH_REFS."""
+def mesh_page(engine):
+    """A DeepSeek engine's side of a mesh case: (tokenizer, the page, its
+    vision settings, → the page's join packet)."""
+    image, vision, tokens, mask, emb = page_packet(engine)
+    return BenchTokenizer(), image, vision, lambda: engine._prefill_rows([(tokens, mask, [emb])])[0]
+
+
+def dense_page(engine, tokenizer, image, vision):
+    """A dense family's side of a mesh case (mesh_page): the page's packet
+    through the engine's towers and prefill."""
+    return tokenizer, image, vision, lambda: engine.prefill_for_slot(tokenizer, PROMPT, [image], vision)
+
+
+def mesh_reference(torch, engine, case, n_requests, n_slots, max_new, paged=False, page=None):
+    """Case `case` of a mesh phase on the single-process `engine` (`page`:
+    mesh_page's, the default, or dense_page's): its burst's tokens, the
+    top-2 logit margin of every token (the first from the page's packet,
+    then each decode step's on its longest row) and the page's prefill
+    logits, kept in MESH_REFS."""
     from dsocr_tpu_torch.core import DecodeParameters
 
-    image, vision, tokens, mask, emb = page_packet(engine)
-    pre = engine._prefill_rows([(tokens, mask, [emb])])[0]
+    tokenizer, image, vision, packet = page or mesh_page(engine)
+    pre = packet()
     margins = [top2_margin(torch, pre["logits"][None])[0]]
     step = engine.slot_step_fn
 
@@ -4052,9 +4174,9 @@ def mesh_reference(torch, engine, case, n_requests, n_slots, max_new, paged=Fals
     engine.slot_step_fn = engine.slot_step_fn_paged = spy
     try:
         with environ(DSOCR_PAGED_KV="1" if paged else "0"):
-            outs, _ = serve(engine, BenchTokenizer(), [image] * n_requests, vision,
+            outs, _ = serve(engine, tokenizer, [image] * n_requests, vision,
                             DecodeParameters(max_new_tokens=max_new), n_slots=n_slots,
-                            max_len=mesh_max_len(engine, tokens, max_new), chunk=CHUNK)
+                            max_len=mesh_max_len(engine, pre["prompt_ids"], max_new), chunk=CHUNK)
     finally:
         del engine.slot_step_fn, engine.slot_step_fn_paged
     MESH_REFS[case] = dict(tokens=[o.generated_tokens for o in outs], margins=margins,
@@ -4103,32 +4225,35 @@ def mesh_parity(ref, got):
     return fields, ok
 
 
-def mesh_burst(torch, phase, engine, case, n_requests, n_slots, max_new, required, unused=()):
-    """Case `case` on the mesh engine: the burst through ContinuousScheduler
-    with every rank's counters zeroed just before and read just after (each
-    kernel in `required` launched on every rank, none in `unused`), its
-    tokens against the single-process burst's (mesh_parity), the page's
-    prefill logits against the single-process ones within MESH_LOGIT_TOL,
-    then MESH_STEPS decode steps of the page's packet in every slot: per
-    step, each rank's launches and collectives and rank 0's host ms. →
-    rank 0's launch counts."""
+def mesh_burst(torch, phase, engine, case, n_requests, n_slots, max_new, required, unused=(), page=None):
+    """Case `case` on the mesh engine (`page` as mesh_reference's): the
+    burst through ContinuousScheduler with every rank's counters zeroed just
+    before and read just after (each kernel in `required` launched on every
+    rank, none in `unused`), its tokens against the single-process burst's
+    (mesh_parity), the page's prefill logits against the single-process
+    ones within MESH_LOGIT_TOL, then MESH_STEPS decode steps of the page's
+    packet in every slot: per step, each rank's launches and collectives
+    and rank 0's host ms, and each rank's share of the slot cache. → rank
+    0's launch counts."""
     from dsocr_tpu_torch.core import DecodeParameters
+    from dsocr_tpu_torch.runtime.paged import PagedSlotCache
 
     ref = MESH_REFS[case]
     runtime = engine.mesh_runtime
-    image, vision, tokens, mask, emb = page_packet(engine)
+    tokenizer, image, vision, packet = page or mesh_page(engine)
+    pre = packet()
+    tokens = pre["prompt_ids"]
     max_len = mesh_max_len(engine, tokens, max_new)
     torch.cuda.synchronize()
     runtime.stats(reset=True)
     t0 = time.perf_counter()
-    outs, sched = serve(engine, BenchTokenizer(), [image] * n_requests, vision,
+    outs, sched = serve(engine, tokenizer, [image] * n_requests, vision,
                         DecodeParameters(max_new_tokens=max_new), n_slots=n_slots, max_len=max_len, chunk=CHUNK)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     ranks = runtime.stats(reset=True)
     got = [o.generated_tokens for o in outs]
     parity, parity_ok = mesh_parity(ref, got)
-    pre = engine._prefill_rows([(tokens, mask, [emb])])[0]
     logits = pre["logits"].float().cpu()
     diff = float((logits - ref["logits"]).abs().max())
 
@@ -4146,12 +4271,17 @@ def mesh_burst(torch, phase, engine, case, n_requests, n_slots, max_new, require
     runtime.stats(reset=True)
     step_ms = synced_ms(torch, lambda: runner.run_chunk(engine.params, state, MESH_STEPS), MESH_STEPS)
     per_step = runtime.stats(reset=True)
+    shares = runtime.cache_shapes(cache) if not isinstance(cache, PagedSlotCache) else None
     del state, cache, runner
-    emit({"phase": phase, "quantize": engine.quantize, "mesh": MESH if not engine.mesh.ep else MESH + ",ep",
+    mesh = engine.mesh
+    emit({"phase": phase, "quantize": engine.quantize, "kv_quant": engine.kv_quant,
+          "mesh": f"dp={mesh.dp},mp={mesh.mp}" + (",ep" if mesh.ep else ""),
           "backend": runtime.ranks.backend, "requests": len(outs), "slots": n_slots, "new_tokens": max_new,
-          "wall_s": wall, "tokens_per_request": [len(g) for g in got], **parity,
+          "prompt_tokens": len(tokens), "wall_s": wall, "tokens_per_request": [len(g) for g in got], **parity,
+          "min_top2_margin": mesh_seed_margin(ref["margins"])[0],
           "prefill_logits_max_abs_diff": diff, "logit_tol": MESH_LOGIT_TOL,
           "ranks": [{"rank": r, "device": f"cuda:{st['device_index']}", "peak_mib": st["peak_mib"],
+                     "slot_cache": shares[r] if shares else None,
                      "burst_launches": {k: v for k, v in st["launches"].items() if v},
                      "burst_collectives": st["collectives"],
                      "launches_per_step": {k: v / MESH_STEPS for k, v in per_step[r]["launches"].items() if v},
@@ -4221,6 +4351,114 @@ def mesh_phase(torch, K, smi, attention, codes_in):
     finally:
         ranks.close()
     emit({"phase": "mesh", "seconds": time.perf_counter() - t_phase})
+    return bursts
+
+
+# the mesh_dense phase's cases: (case, family, mesh, packed format, weight
+# seed), each a burst of MESH_DENSE_BURST on the seeded full-width engine
+# over two ranks sharing the card, held to MESH_REFS[case] (taken in
+# families_phase and families2_phase on the single-process engine of the
+# same weights). The seeds are clear of greedy near-ties: every
+# single-process top-2 margin of the case's burst above MESH_LOGIT_TOL
+# (`python3 mesh_seeds.py seeds` on an NVIDIA H100 80GB HBM3, 700.00 W:
+# Paddle seed 7 0.1269, seeds 0-6 and 8 below; Dots seed 0 0.1014; GLM
+# seed 1 0.0789, seeds 0 and 2-6 below, 7 0.0725)
+MESH_DENSE = (
+    ("e", "paddle", "dp=2,mp=1", "q8_0", 7),  # rows over dp: q8_matmul on 2 of the 4 rows a rank
+    ("f", "dots", "dp=1,mp=2", "q8_0", 0),  # 6 query heads over 1 KV head a rank, packed projections replicated
+    ("g", "glm", "dp=1,mp=2", None, 1),  # 8 query heads over 4 KV heads a rank
+)
+MESH_DENSE_BURST = (4, 4, 32)  # requests, slots, new tokens
+# (h): family_frontends' server under --mesh MESH, one request of
+# MESH_SERVER_NEW tokens. The request is clear of greedy near-ties: every
+# single-process top-2 margin of its decode steps above MESH_LOGIT_TOL
+# (`python3 mesh_seeds.py requests` on an NVIDIA H100 80GB HBM3, 700.00 W:
+# least 0.0677; "Free OCR." at 64 tokens sits at 0.0140, at 32 tokens
+# "OCR this page." at 0.0266, "Read the text." at 0.0186)
+MESH_SERVER_MODEL = "dots-ocr"
+MESH_SERVER_TEXT = "Convert the document to markdown."
+MESH_SERVER_NEW = 32
+
+
+def dense_engine(torch, family, quantize=None, seed=0, **kw):
+    """The seeded full-width engine of a mesh_dense case (int8 KV; Dots' and
+    GLM's f32 towers rounded to bf16 values, as families2_phase serves
+    them); `kw`: mesh and ranks."""
+    from dsocr_tpu_torch.models.dots import DotsConfig, DotsOcrEngine
+    from dsocr_tpu_torch.models.glm import GlmConfig, GlmOcrEngine
+    from dsocr_tpu_torch.models.paddleocr import PaddleConfig, PaddleOcrEngine
+
+    common = dict(dtype=torch.bfloat16, device="cuda", seed=seed, kv_quant="int8", **kw)
+    if family == "paddle":
+        return PaddleOcrEngine(PaddleConfig(), max_seq_len=4096, quantize=quantize, **common)
+    if family == "dots":
+        engine = DotsOcrEngine(DotsConfig(), max_seq_len=GLM_SLOT_SEQ, quantize=quantize, **common)
+    else:
+        engine = GlmOcrEngine(GlmConfig(), max_seq_len=GLM_SLOT_SEQ, **common)
+    round_tower_(torch, engine)
+    return engine
+
+
+def dense_mesh_reference(torch, case):
+    """MESH_REFS[case] from the case's seeded engine on one process."""
+    _, family, _, quantize, seed = next(c for c in MESH_DENSE if c[0] == case)
+    engine = dense_engine(torch, family, quantize, seed=seed)
+    mesh_reference(torch, engine, case, *MESH_DENSE_BURST, page=dense_case_page(engine, family))
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def dense_case_page(engine, family):
+    """The families phases' page, vision and tokenizer for `family`."""
+    from dsocr_tpu_torch.core import VisionSettings
+
+    page = seeded_page()[0]
+    if family == "paddle":
+        return dense_page(engine, PaddleBenchTokenizer(), page, VisionSettings(1024, PADDLE_IMAGE_SIZE, False))
+    return dense_page(engine, BenchTokenizer(), page, VisionSettings(1024, 0, False))
+
+
+def mesh_dense_phase(torch, K, smi):
+    """PaddleOCR-VL, DotsOCR and GLM-OCR at full width over two ranks on the
+    one card, one set of rank processes for the three MESH_DENSE cases:
+    params replicated, (e) slot rows over dp, (f) and (g) KV heads over
+    mp. Each case's init line (init_s, each rank's peak MiB and heads),
+    then its burst (mesh_burst: each rank's launches a step and a burst,
+    collectives a step, host ms a step, its slot-cache share, the least
+    single-process top-2 margin), held to MESH_REFS. → rank 0's launch
+    counts of the three bursts."""
+    from dsocr_tpu_torch.parallel import launch
+
+    t_phase = t0 = time.perf_counter()
+    ranks = launch.start(2, "cuda", deadline=MESH_DEADLINE_S)
+    start_s = time.perf_counter() - t0
+    bursts = []
+    try:
+        for case, family, mesh, quantize, seed in MESH_DENSE:
+            t = time.perf_counter()
+            engine = dense_engine(torch, family, quantize, seed=seed, mesh=mesh, ranks=ranks)
+            torch.cuda.synchronize()
+            stats = engine.mesh_runtime.stats(reset=True)
+            share = engine.mesh_runtime.share
+            cfg = engine.model.decoder.cfg
+            emit({"phase": "mesh_dense_init", "case": case, "family": family, "mesh": mesh, "quantize": quantize,
+                  "seed": seed,
+                  "backend": ranks.backend, "start_s": start_s, "init_s": time.perf_counter() - t,
+                  "peak_mib": [st["peak_mib"] for st in stats],
+                  "devices": [f"cuda:{st['device_index']}" for st in stats],
+                  "heads_per_rank": [share.nq, share.nkv] if share else
+                  [cfg.num_attention_heads, cfg.resolved_num_key_value_heads], "nvidia_smi": smi})
+            required = FAMILY_ATTENTION + (["q8_matmul"] if quantize else [])
+            bursts.append(mesh_burst(torch, f"mesh_dense_{family}", engine, case, *MESH_DENSE_BURST,
+                                     required=required, unused=["slot_kv_update", "sam_flash_attention"],
+                                     page=dense_case_page(engine, family)))
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        ranks.close()
+    emit({"phase": "mesh_dense", "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi})
     return bursts
 
 
@@ -4332,6 +4570,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     bursts.append(families_phase(torch, K, smi))
     bursts.append(families2_phase(torch, K, smi))
+    bursts += mesh_dense_phase(torch, K, smi)
     launches = {name: sum(b[name] for b in bursts) for name in bursts[0]}
     parity_phase(torch)
 

@@ -1,9 +1,8 @@
 """The argparse groups that the CLI and the server share
 (dsocr_tpu/config/args.py): the same flags, so a command line means the
 same to both packages. ``--device`` takes cuda or cpu here (None: the
-config's, which defaults to cuda); ``--mesh dp=N,mp=M[,ep]`` serves
-DeepSeek-OCR over dp × mp rank processes (load_engine), this process
-rank 0."""
+config's, which defaults to cuda); ``--mesh dp=N,mp=M[,ep]`` serves any
+family over dp × mp rank processes (load_engine), this process rank 0."""
 
 from __future__ import annotations
 
@@ -23,7 +22,8 @@ def add_common_model_args(parser: argparse.ArgumentParser) -> None:
     group.add_argument("--snapshot", default=None, help="DSQ snapshot path")
     group.add_argument("--mesh", default=None,
                        help="mesh spec for sharded execution over rank processes, e.g. dp=1,mp=2 "
-                            "(add ,ep for expert parallelism; DeepSeek-OCR only)")
+                            "(add ,ep for expert parallelism: DeepSeek-OCR's experts; the other "
+                            "families ignore it)")
     group.add_argument("--kv-quant", default=None, choices=("int8",),
                        help="quantize the serving KV cache (slot runtime): int8 codes + per-token scales")
 

@@ -50,7 +50,6 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-import weakref
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -64,6 +63,7 @@ from ...core.params import DecodeOutcome, DecodeParameters, VisionSettings, norm
 from ...core.sampling import select_token_id_host
 from ...image import PreprocessParams, build_global_view_with_box, dynamic_preprocess
 from ...ops.rope import build_rope_tables
+from ...parallel.runtime import MeshHost
 from ...runtime.generate import GenerateParams, Generator, clamp_new_tokens
 from ...runtime.kv_cache import KVCache, bump_length, init_kv_cache
 from ...runtime.paged import PageAllocator, PagedSlotCache, PagedSlotRunner, new_page_pool
@@ -128,7 +128,7 @@ class DeepseekOcrModel(nn.Module):
             part.reset_(gen)
 
 
-class DeepseekOcrEngine:
+class DeepseekOcrEngine(MeshHost):
     def __init__(
         self,
         cfg: DeepseekOcrConfig,
@@ -186,25 +186,11 @@ class DeepseekOcrEngine:
         self.cfg = cfg
         self.dtype = dtype
         self.device = select_device(device)
-        self.mesh = mesh
-        self.mesh_runtime = None
-        self._owned_ranks = None
-        if mesh is not None:
-            if ranks is None:
-                from ...parallel import launch
-
-                ranks = self._owned_ranks = launch.start(mesh.size, self.device)
-                weakref.finalize(self, ranks.kill)  # an engine dropped unclosed, or failing below
-            if ranks.world != mesh.size:
-                raise ValueError(f"mesh {mesh.dp}x{mesh.mp} needs {mesh.size} ranks, not {ranks.world}")
-            if ranks.is_leader:
-                follower_state = None if state is None else {k: v.cpu() for k, v in state.items()}
-                ranks.build(DeepseekOcrEngine, dict(
-                    cfg=cfg, dtype=dtype, max_seq_len=max_seq_len, seed=seed, kv_quant=kv_quant,
-                    state=follower_state, quantize=quantize, ocr2_params=ocr2_params, mesh=mesh,
-                    state_fn=state_fn))
-            if state_fn is not None:
-                state = state_fn(self.device)
+        ranks = self._start_mesh(mesh, ranks, dict(
+            cfg=cfg, dtype=dtype, max_seq_len=max_seq_len, seed=seed, kv_quant=kv_quant, state=state,
+            quantize=quantize, ocr2_params=ocr2_params, state_fn=state_fn))
+        if state_fn is not None:
+            state = state_fn(self.device)
         self.kv_quant = kv_quant
         self.quantize = quantize
         self.max_seq_len = max_seq_len
@@ -243,19 +229,6 @@ class DeepseekOcrEngine:
         self.model.decoder = shard_decoder(whole, mesh, ranks.rank, comm, self.quantize)
         del whole
         self.mesh_runtime = DeepseekMesh(self, ranks, comm)
-
-    @property
-    def alive(self) -> bool:
-        """False once a mesh engine's ranks are down (a failed call, a
-        hung rank, close): it cannot serve again, and a server loads the
-        model anew (server/state.py)."""
-        return self.mesh_runtime is None or not self.mesh_runtime.ranks.closed
-
-    def close(self) -> None:
-        """Stop the rank processes this engine started (a mesh engine)."""
-        if self._owned_ranks is not None:
-            ranks, self._owned_ranks = self._owned_ranks, None
-            ranks.close()
 
     # -- vision -----------------------------------------------------------------
 

@@ -31,43 +31,29 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ...parallel.comm import join_gathered
-from ...parallel.mesh import slot_cache_sharding
-from ...parallel.runtime import MeshRuntime, ShardedPagedCache, ShardedSlotCache
+from ...parallel.runtime import EngineMesh, ShardedPagedCache
 from ...runtime.kv_cache import KVCache
 from ...runtime.paged import new_page_pool
-from ...runtime.slots import SlotCache, alloc_slot_cache
+from ...runtime.slots import SlotCache
 
 
-class DeepseekMesh(MeshRuntime):
-    def __init__(self, engine, ranks, comm):
-        super().__init__(ranks, comm)
-        self.engine = engine
-
-    @property
-    def mesh(self):
-        return self.comm.mesh
-
+class DeepseekMesh(EngineMesh):
     @property
     def decoder(self):
         return self.engine.model.decoder
 
-    def _recv(self, t: Optional[torch.Tensor], shape, dtype) -> torch.Tensor:
-        """Rank 0's `t`, broadcast; followers pass None."""
-        if t is None:
-            t = torch.empty(shape, dtype=dtype, device=self.engine.device)
-        return self.comm.broadcast(t)
+    @property
+    def vocab_split(self) -> bool:
+        return self.decoder.shard.vocab_split
 
-    def gather_logits(self, logits: torch.Tensor, rows_split: bool) -> Optional[torch.Tensor]:
-        """Each rank's logits [rows, vocab shard] → the whole [B, V] on rank
-        0 (None elsewhere); no collective where rank 0 holds them whole."""
-        vocab_split = self.decoder.shard.vocab_split
-        if not vocab_split and not (rows_split and self.mesh.dp > 1):
-            return logits if self.rank == 0 else None
-        pieces = self.comm.gather(logits.float())
-        if pieces is None:
-            return None
-        return join_gathered(pieces, self.mesh, rows_split and self.mesh.dp > 1, vocab_split)
+    @property
+    def hidden(self) -> int:
+        return self.engine.cfg.language.hidden_size
+
+    def slot_layout(self):
+        lang = self.engine.cfg.language
+        return (lang.num_hidden_layers, lang.resolved_kv_heads, self.decoder.n_kv_heads, lang.head_dim,
+                lang.resolved_v_head_dim)
 
     # -- towers ------------------------------------------------------------------
 
@@ -86,29 +72,7 @@ class DeepseekMesh(MeshRuntime):
         pieces = self.comm.gather(getattr(self.engine, fn)(views))
         return None if pieces is None else torch.cat(pieces)
 
-    # -- slot caches -----------------------------------------------------------------
-
-    def alloc_slots(self, n_slots: int, max_len: int) -> ShardedSlotCache:
-        mid = self.new_id()
-        cache = self.call("alloc_slots", dict(mid=mid, n_slots=n_slots, max_len=max_len))
-        self.track(cache, mid)
-        return cache
-
-    def op_alloc_slots(self, mid: int, n_slots: int, max_len: int):
-        lang = self.engine.cfg.language
-        spec = slot_cache_sharding(self.mesh, lang.resolved_kv_heads, n_slots)
-        rows_split = spec[1] == "dp" and self.mesh.dp > 1
-        local = alloc_slot_cache(
-            lang.num_hidden_layers, n_slots // self.mesh.dp if rows_split else n_slots,
-            self.decoder.n_kv_heads, max_len, lang.head_dim, lang.resolved_v_head_dim,
-            self.engine.dtype, self.engine.kv_quant, self.engine.device,
-        )
-        lengths = torch.zeros((n_slots,), dtype=torch.int32, device=self.engine.device)
-        cache = ShardedSlotCache(local.k, local.v, lengths, local.k_scale, local.v_scale, mesh_id=mid,
-                                 slots=n_slots, rows_split=rows_split)
-        if self.rank != 0:
-            self.objects[mid] = cache
-        return cache
+    # -- page pools -----------------------------------------------------------------
 
     def alloc_pool(self, n_pages: int, page_size: int, n_slots: int, p_max: int) -> ShardedPagedCache:
         mid = self.new_id()
@@ -133,20 +97,13 @@ class DeepseekMesh(MeshRuntime):
     # -- prefill -------------------------------------------------------------------
 
     def _images(self, rows) -> Optional[torch.Tensor]:
-        embs = [e for _, _, row_embs in rows for e in row_embs]
-        return torch.cat(embs).to(self.engine.dtype) if embs else None
+        return self.images_of([e for _, _, row_embs in rows for e in row_embs])
 
     def _rows(self, tokens, masks, n_img, images):
         """(tokens, mask, [image embeddings]) rows from the broadcast
         images, split by each row's image-token count."""
-        H = self.engine.cfg.language.hidden_size
-        total = sum(n_img)
-        img = self._recv(images, (total, H), self.engine.dtype) if total else None
-        rows, off = [], 0
-        for t, m, n in zip(tokens, masks, n_img):
-            rows.append((t, m, [img[off : off + n]] if n else []))
-            off += n
-        return rows
+        return [(t, m, [] if img is None else [img])
+                for t, m, img in zip(tokens, masks, self.recv_images(images, n_img))]
 
     def prefill_packets(self, rows) -> List[dict]:
         """Join packets of rows [(tokens, mask, embeddings)] sharing one
@@ -203,21 +160,13 @@ class DeepseekMesh(MeshRuntime):
     def slot_step(self, token_ids: torch.Tensor, cache, pos: torch.Tensor) -> torch.Tensor:
         """One decode step of every slot row → rank 0's logits [B, V]."""
         paged = isinstance(cache, ShardedPagedCache)
-        parts = [token_ids, pos, cache.lengths]
-        if paged:
-            parts.append(cache.tables.reshape(-1))
-        packed = torch.cat([p.to(torch.int64) for p in parts])
-        P = cache.tables.shape[1] if paged else 0
-        return self.call("slot_step", dict(cache=cache.mesh_id, B=token_ids.shape[0], P=P),
-                         local=dict(cache=cache, packed=packed))
+        return self.step_call("slot_step", cache, token_ids, pos, cache.tables if paged else None)
 
     def op_slot_step(self, cache, B: int, P: int, packed=None):
         eng = self.engine
         cache = self.obj(cache)
-        buf = self._recv(packed, (3 * B + B * P,), torch.int64)
-        ids, pos, lengths = buf[:B], buf[B : 2 * B], buf[2 * B : 3 * B].to(torch.int32)
+        ids, pos, lengths, tables = self.recv_step(B, P, packed)
         if P:
-            tables = buf[3 * B :].reshape(B, P).to(torch.int32)
             view = ShardedPagedCache(cache.k, cache.v, tables, lengths, cache.k_scale, cache.v_scale)
             rows = slice(0, B)
         else:

@@ -12,6 +12,12 @@ Surfaces, as the reference's:
   (``emit_eos=True``), ``prefill_for_slot`` and ``prefill_for_slots``.
   Positions are plain token indices, so a row's ``pos`` is its length.
 
+``mesh="dp=N,mp=M"`` serves the slot surface over dp × mp rank processes
+by the reference's rules (models/gqa_mesh.py): params replicated (float
+or packed), slot rows over dp (the packed row matmuls on each rank's
+rows), Qwen2's KV heads over mp, the towers and ``decode`` on rank 0
+alone.
+
 ``prefill_for_slots`` groups a wave's requests by VisionSettings: the
 images of a group go through the tower in one packed pass, then each group
 of rows sharing a 128-token bucket prefills in one batched pass,
@@ -20,8 +26,8 @@ device as uint8 and are normalized there through the per-channel table
 (smart_resize.norm_table, bit-exact with normalizing on the host).
 ``quantize`` ("q8_0", "q4_k", "q6_k"; None reads ``DSOCR_QUANT``) packs
 the decoder's linears and the lm_head. The reference's jitted
-padded-bucket tower, the power-of-two batch padding of its compiled
-prefill and its mesh are not carried over.
+padded-bucket tower and the power-of-two batch padding of its compiled
+prefill are not carried over.
 """
 
 from __future__ import annotations
@@ -39,8 +45,10 @@ from ...core.params import DecodeOutcome, DecodeParameters, VisionSettings, norm
 from ...image.smart_resize import SmartResizeConfig, norm_table, preprocess_patches_raw
 from ...runtime.generate import GenerateParams, Generator, clamp_new_tokens
 from ...runtime.kv_cache import KVCache, bump_length, init_kv_cache
-from ...runtime.slots import SlotCache, SlotRunner, alloc_slot_cache
+from ...runtime.slots import SlotRunner
 from ..deepseek.engine import RAW_QUANT_KEY, round_up
+from ..gqa_decoder import embed_row
+from ..gqa_mesh import MeshServing, dense_mesh
 from .config import DotsConfig
 from .decoder import Qwen2Decoder, fuse_qwen2_params
 from .quantize import quantize_qwen2_params
@@ -62,7 +70,7 @@ class DotsOcrModel(nn.Module):
         self.decoder.reset_(gen)
 
 
-class DotsOcrEngine:
+class DotsOcrEngine(MeshServing):
     def __init__(
         self,
         cfg: DotsConfig,
@@ -74,12 +82,15 @@ class DotsOcrEngine:
         kv_quant: Optional[str] = None,
         state: Optional[Dict[str, torch.Tensor]] = None,
         quantize: Optional[str] = None,
+        mesh=None,
+        ranks=None,
+        state_fn=None,
     ):
         """Random weights from `seed` on the device (the tower in f32, as
         the reference's init), or `state` (params_from_jax of a reference
         engine, or loader.load_dots_params; a split decoder is fused here,
         and the tower holds f32 either way). `device` None means the CUDA
-        card."""
+        card. `mesh`, `ranks` and `state_fn` as PaddleOcrEngine's."""
         if quantize is None:
             quantize = os.environ.get("DSOCR_QUANT") or None
         if kv_quant not in (None, "int8"):
@@ -89,6 +100,11 @@ class DotsOcrEngine:
         self.cfg = cfg
         self.dtype = dtype
         self.device = select_device(device)
+        ranks = self._start_mesh(dense_mesh(mesh, "DotsOCR"), ranks, dict(
+            cfg=cfg, dtype=dtype, max_seq_len=max_seq_len, seed=seed, kv_quant=kv_quant, state=state,
+            quantize=quantize, state_fn=state_fn))
+        if state_fn is not None:
+            state = state_fn(self.device)
         self.kv_quant = kv_quant
         self.quantize = quantize
         self.max_seq_len = max_seq_len
@@ -105,6 +121,8 @@ class DotsOcrEngine:
             self.model.load_state_dict(state)
         self.model.eval()
         self.params = self.model.decoder  # what SlotRunner hands to slot_step_fn
+        if self.mesh is not None:
+            self._attach_mesh(ranks)
 
     # -- vision -----------------------------------------------------------------
 
@@ -165,30 +183,22 @@ class DotsOcrEngine:
         return init_kv_cache(t.num_hidden_layers, batch, t.num_key_value_heads, max_len, t.head_dim, t.head_dim,
                              self.dtype, self.device)
 
-    @torch.no_grad()
-    def _row_embeds(self, tokens, image_mask, embeddings: Sequence[torch.Tensor], s_pad: int) -> torch.Tensor:
-        """One row right-padded to s_pad → embeds [s_pad, H]: the token
-        embeddings with the image tokens' rows replaced by the tower's."""
-        padded = np.zeros(s_pad, np.int64)
-        padded[: len(tokens)] = tokens
-        embeds = self.model.decoder.embed_tokens[torch.from_numpy(padded).to(self.device)].to(self.dtype)
-        if embeddings:
-            idx = np.nonzero(np.asarray(image_mask, bool))[0]
-            embeds[torch.from_numpy(idx).to(self.device)] = torch.cat(list(embeddings)).to(self.dtype)
-        return embeds
+    @staticmethod
+    def _images(embeddings: Sequence[torch.Tensor]) -> Optional[torch.Tensor]:
+        return torch.cat(list(embeddings)) if embeddings else None
 
     @torch.no_grad()
     def _prefill_rows(self, rows) -> List[dict]:
         """rows = [(tokens, image_mask, embeddings)] sharing one s_pad bucket
-        → one join packet per row, from one batched prefill."""
+        → one join packet per row, from one batched prefill (on every rank
+        under a mesh)."""
         s_pad = round_up(len(rows[0][0]), 128)
-        embeds = torch.stack([self._row_embeds(t, m, e, s_pad) for t, m, e in rows])
-        positions = torch.arange(s_pad, device=self.device).expand(len(rows), -1)
-        lens = torch.tensor([len(t) for t, _, _ in rows], device=self.device)
-        logits, k, v = self.model.decoder.prefill(embeds, positions, last_index=lens - 1)
-        return [dict(prompt_ids=list(tokens), row_k=k[:, i : i + 1], row_v=v[:, i : i + 1], logits=logits[i],
-                     pos0=len(tokens))
-                for i, (tokens, _, _) in enumerate(rows)]
+        positions = np.tile(np.arange(s_pad, dtype=np.int64), (len(rows), 1))
+        packets = self._prefill_packets([t for t, _, _ in rows], [m for _, m, _ in rows],
+                                        [self._images(e) for _, _, e in rows], positions, s_pad)
+        for pkt, (tokens, _, _) in zip(packets, rows):
+            pkt["pos0"] = len(tokens)
+        return packets
 
     def prefill_for_slot(self, tokenizer, prompt, images, vision) -> dict:
         """Vision + prompt + one-row prefill → a join packet."""
@@ -225,19 +235,13 @@ class DotsOcrEngine:
 
     # -- continuous-batching (slot) surface -----------------------------------------
 
-    def slot_step_fn(self, decoder, token_ids, cache: SlotCache, pos):
-        """Row r's token is written at cache.lengths[r] and attends [0,
-        lengths[r]] at position pos[r]."""
-        embeds = decoder.embed_tokens[token_ids][:, None, :].to(self.dtype)
-        return decoder.slot_step(embeds, pos[:, None], cache)
-
-    def new_slot_cache(self, n_slots: int, max_len: int) -> SlotCache:
-        t = self.cfg.text
-        return alloc_slot_cache(t.num_hidden_layers, n_slots, t.num_key_value_heads, max_len, t.head_dim,
-                                t.head_dim, self.dtype, self.kv_quant, self.device)
+    @staticmethod
+    def step_positions(pos: torch.Tensor) -> torch.Tensor:
+        """A step's positions [B] → [B, 1]."""
+        return pos[:, None]
 
     def make_slot_runner(self) -> SlotRunner:
-        return SlotRunner(self.slot_step_fn, eos_ids=(self.cfg.eos_token_id,), emit_eos=True)
+        return self._slot_runner((self.cfg.eos_token_id,), emit_eos=True)
 
     # -- single-request decode ----------------------------------------------------
 
@@ -254,7 +258,8 @@ class DotsOcrEngine:
                params: DecodeParameters, stream=None) -> DecodeOutcome:
         """One request: vision, prompt, prefill to s_pad = round_up(len,
         128) into a cache of the clamped budget, then greedy or sampled
-        generation; EOS is appended, then generation stops."""
+        generation; EOS is appended, then generation stops. Under a mesh
+        it runs on rank 0 alone (the module docstring)."""
         if not params.use_cache:
             raise ValueError("DotsOCR decoder requires use_cache=true")
         vtimer = Timer("vision.compute_embeddings")
@@ -265,7 +270,7 @@ class DotsOcrEngine:
         s_pad = round_up(prompt_len, 128)
         max_new = clamp_new_tokens(s_pad, params.max_new_tokens, self.max_seq_len)
         max_len = min(self.max_seq_len, round_up(s_pad + max_new + 8, 128))
-        embeds = self._row_embeds(tokens, image_mask, embeddings, s_pad)
+        embeds = embed_row(self.model.decoder, tokens, image_mask, self._images(embeddings), s_pad, self.dtype)
         pf_timer = Timer("decode.prefill")
         logits, cache = self.model.decoder(
             embeds[None], torch.arange(s_pad, device=self.device)[None], self.new_kv_cache(1, max_len),

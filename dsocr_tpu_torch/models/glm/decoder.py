@@ -104,23 +104,22 @@ class GlmDecoder(GqaDecoder):
 
     LAYER = GlmLayer
 
-    def _qkv(self, x, layer, cos, sin):
+    def _qkv(self, x, layer, cos, sin, share=None):
         cfg = self.cfg
-        B, S, _ = x.shape
         NH, NKV, D = cfg.num_attention_heads, self.n_kv, cfg.head_dim
         normed = rms_norm(x, layer.input_layernorm, cfg.rms_norm_eps).float()
+        # every head's product rounded once, then the share's heads sliced
         qkv = project(normed, layer.qkv_proj, getattr(layer, "qkv_bias", None)).to(x.dtype)
         q, k, v = torch.split(qkv, [NH * D, NKV * D, NKV * D], dim=-1)
-        q = apply_partial_rope(q.reshape(B, S, NH, D).transpose(1, 2), cos, sin)
-        k = apply_partial_rope(k.reshape(B, S, NKV, D).transpose(1, 2), cos, sin)
-        return q, k, v.reshape(B, S, NKV, D).transpose(1, 2)
+        return self._split_heads(q, k, v, share, cos, sin, apply_partial_rope)
 
-    def _layers(self, x, position_ids, attend):
+    def _layers(self, x, position_ids, attend, share=None):
         cos, sin = glm_mrope_cos_sin(position_ids, self.cfg)
         eps = self.cfg.rms_norm_eps
         for li, layer in enumerate(self.layers):
-            q, k, v = self._qkv(x, layer, cos, sin)
-            attn = rms_norm(project(attend(li, q, k, v), layer.o_proj), layer.post_self_attn_layernorm, eps)
+            q, k, v = self._qkv(x, layer, cos, sin, share)
+            attn = rms_norm(project(self._attend(li, q, k, v, attend, share), layer.o_proj),
+                            layer.post_self_attn_layernorm, eps)
             x = (x.float() + attn.float()).to(x.dtype)
             normed = rms_norm(x, layer.post_attention_layernorm, eps)
             gate, up = torch.chunk(project(normed, layer.gateup_proj).float(), 2, dim=-1)

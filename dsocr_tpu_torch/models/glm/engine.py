@@ -16,6 +16,12 @@ Surfaces, as the reference's:
   packet's ``pos0`` is the next base after the prompt, not its length),
   advanced by one a step.
 
+``mesh="dp=N,mp=M"`` serves the slot surface over dp × mp rank processes
+by the reference's rules (models/gqa_mesh.py): params replicated, slot
+rows over dp, GLM's KV heads over mp (q/k/v still one f32 product of
+every head, rounded once, then sliced), the towers and ``decode`` on
+rank 0 alone.
+
 ``prefill_for_slots`` runs the images of a wave through the tower in
 passes of at most ``VISION_POOL`` patches (32,768, the reference's
 default; a page reaches 24,576), in request order, which bounds the
@@ -25,8 +31,8 @@ tower's f32 activations; then each group of rows sharing a
 normalized there through the per-channel table (``glm_norm_table``,
 bit-exact with the reference's normalization), then duplicated over the
 temporal axis. The engine takes no ``quantize``, as the reference takes
-none. Its jitted padded-bucket tower, its power-of-two batch padding and
-its mesh are not carried over.
+none. Its jitted padded-bucket tower and its power-of-two batch padding
+are not carried over.
 """
 
 from __future__ import annotations
@@ -43,8 +49,10 @@ from ...core.params import DecodeOutcome, DecodeParameters, VisionSettings, norm
 from ...image.resample import resize_bicubic
 from ...runtime.generate import GenerateParams, Generator, clamp_new_tokens
 from ...runtime.kv_cache import KVCache, bump_length, init_kv_cache
-from ...runtime.slots import SlotCache, SlotRunner, alloc_slot_cache
+from ...runtime.slots import SlotRunner
 from ..deepseek.engine import round_up
+from ..gqa_decoder import embed_row
+from ..gqa_mesh import MeshServing, dense_mesh
 from .config import TOKEN_ASSISTANT, TOKEN_GMASK, TOKEN_NEWLINE, TOKEN_SOP, TOKEN_USER, GlmConfig
 from .decoder import GlmDecoder, compute_glm_position_ids, fuse_glm_params
 from .vision import GlmVisionTower
@@ -120,7 +128,7 @@ class GlmOcrModel(nn.Module):
         self.decoder.reset_(gen)
 
 
-class GlmOcrEngine:
+class GlmOcrEngine(MeshServing):
     def __init__(
         self,
         cfg: GlmConfig,
@@ -131,16 +139,25 @@ class GlmOcrEngine:
         seed: int = 0,
         kv_quant: Optional[str] = None,
         state: Optional[Dict[str, torch.Tensor]] = None,
+        mesh=None,
+        ranks=None,
+        state_fn=None,
     ):
         """Random weights from `seed` on the device (the tower in f32, as
         the reference's init), or `state` (params_from_jax of a reference
         engine, or loader.load_glm_params; fused here, the tower in f32
-        either way). `device` None means the CUDA card."""
+        either way). `device` None means the CUDA card. `mesh`, `ranks`
+        and `state_fn` as PaddleOcrEngine's."""
         if kv_quant not in (None, "int8"):
             raise ValueError(f"unsupported kv_quant {kv_quant!r}")
         self.cfg = cfg
         self.dtype = dtype
         self.device = select_device(device)
+        ranks = self._start_mesh(dense_mesh(mesh, "GLM-OCR"), ranks, dict(
+            cfg=cfg, dtype=dtype, max_seq_len=max_seq_len, seed=seed, kv_quant=kv_quant, state=state,
+            state_fn=state_fn))
+        if state_fn is not None:
+            state = state_fn(self.device)
         self.kv_quant = kv_quant
         self.quantize = None
         self.max_seq_len = max_seq_len
@@ -154,6 +171,8 @@ class GlmOcrEngine:
         self.model.eval()
         self.params = self.model.decoder  # what SlotRunner hands to slot_step_fn
         self._table = torch.from_numpy(glm_norm_table(cfg)).to(self.device)
+        if self.mesh is not None:
+            self._attach_mesh(ranks)
 
     # -- vision -----------------------------------------------------------------
 
@@ -226,34 +245,26 @@ class GlmOcrEngine:
         return init_kv_cache(t.num_hidden_layers, batch, t.num_key_value_heads, max_len, t.head_dim, t.head_dim,
                              self.dtype, self.device)
 
-    @torch.no_grad()
-    def _row_inputs(self, tokens, image_mask, grids, embeddings: Optional[torch.Tensor], s_pad: int):
-        """One row right-padded to s_pad → (embeds [s_pad, H], positions
-        [3, s_pad] (padding at 1, as the reference's), next position base)."""
+    def _row_positions(self, tokens, grids, s_pad: int):
+        """One row right-padded to s_pad → (positions [3, s_pad] (padding
+        at 1, as the reference's), next position base)."""
         pos_ids, next_base = self.position_ids(tokens, grids)
-        padded = np.zeros(s_pad, np.int64)
-        padded[: len(tokens)] = tokens
         positions = np.ones((3, s_pad), np.int64)
         positions[:, : len(tokens)] = pos_ids
-        embeds = self.model.decoder.embed_tokens[torch.from_numpy(padded).to(self.device)].to(self.dtype)
-        if embeddings is not None:
-            idx = np.nonzero(np.asarray(image_mask, bool))[0]
-            embeds[torch.from_numpy(idx).to(self.device)] = embeddings.to(self.dtype)
-        return embeds, torch.from_numpy(positions).to(self.device), next_base
+        return positions, next_base
 
     @torch.no_grad()
     def _prefill_rows(self, rows) -> List[dict]:
         """rows = [(tokens, image_mask, grids, embeddings)] sharing one s_pad
-        bucket → one join packet per row, from one batched prefill."""
+        bucket → one join packet per row, from one batched prefill (on
+        every rank under a mesh)."""
         s_pad = round_up(len(rows[0][0]), 128)
-        inputs = [self._row_inputs(t, m, g, e, s_pad) for t, m, g, e in rows]
-        embeds = torch.stack([e for e, _, _ in inputs])
-        positions = torch.stack([p for _, p, _ in inputs], dim=1)  # [3, B, s_pad]
-        lens = torch.tensor([len(r[0]) for r in rows], device=self.device)
-        logits, k, v = self.model.decoder.prefill(embeds, positions, last_index=lens - 1)
-        return [dict(prompt_ids=list(r[0]), row_k=k[:, i : i + 1], row_v=v[:, i : i + 1], logits=logits[i],
-                     pos0=base)
-                for i, (r, (_, _, base)) in enumerate(zip(rows, inputs))]
+        inputs = [self._row_positions(t, g, s_pad) for t, _, g, _ in rows]
+        packets = self._prefill_packets([r[0] for r in rows], [r[1] for r in rows], [r[3] for r in rows],
+                                        np.stack([p for p, _ in inputs], axis=1), s_pad)  # [3, B, s_pad]
+        for pkt, (_, base) in zip(packets, inputs):
+            pkt["pos0"] = base
+        return packets
 
     def prefill_for_slot(self, tokenizer, prompt, images, vision=None) -> dict:
         """Vision + scaffold prompt + one-row prefill → a join packet (pos0:
@@ -295,19 +306,14 @@ class GlmOcrEngine:
         if params.do_sample or params.temperature != 0.0:
             raise ValueError("GLM backend requires greedy decoding (do_sample=false)")
 
-    def slot_step_fn(self, decoder, token_ids, cache: SlotCache, pos):
-        """Row r's token is written at cache.lengths[r] and attends [0,
-        lengths[r]]; its position on all three axes is pos[r]."""
-        embeds = decoder.embed_tokens[token_ids][:, None, :].to(self.dtype)
-        return decoder.slot_step(embeds, pos[None, :, None].expand(3, -1, 1), cache)
-
-    def new_slot_cache(self, n_slots: int, max_len: int) -> SlotCache:
-        t = self.cfg.text
-        return alloc_slot_cache(t.num_hidden_layers, n_slots, t.num_key_value_heads, max_len, t.head_dim,
-                                t.head_dim, self.dtype, self.kv_quant, self.device)
+    @staticmethod
+    def step_positions(pos: torch.Tensor) -> torch.Tensor:
+        """A step's position bases [B] → [3, B, 1]: all three axes advance
+        together."""
+        return pos[None, :, None].expand(3, -1, 1)
 
     def make_slot_runner(self) -> SlotRunner:
-        return SlotRunner(self.slot_step_fn, eos_ids=tuple(self.cfg.text.eos_token_ids), emit_eos=False)
+        return self._slot_runner(tuple(self.cfg.text.eos_token_ids), emit_eos=False)
 
     # -- single-request decode ----------------------------------------------------
 
@@ -323,7 +329,8 @@ class GlmOcrEngine:
                params: DecodeParameters, stream=None) -> DecodeOutcome:
         """One request, greedy: vision, the scaffold prompt, prefill to
         s_pad = round_up(len, 128) into a cache of the clamped budget, then
-        generation until an EOS id is selected (never emitted)."""
+        generation until an EOS id is selected (never emitted). Under a
+        mesh it runs on rank 0 alone (the module docstring)."""
         self.validate_slot_params(params)
         vtimer = Timer("vision.compute_embeddings")
         embeddings, grids = self.encode_images(images)
@@ -333,10 +340,11 @@ class GlmOcrEngine:
         s_pad = round_up(prompt_len, 128)
         max_new = clamp_new_tokens(s_pad, params.max_new_tokens, self.max_seq_len)
         max_len = min(self.max_seq_len, round_up(s_pad + max_new + 8, 128))
-        embeds, positions, next_base = self._row_inputs(tokens, image_mask, grids, embeddings, s_pad)
+        positions, next_base = self._row_positions(tokens, grids, s_pad)
+        embeds = embed_row(self.model.decoder, tokens, image_mask, embeddings, s_pad, self.dtype)
         pf_timer = Timer("decode.prefill")
         logits, cache = self.model.decoder(
-            embeds[None], positions[:, None], self.new_kv_cache(1, max_len),
+            embeds[None], torch.from_numpy(positions).to(self.device)[:, None], self.new_kv_cache(1, max_len),
             last_index=torch.tensor([prompt_len - 1], device=self.device), flash_prefill=True)
         cache = bump_length(cache, prompt_len)
         pf_timer.finish(prompt_tokens=prompt_len)

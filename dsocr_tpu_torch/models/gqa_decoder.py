@@ -31,13 +31,25 @@ Modes, as the DeepSeek decoder's:
 - ``slot_step``: one token per row through ``slot_kv_write_attend``
   (``slot_kv_write`` + ``slot_decode_attention``).
 
+Each mode takes a ``share`` (a ``HeadShare``: a mesh rank's block of KV
+heads and the query heads that read them, q head h reading KV head
+h // (NH / NKV)): the replicated q/k/v projection is sliced to those
+heads, which are rotated, written and attended alone, and their
+attention outputs are gathered over the rank's mp group
+(``share.gather``) before the replicated o_proj. The per-head
+arithmetic is the single process's; nothing is reduced
+(models/gqa_mesh.py). ``embed_row`` and ``prefill_rows`` build a
+wave's right-padded rows and prefill them, in one process or on each
+rank alike.
+
 ``params_from_jax`` converts a reference engine's {"decoder", and the
 tower's parts} tree.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -51,6 +63,46 @@ from .deepseek.convert import _flatten, _from_planes, _tensors
 from .deepseek.decoder import _fill_
 from .deepseek.sam import normal_, param
 from .gqa_quantize import packed_kind
+
+@dataclasses.dataclass(frozen=True)
+class HeadShare:
+    """A mesh rank's heads: KV heads [kv0, kv0 + nkv) and query heads [q0,
+    q0 + nq); ``gather`` joins the mp group's attention outputs [B, S,
+    nq·D] along the last dim, in head order."""
+
+    kv0: int
+    nkv: int
+    q0: int
+    nq: int
+    gather: Callable[[torch.Tensor], torch.Tensor]
+
+
+def embed_row(decoder, tokens: Sequence[int], image_mask: Sequence[int], images: Optional[torch.Tensor],
+              s_pad: int, dtype) -> torch.Tensor:
+    """One row right-padded to s_pad → embeds [s_pad, H]: the token
+    embeddings, the image tokens' rows replaced by `images` [n, H]."""
+    dev = decoder.embed_tokens.device
+    padded = np.zeros(s_pad, np.int64)
+    padded[: len(tokens)] = tokens
+    embeds = decoder.embed_tokens[torch.from_numpy(padded).to(dev)].to(dtype)
+    if images is not None:
+        idx = np.nonzero(np.asarray(image_mask, bool))[0]
+        embeds[torch.from_numpy(idx).to(dev)] = images.to(dtype)
+    return embeds
+
+
+def prefill_rows(decoder, dtype, tokens, masks, images, positions: np.ndarray, s_pad: int,
+                 share: Optional[HeadShare] = None):
+    """Rows (token lists, image masks, image embeddings or None) of one
+    s_pad bucket, their positions in the decoder's layout ([B, s_pad], or
+    [3, B, s_pad] for M-RoPE) → (logits [B, V] at each row's last token,
+    k, v [L, B, heads, s_pad, D]) from one batched prefill."""
+    dev = decoder.embed_tokens.device
+    embeds = torch.stack([embed_row(decoder, t, m, img, s_pad, dtype) for t, m, img in zip(tokens, masks, images)])
+    lens = torch.tensor([len(t) for t in tokens], device=dev)
+    return decoder.prefill(embeds, torch.from_numpy(np.ascontiguousarray(positions)).to(dev),
+                           last_index=lens - 1, share=share)
+
 
 _FUSED = ((("q_proj", "k_proj", "v_proj"), "qkv_proj"), (("q_bias", "k_bias", "v_bias"), "qkv_bias"),
           (("gate_proj", "up_proj"), "gateup_proj"))
@@ -211,9 +263,25 @@ class GqaDecoder(nn.Module):
 
     # -- blocks -------------------------------------------------------------
 
-    def _qkv(self, x, layer, cos, sin):
+    def heads(self, share: Optional[HeadShare]) -> Tuple[int, int, int, int]:
+        """(q0, nq, kv0, nkv): the heads `share` names, else all."""
+        if share is None:
+            return 0, self.cfg.num_attention_heads, 0, self.n_kv
+        return share.q0, share.nq, share.kv0, share.nkv
+
+    def _split_heads(self, q, k, v, share, cos, sin, rotate):
+        """q/k/v [B, S, ·] of every head → the share's heads [B, heads, S,
+        D], q and k rotated."""
+        B, S, _ = q.shape
+        D = self.cfg.head_dim
+        q0, nq, kv0, nkv = self.heads(share)
+        q = q[..., q0 * D : (q0 + nq) * D].reshape(B, S, nq, D).transpose(1, 2)
+        k = k[..., kv0 * D : (kv0 + nkv) * D].reshape(B, S, nkv, D).transpose(1, 2)
+        v = v[..., kv0 * D : (kv0 + nkv) * D].reshape(B, S, nkv, D).transpose(1, 2)
+        return rotate(q, cos, sin), rotate(k, cos, sin), v
+
+    def _qkv(self, x, layer, cos, sin, share=None):
         cfg = self.cfg
-        B, S, _ = x.shape
         NH, NKV, D = cfg.num_attention_heads, self.n_kv, cfg.head_dim
         normed = rms_norm(x, layer.input_layernorm, cfg.rms_norm_eps)
         if layer.split:
@@ -222,9 +290,13 @@ class GqaDecoder(nn.Module):
         else:
             qkv = project(normed, layer.qkv_proj, getattr(layer, "qkv_bias", None))
             q, k, v = torch.split(qkv, [NH * D, NKV * D, NKV * D], dim=-1)
-        q = self.rotate(q.reshape(B, S, NH, D).transpose(1, 2), cos, sin)
-        k = self.rotate(k.reshape(B, S, NKV, D).transpose(1, 2), cos, sin)
-        return q, k, v.reshape(B, S, NKV, D).transpose(1, 2)
+        return self._split_heads(q, k, v, share, cos, sin, self.rotate)
+
+    @staticmethod
+    def _attend(li, q, k, v, attend, share):
+        """The share's attention outputs, gathered over its mp group."""
+        out = attend(li, q, k, v)
+        return out if share is None else share.gather(out)
 
     def _mlp(self, x, layer):
         normed = rms_norm(x, layer.post_attention_layernorm, self.cfg.rms_norm_eps)
@@ -235,11 +307,11 @@ class GqaDecoder(nn.Module):
         mlp = project((silu(gate) * up).to(x.dtype), layer.down_proj)
         return (x.float() + mlp.float()).to(x.dtype)
 
-    def _layers(self, x, position_ids, attend):
+    def _layers(self, x, position_ids, attend, share=None):
         cos, sin = self.rope(position_ids)
         for li, layer in enumerate(self.layers):
-            q, k, v = self._qkv(x, layer, cos, sin)
-            attn = project(attend(li, q, k, v), layer.o_proj)
+            q, k, v = self._qkv(x, layer, cos, sin, share)
+            attn = project(self._attend(li, q, k, v, attend, share), layer.o_proj)
             x = self._mlp((x.float() + attn.float()).to(x.dtype), layer)
         return x
 
@@ -273,9 +345,10 @@ class GqaDecoder(nn.Module):
         full_logits: bool = False,
         last_index: Optional[torch.Tensor] = None,  # [B]
         flash_prefill: bool = False,
+        share: Optional[HeadShare] = None,
     ) -> Tuple[torch.Tensor, KVCache]:
         """The reference's forward (ernie_forward, qwen2_forward,
-        glm_forward) over a contiguous KVCache →
+        glm_forward) over a contiguous KVCache of the share's KV heads →
         (logits, cache), the length not bumped. Rows are right-padded, so
         the prefill has no left pads."""
         if cache.k_scale is not None:
@@ -300,29 +373,30 @@ class GqaDecoder(nn.Module):
             k_layer, v_layer = layer_kv(cache, li)
             return attention(q, k_layer.to(q.dtype), v_layer.to(q.dtype), mask, scale)
 
-        x = self._layers(embeds, position_ids, attend)
+        x = self._layers(embeds, position_ids, attend, share)
         return self._logits(x, last_index, full_logits), cache
 
     def prefill(self, embeds: torch.Tensor, position_ids: torch.Tensor, *,
-                last_index: Optional[torch.Tensor] = None):
+                last_index: Optional[torch.Tensor] = None, share: Optional[HeadShare] = None):
         """→ (logits [B, V] f32 at last_index, k [L, B, NKV, S, D], v): a
-        forward over a fresh cache of S positions."""
+        forward over a fresh cache of S positions (the share's NKV)."""
         cfg = self.cfg
         B, S, _ = embeds.shape
-        cache = init_kv_cache(cfg.num_hidden_layers, B, self.n_kv, S,
+        cache = init_kv_cache(cfg.num_hidden_layers, B, self.heads(share)[3], S,
                               cfg.head_dim, cfg.head_dim, embeds.dtype, embeds.device)
         logits, cache = self.forward(embeds, position_ids, cache, last_index=last_index,
-                                     flash_prefill=True)
+                                     flash_prefill=True, share=share)
         return logits, cache.k, cache.v
 
-    def slot_step(self, embeds: torch.Tensor, position_ids: torch.Tensor, cache) -> torch.Tensor:
+    def slot_step(self, embeds: torch.Tensor, position_ids: torch.Tensor, cache,
+                  share: Optional[HeadShare] = None) -> torch.Tensor:
         """One token per row (embeds [B, 1, H], position_ids of one step) →
         logits [B, V] f32; row r's K/V lands at cache.lengths[r] (lengths
-        NOT bumped)."""
+        NOT bumped). The cache holds the share's KV heads."""
         scale = 1.0 / (self.cfg.head_dim ** 0.5)
 
         def attend(li, q, k, v):
             return slot_kv_write_attend(q, k, v, cache.k, cache.v, cache.k_scale, cache.v_scale, li,
                                         cache.lengths, scale)
 
-        return self._logits(self._layers(embeds, position_ids, attend), None)
+        return self._logits(self._layers(embeds, position_ids, attend, share), None)

@@ -13,15 +13,20 @@ Surfaces, as the reference's:
   ``pos0`` = prompt length + the image's delta), advanced by one a step.
   There is no paged runner, as the reference has none for this family.
 
+``mesh="dp=N,mp=M"`` serves the slot surface over dp × mp rank processes
+by the reference's rules (models/gqa_mesh.py): params replicated, slot
+rows over dp (the packed row matmuls on each rank's rows), Ernie's KV
+heads over mp, the towers and ``decode`` on rank 0 alone.
+
 ``prefill_for_slots`` pools a wave's pages by smart-resize grid: every
 page of one grid goes through the tower in one batch (SiglipTower's
 blocked attention bounds its scores), then each group of rows sharing a
 128-token bucket prefills in one batched pass, right-padded, through
 ``flash_prefill_attention``. Patches travel to the device as uint8 and
 are normalized there through the per-channel table (smart_resize.norm_table,
-bit-exact with normalizing on the host). The reference's mesh, the
-power-of-two batch padding of its compiled passes and decode without the
-cache (which it refuses too) are not carried over.
+bit-exact with normalizing on the host). The power-of-two batch padding
+of the reference's compiled passes and decode without the cache (which
+it refuses too) are not carried over.
 """
 
 from __future__ import annotations
@@ -40,9 +45,10 @@ from ...core.params import DecodeOutcome, DecodeParameters, VisionSettings, norm
 from ...image.smart_resize import ImagePatches, SmartResizeConfig, norm_table, preprocess_patches_raw
 from ...runtime.generate import GenerateParams, Generator, clamp_new_tokens
 from ...runtime.kv_cache import KVCache, bump_length, init_kv_cache
-from ...runtime.slots import SlotCache, SlotRunner, alloc_slot_cache
+from ...runtime.slots import SlotRunner
 from ..deepseek.engine import RAW_QUANT_KEY, round_up
-from ..gqa_decoder import fuse_gqa_params
+from ..gqa_decoder import embed_row, fuse_gqa_params
+from ..gqa_mesh import MeshServing, dense_mesh
 from .config import PaddleConfig
 from .decoder import ErnieDecoder, compute_position_ids
 from .projector import PaddleProjector
@@ -77,7 +83,7 @@ class PaddleOcrModel(nn.Module):
             part.reset_(gen)
 
 
-class PaddleOcrEngine:
+class PaddleOcrEngine(MeshServing):
     def __init__(
         self,
         cfg: PaddleConfig,
@@ -89,13 +95,22 @@ class PaddleOcrEngine:
         kv_quant: Optional[str] = None,
         state: Optional[Dict[str, torch.Tensor]] = None,
         quantize: Optional[str] = None,
+        mesh=None,
+        ranks=None,
+        state_fn=None,
     ):
         """Random weights from `seed` on the device, or `state`
         (params_from_jax of a reference engine, or loader.load_paddle_params;
         a split decoder is fused here). The tower holds the model dtype at
         random init (the reference's init) and the state's dtype otherwise
         (f32 from the loader, as the reference loads it). quantize "q8_0", "q4_k" or "q6_k" packs the decoder's
-        linears (quantize.py). `device` None means the CUDA card."""
+        linears (quantize.py). `device` None means the CUDA card.
+
+        `mesh` (a spec "dp=N,mp=M" or a parallel.mesh.Mesh) serves over
+        rank processes (the module docstring); `ranks` are running ranks
+        (parallel.launch.start), else this engine starts and owns its own
+        (``close`` stops them); `state_fn(device)` makes the state on
+        each rank instead of `state`."""
         if kv_quant not in (None, "int8"):
             raise ValueError(f"unsupported kv_quant {kv_quant!r}")
         if quantize not in (None, "q8_0", "q4_k", "q6_k"):
@@ -103,6 +118,11 @@ class PaddleOcrEngine:
         self.cfg = cfg
         self.dtype = dtype
         self.device = select_device(device)
+        ranks = self._start_mesh(dense_mesh(mesh, "PaddleOCR-VL"), ranks, dict(
+            cfg=cfg, dtype=dtype, max_seq_len=max_seq_len, seed=seed, kv_quant=kv_quant, state=state,
+            quantize=quantize, state_fn=state_fn))
+        if state_fn is not None:
+            state = state_fn(self.device)
         self.kv_quant = kv_quant
         self.quantize = quantize
         self.max_seq_len = max_seq_len
@@ -123,6 +143,8 @@ class PaddleOcrEngine:
         self.model.eval()
         self.params = self.model.decoder  # what SlotRunner hands to slot_step_fn
         self._table = torch.from_numpy(norm_table(SmartResizeConfig())).to(self.device)
+        if self.mesh is not None:
+            self._attach_mesh(ranks)
 
     # -- vision -----------------------------------------------------------------
 
@@ -209,37 +231,31 @@ class PaddleOcrEngine:
         return init_kv_cache(cfg.num_hidden_layers, batch, cfg.resolved_num_key_value_heads, max_len,
                              cfg.head_dim, cfg.head_dim, self.dtype, self.device)
 
-    @torch.no_grad()
-    def _row_inputs(self, tokens, image_mask, projected: Sequence[ProjectedImage], s_pad: int):
-        """One row right-padded to s_pad → (embeds [s_pad, H], positions
-        [3, s_pad] (padding at 1, as the reference's), delta)."""
+    def _row_positions(self, tokens, projected: Sequence[ProjectedImage], s_pad: int):
+        """One row right-padded to s_pad → (positions [3, s_pad] (padding
+        at 1, as the reference's), delta)."""
         pos_ids, delta = compute_position_ids(self.cfg, tokens, [p.original_grid for p in projected])
-        padded = np.zeros(s_pad, np.int64)
-        padded[: len(tokens)] = tokens
         positions = np.ones((3, s_pad), np.int64)
         positions[:, : len(tokens)] = pos_ids
-        embeds = self.model.decoder.embed_tokens[torch.from_numpy(padded).to(self.device)].to(self.dtype)
-        if projected:
-            idx = np.nonzero(np.asarray(image_mask, bool))[0]
-            flat = torch.cat([p.embeddings for p in projected]).to(self.dtype)
-            embeds[torch.from_numpy(idx).to(self.device)] = flat
-        return embeds, torch.from_numpy(positions).to(self.device), delta
+        return positions, delta
+
+    @staticmethod
+    def _images(projected: Sequence[ProjectedImage]) -> Optional[torch.Tensor]:
+        return torch.cat([p.embeddings for p in projected]) if projected else None
 
     @torch.no_grad()
     def _prefill_rows(self, rows) -> List[dict]:
         """rows = [(tokens, image_mask, projected)] sharing one s_pad
-        bucket → one join packet per row, from one batched prefill."""
+        bucket → one join packet per row, from one batched prefill (on
+        every rank under a mesh)."""
         s_pad = round_up(len(rows[0][0]), 128)
-        inputs = [self._row_inputs(t, m, p, s_pad) for t, m, p in rows]
-        embeds = torch.stack([e for e, _, _ in inputs])
-        positions = torch.stack([p for _, p, _ in inputs], dim=1)  # [3, B, s_pad]
-        lens = torch.tensor([len(t) for t, _, _ in rows], device=self.device)
-        logits, k, v = self.model.decoder.prefill(embeds, positions, last_index=lens - 1)
-        return [
-            dict(prompt_ids=list(tokens), row_k=k[:, i : i + 1], row_v=v[:, i : i + 1],
-                 logits=logits[i], pos0=len(tokens) + delta)
-            for i, ((tokens, _, _), (_, _, delta)) in enumerate(zip(rows, inputs))
-        ]
+        inputs = [self._row_positions(t, p, s_pad) for t, _, p in rows]
+        packets = self._prefill_packets([t for t, _, _ in rows], [m for _, m, _ in rows],
+                                        [self._images(p) for _, _, p in rows],
+                                        np.stack([p for p, _ in inputs], axis=1), s_pad)  # [3, B, s_pad]
+        for pkt, (tokens, _, _), (_, delta) in zip(packets, rows, inputs):
+            pkt["pos0"] = len(tokens) + delta
+        return packets
 
     def prefill_for_slot(self, tokenizer, prompt, images, vision) -> dict:
         """Vision + prompt + one-row prefill → a join packet (pos0: the
@@ -275,21 +291,15 @@ class PaddleOcrEngine:
 
     # -- continuous-batching (slot) surface -----------------------------------------
 
-    def slot_step_fn(self, decoder, token_ids, cache: SlotCache, pos):
-        """Row r's token is written at cache.lengths[r] and attends [0,
-        lengths[r]]; its M-RoPE base on all three axes is pos[r]."""
-        embeds = decoder.embed_tokens[token_ids][:, None, :].to(self.dtype)
-        positions = pos[None, :, None].expand(3, -1, 1)
-        return decoder.slot_step(embeds, positions, cache)
-
-    def new_slot_cache(self, n_slots: int, max_len: int) -> SlotCache:
-        cfg = self.cfg
-        return alloc_slot_cache(cfg.num_hidden_layers, n_slots, cfg.resolved_num_key_value_heads, max_len,
-                                cfg.head_dim, cfg.head_dim, self.dtype, self.kv_quant, self.device)
+    @staticmethod
+    def step_positions(pos: torch.Tensor) -> torch.Tensor:
+        """A step's M-RoPE bases [B] → positions [3, B, 1]: all three axes
+        advance together."""
+        return pos[None, :, None].expand(3, -1, 1)
 
     def make_slot_runner(self) -> SlotRunner:
         eos = self.cfg.eos_token_id
-        return SlotRunner(self.slot_step_fn, eos_ids=(eos,) if eos is not None else (), emit_eos=True)
+        return self._slot_runner((eos,) if eos is not None else (), emit_eos=True)
 
     # -- single-request decode ----------------------------------------------------
 
@@ -306,7 +316,8 @@ class PaddleOcrEngine:
                params: DecodeParameters, stream=None) -> DecodeOutcome:
         """One request: vision, prompt, prefill to s_pad = round_up(len,
         128) into a cache of the clamped budget, then greedy or sampled
-        generation; EOS is appended, then generation stops."""
+        generation; EOS is appended, then generation stops. Under a mesh
+        it runs on rank 0 alone (the module docstring)."""
         if not params.use_cache:
             raise ValueError("PaddleOCR decoder requires use_cache=true")
         vtimer = Timer("vision.compute_embeddings")
@@ -319,10 +330,11 @@ class PaddleOcrEngine:
         s_pad = round_up(prompt_len, 128)
         max_new = clamp_new_tokens(s_pad, params.max_new_tokens, self.max_seq_len)
         max_len = round_up(min(self.max_seq_len, s_pad + max_new + 8), 128)
-        embeds, positions, delta = self._row_inputs(tokens, image_mask, projected, s_pad)
+        positions, delta = self._row_positions(tokens, projected, s_pad)
+        embeds = embed_row(self.model.decoder, tokens, image_mask, self._images(projected), s_pad, self.dtype)
         pf_timer = Timer("decode.prefill")
         logits, cache = self.model.decoder(
-            embeds[None], positions[:, None], self.new_kv_cache(1, max_len),
+            embeds[None], torch.from_numpy(positions).to(self.device)[:, None], self.new_kv_cache(1, max_len),
             last_index=torch.tensor([prompt_len - 1], device=self.device), flash_prefill=self._flash_prefill)
         cache = bump_length(cache, prompt_len)
         pf_timer.finish(prompt_tokens=prompt_len)

@@ -11,11 +11,13 @@ own format unless ``quantize`` names another (``_snapshot_quant_method``:
 the header's default dtype); GLM-OCR serves float only and takes no
 ``quantize``, as the reference's branch passes none.
 
-``mesh="dp=N,mp=M[,ep]"`` (parse_mesh_spec) serves DeepSeek-OCR (v1 or
-OCR2) over dp × mp rank processes: this process is rank 0 and spawns the
-followers, each of which loads the same files itself (``state_fn``).
-PaddleOCR-VL, DotsOCR and GLM-OCR under a mesh raise: their dp meshes
-wait for ROADMAP Queue 1 #6.
+``mesh="dp=N,mp=M[,ep]"`` (parse_mesh_spec) serves every family over dp
+× mp rank processes: this process is rank 0 and spawns the followers,
+each of which loads the same files itself (``state_fn``). DeepSeek-OCR
+(v1 or OCR2) shards its decoder (models/deepseek/mesh.py); PaddleOCR-VL,
+DotsOCR and GLM-OCR replicate their params and split slot rows over dp
+and KV heads over mp (models/gqa_mesh.py), and ignore ``ep`` as the
+reference does, having no routed experts.
 """
 
 from __future__ import annotations
@@ -62,17 +64,20 @@ def _snapshot_quant_method(snapshot_path) -> Optional[str]:
 
 
 def check_mesh(kind: ModelKind, mesh, ep: bool = False):
-    """The Mesh that `mesh` (a spec, a Mesh or None) and `ep` ask for;
-    raises for a family that cannot serve under one."""
+    """The Mesh that `mesh` (a spec, a Mesh or None) and `ep` ask for. A
+    family without routed experts serves without ``ep`` (models/gqa_mesh.py
+    says so once in the log); DeepSeek-OCR's ``ep`` needs a mesh."""
     mesh = parse_mesh_spec(mesh)
+    if kind is not ModelKind.DEEPSEEK:
+        from .gqa_mesh import dense_mesh
+
+        if ep and mesh is not None:
+            mesh = parse_mesh_spec(f"dp={mesh.dp},mp={mesh.mp},ep")
+        return dense_mesh(mesh, kind.value)
     if ep:
         if mesh is None:
             raise ValueError("ep (expert parallelism) needs a mesh")
         mesh = parse_mesh_spec(f"dp={mesh.dp},mp={mesh.mp},ep")
-    if mesh is not None and kind is not ModelKind.DEEPSEEK:
-        raise NotImplementedError(
-            f"{kind.value} under a mesh waits for ROADMAP Queue 1 #6 (its dp mesh: slot-cache "
-            "shardings and quant_partition's row-sharded packed matmuls); DeepSeek-OCR serves under one")
     return mesh
 
 
@@ -94,54 +99,50 @@ def load_engine(
     from ..core.device import select_device
 
     device = select_device(device)
+
+    def weights(load, cfg):
+        """(state, state_fn) of the checkpoint: under a mesh every rank
+        reads the files itself."""
+        if not weights_path:
+            return None, None
+        if mesh is not None:
+            return None, functools.partial(_load_state, load, weights_path, cfg, tdtype, snapshot_path)
+        return _load_state(load, weights_path, cfg, tdtype, snapshot_path, device), None
+
     if kind is ModelKind.GLM_OCR:
         from .glm import GlmConfig, GlmOcrEngine
         from .glm.loader import load_glm_params
 
         cfg = GlmConfig.from_json(config_path) if config_path else GlmConfig()
-        state = None
-        if weights_path:
-            state = load_glm_params(weights_path, cfg, dtype=tdtype, snapshot_path=snapshot_path, device=device)
+        state, state_fn = weights(load_glm_params, cfg)
         return GlmOcrEngine(cfg, dtype=tdtype, device=device, max_seq_len=max_seq_len, kv_quant=kv_quant,
-                            state=state)
+                            state=state, mesh=mesh, state_fn=state_fn)
     quantize = quantize or _snapshot_quant_method(snapshot_path)
     if kind is ModelKind.DOTS_OCR:
         from .dots import DotsConfig, DotsOcrEngine
         from .dots.loader import load_dots_params
 
         cfg = DotsConfig.from_json(config_path) if config_path else DotsConfig()
-        state = None
-        if weights_path:
-            state = load_dots_params(weights_path, cfg, dtype=tdtype, snapshot_path=snapshot_path, device=device)
+        state, state_fn = weights(load_dots_params, cfg)
         return DotsOcrEngine(cfg, dtype=tdtype, device=device, max_seq_len=max_seq_len, kv_quant=kv_quant,
-                             state=state, quantize=quantize)
+                             state=state, quantize=quantize, mesh=mesh, state_fn=state_fn)
     if kind is ModelKind.PADDLE_OCR_VL:
         from .paddleocr import PaddleConfig, PaddleOcrEngine
         from .paddleocr.loader import load_paddle_params
 
         cfg = PaddleConfig.from_json(config_path) if config_path else PaddleConfig()
-        state = None
-        if weights_path:
-            state = load_paddle_params(weights_path, cfg, dtype=tdtype, snapshot_path=snapshot_path,
-                                       device=device)
+        state, state_fn = weights(load_paddle_params, cfg)
         return PaddleOcrEngine(cfg, dtype=tdtype, device=device, max_seq_len=max_seq_len,
-                               kv_quant=kv_quant, state=state, quantize=quantize)
+                               kv_quant=kv_quant, state=state, quantize=quantize, mesh=mesh, state_fn=state_fn)
     from .deepseek import DeepseekOcrConfig, DeepseekOcrEngine
     from .deepseek.loader import load_deepseek_params
 
     cfg = DeepseekOcrConfig.from_json(config_path) if config_path else DeepseekOcrConfig()
-    state = state_fn = None
-    if weights_path and mesh is not None:  # every rank reads the files itself
-        state_fn = functools.partial(_deepseek_state, weights_path, cfg, tdtype, snapshot_path)
-    elif weights_path:
-        state = load_deepseek_params(weights_path, cfg, dtype=tdtype, snapshot_path=snapshot_path,
-                                     device=device)
+    state, state_fn = weights(load_deepseek_params, cfg)
     return DeepseekOcrEngine(cfg, dtype=tdtype, device=device, max_seq_len=max_seq_len,
                              kv_quant=kv_quant, state=state, quantize=quantize, mesh=mesh,
                              state_fn=state_fn)
 
 
-def _deepseek_state(weights_path, cfg, dtype, snapshot_path, device):
-    from .deepseek.loader import load_deepseek_params
-
-    return load_deepseek_params(weights_path, cfg, dtype=dtype, snapshot_path=snapshot_path, device=device)
+def _load_state(load, weights_path, cfg, dtype, snapshot_path, device):
+    return load(weights_path, cfg, dtype=dtype, snapshot_path=snapshot_path, device=device)

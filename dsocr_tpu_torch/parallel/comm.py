@@ -8,8 +8,10 @@ mesh_backends.py). gloo takes the CUDA tensors as they are and copies
 them through host memory itself; the kernels still run on the card.
 
 Every partial sum is reduced in f32 (``all_reduce_f32``), over the mp
-group of the rank's dp row. ``calls`` counts the collectives by name, so
-a caller can read how many a decode step made.
+group of the rank's dp row; ``all_gather`` joins the mp group's pieces
+of a tensor (the dense families' attention outputs, one block of heads
+a rank). ``calls`` counts the collectives by name, so a caller can read
+how many a decode step made.
 """
 
 from __future__ import annotations
@@ -49,8 +51,8 @@ def init_group(init_method: str, rank: int, world: int, backend: str,
 
 
 class Comm:
-    """The collectives one rank makes: f32 all-reduce over its mp group,
-    broadcast from rank 0, gather to rank 0."""
+    """The collectives one rank makes: f32 all-reduce and all-gather over
+    its mp group, broadcast from rank 0, gather to rank 0."""
 
     def __init__(self, mesh, rank: int):
         self.mesh = mesh
@@ -75,6 +77,17 @@ class Comm:
         self.calls["all_reduce"] += 1
         dist.all_reduce(x, group=self.mp_group)
         return x
+
+    def all_gather(self, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """The mp group's pieces of `t` (one shape on every rank of it)
+        joined along `dim` in mp order."""
+        if self.mesh.mp == 1:
+            return t
+        self.calls["all_gather"] += 1
+        t = t.contiguous()
+        out = [torch.empty_like(t) for _ in range(self.mesh.mp)]
+        dist.all_gather(out, t, group=self.mp_group)
+        return torch.cat(out, dim=dim)
 
     def broadcast(self, t: torch.Tensor) -> torch.Tensor:
         """Rank 0's `t` on every rank, in place."""

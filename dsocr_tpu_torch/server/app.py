@@ -4,9 +4,11 @@
 
 config.toml (created with the defaults when missing) → AppState → the
 routes on server/http.py. The reference's flags, and ``--device`` (cuda,
-the default, or cpu). ``--mesh dp=N,mp=M[,ep]`` serves DeepSeek-OCR over
-dp × mp rank processes: this process is rank 0 and serves; each model
-load spawns the followers and a swap stops them (server/state.py). The model loads at its first request. One line is
+the default, or cpu). ``--mesh dp=N,mp=M[,ep]`` serves every family over
+dp × mp rank processes (DeepSeek-OCR sharded, PaddleOCR-VL, DotsOCR and
+GLM-OCR with params replicated, slot rows over dp and KV heads over mp):
+this process is rank 0 and serves; each model load spawns the followers
+and a swap stops them (server/state.py). The model loads at its first request. One line is
 logged once the server listens; SIGTERM or SIGINT stops it cleanly.
 """
 

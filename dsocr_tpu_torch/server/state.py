@@ -14,9 +14,9 @@ drops its runner and slot cache) and drops every reference to the old
 engine, then frees the card's cached blocks, before the factory builds
 the new engine: two full-width engines do not fit one card's budget side
 by side. The reference replaced its engine after loading the new one.
-Under a mesh (``mesh``: models/registry.py's load_engine) the old
-engine's rank processes stop at the swap (``engine.close``) and the new
-engine spawns its own. A failed call tears a mesh's ranks down
+Under a mesh (``mesh``: models/registry.py's load_engine; every family
+has ``alive`` and ``close``) the old engine's rank processes stop at the
+swap (``engine.close``) and the new engine spawns its own. A failed call tears a mesh's ranks down
 (parallel/runtime.py): the requests it held fail, and the next request
 finds the engine no longer ``alive`` and loads the model anew, with new
 ranks.

@@ -41,6 +41,24 @@ def home(tmp_path_factory):
     return root
 
 
+def paddle_files(home):
+    """The tiny PaddleOCR-VL model's files (seeded weights, config.json,
+    the tiny tokenizer) under the cache directory's paddleocr-vl."""
+    import torch
+
+    import chip_smoke
+    from dsocr_tpu_torch.models.paddleocr import PaddleOcrEngine, tiny_paddle_config
+
+    mdir = home / "models" / "paddleocr-vl"
+    if not (mdir / "tokenizer.json").exists():
+        mdir.mkdir(parents=True, exist_ok=True)
+        cfg = tiny_paddle_config()
+        state = PaddleOcrEngine(cfg, dtype=torch.float32, device="cpu", seed=2).model.state_dict()
+        chip_smoke.write_checkpoint(torch, state, cfg, str(mdir))
+        tiny_tokenizer_json(mdir / "tokenizer.json")
+    return mdir
+
+
 @pytest.fixture()
 def env(home, monkeypatch):
     monkeypatch.setenv("DEEPSEEK_OCR_CACHE_DIR", str(home))
@@ -115,9 +133,15 @@ def test_tpu_device_and_mesh_raise(env, tmp_path):
     argv = ["--config", str(config), "--prompt", "<image>", "--image", str(env / "page.png"), "--quiet"]
     with pytest.raises(ValueError, match=r"'tpu'; expected one of \['cuda', 'cpu'\]"):
         main(argv)
-    with pytest.raises(NotImplementedError, match="Queue 1 #6"):  # DeepSeek's mesh: test_torch_mesh_launch.py
-        main(ARGS[:1] + ["paddleocr-vl"] + ARGS[2:] + ["--prompt", "<image>", "--image", str(env / "page.png"),
-                                                       "--mesh", "dp=1,mp=4"])
+    # PaddleOCR-VL under --mesh (DeepSeek's: test_torch_mesh_launch.py): the
+    # tiny checkpoint in the cache directory, answered as one process answers
+    paddle_files(env)
+    argv = ARGS[:1] + ["paddleocr-vl"] + ARGS[2:] + ["--prompt", "<image>", "--image", str(env / "page.png"),
+                                                     "--max-new-tokens", "5"]
+    assert main(argv + ["--output-json", str(tmp_path / "one.json")]) == 0
+    assert main(argv + ["--mesh", "dp=1,mp=2", "--output-json", str(tmp_path / "mesh.json")]) == 0
+    one, mesh = (json.loads((tmp_path / f"{n}.json").read_text()) for n in ("one", "mesh"))
+    assert mesh == one and mesh["response_tokens"] > 0
 
 
 def test_module_entry_points_help():

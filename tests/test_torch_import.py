@@ -70,6 +70,7 @@ SLICE_MODULES = [
     "dsocr_tpu_torch.models",
     "dsocr_tpu_torch.models.registry",
     "dsocr_tpu_torch.models.gqa_decoder",
+    "dsocr_tpu_torch.models.gqa_mesh",
     "dsocr_tpu_torch.models.gqa_quantize",
     "dsocr_tpu_torch.models.deepseek",
     "dsocr_tpu_torch.models.deepseek.config",

@@ -19,8 +19,8 @@ made by the reference's exporter.
 - chip_smoke's on-card check of a snapshot engine (its packed tensors
   against the port's packing of the floats the snapshot stands for) holds
   here, and so does its checkpoint writer against the reference's reader.
-- The registry: resolve_dtype, the snapshot's default method, the families
-  and meshes raising for the families that wait for one; config.json parsing equals the
+- The registry: resolve_dtype, the snapshot's default method, the families,
+  PaddleOCR-VL served under a dp mesh; config.json parsing equals the
   reference's, OCR2 included (OCR2 and PaddleOCR-VL loading:
   tests/test_torch_ocr2.py, tests/test_torch_paddle.py).
 """
@@ -58,6 +58,7 @@ from dsocr_tpu_torch.models.deepseek.config import DeepseekOcrConfig
 from dsocr_tpu_torch.models.deepseek.engine import RAW_QUANT_KEY
 from dsocr_tpu_torch.models.deepseek.loader import load_deepseek_params
 from dsocr_tpu_torch.models.deepseek.quantize import quantize_decoder_params
+from dsocr_tpu_torch.models.paddleocr import PaddleOcrEngine, tiny_paddle_config
 from dsocr_tpu_torch.server.scheduler import ContinuousScheduler
 from tests.test_loaders import _make_deepseek_checkpoint
 
@@ -262,9 +263,33 @@ def test_registry(files, tmp_path):
         assert registry._snapshot_quant_method(path) == jax_registry._snapshot_quant_method(path)
     assert {registry._snapshot_quant_method(p) for p in snaps.values()} == {"q8_0", "q4_k", "q6_k"}
     assert registry._snapshot_quant_method(None) is None
-    for kind in (ModelKind.DOTS_OCR, ModelKind.GLM_OCR):  # ported; their meshes wait for Queue 1 #6
-        with pytest.raises(NotImplementedError, match="Queue 1 #6"):
-            registry.load_engine(kind, mesh="dp=1,mp=2", device="cpu")
+    # every family loads under a mesh: PaddleOCR-VL's slot rows over dp,
+    # through load_engine on its config.json, served as one process serves
+    # (tests/test_torch_mesh_dense.py holds the families against the reference)
+    pcfg = tiny_paddle_config()
+    (tmp_path / "paddle").mkdir()
+    _, paddle_config, _ = chip_smoke.write_checkpoint(
+        torch, PaddleOcrEngine(pcfg, dtype=torch.float32, device="cpu").model.state_dict(), pcfg,
+        str(tmp_path / "paddle"))
+    kw = dict(config_path=paddle_config, dtype="float32", max_seq_len=512, device="cpu")
+    single = registry.load_engine(ModelKind.PADDLE_OCR_VL, **kw)
+    meshed = registry.load_engine(ModelKind.PADDLE_OCR_VL, mesh="dp=2,mp=1", **kw)
+    page = np.random.default_rng(31).integers(0, 256, (60, 70, 3), dtype=np.uint8)
+    try:
+        cache = meshed.new_slot_cache(2, 256)
+        assert cache.rows_split and cache.k.shape[1] == 1 and meshed.mesh_runtime.share is None
+
+        def serve(engine):
+            sched = ContinuousScheduler(engine, _Tok(), n_slots=2, max_len=256)
+            try:
+                return asyncio.run(sched.submit("<image>o", [page], VisionSettings(64, 64, False),
+                                                DecodeParameters(max_new_tokens=5))).generated_tokens
+            finally:
+                asyncio.run(sched.close())
+
+        assert serve(meshed) == serve(single) and serve(single)
+    finally:
+        meshed.close()
     with pytest.raises(ValueError, match="needs a mesh"):  # DeepSeek serves under one (test_torch_mesh*.py)
         registry.load_engine(ModelKind.DEEPSEEK, ep=True, device="cpu")
     with pytest.raises(NotImplementedError, match="expert-parallel only"):  # packed serving needs ep

@@ -8,7 +8,9 @@ tests/test_parallel.py:99), slot serving with the slot rows split over dp
 (:260, dp=2), and the reference's multichip dry run
 (__graft_entry__.py:68-200: 64 routed experts, top-6, vocab 128·mp, heads
 2·mp) served over dp 2 × mp 2, with the experts split over their
-intermediate dim and, with ``ep``, over E."""
+intermediate dim and, with ``ep``, over E. GLM-OCR over dp 2 × mp 2: each
+rank one slot row and one KV head (tests/test_torch_mesh_dense.py holds
+the two-rank dense cases)."""
 
 import dataclasses
 
@@ -35,6 +37,10 @@ from tests.test_torch_mesh import (
     port_serve,
     prefill_logits,
 )
+from tests.test_torch_mesh_dense import BUDGETS as DENSE_BUDGETS
+from tests.test_torch_mesh_dense import FAMILIES, assert_cache_shares, reference
+from tests.test_torch_mesh_dense import port as dense_port
+from tests.test_torch_mesh_dense import serve as dense_serve
 
 DEADLINE_S = 90.0
 
@@ -102,3 +108,17 @@ def test_dry_run_64_experts_top6(ranks, mesh):
     assert port_decode(port, "<image>q", img, 5) == jax_decode(jax_ref, "<image>q", img, 5)
     np.testing.assert_allclose(prefill_logits(port, VisionSettings(64, 64, False)),
                                prefill_logits(jax_ref, JaxVision(64, 64, False)), **TOL)
+
+
+def test_glm_rows_over_dp_heads_over_mp(ranks):
+    """GLM at dp=2,mp=2: rank (d, m) holds slot row d and KV head m, its
+    attention outputs gathered over its dp row's mp group; the tokens are
+    the reference scheduler's."""
+    engine = dense_port("glm", mesh="dp=2,mp=2", ranks=ranks)
+    max_len = FAMILIES["glm"].max_len
+    assert assert_cache_shares(engine, 2, max_len) == (None, "dp", "mp", None, None)
+    share = engine.mesh_runtime.share
+    assert (share.kv0, share.nkv, share.q0, share.nq) == (0, 1, 0, 2)
+    got = dense_serve(engine, max_len)
+    assert [len(t) for t in got] == DENSE_BUDGETS
+    assert got == reference("glm")[1]

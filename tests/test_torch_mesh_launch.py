@@ -13,6 +13,9 @@ front ends, on the CPU over gloo.
 - A call that raises on rank 0 (an out-of-memory prefill, say) fails its
   request and tears the ranks down; the server's next request loads the
   model anew on new ranks and is answered as before.
+- The same for a dense family: the CLI and the server serve the tiny
+  PaddleOCR-VL checkpoint under ``--mesh`` (slot rows over dp in the
+  CLI, KV heads over mp in the server) as the single process does.
 """
 
 import asyncio
@@ -27,7 +30,7 @@ import torch.distributed as dist
 from dsocr_tpu_torch.config import AppConfig
 from dsocr_tpu_torch.parallel import comm, launch
 from dsocr_tpu_torch.server.state import AppState
-from tests.test_torch_cli import ARGS, env, home  # noqa: F401  (the tiny checkpoint's cache directory)
+from tests.test_torch_cli import ARGS, env, home, paddle_files  # noqa: F401  (the tiny checkpoints' cache directory)
 from tests.test_torch_server import TINY_SETTINGS, PortServer, chat, same_answer
 
 
@@ -130,4 +133,43 @@ def test_server_mesh_serves_again_after_a_failed_call(env):  # noqa: F811
         server.run(state.unload())
     finally:
         server.close()
+    asyncio.set_event_loop(None)
+
+
+PADDLE_SETTINGS = {"models": {"active": "paddleocr-vl", "entries": {"paddleocr-vl": {"defaults": {
+    "base_size": 64, "image_size": 64, "crop_mode": False, "no_repeat_ngram_size": 0}}}}}
+
+
+def test_cli_mesh_serves_a_dense_family(env, tmp_path):  # noqa: F811
+    from dsocr_tpu_torch.cli.app import main
+
+    paddle_files(env)
+    argv = ARGS[:1] + ["paddleocr-vl"] + ARGS[2:] + ["--prompt", "<image>\nOCR:", "--image", str(env / "page.png"),
+                                                     "--max-new-tokens", "6"]
+    assert main(argv + ["--output-json", str(tmp_path / "one.json")]) == 0
+    assert main(argv + ["--mesh", "dp=2,mp=1", "--output-json", str(tmp_path / "mesh.json")]) == 0
+    one, mesh = (json.loads((tmp_path / f"{n}.json").read_text()) for n in ("one", "mesh"))
+    assert mesh == one and mesh["response_tokens"] > 0
+    assert not dist.is_initialized()  # the CLI stopped its followers
+
+
+def test_server_mesh_serves_a_dense_family(env):  # noqa: F811
+    paddle_files(env)
+    body = chat("paddleocr-vl", max_tokens=8)
+    answers = []
+    for mesh in (None, "dp=1,mp=2"):
+        state = AppState(AppConfig.from_mapping(PADDLE_SETTINGS), mesh=mesh, device="cpu")
+        server = PortServer(state)
+        try:
+            answers.append(server.request("POST", "/v1/chat/completions", body))
+            engine = state.loaded.engine
+            if mesh:
+                ranks = engine.mesh_runtime.ranks
+                assert engine.mesh_runtime.share.nkv == 1 and engine.alive and not ranks.closed
+                server.run(state._unload())  # a model swap stops the followers
+                assert ranks.closed and not engine.alive and not any(p.is_alive() for p in ranks.procs)
+        finally:
+            server.close()
+    same_answer(answers[0], answers[1])
+    assert json.loads(answers[1][2])["usage"]["completion_tokens"] > 0
     asyncio.set_event_loop(None)

@@ -443,9 +443,29 @@ def test_load_engine_ocr2_through_the_registry(tmp_path, monkeypatch):
     assert engine.cfg.variant == "ocr2"
     want = seeded.model.state_dict()
     assert all(torch.equal(v, want[k]) for k, v in engine.model.state_dict().items())
-    for kind in (ModelKind.DOTS_OCR, ModelKind.GLM_OCR):  # ported; meshes still wait
-        with pytest.raises(NotImplementedError, match="Queue 1 #6"):
-            registry.load_engine(kind, mesh="dp=1,mp=2", device="cpu")
+    # the other dense families load under a mesh (``ep`` dropped: they have
+    # no experts) and serve as one process does (tests/test_torch_mesh_dense.py)
+    from dsocr_tpu_torch.models import dots, glm
+
+    images = _images(29, [(60, 70)])
+    for module, tiny in ((dots, dots.tiny_dots_config()), (glm, glm.tiny_glm_config())):
+        config_cls = type(tiny)
+        monkeypatch.setattr(config_cls, "from_json", classmethod(lambda cls, path, tiny=tiny: tiny))
+        kind = ModelKind.DOTS_OCR if module is dots else ModelKind.GLM_OCR
+        single = registry.load_engine(kind, config_path="tiny", dtype="float32", max_seq_len=1024, device="cpu")
+        meshed = registry.load_engine(kind, config_path="tiny", dtype="float32", max_seq_len=1024, device="cpu",
+                                      mesh="dp=1,mp=2,ep")
+        try:
+            assert meshed.mesh.mp == 2 and not meshed.mesh.ep and meshed.mesh_runtime.share.nkv == 1
+            sched = ContinuousScheduler(meshed, _Tok(), n_slots=2, max_len=1024, chunk_steps=3)
+            got = asyncio.run(sched.submit("<image>o", images, VISION, DecodeParameters(max_new_tokens=5)))
+            asyncio.run(sched.close())
+            want = asyncio.run(ContinuousScheduler(single, _Tok(), n_slots=2, max_len=1024).submit(
+                "<image>o", images, VISION, DecodeParameters(max_new_tokens=5)))
+            assert got.generated_tokens == want.generated_tokens and got.generated_tokens
+        finally:
+            meshed.close()
+        assert meshed.mesh_runtime.ranks.closed and not meshed.alive
 
 
 @pytest.mark.parametrize("kv_quant", [None, "int8"])
