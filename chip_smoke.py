@@ -41,7 +41,7 @@ non-zero (nothing is caught):
             weights dequantized outside the timing;
             the Q8_0 quantizer on the card bit for bit against its CPU run
             on a full-width expert stack, and the Q4_K and Q6_K quantizers
-            on 8 experts of one; the paged KV write and attend (16 rows of
+            on KQUANT_CHECK_EXPERTS (4) experts of one; the paged KV write and attend (16 rows of
             ~968 tokens in 9 pages of 128 each, int8 and bf16 pools; the
             library time of the attend is SDPA over the rows' pages gathered
             outside the timing); the KV writes from the decoder's token,
@@ -85,6 +85,12 @@ non-zero (nothing is caught):
             then (host_prep_jpeg) the two JPEG page fixtures decoded on
             the host, median ms of 3, their digests equal to Pillow's, and
             the PNG of the baseline's pixels decoded, beside the card;
+            (host_prep_formats) the same for the G4 and LZW TIFF, BMP and
+            GIF page fixtures (tests/data/format_pages.json); and
+            (native_cache) native/resample.cpp built with g++ in a
+            subprocess under DSOCR_NATIVE_CACHE into an empty temporary
+            directory, the library there and its resize of the page equal
+            to this process's default build's;
 4. serve    DeepSeek-OCR v1 at full width (DeepseekOcrConfig(), bf16
             weights from a seeded torch.Generator, int8 KV): 16 requests
             of 128 new tokens through ContinuousScheduler.submit over 16
@@ -104,7 +110,7 @@ non-zero (nothing is caught):
             the kernel launches a decode step, the largest kernels, and
             the host time spent in the kernel
             wrappers against the rest of the step; and its tower line
-            (tower_profile): the vision towers of 16 pages, device ms, the
+            (tower_profile): the vision towers of TOWER_PAGES (8) pages, device ms, the
             SAM attention's share, host ms around the synchronized call;
     serve_spec  the same 16 requests at SPEC_MAX_NEW (64) tokens in
             SPEC_CHUNK (16)-step chunks, where the speculation gate opens
@@ -125,10 +131,21 @@ non-zero (nothing is caught):
             then moe_apply(gather_threshold=N), N = 2, 4, 16, at
             layer 1's experts against the same call on the CPU:
             gather_matmul must launch;
-    decode  single-request decode, engine.decode of the page with 128 new
-            greedy tokens: prompt tokens, prefill seconds, ms per step,
-            tok/s, peak memory, with the card's name and power limit; for
-            this bf16 engine, and again after 4c for the Q8_0 one;
+    decode  single-request decode, engine.decode of the page with
+            DECODE_NEW (128) new greedy tokens: prompt tokens, prefill
+            seconds, ms per step, tok/s, peak memory, with the card's name
+            and power limit; for this bf16 engine, and again after 4c for
+            the Q8_0 one. After the bf16 call, one more engine.decode of
+            DEBUG_DECODE_NEW (8) tokens, neither counted nor timed, runs
+            under the reference's debug knobs (debug_dumps: the vision
+            dump's stages and shapes the reference's, the logits dump's
+            `chosen` the token generated at DEBUG_LOGITS_STEP, its margin
+            >= 0);
+    towers_f32  the page's towers on this engine in bf16 and in f32 copies
+            of its SAM and CLIP (DSOCR_VISION_F32's towers on the same
+            weights): device ms of each, the card's used MiB, the largest
+            |difference| of the projector output, and the f32 towers'
+            sam_flash_attention launches (> 0);
     weights the same engine's weights written as an HF-named two-shard
             safetensors checkpoint with its config.json (write_checkpoint,
             ~6.7 GB in the ignored dsocr_tpu_torch/_build/weights/; the
@@ -164,11 +181,13 @@ non-zero (nothing is caught):
             URL on deepseek-ocr-q8k, its text equal to an in-process
             scheduler's over the snapshot on decode_image of the JPEG and
             to the server's answer to the PNG of those pixels (both
-            fixtures' digests equal Pillow's); an unknown model, a prompt
-            without an image, a broken and an arithmetic-coded JPEG (400s
-            naming them), a body over 50 MB and a client leaving
-            mid-stream; then `python -m dsocr_tpu_torch.cli` on the
-            JPEG page with --output-json, its tokens equal to
+            fixtures' digests equal Pillow's); the G4 TIFF page fixture
+            the same way (text and usage); an unknown model, a prompt
+            without an image, a broken and an arithmetic-coded JPEG and a
+            JPEG-compressed TIFF (400s naming them), a body over 50 MB and
+            a client leaving mid-stream; `python -m dsocr_tpu_torch.cli` on
+            the JPEG page with --output-json (started after the swap,
+            beside the server's last checks), its tokens equal to
             engine.decode's in-process on the decoded pixels.
             One line per check; the launches of the in-process runs count;
 4b. serve_q8         the same with packed Q8_0 decoder weights (quantized
@@ -285,7 +304,8 @@ mesh_dense  after families2: PaddleOCR-VL, DotsOCR and GLM-OCR over two
             step and a burst, collectives a step, peak MiB, slot-cache
             share, host ms a step, init_s and the least margin;
 5. parity   the tiny config in f32 with one set of weights, served on the
-            card (kernels) and on the CPU (twins): greedy tokens must match;
+            card (kernels) and on the CPU (twins), PARITY_NEW (8) tokens a
+            request: greedy tokens must match;
             again with Q8_0 weights (moe_intermediate_size 32), and with
             Q4_K and with Q6_K weights (hidden 256, moe_intermediate_size
             32: K-quant gate+up, Q8_0 down), each at 2 slots (gather tier)
@@ -352,9 +372,10 @@ CHUNK = 128
 SPEC_MAX_NEW = 64
 SPEC_CHUNK = 16
 PROFILE_ROWS, PROFILE_WAVE, PROFILE_WINDOW = 16, 1024, 16  # rows, positions per row, steps
-TOWER_PAGES = 16  # the profile's tower line: the vision towers of a 16-page burst
+TOWER_PAGES = 8  # the profile's tower line: the towers of an 8-page burst (16 before the image-format lines)
 PROMPT = "<image>\nFree OCR."
 PARITY_SEED = 7
+PARITY_NEW = 8  # phase 5's tokens a request (16 before the image-format lines; the seeds are clear over 16)
 # Seed 7's Q6_K weights put a greedy near-tie in the int8-KV runs: summing
 # the same bf16 products in another order flips a token, on the CPU as on
 # the card. The Q6_K parity engines draw from seed 8, which
@@ -747,11 +768,15 @@ def check_expert_kernels(torch, record, randn, fmt, gather, gather_plain, dense,
            bound(nbytes(xe, out, *packed), 2 * E * 16 * k * m, "bf16"), deterministic=True)
 
 
+KQUANT_CHECK_EXPERTS = 4  # the K-quant quantizers' check (8 before the image-format lines; its CPU run is the cost)
+
+
 def check_kquant_kernels(torch, K, record, randn, method):
     """Phase 3, Q4_K or Q6_K: the four wrappers of the format against their
     twins at the main path's shapes (the per-expert sweep at a stand-in
     shape: DeepSeek's down projection is Q8_0), and the quantizer on the
-    card against its CPU run on 8 experts of a full-width gate+up stack."""
+    card against its CPU run on KQUANT_CHECK_EXPERTS experts of a
+    full-width gate+up stack."""
     from dsocr_tpu_torch.dsq.serve_quant import quantize_expert_stack, quantize_plain
     from dsocr_tpu_torch.ops.kernels import kquant_matmul
 
@@ -784,7 +809,7 @@ def check_kquant_kernels(torch, K, record, randn, method):
                bound(nbytes(x, out, *packed), 2 * n * k * m, "bf16"), deterministic=True)
         del out, ref, wt
 
-    w8 = randn(8, 1280, 1792, dtype=torch.bfloat16, std=1280 ** -0.5)
+    w8 = randn(KQUANT_CHECK_EXPERTS, 1280, 1792, dtype=torch.bfloat16, std=1280 ** -0.5)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     card = quantize_expert_stack(w8, method)
@@ -792,7 +817,8 @@ def check_kquant_kernels(torch, K, record, randn, method):
     quant_ms = (time.perf_counter() - t0) * 1e3
     twin = quantize_expert_stack(w8.cpu(), method)
     same = all(torch.equal(card[key].cpu(), twin[key]) for key in keys)
-    emit({"phase": "kernels", "kernel": "quantize_expert_stack", "case": f"{method} E=8 K=1280 M=1792 bf16",
+    emit({"phase": "kernels", "kernel": "quantize_expert_stack",
+          "case": f"{method} E={KQUANT_CHECK_EXPERTS} K=1280 M=1792 bf16",
           "bit_exact": same, "ms": quant_ms})
     require(same, f"the {method} quantizer on the card differs from its CPU run")
     del w8, card, twin
@@ -1429,22 +1455,31 @@ def host_prep_phase(torch, engine, pages=N_REQUESTS):
     require(line["global_view_equal"] and line["tiles_equal"] and all(sizes_equal),
             "the native resize differs from its NumPy twin")
     host_prep_jpeg()
+    host_prep_formats()
+    native_cache_check()
+
+
+def decode_fixtures(meta):
+    """The page fixtures `meta` lists (page_fixtures), each decoded on the
+    host 3 times → ({name: bytes, shape, the median and each run's ms, the
+    pixels' sha256 equal to Pillow's}, {name: pixels})."""
+    import hashlib
+
+    files, pixels = {}, {}
+    for name, (raw, entry) in page_fixtures(meta).items():
+        pixels[name], ms, runs = decode_timed(raw)
+        files[name] = {"bytes": len(raw), "shape": list(pixels[name].shape), "decode_ms": ms, "decode_ms_runs": runs,
+                       "sha256_equal": hashlib.sha256(pixels[name].tobytes()).hexdigest() == entry["sha256"]}
+    return files, pixels
 
 
 def host_prep_jpeg():
     """The JPEG page fixtures decoded on the host (image/decode.py over
-    native/jpeg.cpp): bytes, shape, the median host ms of 3 decodes and
-    the pixels' sha256 against Pillow's; the PNG of the baseline's pixels
+    native/jpeg.cpp, decode_fixtures); the PNG of the baseline's pixels
     decoded the same way; beside os.cpu_count() and the card."""
-    import hashlib
-
     import numpy as np
 
-    files, pixels = {}, {}
-    for name, (raw, entry) in jpeg_pages().items():
-        pixels[name], ms, runs = decode_timed(raw)
-        files[name] = {"bytes": len(raw), "shape": list(pixels[name].shape), "decode_ms": ms, "decode_ms_runs": runs,
-                       "sha256_equal": hashlib.sha256(pixels[name].tobytes()).hexdigest() == entry["sha256"]}
+    files, pixels = decode_fixtures("jpeg_pages.json")
     baseline = pixels["page_baseline.jpg"]
     png = png_bytes(baseline)
     png_pixels, png_ms, png_runs = decode_timed(png)
@@ -1454,6 +1489,63 @@ def host_prep_jpeg():
     emit(jpeg_line)
     require(all(f["sha256_equal"] for f in files.values()) and jpeg_line["png_equal"],
             "a JPEG page fixture decoded to other pixels than Pillow's")
+
+
+def host_prep_formats():
+    """The TIFF, BMP and GIF page fixtures decoded on the host
+    (image/{tiff,bmp,gif}.py over native/{tiff,bmp,gif}.cpp,
+    decode_fixtures), beside os.cpu_count() and the card."""
+    t0 = time.perf_counter()
+    files, _ = decode_fixtures("format_pages.json")
+    emit({"phase": "host_prep_formats", "cpu_count": os.cpu_count(), "nvidia_smi": smi_line(), "files": files,
+          "seconds": time.perf_counter() - t0})
+    require(all(f["sha256_equal"] for f in files.values()),
+            "a TIFF, BMP or GIF page fixture decoded to other pixels than Pillow's")
+
+
+_NATIVE_CACHE_CHILD = """
+import hashlib, sys
+sys.path.insert(0, {here!r})
+from chip_smoke import seeded_page
+from dsocr_tpu_torch.native import resample as N
+image, _ = seeded_page()
+out = N.resize_bicubic_native(image, 1024, 640)
+print(N.library_path())
+print(hashlib.sha256(out.tobytes()).hexdigest())
+"""
+
+
+def native_cache_check():
+    """DSOCR_NATIVE_CACHE: a subprocess with the knob set to an empty
+    temporary directory builds native/resample.cpp there (g++) and resizes
+    the seeded page; the library must land there and the pixels equal
+    this process's default build's."""
+    import hashlib
+    import shutil
+    import tempfile
+
+    from dsocr_tpu_torch.native import resample as N
+
+    image, _ = seeded_page()
+    want = hashlib.sha256(N.resize_bicubic_native(image, 1024, 640).tobytes()).hexdigest()
+    cache = tempfile.mkdtemp(prefix="native-cache-")
+    try:
+        t0 = time.perf_counter()
+        child = subprocess.run([sys.executable, "-c", _NATIVE_CACHE_CHILD.format(here=HERE)], capture_output=True,
+                               text=True, timeout=300, env=dict(os.environ, DSOCR_NATIVE_CACHE=cache))
+        seconds = time.perf_counter() - t0
+        out = child.stdout.split()
+        built = out[0] if child.returncode == 0 and len(out) == 2 else None
+        ok = (built is not None and os.path.dirname(built) == cache and os.path.exists(built) and out[1] == want
+              and os.path.dirname(str(N.library_path())) != cache)
+        emit({"phase": "native_cache", "ok": ok, "returncode": child.returncode, "seconds": seconds,
+              "library_in_cache": built is not None and os.path.dirname(built) == cache,
+              "pixels_equal_default_build": built is not None and out[1] == want})
+        if not ok:
+            print(child.stderr[-4000:], file=sys.stderr)
+        require(ok, "DSOCR_NATIVE_CACHE: the resampler did not build there, or its pixels differ")
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
 
 
 class InjectedFault(RuntimeError):
@@ -2087,16 +2179,17 @@ def write_png(path, image):
     return data
 
 
-JPEG_PAGES = os.path.join(HERE, "tests", "data")  # written by tests/data/make_jpeg_pages.py with Pillow
+JPEG_PAGES = os.path.join(HERE, "tests", "data")  # written by tests/data/make_{jpeg,format}_pages.py with Pillow
 
 
-def jpeg_pages():
-    """The JPEG page fixtures → {name: (bytes, their entry in
-    jpeg_pages.json: shape, bytes, the sha256 of Pillow's RGB)}."""
-    with open(os.path.join(JPEG_PAGES, "jpeg_pages.json")) as fh:
-        meta = json.load(fh)
+def page_fixtures(meta):
+    """The page fixtures a JSON of tests/data/ lists (jpeg_pages.json: the
+    JPEG pages; format_pages.json: TIFF, BMP and GIF) → {name: (bytes,
+    their entry: shape, bytes, the sha256 of Pillow's RGB)}."""
+    with open(os.path.join(JPEG_PAGES, meta)) as fh:
+        entries = json.load(fh)["files"]
     out = {}
-    for name, entry in meta["files"].items():
+    for name, entry in entries.items():
         with open(os.path.join(JPEG_PAGES, name), "rb") as fh:
             out[name] = (fh.read(), entry)
     return out
@@ -2204,9 +2297,11 @@ def frontends_phase(torch, K, index, config_path, q8_snapshot, required):
     /v1/responses (the deltas join to the text, the events in the
     reference's order); a burst of 4 requests and 2 streams at once; the
     swap to the snapshot (model_swaps_total 2, the server's device memory
-    lower after it than before); the JPEG page fixture on the snapshot
-    against an in-process scheduler over it and the PNG of its pixels; the
-    error shapes (a broken and an arithmetic-coded JPEG among them); then
+    lower after it than before); the JPEG page fixture and the G4 TIFF page
+    fixture on the snapshot (timed before the CLI and the mesh server
+    start, so the server has the card alone), each against an in-process
+    scheduler over its pixels and the PNG of them; the error shapes (a broken and an
+    arithmetic-coded JPEG and a JPEG-compressed TIFF among them); then
     the CLI's tokens on the JPEG page against engine.decode in-process.
     One line per check; the launch counts of the in-process runs are
     returned (`required` must launch)."""
@@ -2231,7 +2326,7 @@ def frontends_phase(torch, K, index, config_path, q8_snapshot, required):
     cfg = DeepseekOcrConfig()
     lang = cfg.language
     tmp = tempfile.mkdtemp(prefix="frontends-", dir=WEIGHTS_DIR)
-    server = None
+    server = cli = mesh_server = None
     log_path = os.path.join(tmp, "server.log")
     launches = {}
     t_phase = time.perf_counter()
@@ -2256,8 +2351,10 @@ def frontends_phase(torch, K, index, config_path, q8_snapshot, required):
         page, vision = seeded_page()
         png = write_png(os.path.join(tmp, "page.png"), page)
         url = "data:image/png;base64," + base64.b64encode(png).decode()
-        pages = jpeg_pages()
+        pages = page_fixtures("jpeg_pages.json")
         jpeg = pages["page_baseline.jpg"][0]
+        g4 = page_fixtures("format_pages.json")["page_g4.tif"][0]
+        g4_url = "data:image/tiff;base64," + base64.b64encode(g4).decode()
         with open(os.path.join(tmp, "page.jpg"), "wb") as fh:
             fh.write(jpeg)
         jpeg_url = "data:image/jpeg;base64," + base64.b64encode(jpeg).decode()
@@ -2278,6 +2375,8 @@ def frontends_phase(torch, K, index, config_path, q8_snapshot, required):
         jpeg_pixels = decode_image(jpeg)
         jpeg_png = png_bytes(jpeg_pixels)
         jpeg_png_url = "data:image/png;base64," + base64.b64encode(jpeg_png).decode()
+        g4_pixels = decode_image(g4)
+        g4_png_url = "data:image/png;base64," + base64.b64encode(png_bytes(g4_pixels)).decode()
         digests = {name: hashlib.sha256(decode_image(raw).tobytes()).hexdigest() == entry["sha256"]
                    for name, (raw, entry) in pages.items()}
         check("files", np.array_equal(decoded, page) and all(digests.values())
@@ -2401,17 +2500,73 @@ def frontends_phase(torch, K, index, config_path, q8_snapshot, required):
               seconds_with_load=swap_s, swaps=swaps, server_mib_before=before[0], server_mib_after=after[0],
               card_mib_before=before[1], card_mib_after=after[1])
 
-        # the JPEG page on the snapshot: against the PNG of its pixels and an in-process scheduler
+        # the JPEG page and the G4 TIFF page on the snapshot, each with the
+        # PNG of its pixels, timed while this server has the card alone;
+        # checked below against an in-process scheduler
         t0 = time.perf_counter()
         status_j, _, text_j = http_call(port, "POST", "/v1/chat/completions",
                                         chat_body("deepseek-ocr-q8k", jpeg_url, FRONTEND_MAX_NEW))
         jpeg_s = time.perf_counter() - t0
         status_p, _, text_p = http_call(port, "POST", "/v1/chat/completions",
                                         chat_body("deepseek-ocr-q8k", jpeg_png_url, FRONTEND_MAX_NEW))
-        reply_j = json.loads(text_j) if status_j == 200 else {}
-        reply_p = json.loads(text_p) if status_p == 200 else {}
-        got_j = reply_j.get("choices", [{}])[0].get("message", {}).get("content")
-        got_p = reply_p.get("choices", [{}])[0].get("message", {}).get("content")
+        t0 = time.perf_counter()
+        status_t, _, text_t = http_call(port, "POST", "/v1/chat/completions",
+                                        chat_body("deepseek-ocr-q8k", g4_url, FRONTEND_MAX_NEW))
+        tiff_s = time.perf_counter() - t0
+        status_tp, _, text_tp = http_call(port, "POST", "/v1/chat/completions",
+                                          chat_body("deepseek-ocr-q8k", g4_png_url, FRONTEND_MAX_NEW))
+        reply_j, reply_p, reply_t, reply_tp = (json.loads(text) if status == 200 else {} for status, text in (
+            (status_j, text_j), (status_p, text_p), (status_t, text_t), (status_tp, text_tp)))
+        got_j, got_p, got_t, got_tp = (r.get("choices", [{}])[0].get("message", {}).get("content")
+                                       for r in (reply_j, reply_p, reply_t, reply_tp))
+
+        # The CLI and (d)'s server under --mesh start here, beside this
+        # server's last checks (none of them timed), and are checked after
+        # it stops (not before the swap check, which reads the card's
+        # memory). The mesh server's first request, which loads its model,
+        # goes from a thread.
+        out_json = os.path.join(tmp, "out.json")
+        cli_log = os.path.join(tmp, "cli.log")
+        cli_t0 = time.perf_counter()
+        with open(cli_log, "w") as log:
+            cli = subprocess.Popen([sys.executable, "-m", "dsocr_tpu_torch.cli", "--config", toml, "--model",
+                                    "deepseek-ocr", "--prompt", PROMPT, "--image", os.path.join(tmp, "page.jpg"),
+                                    "--max-new-tokens", "32", "--output-json", out_json],
+                                   cwd=HERE, env=env, stdout=log, stderr=subprocess.STDOUT)
+        mesh_log = os.path.join(tmp, "server_mesh.log")
+        mesh_port = free_port()
+        with open(mesh_log, "w") as log:
+            mesh_server = subprocess.Popen([sys.executable, "-m", "dsocr_tpu_torch.server", "--config", toml,
+                                            "--host", "127.0.0.1", "--port", str(mesh_port), "--device", "cuda",
+                                            "--mesh", MESH, "--kv-quant", "int8"],
+                                           cwd=HERE, env=env, stdout=log, stderr=subprocess.STDOUT)
+        mesh_out = {}
+
+        def mesh_request():
+            try:
+                t = time.perf_counter()
+                while True:
+                    if mesh_server.poll() is not None or time.perf_counter() - t > SERVER_START_S:
+                        mesh_out["error"] = "the mesh server exited or did not listen in time"
+                        return
+                    try:
+                        if http_call(mesh_port, "GET", "/v1/health", timeout=5)[0] == 200:
+                            break
+                    except OSError:
+                        time.sleep(0.5)
+                mesh_out["start_s"] = time.perf_counter() - t
+                t = time.perf_counter()
+                mesh_out["reply"] = http_call(mesh_port, "POST", "/v1/chat/completions",
+                                              chat_body("deepseek-ocr", url, FRONTEND_MAX_NEW))
+                mesh_out["first_s"] = time.perf_counter() - t
+                mesh_out["mib"] = gpu_memory_mib(mesh_server.pid)
+            except Exception as err:  # reported by the mesh_server check below
+                mesh_out["error"] = repr(err)
+
+        mesh_thread = threading.Thread(target=mesh_request, daemon=True)
+        mesh_thread.start()
+
+        # the JPEG and G4 TIFF pages on the snapshot (timed above) against an in-process scheduler
         q8_path = os.path.join(model_dir, "deepseek-ocr-q8k", "snapshot.dsq")
         q8_engine = load_engine(ModelKind.DEEPSEEK, config_path=config, weights_path=index, snapshot_path=q8_path,
                                 max_seq_len=8192)
@@ -2419,6 +2574,8 @@ def frontends_phase(torch, K, index, config_path, q8_snapshot, required):
         K.reset_launches()
         sched = ContinuousScheduler(q8_engine, tokenizer)
         want_j = asyncio.run(sched.submit(prompt, [jpeg_pixels], vision,
+                                          DecodeParameters(max_new_tokens=FRONTEND_MAX_NEW)))
+        want_t = asyncio.run(sched.submit(prompt, [g4_pixels], vision,
                                           DecodeParameters(max_new_tokens=FRONTEND_MAX_NEW)))
         torch.cuda.synchronize()
         q8_launches = K.launch_counts()
@@ -2431,6 +2588,14 @@ def frontends_phase(torch, K, index, config_path, q8_snapshot, required):
               in_process_prompt_tokens=want_j.prompt_tokens, text_equal_in_process=got_j == want_j.text,
               text_equal_png=got_p == got_j, text_chars=len(want_j.text))
 
+        usage_t = {"prompt_tokens": want_t.prompt_tokens, "completion_tokens": want_t.response_tokens,
+                   "total_tokens": want_t.prompt_tokens + want_t.response_tokens}
+        check("tiff", status_t == 200 and status_tp == 200 and got_t == want_t.text and got_tp == got_t
+              and reply_t["usage"] == usage_t and reply_tp["usage"] == usage_t,
+              status=status_t, png_status=status_tp, seconds=tiff_s, tiff_bytes=len(g4), usage=reply_t.get("usage"),
+              in_process_usage=usage_t, text_equal_in_process=got_t == want_t.text,
+              text_equal_png=got_tp == got_t, text_chars=len(want_t.text))
+
         # the error shapes
         unknown = http_call(port, "POST", "/v1/chat/completions", chat_body("bogus", url, 8))
         fallback = http_call(port, "POST", "/v1/chat/completions", chat_body("deepseek-ocr-q8k", None, 8, text="hi"))
@@ -2440,6 +2605,11 @@ def frontends_phase(torch, K, index, config_path, q8_snapshot, required):
         arith[arith.index(b"\xff\xc0") + 1] = 0xC9  # SOF0 → SOF9: arithmetic coding
         arith_url = "data:image/jpeg;base64," + base64.b64encode(bytes(arith)).decode()
         arith_reply = http_call(port, "POST", "/v1/chat/completions", chat_body("deepseek-ocr-q8k", arith_url, 8))
+        jpeg_tiff = bytearray(g4)  # Compression (SHORT, 1, 4: T.6) → 7: JPEG-in-TIFF, refused by name
+        at = jpeg_tiff.index(b"\x03\x01\x03\x00\x01\x00\x00\x00\x04\x00")
+        jpeg_tiff[at + 8] = 7
+        jt_url = "data:image/tiff;base64," + base64.b64encode(bytes(jpeg_tiff)).decode()
+        jt_reply = http_call(port, "POST", "/v1/chat/completions", chat_body("deepseek-ocr-q8k", jt_url, 8))
         big = http_call(port, "POST", "/v1/chat/completions", raw=b"x" * (50 * 2 ** 20 + 1))
         sock = socket.create_connection(("127.0.0.1", port), timeout=REQUEST_S)
         raw = json.dumps(chat_body("deepseek-ocr-q8k", url, FRONTEND_MAX_NEW, stream=True)).encode()
@@ -2457,25 +2627,23 @@ def frontends_phase(torch, K, index, config_path, q8_snapshot, required):
               and broken[0] == 400 and "JPEG" in json.loads(broken[2])["error"]["message"]
               and arith_reply[0] == 400
               and "arithmetic-coded JPEG (SOF9)" in json.loads(arith_reply[2])["error"]["message"]
+              and jt_reply[0] == 400 and "JPEG-compressed TIFF" in json.loads(jt_reply[2])["error"]["message"]
               and big[0] == 413 and after_leave[0] == 200 and server.poll() is None,
               unknown=unknown[0], fallback=fallback[0], jpeg=broken[0], jpeg_message=broken[2][:200],
               arithmetic=arith_reply[0], arithmetic_message=arith_reply[2][:200],
+              jpeg_in_tiff=jt_reply[0], jpeg_in_tiff_message=jt_reply[2][:200],
               over_50mb=big[0], after_client_left=after_leave[0])
         server.send_signal(15)
         server.wait(60)
         check("server_stop", server.returncode == 0, returncode=server.returncode)
         server = None
 
-        # the CLI against engine.decode in-process
-        out_json = os.path.join(tmp, "out.json")
-        t0 = time.perf_counter()
-        cli = subprocess.run([sys.executable, "-m", "dsocr_tpu_torch.cli", "--config", toml, "--model",
-                              "deepseek-ocr", "--prompt", PROMPT, "--image", os.path.join(tmp, "page.jpg"),
-                              "--max-new-tokens", "32", "--output-json", out_json],
-                             cwd=HERE, env=env, capture_output=True, text=True, timeout=REQUEST_S)
-        cli_s = time.perf_counter() - t0
+        # the CLI (started after the swap) against engine.decode in-process
+        cli.wait(REQUEST_S)
+        cli_s = time.perf_counter() - cli_t0
         if cli.returncode != 0:
-            print(cli.stderr[-8000:], file=sys.stderr)
+            with open(cli_log, errors="replace") as fh:
+                print(fh.read()[-8000:], file=sys.stderr)
         result = json.load(open(out_json)) if cli.returncode == 0 else {}
         K.reset_launches()
         mine = engine.decode(tokenizer, prompt, [jpeg_pixels], vision, DecodeParameters(max_new_tokens=32))
@@ -2489,30 +2657,14 @@ def frontends_phase(torch, K, index, config_path, q8_snapshot, required):
               text_equal=result.get("text") == mine.text)
 
         # (d) of the mesh phase: the server under --mesh with an int8 KV
-        # cache, against the same request on the in-process engine with one
-        mesh_log = os.path.join(tmp, "server_mesh.log")
-        mesh_port = free_port()
-        t0 = time.perf_counter()
-        with open(mesh_log, "w") as log:
-            server = subprocess.Popen([sys.executable, "-m", "dsocr_tpu_torch.server", "--config", toml, "--host",
-                                       "127.0.0.1", "--port", str(mesh_port), "--device", "cuda", "--mesh", MESH,
-                                       "--kv-quant", "int8"],
-                                      cwd=HERE, env=env, stdout=log, stderr=subprocess.STDOUT)
-        log_path = mesh_log
-        while True:
-            require(server.poll() is None, "frontends: the mesh server exited at start")
-            require(time.perf_counter() - t0 < SERVER_START_S, "frontends: the mesh server did not listen in time")
-            try:
-                if http_call(mesh_port, "GET", "/v1/health", timeout=5)[0] == 200:
-                    break
-            except OSError:
-                time.sleep(0.5)
-        mesh_start_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        status, _, text = http_call(mesh_port, "POST", "/v1/chat/completions",
-                                    chat_body("deepseek-ocr", url, FRONTEND_MAX_NEW))
-        mesh_first_s = time.perf_counter() - t0
-        mesh_mib = gpu_memory_mib(server.pid)
+        # cache (started after the swap), against the same request on the
+        # in-process engine with one
+        server, log_path = mesh_server, mesh_log
+        mesh_thread.join(SERVER_START_S + REQUEST_S)
+        require(not mesh_thread.is_alive() and "error" not in mesh_out,
+                f"frontends: the mesh server's request failed: {mesh_out.get('error', 'timed out')}")
+        status, _, text = mesh_out["reply"]
+        mesh_start_s, mesh_first_s, mesh_mib = mesh_out["start_s"], mesh_out["first_s"], mesh_out["mib"]
         server.send_signal(15)
         server.wait(60)
         stopped = server.returncode
@@ -2555,9 +2707,10 @@ def frontends_phase(torch, K, index, config_path, q8_snapshot, required):
               stopped=stopped)
         del engine
     finally:
-        if server is not None:
-            server.kill()
-            server.wait(60)
+        for proc in (server, cli, mesh_server):
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait(60)
         shutil.rmtree(tmp, ignore_errors=True)
         gc.collect()
         torch.cuda.empty_cache()
@@ -3444,6 +3597,9 @@ def split_phase(torch, K, engine, steps=16):
 # the gather tier's traces, short for the smoke's time: the decode phase's
 # traced steps, and the new tokens of the burst that gather_trace runs again
 GATHER_STEPS = 8
+DECODE_NEW = 128  # the decode phases' new tokens
+DEBUG_LOGITS_STEP = 5  # the decode step whose top-2 logits the bf16 decode phase's dump call dumps
+DEBUG_DECODE_NEW = 8  # that call's new tokens
 GATHER_TRACE_NEW = 8
 
 
@@ -3454,13 +3610,15 @@ def is_gather_kernel(name: str) -> bool:
     return ("sweep_kernel<" in name and name.split(">")[0].endswith("true")) or "::expert_kernel<" in name
 
 
-def decode_phase(torch, K, engine, smi, required, max_new=MAX_NEW):
+def decode_phase(torch, K, engine, smi, required, max_new=DECODE_NEW, debug_dumps=False):
     """Single-request decode at full width: engine.decode on the seeded page,
     max_new greedy tokens (after a warm-up prefill and 4 steps of the same
     path), the launch counters zeroed just before and read just after;
     every kernel in `required` must have launched. With packed weights,
     GATHER_STEPS more warm-up steps under torch.profiler give the gather tier's
-    device ms a token beside the step's (`gather`)."""
+    device ms a token beside the step's (`gather`). `debug_dumps` then
+    runs one more, uncounted and untimed engine.decode under the
+    reference's debug knobs and checks its dumps (debug_dumps_check)."""
     from dsocr_tpu_torch.core import DecodeParameters
     from dsocr_tpu_torch.runtime.kv_cache import bump_length
 
@@ -3515,7 +3673,117 @@ def decode_phase(torch, K, engine, smi, required, max_new=MAX_NEW):
             f"decode returned {out.response_tokens} of {max_new} tokens without EOS")
     for name in required:
         require(launches[name] > 0, f"kernel {name} was not launched in the decode phase")
+    if debug_dumps:
+        debug_dumps_check(engine, image, vision)
     return launches
+
+
+def debug_dumps_check(engine, image, vision):
+    """One engine.decode of DEBUG_DECODE_NEW tokens on the page under the
+    reference's debug knobs (DSOCR_DEBUG_VISION_PATH, DSOCR_DEBUG_LOGITS_STEP
+    = DEBUG_LOGITS_STEP, DSOCR_DEBUG_LOGITS_PATH), after the decode phase's
+    counted and timed call: the vision dump's stage names and shapes are
+    the reference's for the page's global view (sam, clip, fusion,
+    projector), its stats finite; the logits dump is step
+    DEBUG_LOGITS_STEP's, its `chosen` the token decode generated there,
+    its margin >= 0."""
+    import math
+    import shutil
+    import tempfile
+
+    from dsocr_tpu_torch.core import DecodeParameters
+
+    cfg = engine.cfg
+    directory = tempfile.mkdtemp(prefix="debug-dumps-")
+    try:
+        with environ(DSOCR_DEBUG_VISION_PATH=os.path.join(directory, "vision.json"),
+                     DSOCR_DEBUG_LOGITS_STEP=str(DEBUG_LOGITS_STEP),
+                     DSOCR_DEBUG_LOGITS_PATH=os.path.join(directory, "logits.json")):
+            out = engine.decode(BenchTokenizer(), PROMPT, [image], vision,
+                                DecodeParameters(max_new_tokens=DEBUG_DECODE_NEW))
+        with open(os.path.join(directory, "vision.json")) as fh:
+            trace = json.load(fh)
+        with open(os.path.join(directory, "logits.json")) as fh:
+            logits = json.load(fh)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    # the global view's grid: SAM's 16-pixel patches, then two stride-2 convs
+    g = (vision.base_size if vision.crop_mode else vision.image_size) // 64
+    want = [("sam", [1, cfg.sam.out_channels[1], g, g]), ("clip", [1, g * g + 1, cfg.clip.hidden_size]),
+            ("fusion", [1, g * g, cfg.projector_input_dim]), ("projector", [1, g * g, cfg.projector_n_embed])]
+    stages = [(st["stage"], st["shape"]) for st in trace["stages"]]
+    finite = all(math.isfinite(st[k]) for st in trace["stages"] for k in ("mean", "std", "min", "max"))
+    step = logits.get("step")
+    chosen_ok = step == DEBUG_LOGITS_STEP and step < len(out.generated_tokens) \
+        and logits.get("chosen") == out.generated_tokens[step]
+    line = {"phase": "debug_dumps", "stages": trace["stages"], "logits": logits,
+            "stages_equal_reference": stages == want, "stats_finite": finite, "chosen_equals_generated": chosen_ok}
+    emit(line)
+    require(stages == want and finite, f"the vision dump's stages {stages} are not the reference's {want}")
+    require(chosen_ok and logits.get("margin", -1.0) >= 0.0,
+            f"the logits dump {logits} does not name step {DEBUG_LOGITS_STEP}'s generated token")
+
+
+def towers_f32_phase(torch, K, engine, smi):
+    """DSOCR_VISION_F32's towers against the engine's bf16 ones on the same
+    weights: f32 copies of this engine's SAM and CLIP (no second model;
+    the projector stays bf16, as under the knob) swapped in for one
+    measurement. For the seeded page's towers (its global view and tiles,
+    engine._compute_image_embeddings_batched) in each dtype: device ms
+    (the kernel events of one call under torch.profiler) and host ms
+    around the synchronized call (median of 3 after a warm-up); the card's
+    used MiB with both copies resident, and the largest |difference| of
+    the global view's projector output. The f32 towers must reach
+    sam_flash_attention."""
+    import copy
+
+    vin = page_input(engine)
+
+    def towers():
+        engine._compute_image_embeddings_batched([vin])
+
+    def measure():
+        towers()
+        host = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            towers()
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+        device_ms, _, top = traced(torch, towers, 1)
+        return device_ms, statistics.median(host), top
+
+    t_phase = time.perf_counter()
+    with torch.no_grad():
+        bf16_ms, bf16_host, bf16_top = measure()
+        want = engine._tower(vin.global_pixels).float()
+        sam, clip = engine.model.sam, engine.model.clip
+        sam32, clip32 = copy.deepcopy(sam).float(), copy.deepcopy(clip).float()
+        try:
+            engine.model.sam, engine.model.clip = sam32, clip32
+            f32_ms, f32_host, f32_top = measure()
+            K.reset_launches()
+            got = engine._tower(vin.global_pixels).float()
+            torch.cuda.synchronize()
+            launches = K.launch_counts()["sam_flash_attention"]
+            used = gpu_memory_mib(os.getpid())
+            tower_mib = sum(t.numel() * t.element_size() for m in (sam32, clip32) for t in m.parameters()) / 2 ** 20
+        finally:
+            engine.model.sam, engine.model.clip = sam, clip
+    diff = float((got - want).abs().max())
+    line = {"phase": "towers_f32", "nvidia_smi": smi, "views": 1 + (len(vin.patches) if vin.patches is not None else 0),
+            "bf16_device_ms": bf16_ms, "f32_device_ms": f32_ms, "f32_over_bf16": f32_ms / bf16_ms,
+            "bf16_host_ms": bf16_host, "f32_host_ms": f32_host, "bf16_top": bf16_top, "f32_top": f32_top,
+            "process_used_mib": used[0], "card_used_mib": used[1], "f32_tower_weights_mib": tower_mib,
+            "projector_max_abs_diff": diff, "projector_max_abs": float(want.abs().max()),
+            "f32_sam_attention_launches": launches, "seconds": time.perf_counter() - t_phase}
+    del sam32, clip32, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(line)
+    require(math.isfinite(diff) and launches > 0,
+            f"the f32 towers: projector difference {diff}, {launches} sam_flash_attention launches")
 
 
 def serve(engine, tokenizer, images, vision, params, *, n_slots, max_len, chunk):
@@ -3763,8 +4031,8 @@ SAM_KERNEL_NAMES = ("sam_attention_", "flash_tile_kernel")
 
 
 def tower_profile(torch, K, engine, pages=TOWER_PAGES):
-    """The vision towers of a 16-page burst: the seeded page's VisionInput
-    (page_input, so no host prep in the window) 16 times through
+    """The vision towers of a TOWER_PAGES-page burst: the seeded page's VisionInput
+    (page_input, so no host prep in the window) `pages` times through
     engine._compute_image_embeddings_batched, which pools the pages' views
     as the scheduler's prefill does (4 global views and 16 tiles a call).
     Host ms around the synchronized call (median of 3 after a warm-up),
@@ -4003,7 +4271,7 @@ def parity_phase(torch):
     cfg = tiny_deepseek_config()
     rng = np.random.default_rng(3)
     images = [rng.integers(0, 256, size=(60, 60, 3), dtype=np.uint8) for _ in range(3)]
-    params = DecodeParameters(max_new_tokens=16, no_repeat_ngram_size=None)
+    params = DecodeParameters(max_new_tokens=PARITY_NEW, no_repeat_ngram_size=None)
     vision = VisionSettings(64, 64, False)
     cpu = DeepseekOcrEngine(cfg, dtype=torch.float32, device="cpu", max_seq_len=512, seed=PARITY_SEED)
     state = cpu.model.state_dict()
@@ -4126,7 +4394,7 @@ def parity_phase(torch):
 
 
 MESH = "dp=1,mp=2"  # two ranks sharing the one card
-MESH_REQUESTS, MESH_NEW, MESH_SLOTS = 4, 64, 4  # (a), (b): 4 × 64 over 4 slots
+MESH_REQUESTS, MESH_NEW, MESH_SLOTS = 4, 32, 4  # (a), (b): 4 × 32 over 4 slots (× 64 before the image-format lines)
 MESH_PAGED = (2, 32)  # (c): 2 × 32 over 2 slots, DSOCR_PAGED_KV=1
 MESH_STEPS = 16  # decode steps of the per-step line
 # bf16 logit tolerance between a mesh and the single-process engine, about
@@ -4304,8 +4572,9 @@ def mesh_burst(torch, phase, engine, case, n_requests, n_slots, max_new, require
 def mesh_phase(torch, K, smi, attention, codes_in):
     """DeepSeek-OCR v1 at full width over two ranks on the one card
     (dp=1, mp=2), the seeded weights and page: (a) bf16 TP with int8 KV,
-    a 4 × 64 burst over 4 slots, (c) the same engine with DSOCR_PAGED_KV=1
-    at 2 × 32, then (b) Q8_0 expert-parallel (``ep``) at 4 × 64; one set
+    a 4 × 32 burst over 4 slots (MESH_NEW), (c) the same engine with
+    DSOCR_PAGED_KV=1 at 2 × 32, then (b) Q8_0 expert-parallel (``ep``) at
+    4 × 32; one set
     of rank processes for the three. Each held to MESH_REFS (the
     single-process engine's bursts on the same weights). Case (d), the
     server under --mesh, runs in the frontends phase. → rank 0's launch
@@ -4515,7 +4784,8 @@ def main() -> int:
     bursts.append(sched_phase(torch, K, engine))
     bursts.append(split_phase(torch, K, engine))
     prefill = ["sam_flash_attention", "flash_prefill_attention"]
-    bursts.append(decode_phase(torch, K, engine, smi, required=prefill))
+    bursts.append(decode_phase(torch, K, engine, smi, required=prefill, debug_dumps=True))
+    towers_f32_phase(torch, K, engine, smi)
     bursts += weights_phase(torch, K, engine, required=attention + [
         "q6k_matmul", "q6k_dense_experts", "q8_dense_experts_perx"], unused=codes_in,
         then=lambda index, config, q8: frontends_phase(torch, K, index, config, q8, required=attention))

@@ -5,7 +5,7 @@
 config.toml and the flags' overrides → the model's files (local only:
 config/resolver.py) → load_engine on the card (``--device cpu`` for the
 host) → the prompt through the conversation template → the image count
-checked against the ``<image>`` slots → PNG or JPEG pages decoded by
+checked against the ``<image>`` slots → PNG, JPEG, TIFF, BMP or GIF pages decoded by
 image/decode.py → ``engine.decode`` with the deltas streamed to stdout
 (UTF-8 safe) → a throughput line on stderr, ``--output-json`` (the result) and
 ``--bench-output`` (the stage timings of core/benchmark.py). ``--quiet``

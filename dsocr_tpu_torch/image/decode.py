@@ -3,7 +3,10 @@
 cli/app.py; the card's machine has no Pillow).
 
 ``decode_image(raw)`` returns (H, W, 3) uint8, bit-equal to Pillow's
-``convert("RGB")`` (Pillow 12.1 over libjpeg-turbo 3.1), for PNG and JPEG.
+``convert("RGB")`` (Pillow 12.1 over libjpeg-turbo 3.1 and libtiff 4.7),
+for PNG and JPEG (here), and TIFF, BMP and GIF (image/tiff.py, bmp.py and
+gif.py, which the dispatch below imports at first use; their codecs are
+native/tiff.cpp, bmp.cpp and gif.cpp, built and loaded by ``_native``).
 
 PNG in full: color types 0, 2, 3, 4 and 6 at every bit depth the spec
 allows (1, 2, 4, 8, 16), palettes, ``tRNS`` (alpha is dropped, not
@@ -47,8 +50,9 @@ decodes as Pillow keeps it, unless its data ends less than libjpeg's
 bit reader's state; the port raises). Damaged entropy data that libjpeg
 only warns about decodes as libjpeg decodes it.
 
-Every other format raises ``UnsupportedImageFormat`` naming it, found by
-its magic bytes (GIF, WebP, BMP, TIFF); broken PNG data raises
+WebP and bytes with no known magic raise ``UnsupportedImageFormat``
+naming them, as do the variants each decoder refuses by name (JPEG-in-
+TIFF, BMP with embedded JPEG or PNG, ...); broken data raises
 ``ImageDecodeError``.
 """
 
@@ -65,7 +69,7 @@ import numpy as np
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _MAGIC = ((b"\xff\xd8\xff", "JPEG"), (b"GIF87a", "GIF"), (b"GIF89a", "GIF"), (b"BM", "BMP"),
-          (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"))
+          (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"), (b"II+\x00", "TIFF"), (b"MM\x00+", "TIFF"))
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
 _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
@@ -74,6 +78,10 @@ _U8P, _I16P, _U16P = (ctypes.POINTER(t) for t in (ctypes.c_uint8, ctypes.c_int16
 _I32P, _I64P, _I, _I64 = ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int64), ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
     "png": {"png_unfilter": [_U8P, _I, _I, _I, _U8P]},
+    "tiff": {"tiff_lzw": [_U8P, _I64, _U8P, _I64], "tiff_packbits": [_U8P, _I64, _U8P, _I64],
+             "tiff_fax": [_U8P, _I64, _U8P, _I, _I, _I, _I, _I32P]},
+    "bmp": {"bmp_rle": [_U8P, _I64, _I64, _I, _I, _I, _U8P, _I64P]},
+    "gif": {"gif_lzw": [_U8P, _I64, _I, _U8P, _I64]},
     "jpeg": {"jpeg_scan": [_U8P, _I64, _I64, _I32P, _U8P, _I16P, _I64P, _I64P, ctypes.c_char_p, _I],
              "jpeg_output": [_I16P, _I64P, _I32P, _U16P, _U8P]},
 }
@@ -89,7 +97,7 @@ class UnsupportedImageFormat(ImageDecodeError):
     """An image format the decoder does not read; ``format`` names it."""
 
     def __init__(self, fmt: str):
-        super().__init__(f"{fmt} images are not supported (PNG and Huffman-coded JPEG are read)")
+        super().__init__(f"{fmt} images are not supported (PNG, Huffman-coded JPEG, TIFF, BMP and GIF are read)")
         self.format = fmt
 
 
@@ -113,13 +121,26 @@ def decode_image(raw: bytes) -> np.ndarray:
         return decode_png(bytes(raw))
     if fmt == "JPEG":
         return decode_jpeg(bytes(raw))
+    if fmt == "TIFF":
+        from .tiff import decode_tiff
+
+        return decode_tiff(bytes(raw))
+    if fmt == "BMP":
+        from .bmp import decode_bmp
+
+        return decode_bmp(bytes(raw))
+    if fmt == "GIF":
+        from .gif import decode_gif
+
+        return decode_gif(bytes(raw))
     if fmt == "unknown":
         raise UnsupportedImageFormat("unrecognized (no known magic bytes)")
     raise UnsupportedImageFormat(fmt)
 
 
 def _native(stem: str) -> ctypes.CDLL:
-    """native/<stem>.cpp built (at first use) and loaded, its functions typed."""
+    """native/<stem>.cpp built (at first use) and loaded, its functions
+    typed (the format modules call it too)."""
     with _lock:
         if stem not in _libs:
             from ..native.resample import build
@@ -263,7 +284,7 @@ _SMOOTHED = (1, 8, 16, 9, 2, 3, 10, 17, 24)
 _ZIGZAG = np.array([0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13,
                     6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52, 45,
                     38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
-_MAX_PIXELS = 2 * (1024 * 1024 * 1024 // 4 // 3)  # Pillow's DecompressionBombError limit
+MAX_PIXELS = 2 * (1024 * 1024 * 1024 // 4 // 3)  # Pillow's DecompressionBombError limit, every format's
 _MAX_DIMENSION = 65500  # libjpeg's JPEG_MAX_DIMENSION
 _GREY, _YCC, _RGB, _CMYK, _YCCK = range(5)
 
@@ -290,7 +311,7 @@ class _Frame:
             raise ImageDecodeError(f"JPEG SOF{kind - 0xC0} at byte {at} has a bad length")
         if self.height == 0 or self.width == 0:
             raise ImageDecodeError("JPEG frame has an empty size (a height defined by DNL is not read)")
-        if self.height > _MAX_DIMENSION or self.width > _MAX_DIMENSION or self.width * self.height > _MAX_PIXELS:
+        if self.height > _MAX_DIMENSION or self.width > _MAX_DIMENSION or self.width * self.height > MAX_PIXELS:
             raise ImageDecodeError(f"JPEG frame of {self.width} × {self.height} is too large")
         self.progressive = kind == 0xC2
         self.ids, self.h, self.v, self.tq = [], [], [], []

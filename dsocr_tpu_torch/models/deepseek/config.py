@@ -222,3 +222,17 @@ def tiny_deepseek_config() -> DeepseekOcrConfig:
         projector_n_embed=32,
         projector_input_dim=32,  # clip 16 + sam 16
     )
+
+
+def vision_compute_dtype(model_dtype):
+    """The dtype SAM and CLIP load and compute in (the reference's
+    ``vision_compute_dtype``): the model dtype, or f32 under
+    ``DSOCR_VISION_F32``, read when an engine or a loader is built; the
+    projector stays in the model dtype, and OCR2's encoder is f32 either
+    way. Rank processes inherit the environment, so every rank of a mesh
+    builds the same towers."""
+    import os
+
+    import torch
+
+    return torch.float32 if os.environ.get("DSOCR_VISION_F32") else model_dtype

@@ -48,6 +48,7 @@ power-of-two padding, which only bounds XLA's compilations).
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -69,7 +70,7 @@ from ...runtime.kv_cache import KVCache, bump_length, init_kv_cache
 from ...runtime.paged import PageAllocator, PagedSlotCache, PagedSlotRunner, new_page_pool
 from ...runtime.slots import SlotCache, SlotRunner, alloc_slot_cache
 from .clip import ClipEncoder
-from .config import DeepseekOcrConfig
+from .config import DeepseekOcrConfig, vision_compute_dtype
 from .decoder import DeepseekDecoder, fuse_decoder_params, has_gate_bias
 from .fusion import (
     Projector,
@@ -109,16 +110,18 @@ class DeepseekOcrModel(nn.Module):
     """All weights of one DeepSeek-OCR model: SAM, then CLIP and the
     projector (OCR1) or the Qwen2 encoder (OCR2, f32 as the reference's
     init makes it), then the decoder; state_dict names follow the
-    reference's parameter tree (see convert.params_from_jax)."""
+    reference's parameter tree (see convert.params_from_jax). SAM and CLIP
+    take `vision_dtype` (the engine's: f32 under DSOCR_VISION_F32), the
+    projector and the decoder the model dtype."""
 
     def __init__(self, cfg: DeepseekOcrConfig, dtype, device, quantize: Optional[str] = None,
-                 ocr2: Optional[Qwen2EncoderParams] = None, gate_bias: bool = False):
+                 ocr2: Optional[Qwen2EncoderParams] = None, gate_bias: bool = False, *, vision_dtype):
         super().__init__()
-        self.sam = SamEncoder(cfg.sam, dtype, device)
+        self.sam = SamEncoder(cfg.sam, vision_dtype, device)
         if cfg.variant == "ocr2":
             self.ocr2 = Ocr2Encoder(ocr2 or Qwen2EncoderParams(), torch.float32, device)
         else:
-            self.clip = ClipEncoder(cfg.clip, dtype, device)
+            self.clip = ClipEncoder(cfg.clip, vision_dtype, device)
             self.projector = Projector(cfg, dtype, device)
         self.decoder = DeepseekDecoder(cfg.language, dtype, device, quantize, gate_bias=gate_bias)
 
@@ -168,7 +171,11 @@ class DeepseekOcrEngine(MeshHost):
         the decoder over rank processes (the module docstring); `ranks`
         are running ranks (parallel.launch.start), else this engine starts
         and owns its own (``close`` stops them); `state_fn(device)` makes
-        the state on each rank instead of `state`."""
+        the state on each rank instead of `state`.
+
+        SAM and CLIP run in config.vision_compute_dtype of `dtype` (f32
+        under DSOCR_VISION_F32, read here and, from the environment they
+        inherit, on every follower)."""
         if cfg.variant not in ("ocr1", "ocr2") or (cfg.variant == "ocr1" and cfg.clip is None):
             raise NotImplementedError(f"unsupported DeepSeek-OCR variant {cfg.variant!r}")
         if kv_quant not in (None, "int8"):
@@ -186,6 +193,7 @@ class DeepseekOcrEngine(MeshHost):
         self.cfg = cfg
         self.dtype = dtype
         self.device = select_device(device)
+        self.vision_dtype = vision_compute_dtype(dtype)
         ranks = self._start_mesh(mesh, ranks, dict(
             cfg=cfg, dtype=dtype, max_seq_len=max_seq_len, seed=seed, kv_quant=kv_quant, state=state,
             quantize=quantize, ocr2_params=ocr2_params, state_fn=state_fn))
@@ -196,7 +204,8 @@ class DeepseekOcrEngine(MeshHost):
         self.max_seq_len = max_seq_len
         self.ocr2_cfg = (ocr2_params or Qwen2EncoderParams()) if cfg.variant == "ocr2" else None
         self.model = DeepseekOcrModel(cfg, dtype, self.device, quantize, self.ocr2_cfg,
-                                      gate_bias=state is not None and has_gate_bias(state))
+                                      gate_bias=state is not None and has_gate_bias(state),
+                                      vision_dtype=self.vision_dtype)
         if state is None:
             self.model.reset_(torch.Generator(device=self.device).manual_seed(seed))
         else:
@@ -319,6 +328,60 @@ class DeepseekOcrEngine(MeshHost):
             torch.cat([row.to(self.dtype) for row in locals_[vi]] + [globals_[vi].to(self.dtype), sep])
             for vi in range(len(vins))
         ]
+
+    @torch.no_grad()
+    def vision_debug_trace(self, vin: VisionInput) -> Dict:
+        """Each stage's shape, mean, std, min and max over the image's
+        global view, under the reference's keys and stage names (``sam``,
+        ``clip``, ``fusion``, ``projector``; ``sam``, ``ocr2_encoder`` for
+        OCR2). ``decode`` writes it to DSOCR_DEBUG_VISION_PATH when that
+        is set."""
+
+        def stats(name, t):
+            a = t.float().cpu().numpy()
+            return {"stage": name, "shape": list(a.shape), "mean": float(a.mean()), "std": float(a.std()),
+                    "min": float(a.min()), "max": float(a.max())}
+
+        sam_out = self.model.sam(self._pixels(vin.global_pixels))
+        out = [stats("sam", sam_out)]
+        if self.cfg.variant == "ocr2":
+            out.append(stats("ocr2_encoder", self.model.ocr2(sam_out)))
+            return {"stages": out}
+        clip_out = self.model.clip(sam_out)
+        out.append(stats("clip", clip_out))
+        fused = build_clip_sam_tokens(clip_out, sam_out)
+        out.append(stats("fusion", fused))
+        out.append(stats("projector", self.model.projector(fused)))
+        return {"stages": out}
+
+    def _maybe_dump_vision_trace(self, vins: Sequence[VisionInput]) -> None:
+        path = os.environ.get("DSOCR_DEBUG_VISION_PATH")
+        if path and vins:
+            with open(path, "w") as fh:
+                json.dump(self.vision_debug_trace(vins[0]), fh)
+
+    @staticmethod
+    def _debug_logits_step() -> Optional[int]:
+        """The step whose logits ``decode`` dumps (DSOCR_DEBUG_LOGITS_STEP
+        with DSOCR_DEBUG_LOGITS_PATH), else None."""
+        target = os.environ.get("DSOCR_DEBUG_LOGITS_STEP")
+        if target is None or os.environ.get("DSOCR_DEBUG_LOGITS_PATH") is None:
+            return None
+        return int(target)
+
+    @staticmethod
+    def _dump_debug_logits(step: int, logits: np.ndarray, chosen: int) -> None:
+        """The top-2 logits of `step` (0: the token the prefill selects),
+        their margin and the token chosen, for near-tie analysis; the
+        reference's keys."""
+        top2 = np.argsort(-logits)[:2]
+        payload = {
+            "step": step, "top1_id": int(top2[0]), "top1_logit": float(logits[top2[0]]),
+            "top2_id": int(top2[1]), "top2_logit": float(logits[top2[1]]),
+            "margin": float(logits[top2[0]] - logits[top2[1]]), "chosen": int(chosen),
+        }
+        with open(os.environ["DSOCR_DEBUG_LOGITS_PATH"], "w") as fh:
+            json.dump(payload, fh)
 
     @torch.no_grad()
     def _compute_image_embeddings_batched(self, vins: Sequence[VisionInput]) -> List[torch.Tensor]:
@@ -583,11 +646,16 @@ class DeepseekOcrEngine(MeshHost):
         128) into a cache of the clamped budget, then greedy or sampled
         generation (EOS never emitted). ``stream(steps, tokens)`` gets the
         tokens after every 16-step chunk. ``decode_stages`` keeps the
-        seconds of each stage."""
+        seconds of each stage. The reference's debug knobs:
+        DSOCR_DEBUG_VISION_PATH gets ``vision_debug_trace`` of the first
+        image, and DSOCR_DEBUG_LOGITS_STEP with DSOCR_DEBUG_LOGITS_PATH
+        the top-2 logits of that step (with the cache or without it)."""
         self.decode_stages = {}
         t0 = time.perf_counter()
         vision_inputs = [self.prepare_vision_input(np.asarray(img), vision) for img in images]
         t0 = self._stage("vision.prepare_inputs", t0)
+        self._maybe_dump_vision_trace(vision_inputs)
+        t0 = time.perf_counter()  # the dump's tower run is no stage's
         embeddings = self._compute_image_embeddings_batched(vision_inputs)
         t0 = self._stage("vision.compute_embeddings", t0, embeddings[0] if embeddings else None)
         tokens, image_mask = self.build_prompt_tokens(tokenizer, prompt, vision_inputs, embeddings,
@@ -616,7 +684,19 @@ class DeepseekOcrEngine(MeshHost):
             eos_ids=(eos,) if eos is not None else (), emit_eos=False,
             chunk_size=16 if stream is not None else 64,
         )
-        result = Generator(self._step_fn, gen_params).generate(
+        step_fn, dump, seen = self._step_fn, self._debug_logits_step(), {}
+        if dump == 0:
+            seen[0] = logits[0].float().cpu().numpy()
+        elif dump is not None:  # the dump-th step call gives the logits that select token `dump`
+            calls = [0]
+
+            def step_fn(decoder, token_ids, cache, pos_state):
+                out = self._step_fn(decoder, token_ids, cache, pos_state)
+                calls[0] += 1
+                if calls[0] == dump:
+                    seen[dump] = out[0][0].float().cpu().numpy()
+                return out
+        result = Generator(step_fn, gen_params).generate(
             self.model.decoder, logits, cache, None, [tokens],
             generator=torch.Generator(device=self.device).manual_seed(params.seed or 0),
             stream_callback=stream,
@@ -624,6 +704,11 @@ class DeepseekOcrEngine(MeshHost):
         self._stage("decode.generate", t0)
         self.decode_stages["decode.steps"] = result.steps
         generated = result.tokens[0]
+        if dump in seen:
+            if dump < len(generated):
+                self._dump_debug_logits(dump, seen[dump], generated[dump])
+            elif dump == len(generated) < max_new and eos is not None:  # the step selected EOS
+                self._dump_debug_logits(dump, seen[dump], eos)
         return DecodeOutcome(
             text=normalize_text(tokenizer.decode(generated, skip_special_tokens=True)),
             prompt_tokens=prompt_len, response_tokens=len(generated), generated_tokens=generated,
@@ -638,9 +723,13 @@ class DeepseekOcrEngine(MeshHost):
         generated: List[int] = []
         rng = np.random.default_rng(params.seed or 0)
         eos = self.cfg.language.eos_token_id
-        for _ in range(params.max_new_tokens):
+        dump = self._debug_logits_step()
+        for step in range(params.max_new_tokens):
             pre = self._prefill_rows([(context, image_mask, embeddings)])[0]
-            current = select_token_id_host(pre["logits"].float().cpu().numpy(), params, context, rng)
+            step_logits = pre["logits"].float().cpu().numpy()
+            current = select_token_id_host(step_logits, params, context, rng)
+            if step == dump:
+                self._dump_debug_logits(step, step_logits, current)
             if eos is not None and current == eos:
                 break
             context.append(current)

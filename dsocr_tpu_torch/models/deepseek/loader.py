@@ -13,8 +13,8 @@ names ``convert.params_from_jax`` gives the reference loader's tree:
 Each tensor is read in its stored dtype (a view of the mapped file), moved
 to ``device`` (the card unless the caller names the CPU) and cast there to
 the model dtype; expert stacks are built on the device one projection of
-one layer at a time. The towers load in the model dtype, as the
-reference's do by default (``vision_compute_dtype``). A ``.dsq`` snapshot
+one layer at a time. SAM and CLIP load in ``vision_compute_dtype`` (the
+model dtype, f32 under ``DSOCR_VISION_F32``), as the reference's do. A ``.dsq`` snapshot
 overrides the linears it holds (``dsq/runtime.py: WeightSource``, records
 dequantized on the device to f32, then cast), and ``collect_raw_quant``
 gathers its ggml payloads, which the engine packs directly
@@ -38,7 +38,7 @@ import torch
 from ...core.device import select_device
 from ...dsq.runtime import WeightSource
 from ...dsq.serve_quant import collect_raw_plain
-from .config import DeepseekOcrConfig
+from .config import DeepseekOcrConfig, vision_compute_dtype
 from .decoder import split_layers
 from .engine import RAW_QUANT_KEY
 from .ocr2 import Qwen2EncoderParams
@@ -304,15 +304,16 @@ def load_deepseek_params(weights_path, cfg: DeepseekOcrConfig, dtype=torch.bfloa
     OCR2 reads the encoder of `ocr2` (the published widths by default, as
     the reference always does)."""
     device = select_device(device)
+    vdtype = vision_compute_dtype(dtype)
     reader = WeightSource.open(weights_path, snapshot_path, device)
     state = {
-        **load_sam_params(reader, cfg, dtype, device),
+        **load_sam_params(reader, cfg, vdtype, device),
         **load_decoder_params(reader, cfg, dtype, device),
     }
     if cfg.variant == "ocr2":
         state.update(load_ocr2_params(reader, ocr2, device))
     else:
-        state.update(load_clip_params(reader, cfg, dtype, device))
+        state.update(load_clip_params(reader, cfg, vdtype, device))
         state.update(load_projector_params(reader, cfg, dtype, device))
     if snapshot_path is not None:
         raw = collect_raw_quant(reader, cfg)

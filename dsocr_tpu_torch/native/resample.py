@@ -1,9 +1,15 @@
 """ctypes binding for the Pillow-exact host resampler (``resample.cpp``),
 the counterpart of dsocr_tpu/native/resample.py.
 
-The library is built at first use with g++ into
-``dsocr_tpu_torch/_build/`` (git-ignored), the way ops/kernels/_lib.py
-builds the CUDA kernels: the file name carries a hash of the source and
+The library is built at first use with g++ into the package's
+``build_dir()`` (native/__init__.py): the directory that
+``DSOCR_NATIVE_CACHE`` names, else ``dsocr_tpu_torch/_build/``
+(git-ignored), read at each build, where ops/kernels/_lib.py builds the
+CUDA kernels too. The reference falls back
+to ``~/.cache/dsocr_tpu/native``; the port keeps its builds beside the
+package, so that a checkout builds everything it runs inside itself, and
+an installed, read-only package names a writable directory by the knob.
+The file name carries a hash of the source and
 the flags, the build runs under an ``fcntl`` lock and lands by an atomic
 rename, so processes that start on a cold cache at once wait for one
 build and each loads a whole library. A build or load failure raises:
@@ -12,8 +18,8 @@ there is no quiet fall back to the NumPy twin.
 ctypes releases the GIL for the length of each call, so the engine's
 prep threads resize pages in parallel. ``build(source)`` compiles any
 C++ source of this directory the same way (image/decode.py builds
-``png.cpp`` and ``jpeg.cpp``, its PNG unfiltering and JPEG decoding,
-through it).
+``png.cpp``, ``jpeg.cpp``, ``tiff.cpp``, ``bmp.cpp`` and ``gif.cpp``,
+the image decoders' codecs, through it).
 """
 
 from __future__ import annotations
@@ -29,8 +35,9 @@ from typing import Optional
 
 import numpy as np
 
+from . import build_dir
+
 SOURCE = pathlib.Path(__file__).resolve().with_name("resample.cpp")
-BUILD_DIR = pathlib.Path(__file__).resolve().parents[1] / "_build"
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _lock = threading.Lock()
@@ -47,7 +54,7 @@ def library_path(source: Optional[pathlib.Path] = None) -> pathlib.Path:
     source = source or SOURCE
     digest = hashlib.sha256(source.read_bytes())
     digest.update(" ".join(GXX_FLAGS).encode())
-    return BUILD_DIR / f"libdsocr_{source.stem}_{digest.hexdigest()[:16]}.so"
+    return build_dir() / f"libdsocr_{source.stem}_{digest.hexdigest()[:16]}.so"
 
 
 def build(source: Optional[pathlib.Path] = None) -> pathlib.Path:
@@ -57,8 +64,8 @@ def build(source: Optional[pathlib.Path] = None) -> pathlib.Path:
     out = library_path(source)
     if out.exists():  # only a finished build is ever renamed into place
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / f"{source.stem}.lock", "w") as lock:
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with open(out.parent / f"{source.stem}.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if out.exists():
             return out

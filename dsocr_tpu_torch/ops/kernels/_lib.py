@@ -2,7 +2,8 @@
 
 Each source compiles with its own nvcc, all started together, and the
 objects link into ONE shared library with a plain C interface, at first
-use, into ``dsocr_tpu_torch/_build/`` (git-ignored).
+use, into the native package's ``build_dir()`` (``DSOCR_NATIVE_CACHE``,
+else ``dsocr_tpu_torch/_build/``, git-ignored; read at each build).
 The file name carries a hash of the sources and flags, so an edited
 source rebuilds and an unchanged one loads the cached library. The
 library is bound with ctypes: every pointer and the stream travel as
@@ -28,9 +29,10 @@ from typing import Dict, Optional
 
 import torch
 
+from ...native import build_dir
+
 PKG_DIR = pathlib.Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
-BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -85,14 +87,14 @@ def library_path() -> pathlib.Path:
         digest.update(path.name.encode())
         digest.update(path.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libdsocr_kernels_{digest.hexdigest()[:16]}.so"
+    return build_dir() / f"libdsocr_kernels_{digest.hexdigest()[:16]}.so"
 
 
 def build() -> pathlib.Path:
     """Compile csrc/*.cu into the shared library unless it is cached."""
     out = library_path()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / "build.lock", "w") as lock:
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with open(out.parent / "build.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if out.exists():
             build_info.update(path=str(out), nvcc_s=0.0)

@@ -282,7 +282,8 @@ def main() -> int:
     for rnd in range(2):
         for name, subs in variants.items():
             d = root / name
-            _lib.CSRC_DIR, _lib.BUILD_DIR, _lib._lib = d / "csrc", d / "build", None
+            _lib.CSRC_DIR, _lib._lib = d / "csrc", None
+            os.environ["DSOCR_NATIVE_CACHE"] = str(d / "build")
             _lib.DECODE_SPLIT = int(dict(subs).get("DA_CHUNK", 256))
             for (mod, attr), value in defaults.items():
                 setattr(mod, attr, value)

@@ -64,7 +64,7 @@ def run_tree(root: str, mode: str = "") -> int:
     set_f32_precision()
     _lib.lib()
     if mode == "--towers":
-        cs.tower_profile(torch, K, cs.full_width_engine(torch))
+        cs.tower_profile(torch, K, cs.full_width_engine(torch), pages=16)
         return 0
     if mode == "--gather":
         engine = cs.full_width_engine(torch, quantize="q8_0")

@@ -203,15 +203,31 @@ def test_bad_filter_type_raises():
         decode_image(raw)
 
 
-@pytest.mark.parametrize("fmt, name", [("GIF", "GIF"), ("WEBP", "WebP"), ("BMP", "BMP"), ("TIFF", "TIFF")])
+@pytest.mark.parametrize("fmt", ["GIF", "BMP", "TIFF"])
+def test_other_formats_decode_equal_to_pillow(fmt):
+    """GIF, BMP and TIFF decode (image/gif.py, bmp.py, tiff.py; their own
+    test files hold the matrices)."""
+    img = np.random.default_rng(5).integers(0, 256, (8, 9, 3), dtype=np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, format=fmt)
+    want = np.asarray(Image.open(io.BytesIO(buf.getvalue())).convert("RGB"))
+    np.testing.assert_array_equal(decode_image(buf.getvalue()), want)
+
+
+@pytest.mark.parametrize("fmt, name", [("WEBP", "WebP"), ("TIFF-7", "JPEG-compressed TIFF (compression 7)"),
+                                       ("TIFF-6", "old-style JPEG-compressed TIFF (compression 6)")])
 def test_other_formats_raise_by_name(fmt, name):
     buf = io.BytesIO()
     try:
-        Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(buf, format=fmt)
+        Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(buf, format=fmt.split("-")[0])
     except (KeyError, OSError):
         pytest.skip(f"this Pillow cannot write {fmt}")
-    with pytest.raises(UnsupportedImageFormat, match=name) as err:
-        decode_image(buf.getvalue())
+    raw = buf.getvalue()
+    if fmt.startswith("TIFF"):  # the Compression entry (SHORT, 1, none) set to JPEG
+        at = raw.index(struct.pack("<HHLHH", 259, 3, 1, 1, 0))
+        raw = raw[:at + 8] + struct.pack("<H", int(fmt[-1])) + raw[at + 10:]
+    with pytest.raises(UnsupportedImageFormat, match=re.escape(name)) as err:
+        decode_image(raw)
     assert err.value.format == name
 
 

@@ -61,6 +61,9 @@ SLICE_MODULES = [
     "dsocr_tpu_torch.dsq.cli",
     "dsocr_tpu_torch.image",
     "dsocr_tpu_torch.image.decode",
+    "dsocr_tpu_torch.image.tiff",
+    "dsocr_tpu_torch.image.bmp",
+    "dsocr_tpu_torch.image.gif",
     "dsocr_tpu_torch.image.ops",
     "dsocr_tpu_torch.image.resample",
     "dsocr_tpu_torch.image.tiling",

@@ -14,7 +14,9 @@ through ContinuousScheduler with an f32 and an int8 KV cache (:260,
 expert-parallel decode with Q8_0, Q4_K and Q6_K weights (:359, :596),
 the vision towers split over the ranks with a padded chunk (:215), and
 one OCR2 decode. The world-4 cases are in test_torch_mesh4.py, the
-launcher's failure paths and the front ends in test_torch_mesh_launch.py.
+launcher's failure paths, the front ends and the followers' f32 towers
+under DSOCR_VISION_F32 (ranks started under the knob) in
+test_torch_mesh_launch.py.
 """
 
 import asyncio

@@ -16,6 +16,8 @@ front ends, on the CPU over gloo.
 - The same for a dense family: the CLI and the server serve the tiny
   PaddleOCR-VL checkpoint under ``--mesh`` (slot rows over dp in the
   CLI, KV heads over mp in the server) as the single process does.
+- Ranks started under DSOCR_VISION_F32 inherit it: a bf16 DeepSeek
+  engine's followers build f32 towers as rank 0 does.
 """
 
 import asyncio
@@ -173,3 +175,39 @@ def test_server_mesh_serves_a_dense_family(env):  # noqa: F811
     same_answer(answers[0], answers[1])
     assert json.loads(answers[1][2])["usage"]["completion_tokens"] > 0
     asyncio.set_event_loop(None)
+
+
+def test_f32_towers_on_every_rank(monkeypatch):
+    """Under DSOCR_VISION_F32 a bf16 engine's followers build f32 towers as
+    rank 0 does: ranks started under the knob inherit it, and the view
+    rank 1 runs lands on the single-process f32 towers' output, not on the
+    bf16 towers'."""
+    import numpy as np
+
+    from dsocr_tpu_torch.core import VisionSettings
+    from dsocr_tpu_torch.models.deepseek import DeepseekOcrEngine, tiny_deepseek_config
+
+    cfg = tiny_deepseek_config()
+    state = DeepseekOcrEngine(cfg, dtype=torch.float32, device="cpu", max_seq_len=512, seed=5).model.state_dict()
+
+    def engine(**kw):
+        return DeepseekOcrEngine(cfg, dtype=torch.bfloat16, device="cpu", max_seq_len=512, state=state, **kw)
+
+    monkeypatch.setenv("DSOCR_VISION_F32", "1")
+    ranks = launch.start(2, "cpu", deadline=60)
+    try:
+        port = engine(mesh="dp=1,mp=2", ranks=ranks)
+        single = engine()
+        monkeypatch.delenv("DSOCR_VISION_F32")
+        bf16 = engine()
+        assert port.vision_dtype == single.vision_dtype == torch.float32 and bf16.vision_dtype == torch.bfloat16
+        rng = np.random.default_rng(9)
+        pages = [rng.integers(0, 256, size=(60, 60, 3), dtype=np.uint8) for _ in range(2)]
+        views = np.concatenate([port.prepare_vision_input(p, VisionSettings(64, 64, False)).global_pixels
+                                for p in pages])
+        got = port.mesh_runtime.towers("_tower", views).float().numpy()
+    finally:
+        ranks.close()
+    want = single._tower(views).float().numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    assert not np.allclose(bf16._tower(views[1:]).float().numpy(), want[1:], rtol=1e-4, atol=1e-4)

@@ -129,10 +129,9 @@ def test_main_path_prep_resizes_only_natively(monkeypatch):
 
 
 _BUILD_AND_RESIZE = """
-import pathlib, sys, numpy as np
+import sys, numpy as np
 sys.path.insert(0, {repo!r})
 from dsocr_tpu_torch.native import resample as N
-N.BUILD_DIR = pathlib.Path({build!r})
 img = np.random.default_rng(0).integers(0, 256, (90, 70, 3), dtype=np.uint8)
 out = N.resize_bicubic_native(img, 33, 41)
 print(N.library_path().name, int(out.astype(np.int64).sum()))
@@ -143,8 +142,9 @@ def test_cold_build_shared_by_concurrent_processes(tmp_path):
     """Four processes that start together on an empty build directory wait
     for one g++ build and each loads a whole library."""
     build = tmp_path / "build"
-    code = _BUILD_AND_RESIZE.format(repo=str(REPO), build=str(build))
+    code = _BUILD_AND_RESIZE.format(repo=str(REPO))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["DSOCR_NATIVE_CACHE"] = str(build)
     procs = [subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True, env=env) for _ in range(4)]
     outs = []
@@ -163,7 +163,7 @@ def test_failed_build_raises(tmp_path, monkeypatch):
     bad = tmp_path / "resample.cpp"
     bad.write_text("this is not C++\n")
     monkeypatch.setattr(N, "SOURCE", bad)
-    monkeypatch.setattr(N, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setenv("DSOCR_NATIVE_CACHE", str(tmp_path / "build"))
     monkeypatch.setattr(N, "_lib", None)
     with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
         N.resize_bicubic_native(_img(4, 4, seed=0), 2, 2)

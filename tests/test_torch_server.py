@@ -16,6 +16,7 @@ import http.client
 import io
 import json
 import socket
+import struct
 import threading
 import weakref
 
@@ -441,6 +442,43 @@ def test_real_engine_jpeg_data_url_answers_equal(real, progressive):
         server.request("POST", "/v1/chat/completions", body)
     assert port[0] == 200
     same_answer(ref, port)
+
+
+@pytest.mark.parametrize("fmt, save", [("TIFF", {"compression": "group4"}), ("TIFF", {"compression": "tiff_lzw"}),
+                                       ("BMP", {}), ("GIF", {})], ids=["g4", "lzw", "bmp", "gif"])
+def test_real_engine_tiff_bmp_gif_data_urls_answer_equal(real, fmt, save):
+    """A TIFF (G4 bilevel, LZW colour), BMP or GIF page (decoded by Pillow
+    in the reference's app, natively in the port's) answers 200 with the
+    same body."""
+    ref_state, server = real
+    img = Image.fromarray(np.random.default_rng(4).integers(0, 256, (60, 70, 3), dtype=np.uint8))
+    if save.get("compression") == "group4":
+        img = img.convert("1")
+    buf = io.BytesIO()
+    img.save(buf, format=fmt, **save)
+    body = chat("deepseek-ocr", max_tokens=12)
+    body["messages"][0]["content"][1]["image_url"]["url"] = (f"data:image/{fmt.lower()};base64,"
+                                                             + base64.standard_b64encode(buf.getvalue()).decode())
+    ref, port = ref_request(ref_state, "POST", "/v1/chat/completions", body), \
+        server.request("POST", "/v1/chat/completions", body)
+    assert port[0] == 200
+    same_answer(ref, port)
+
+
+@pytest.mark.parametrize("compression, name", [(7, "JPEG-compressed TIFF"), (6, "old-style JPEG-compressed TIFF")])
+def test_jpeg_in_tiff_data_url_is_a_400_naming_it(fake, compression, name):
+    _, server = fake
+    buf = io.BytesIO()
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(buf, format="TIFF")
+    raw = bytearray(buf.getvalue())
+    at = raw.index(struct.pack("<HHLHH", 259, 3, 1, 1, 0))
+    raw[at + 8:at + 10] = struct.pack("<H", compression)
+    body = chat()
+    body["messages"][0]["content"][1]["image_url"]["url"] = ("data:image/tiff;base64,"
+                                                             + base64.standard_b64encode(bytes(raw)).decode())
+    status, _, text = server.request("POST", "/v1/chat/completions", body)
+    assert status == 400
+    assert name in json.loads(text)["error"]["message"]
 
 
 def test_real_engine_503_with_retry_after(real, monkeypatch):
