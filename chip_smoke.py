@@ -1498,14 +1498,23 @@ def host_prep_jpeg():
 
 def host_prep_formats():
     """The TIFF, BMP and GIF page fixtures decoded on the host
-    (image/{tiff,bmp,gif}.py over native/{tiff,bmp,gif}.cpp,
-    decode_fixtures), beside os.cpu_count() and the card."""
+    (image/{tiff,bmp,gif}.py over native/{tiff,bmp,gif,tiff_color,jpeg}.cpp,
+    decode_fixtures; the YCbCr 4:2:0 JPEG-in-TIFF page among them), beside
+    os.cpu_count(), the card, and whether the host's Python has the
+    standard library's lzma (LZMA-compressed TIFF strips need it)."""
     t0 = time.perf_counter()
+    try:
+        import lzma  # noqa: F401
+
+        lzma_imports = True
+    except ImportError:
+        lzma_imports = False
     files, _ = decode_fixtures("format_pages.json")
     emit({"phase": "host_prep_formats", "cpu_count": os.cpu_count(), "nvidia_smi": smi_line(), "files": files,
-          "seconds": time.perf_counter() - t0})
+          "lzma_imports": lzma_imports, "seconds": time.perf_counter() - t0})
     require(all(f["sha256_equal"] for f in files.values()),
             "a TIFF, BMP or GIF page fixture decoded to other pixels than Pillow's")
+    require(lzma_imports, "host_prep_formats: the standard library's lzma does not import on this host")
 
 
 def host_prep_webp():
@@ -2374,6 +2383,8 @@ def frontends_phase(torch, K, index, config_path, q8_snapshot, required):
         jpeg = pages["page_baseline.jpg"][0]
         g4 = page_fixtures("format_pages.json")["page_g4.tif"][0]
         g4_url = "data:image/tiff;base64," + base64.b64encode(g4).decode()
+        ycc = page_fixtures("format_pages.json")["page_jpeg_ycc420.tif"][0]
+        ycc_url = "data:image/tiff;base64," + base64.b64encode(ycc).decode()
         webp = page_fixtures("webp_pages.json")["page_lossy.webp"][0]
         webp_url = "data:image/webp;base64," + base64.b64encode(webp).decode()
         with open(os.path.join(tmp, "page.jpg"), "wb") as fh:
@@ -2397,6 +2408,7 @@ def frontends_phase(torch, K, index, config_path, q8_snapshot, required):
         jpeg_png = png_bytes(jpeg_pixels)
         jpeg_png_url = "data:image/png;base64," + base64.b64encode(jpeg_png).decode()
         g4_pixels = decode_image(g4)
+        ycc_pixels = decode_image(ycc)
         webp_pixels = decode_image(webp)
         g4_png_url = "data:image/png;base64," + base64.b64encode(png_bytes(g4_pixels)).decode()
         digests = {name: hashlib.sha256(decode_image(raw).tobytes()).hexdigest() == entry["sha256"]
@@ -2523,9 +2535,9 @@ def frontends_phase(torch, K, index, config_path, q8_snapshot, required):
               card_mib_before=before[1], card_mib_after=after[1])
 
         # the JPEG page and the G4 TIFF page on the snapshot, each with the
-        # PNG of its pixels, and the lossy WebP page, timed while this
-        # server has the card alone; checked below against an in-process
-        # scheduler
+        # PNG of its pixels, the lossy WebP page and the YCbCr 4:2:0
+        # JPEG-in-TIFF page, timed while this server has the card alone;
+        # checked below against an in-process scheduler
         t0 = time.perf_counter()
         status_j, _, text_j = http_call(port, "POST", "/v1/chat/completions",
                                         chat_body("deepseek-ocr-q8k", jpeg_url, FRONTEND_MAX_NEW))
@@ -2542,10 +2554,16 @@ def frontends_phase(torch, K, index, config_path, q8_snapshot, required):
         status_w, _, text_w = http_call(port, "POST", "/v1/chat/completions",
                                         chat_body("deepseek-ocr-q8k", webp_url, FRONTEND_MAX_NEW))
         webp_s = time.perf_counter() - t0
-        reply_j, reply_p, reply_t, reply_tp, reply_w = (json.loads(text) if status == 200 else {} for status, text in (
-            (status_j, text_j), (status_p, text_p), (status_t, text_t), (status_tp, text_tp), (status_w, text_w)))
-        got_j, got_p, got_t, got_tp, got_w = (r.get("choices", [{}])[0].get("message", {}).get("content")
-                                              for r in (reply_j, reply_p, reply_t, reply_tp, reply_w))
+        t0 = time.perf_counter()
+        status_y, _, text_y = http_call(port, "POST", "/v1/chat/completions",
+                                        chat_body("deepseek-ocr-q8k", ycc_url, FRONTEND_MAX_NEW))
+        ycc_s = time.perf_counter() - t0
+        reply_j, reply_p, reply_t, reply_tp, reply_w, reply_y = (
+            json.loads(text) if status == 200 else {} for status, text in (
+                (status_j, text_j), (status_p, text_p), (status_t, text_t), (status_tp, text_tp), (status_w, text_w),
+                (status_y, text_y)))
+        got_j, got_p, got_t, got_tp, got_w, got_y = (r.get("choices", [{}])[0].get("message", {}).get("content")
+                                                     for r in (reply_j, reply_p, reply_t, reply_tp, reply_w, reply_y))
 
         # The CLI and (d)'s server under --mesh start here, beside this
         # server's last checks (none of them timed), and are checked after
@@ -2593,7 +2611,8 @@ def frontends_phase(torch, K, index, config_path, q8_snapshot, required):
         mesh_thread = threading.Thread(target=mesh_request, daemon=True)
         mesh_thread.start()
 
-        # the JPEG, G4 TIFF and WebP pages on the snapshot (timed above) against an in-process scheduler
+        # the JPEG, G4 TIFF, WebP and JPEG-in-TIFF pages on the snapshot (timed above) against an in-process
+        # scheduler
         q8_path = os.path.join(model_dir, "deepseek-ocr-q8k", "snapshot.dsq")
         q8_engine = load_engine(ModelKind.DEEPSEEK, config_path=config, weights_path=index, snapshot_path=q8_path,
                                 max_seq_len=8192)
@@ -2605,6 +2624,8 @@ def frontends_phase(torch, K, index, config_path, q8_snapshot, required):
         want_t = asyncio.run(sched.submit(prompt, [g4_pixels], vision,
                                           DecodeParameters(max_new_tokens=FRONTEND_MAX_NEW)))
         want_w = asyncio.run(sched.submit(prompt, [webp_pixels], vision,
+                                          DecodeParameters(max_new_tokens=FRONTEND_MAX_NEW)))
+        want_y = asyncio.run(sched.submit(prompt, [ycc_pixels], vision,
                                           DecodeParameters(max_new_tokens=FRONTEND_MAX_NEW)))
         torch.cuda.synchronize()
         q8_launches = K.launch_counts()
@@ -2629,6 +2650,11 @@ def frontends_phase(torch, K, index, config_path, q8_snapshot, required):
         check("webp", status_w == 200 and got_w == want_w.text and reply_w["usage"] == usage_w,
               status=status_w, seconds=webp_s, webp_bytes=len(webp), usage=reply_w.get("usage"),
               in_process_usage=usage_w, text_equal_in_process=got_w == want_w.text, text_chars=len(want_w.text))
+        usage_y = {"prompt_tokens": want_y.prompt_tokens, "completion_tokens": want_y.response_tokens,
+                   "total_tokens": want_y.prompt_tokens + want_y.response_tokens}
+        check("jpeg_in_tiff", status_y == 200 and got_y == want_y.text and reply_y["usage"] == usage_y,
+              status=status_y, seconds=ycc_s, tiff_bytes=len(ycc), usage=reply_y.get("usage"),
+              in_process_usage=usage_y, text_equal_in_process=got_y == want_y.text, text_chars=len(want_y.text))
 
         # the error shapes
         unknown = http_call(port, "POST", "/v1/chat/completions", chat_body("bogus", url, 8))
@@ -2639,11 +2665,11 @@ def frontends_phase(torch, K, index, config_path, q8_snapshot, required):
         arith[arith.index(b"\xff\xc0") + 1] = 0xC9  # SOF0 → SOF9: arithmetic coding
         arith_url = "data:image/jpeg;base64," + base64.b64encode(bytes(arith)).decode()
         arith_reply = http_call(port, "POST", "/v1/chat/completions", chat_body("deepseek-ocr-q8k", arith_url, 8))
-        jpeg_tiff = bytearray(g4)  # Compression (SHORT, 1, 4: T.6) → 7: JPEG-in-TIFF, refused by name
-        at = jpeg_tiff.index(b"\x03\x01\x03\x00\x01\x00\x00\x00\x04\x00")
-        jpeg_tiff[at + 8] = 7
-        jt_url = "data:image/tiff;base64," + base64.b64encode(bytes(jpeg_tiff)).decode()
-        jt_reply = http_call(port, "POST", "/v1/chat/completions", chat_body("deepseek-ocr-q8k", jt_url, 8))
+        zstd_tiff = bytearray(g4)  # Compression (SHORT, 1, 4: T.6) → 50000: Zstandard, refused by name
+        at = zstd_tiff.index(b"\x03\x01\x03\x00\x01\x00\x00\x00\x04\x00")
+        zstd_tiff[at + 8:at + 10] = (50000).to_bytes(2, "little")
+        zt_url = "data:image/tiff;base64," + base64.b64encode(bytes(zstd_tiff)).decode()
+        zt_reply = http_call(port, "POST", "/v1/chat/completions", chat_body("deepseek-ocr-q8k", zt_url, 8))
         big = http_call(port, "POST", "/v1/chat/completions", raw=b"x" * (50 * 2 ** 20 + 1))
         sock = socket.create_connection(("127.0.0.1", port), timeout=REQUEST_S)
         raw = json.dumps(chat_body("deepseek-ocr-q8k", url, FRONTEND_MAX_NEW, stream=True)).encode()
@@ -2661,11 +2687,11 @@ def frontends_phase(torch, K, index, config_path, q8_snapshot, required):
               and broken[0] == 400 and "JPEG" in json.loads(broken[2])["error"]["message"]
               and arith_reply[0] == 400
               and "arithmetic-coded JPEG (SOF9)" in json.loads(arith_reply[2])["error"]["message"]
-              and jt_reply[0] == 400 and "JPEG-compressed TIFF" in json.loads(jt_reply[2])["error"]["message"]
+              and zt_reply[0] == 400 and "Zstandard-compressed TIFF" in json.loads(zt_reply[2])["error"]["message"]
               and big[0] == 413 and after_leave[0] == 200 and server.poll() is None,
               unknown=unknown[0], fallback=fallback[0], jpeg=broken[0], jpeg_message=broken[2][:200],
               arithmetic=arith_reply[0], arithmetic_message=arith_reply[2][:200],
-              jpeg_in_tiff=jt_reply[0], jpeg_in_tiff_message=jt_reply[2][:200],
+              zstd_tiff=zt_reply[0], zstd_tiff_message=zt_reply[2][:200],
               over_50mb=big[0], after_client_left=after_leave[0])
         server.send_signal(15)
         server.wait(60)

@@ -3,11 +3,12 @@
 cli/app.py; the card's machine has no Pillow).
 
 ``decode_image(raw)`` returns (H, W, 3) uint8, bit-equal to Pillow's
-``convert("RGB")`` (Pillow 12.1 over libjpeg-turbo 3.1, libtiff 4.7 and
-libwebp 1.6), for PNG and JPEG (here), and TIFF, BMP, GIF and WebP
-(image/tiff.py, bmp.py, gif.py and webp.py, which the dispatch below
-imports at first use; their codecs are native/tiff.cpp, bmp.cpp, gif.cpp,
-webp_lossless.cpp and webp_lossy.cpp, built and loaded by ``_native``).
+``convert("RGB")`` (Pillow 12.1 over libjpeg-turbo 3.1, libtiff 4.7,
+LittleCMS 2.17 and libwebp 1.6), for PNG and JPEG (here), and TIFF, BMP,
+GIF and WebP (image/tiff.py, bmp.py, gif.py and webp.py, which the
+dispatch below imports at first use; their codecs are native/tiff.cpp,
+tiff_color.cpp, bmp.cpp, gif.cpp, webp_lossless.cpp and webp_lossy.cpp,
+built and loaded by ``_native``).
 
 PNG in full: color types 0, 2, 3, 4 and 6 at every bit depth the spec
 allows (1, 2, 4, 8, 16), palettes, ``tRNS`` (alpha is dropped, not
@@ -30,7 +31,11 @@ sequential file defines none (Motion-JPEG frames). This module parses
 the markers and picks the color space as libjpeg does (JFIF → YCbCr;
 else Adobe transform 0 → RGB, another → YCbCr; else component ids R, G,
 B → RGB; 4 components: CMYK, or YCCK under an Adobe transform other
-than 0);
+than 0), unless the caller names one: ``decode_jpeg_stream`` is the
+entry point for one JPEG-in-TIFF strip or tile, with the tables the
+decoder holds from JPEGTables and the strips before (``JpegTables``) and
+the color space libtiff sets from Photometric (YCbCr → RGB, or the
+components as they are, for which jpeg_output writes every component);
 native/jpeg.cpp decodes each scan and then dequantizes, runs libjpeg's
 ``islow`` IDCT, upsamples (libjpeg's fancy upsampling) and converts into
 the output. 4-component files go through Pillow's inverted "CMYK;I"
@@ -52,8 +57,9 @@ bit reader's state; the port raises). Damaged entropy data that libjpeg
 only warns about decodes as libjpeg decodes it.
 
 Bytes with no known magic raise ``UnsupportedImageFormat``, as do the
-variants each decoder refuses by name (JPEG-in-TIFF, BMP with embedded
-JPEG or PNG, ...); broken data raises ``ImageDecodeError``.
+variants each decoder refuses by name (old-style JPEG-in-TIFF, Zstandard
+TIFF, BMP with embedded JPEG or PNG, ...); broken data raises
+``ImageDecodeError``.
 """
 
 from __future__ import annotations
@@ -76,10 +82,12 @@ _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), 
 
 _U8P, _I16P, _U16P = (ctypes.POINTER(t) for t in (ctypes.c_uint8, ctypes.c_int16, ctypes.c_uint16))
 _I32P, _I64P, _I, _I64 = ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int64), ctypes.c_int, ctypes.c_int64
+_F32P = ctypes.POINTER(ctypes.c_float)
 _SIGNATURES = {
     "png": {"png_unfilter": [_U8P, _I, _I, _I, _U8P]},
     "tiff": {"tiff_lzw": [_U8P, _I64, _U8P, _I64], "tiff_packbits": [_U8P, _I64, _U8P, _I64],
              "tiff_fax": [_U8P, _I64, _U8P, _I, _I, _I, _I, _I32P]},
+    "tiff_color": {"tiff_ycbcr": [_U8P, _I64, _I, _I, _I, _I, _I, _F32P, _F32P, _U8P], "tiff_lab": [_U8P, _I64, _U8P]},
     "bmp": {"bmp_rle": [_U8P, _I64, _I64, _I, _I, _I, _U8P, _I64P]},
     "gif": {"gif_lzw": [_U8P, _I64, _I, _U8P, _I64]},
     "webp_lossless": {"webp_lossless": [_U8P, _I64, _U8P, _I64, _I, _I, _I],
@@ -293,7 +301,7 @@ _ZIGZAG = np.array([0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 
                     38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
 MAX_PIXELS = 2 * (1024 * 1024 * 1024 // 4 // 3)  # Pillow's DecompressionBombError limit, every format's
 _MAX_DIMENSION = 65500  # libjpeg's JPEG_MAX_DIMENSION
-_GREY, _YCC, _RGB, _CMYK, _YCCK = range(5)
+_GREY, _YCC, _RGB, _CMYK, _YCCK, _RAW = range(6)  # jpeg_output's color spaces
 
 
 def _huffman_spec(counts: bytes, symbols: bytes) -> np.ndarray:
@@ -384,14 +392,64 @@ def _next_marker(raw: bytes, pos: int):
         pos += 1
 
 
+class JpegTables:
+    """The quantization and Huffman tables a libjpeg decompressor holds:
+    they carry over from one stream to the next (a TIFF's JPEGTables,
+    then each strip or tile in turn), and a stream's own DQT and DHT
+    segments replace them."""
+
+    def __init__(self):
+        self.quant: List[Optional[np.ndarray]] = [None] * 4
+        self.huffman: Dict[tuple, np.ndarray] = {}
+
+    def load(self, raw: bytes) -> "JpegTables":
+        """An abbreviated tables-only stream (SOI, DQT and DHT segments,
+        EOI), as libjpeg's jpeg_read_header(FALSE) reads TIFF's
+        JPEGTables; anything else there raises."""
+        if raw[:2] != b"\xff\xd8":
+            raise ImageDecodeError("TIFF JPEGTables does not start with SOI")
+        pos = 2
+        while True:
+            found = _next_marker(raw, pos)
+            if found is None:
+                raise ImageDecodeError("TIFF JPEGTables ends before EOI")
+            code, pos = found
+            if code == 0xD9:
+                return self
+            if 0xD0 <= code <= 0xD7 or code == 0x01 or code == 0xD8:
+                continue
+            if code == 0xDA or code < 0xC0:
+                raise ImageDecodeError(f"TIFF JPEGTables holds marker FF{code:02X} (tables only allowed)")
+            length = struct.unpack(">H", raw[pos:pos + 2])[0] if pos + 2 <= len(raw) else None
+            if length is None or length < 2 or pos + length > len(raw):
+                raise ImageDecodeError("TIFF JPEGTables is truncated")
+            body, at = raw[pos + 2:pos + length], pos - 2
+            pos += length
+            if code == 0xC4:
+                _read_dht(body, at, self.huffman)
+            elif code == 0xDB:
+                _read_dqt(body, at, self.quant)
+
+
 def decode_jpeg(raw: bytes) -> np.ndarray:
     """JPEG bytes → (H, W, 3) uint8, as Pillow's convert("RGB") gives it."""
+    return decode_jpeg_stream(raw)[1]
+
+
+def decode_jpeg_stream(raw: bytes, tables: Optional[JpegTables] = None, color: Optional[int] = None):
+    """One JPEG stream → (its frame, its pixels). `tables`: the tables the
+    decoder holds before the stream (updated by the stream's own); `color`
+    a color space that replaces the one the markers name, as libtiff's
+    JPEGPreDecode sets it (_YCC: YCbCr → RGB, _RAW: the components as they
+    are, (H, W, components)). JPEG-in-TIFF strips and tiles
+    (image/tiff.py) come through here."""
     if raw[:2] != b"\xff\xd8":
         raise ImageDecodeError("JPEG data does not start with SOI")
     data = np.frombuffer(raw, np.uint8)
     frame: Optional[_Frame] = None
-    quant: List[Optional[np.ndarray]] = [None] * 4
-    huffman: Dict[tuple, np.ndarray] = {}
+    tables = tables or JpegTables()
+    quant, huffman = tables.quant, tables.huffman
+    forced = color
     restart, jfif, adobe, color, scans = 0, False, None, None, 0
     # A one-pass frame (one sequential scan of every component) is output
     # as its scan decodes; libjpeg then reads on to EOI, and Pillow keeps
@@ -448,7 +506,9 @@ def decode_jpeg(raw: bytes) -> np.ndarray:
             if not read_whole:
                 raise ImageDecodeError(f"JPEG has a scan at byte {at} after a one-pass frame's scan (EOI expected)")
             if color is None:
-                color = _color_space(frame, jfif, adobe)
+                color = _color_space(frame, jfif, adobe) if forced is None else forced
+                if color == _YCC and len(frame.ids) != 3:
+                    raise ImageDecodeError(f"JPEG with {len(frame.ids)} components read as YCbCr")
             scans += 1
             pos, unread_bits = _scan(frame, data, body, pos, at, scans, quant, huffman, restart)
             if scans == 1 and not frame.progressive and body[0] == len(frame.ids):
@@ -470,13 +530,13 @@ def decode_jpeg(raw: bytes) -> np.ndarray:
         if q is not None:
             latched[ci] = q
     params = np.array(params, np.int32)
-    out = np.empty((frame.height, frame.width, 3), np.uint8)
+    out = np.empty((frame.height, frame.width, nc if color == _RAW else 3), np.uint8)
     bad = _native("jpeg").jpeg_output(frame.coefs.ctypes.data_as(_I16P), frame.offsets.ctypes.data_as(_I64P),
                                       params.ctypes.data_as(_I32P), latched.ctypes.data_as(_U16P),
                                       out.ctypes.data_as(_U8P))
     if bad:
         raise ImageDecodeError(f"JPEG sampling factors {list(zip(frame.h, frame.v))} are no integer ratio")
-    return out
+    return frame, out
 
 
 def _read_dht(body: bytes, at: int, huffman: Dict[tuple, np.ndarray]) -> None:

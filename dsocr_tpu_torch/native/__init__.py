@@ -2,10 +2,11 @@
 ctypes: the Pillow-exact bicubic resampler (dsocr_tpu/native's
 counterpart, without its fall-backs), and the image decoders' codecs:
 PNG unfiltering (png.cpp), JPEG scan decoding and output (jpeg.cpp),
-TIFF's LZW, PackBits and CCITT decoders (tiff.cpp), BMP's run-length
-data (bmp.cpp), GIF's LZW (gif.cpp) and WebP's lossless and lossy
-bitstreams (webp_lossless.cpp, webp_lossy.cpp), for image/decode.py,
-tiff.py, bmp.py, gif.py and webp.py.
+TIFF's LZW, PackBits and CCITT decoders (tiff.cpp) and its YCbCr and
+CIELab conversions (tiff_color.cpp), BMP's run-length data (bmp.cpp),
+GIF's LZW (gif.cpp) and WebP's lossless and lossy bitstreams
+(webp_lossless.cpp, webp_lossy.cpp), for image/decode.py, tiff.py,
+bmp.py, gif.py and webp.py.
 
 Every native and CUDA build of the package (resample.py's ``build``,
 ops/kernels/_lib.py) goes to ``build_dir()``, read at each build."""

@@ -592,11 +592,12 @@ inline uint8_t muldiv255(int a, int b) {
 extern "C" {
 
 // The output pass. `p`: width, height, components, color space (0 grey,
-// 1 YCbCr, 2 RGB, 3 CMYK, 4 YCCK), max h, max v, then per component: h,
-// v, plane stride in blocks. `quant`: per component 64 latched quantizer
-// values in natural order (all zero for a component no scan carried).
-// `out`: height × width × 3. Returns 0, or 1 for sampling factors that
-// are no integer ratio (libjpeg refuses them too).
+// 1 YCbCr, 2 RGB, 3 CMYK, 4 YCCK, 5 none: the components as they are,
+// libjpeg's JCS_UNKNOWN), max h, max v, then per component: h, v, plane
+// stride in blocks. `quant`: per component 64 latched quantizer values in
+// natural order (all zero for a component no scan carried). `out`: height
+// × width × 3, or × components for color space 5. Returns 0, or 1 for
+// sampling factors that are no integer ratio (libjpeg refuses them too).
 int jpeg_output(const int16_t* coefs, const int64_t* offsets, const int32_t* p, const uint16_t* quant,
                 uint8_t* out) {
     const int W = p[0], H = p[1], nc = p[2], color = p[3], hmax = p[4], vmax = p[5];
@@ -635,12 +636,15 @@ int jpeg_output(const int16_t* coefs, const int64_t* offsets, const int32_t* p, 
     }
     static const YccTables t;
     std::vector<uint8_t> rows((size_t)nc * W);
+    const int channels = color == 5 ? nc : 3;
     for (int y = 0; y < H; ++y) {
         const uint8_t* s[4];
         for (int ci = 0; ci < nc; ++ci) s[ci] = upsample_row(planes[ci], y, W, rows.data() + (size_t)ci * W);
-        uint8_t* o = out + (int64_t)y * W * 3;
-        for (int x = 0; x < W; ++x, o += 3) {
-            if (color == 0) {
+        uint8_t* o = out + (int64_t)y * W * channels;
+        for (int x = 0; x < W; ++x, o += channels) {
+            if (color == 5) {
+                for (int ci = 0; ci < nc; ++ci) o[ci] = s[ci][x];
+            } else if (color == 0) {
                 o[0] = o[1] = o[2] = s[0][x];
             } else if (color == 2) {
                 o[0] = s[0][x];

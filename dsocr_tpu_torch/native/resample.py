@@ -18,9 +18,9 @@ there is no quiet fall back to the NumPy twin.
 ctypes releases the GIL for the length of each call, so the engine's
 prep threads resize pages in parallel. ``build(source)`` compiles any
 C++ source of this directory the same way (image/decode.py builds
-``png.cpp``, ``jpeg.cpp``, ``tiff.cpp``, ``bmp.cpp``, ``gif.cpp``,
-``webp_lossless.cpp`` and ``webp_lossy.cpp``, the image decoders'
-codecs, through it).
+``png.cpp``, ``jpeg.cpp``, ``tiff.cpp``, ``tiff_color.cpp``, ``bmp.cpp``,
+``gif.cpp``, ``webp_lossless.cpp`` and ``webp_lossy.cpp``, the image
+decoders' codecs, through it).
 """
 
 from __future__ import annotations

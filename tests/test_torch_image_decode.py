@@ -214,7 +214,7 @@ def test_other_formats_decode_equal_to_pillow(fmt):
     np.testing.assert_array_equal(decode_image(buf.getvalue()), want)
 
 
-@pytest.mark.parametrize("fmt, name", [("TIFF-7", "JPEG-compressed TIFF (compression 7)"),
+@pytest.mark.parametrize("fmt, name", [("TIFF-32809", "ThunderScan-compressed TIFF (compression 32809)"),
                                        ("TIFF-6", "old-style JPEG-compressed TIFF (compression 6)")])
 def test_other_formats_raise_by_name(fmt, name):
     buf = io.BytesIO()
@@ -223,9 +223,9 @@ def test_other_formats_raise_by_name(fmt, name):
     except (KeyError, OSError):
         pytest.skip(f"this Pillow cannot write {fmt}")
     raw = buf.getvalue()
-    if fmt.startswith("TIFF"):  # the Compression entry (SHORT, 1, none) set to JPEG
+    if fmt.startswith("TIFF"):  # the Compression entry (SHORT, 1, none) set to the named one
         at = raw.index(struct.pack("<HHLHH", 259, 3, 1, 1, 0))
-        raw = raw[:at + 8] + struct.pack("<H", int(fmt[-1])) + raw[at + 10:]
+        raw = raw[:at + 8] + struct.pack("<H", int(fmt.split("-")[1])) + raw[at + 10:]
     with pytest.raises(UnsupportedImageFormat, match=re.escape(name)) as err:
         decode_image(raw)
     assert err.value.format == name

@@ -488,7 +488,7 @@ def test_real_engine_webp_data_url_answers_equal(real, save):
         assert answers[0] == answers[1]
 
 
-@pytest.mark.parametrize("compression, name", [(7, "JPEG-compressed TIFF"), (6, "old-style JPEG-compressed TIFF")])
+@pytest.mark.parametrize("compression, name", [(50001, "WebP-compressed TIFF"), (6, "old-style JPEG-compressed TIFF")])
 def test_jpeg_in_tiff_data_url_is_a_400_naming_it(fake, compression, name):
     _, server = fake
     buf = io.BytesIO()

@@ -25,6 +25,7 @@ the interpreter.
 """
 
 import io
+import lzma
 import struct
 import zlib
 
@@ -245,7 +246,7 @@ def packbits_encode(data: bytes) -> bytes:
 
 
 ENCODERS = {1: lambda b: b, 5: lzw_encode, 8: zlib.compress, 32946: zlib.compress, 32773: packbits_encode,
-            "lzw_old": lambda b: lzw_encode(b, old_style=True)}
+            34925: lzma.compress, "lzw_old": lambda b: lzw_encode(b, old_style=True)}
 
 
 def write_tiff(samples: np.ndarray, bits, photometric: int, *, endian: str = "<", compression=1, planar: int = 1,
@@ -446,8 +447,8 @@ def test_short_palette_and_grey_ramp_past_it():
 
 
 @pytest.mark.parametrize("compression, name", [
-    (6, "old-style JPEG-compressed TIFF"), (7, "JPEG-compressed TIFF"), (34925, "LZMA"), (50000, "Zstandard"),
-    (9999, "TIFF compression 9999")])
+    (6, "old-style JPEG-compressed TIFF"), (32771, "CCITT RLEW-compressed TIFF"), (34676, "SGILog-compressed TIFF"),
+    (50000, "Zstandard"), (9999, "TIFF compression 9999")])
 def test_refused_compressions_raise_by_name(compression, name):
     raw = hand_built("RGB", np.random.default_rng(0), tags={259: (3, [compression])})
     with pytest.raises(UnsupportedImageFormat, match=name) as err:
@@ -455,13 +456,15 @@ def test_refused_compressions_raise_by_name(compression, name):
     assert name in err.value.format
 
 
-@pytest.mark.parametrize("photometric, bits, fmt, name", [
-    (1, (32,), (3,), "32-bit TIFF"), (1, (32,), (2,), "32-bit TIFF"), (6, (8, 8, 8), None, "YCbCr TIFF"),
-    (8, (8, 8, 8), None, "CIELab TIFF"), (1, (12,), None, "12-bit grey TIFF")])
-def test_unread_pillow_layouts_raise_by_name(photometric, bits, fmt, name):
+@pytest.mark.parametrize("photometric, bits, tags, name", [
+    (6, (8, 8, 8), {}, "uncompressed YCbCr TIFF"), (6, (8, 8, 8), {530: (3, [2, 2])}, "uncompressed YCbCr TIFF"),
+    (6, (8, 8, 8), {259: (3, [5]), 317: (3, [2])}, "YCbCr TIFF with a predictor"),
+    (1, (12,), {259: (3, [7])}, "12-bit JPEG-compressed TIFF"), (1, (8,), {0xBC01: (3, [1])}, "Windows Media Photo")])
+def test_unread_pillow_layouts_raise_by_name(photometric, bits, tags, name):
+    """Layouts of Pillow's table this module still refuses by name (the
+    data is never read: the refusal comes first)."""
     samples = np.zeros((4, 6, len(bits)), np.uint8)
-    raw = write_tiff(samples, (8,) * len(bits), photometric, sample_format=fmt,
-                     tags={258: (3, list(bits))})
+    raw = write_tiff(samples, (8,) * len(bits), photometric, tags={258: (3, list(bits)), **tags})
     with pytest.raises(UnsupportedImageFormat, match=name):
         decode_tiff(raw)
 
@@ -599,3 +602,149 @@ def test_fax_run_past_32_bits_raises(compression, t4, head, tail, rows):
     if rows == 2 and (compression == 2 or t4 == 1):
         with pytest.raises(Exception):
             pillow_rgb(raw)
+
+
+# -- CIELab, 12- and 32-bit samples, LZMA ---------------------------------------------------------
+
+
+@pytest.mark.parametrize("compression", ["raw", "tiff_lzw", "tiff_adobe_deflate", "packbits", "tiff_lzma"])
+@pytest.mark.parametrize("mode", ["LAB", "I", "F", "I;16", "L", "RGB"])
+def test_pillow_written_lab_wide_and_lzma(mode, compression):
+    """Pillow's own LAB, I (I;32S) and F (F;32F) files, and LZMA for the
+    modes it writes."""
+    rng = np.random.default_rng(zlib.crc32(repr((mode, compression)).encode()))
+    if mode in ("I", "F"):
+        v = rng.normal(120, 150, (29, 45)).astype(np.float32)
+        v[0, :8] = [-5.5, 0.4, 0.5, 1.5, 254.6, 300.0, np.inf, np.nan] if mode == "F" else [-5, 0, 100, 255, 256,
+                                                                                              70000, -1, 2 ** 31 - 1]
+        im = Image.frombytes(mode, (45, 29), (v if mode == "F" else v.astype(np.int32)).tobytes())
+    elif mode == "LAB":
+        im = Image.frombytes("LAB", (45, 29), rng.integers(0, 256, (29, 45, 3), dtype=np.uint8).tobytes())
+    else:
+        im = pillow_image(mode, rng)
+    buf = io.BytesIO()
+    im.save(buf, "TIFF", compression=compression)
+    assert_equal_to_pillow(buf.getvalue())
+
+
+def _wide_file(values: np.ndarray, kind: str, photometric: int, *, endian="<", compression=1, predictor=1,
+               rows_per_strip=None, fmt=None, tags=None) -> bytes:
+    """32-bit samples [h, w] of `kind` (i4, u4, f4) → a TIFF, the
+    predictor applied here; written through write_tiff as bytes."""
+    h, w = values.shape
+    raw = values.astype(endian + kind)
+    if predictor == 2:
+        u = raw.view(endian + "u4").astype(np.uint64)
+        raw = (np.diff(u, axis=1, prepend=0) % (1 << 32)).astype(endian + "u4")
+    data = np.frombuffer(raw.tobytes(), np.uint8).reshape(h, w * 4)
+    if predictor == 3:  # byte planes, most significant first, then byte differences
+        be = data.reshape(h, w, 4)[..., ::-1] if endian == "<" else data.reshape(h, w, 4)
+        planes = be.transpose(0, 2, 1).reshape(h, w * 4)
+        data = np.diff(planes.astype(np.int16), axis=1, prepend=0).astype(np.uint8)
+    fmt = fmt or {"i4": 2, "u4": 1, "f4": 3}[kind]
+    extra = {256: (4, [w]), 258: (3, [32]), 277: (3, [1]), 339: (3, [fmt])}
+    if predictor != 1:
+        extra[317] = (3, [predictor])
+    extra.update(tags or {})
+    return write_tiff(data.reshape(h, w * 4, 1), (8,), photometric, endian=endian, compression=compression,
+                      rows_per_strip=rows_per_strip, tags=extra)
+
+
+def _wide_values(rng, kind: str, h=13, w=21) -> np.ndarray:
+    if kind == "f4":
+        v = rng.normal(100, 200, (h, w)).astype(np.float32)
+        v[0, :10] = [-5.5, 0.4, 0.5, 1.5, 254.6, 254.99, 255.0, np.inf, -np.inf, np.nan]
+        return v
+    v = rng.integers(-400, 600, (h, w)).astype(np.int64)
+    v[0, :6] = [-2 ** 31, 2 ** 31 - 1, 0, 255, 256, 70000]
+    return v.astype(np.int32 if kind == "i4" else np.int64).astype(kind.replace("i4", "int32").replace(
+        "u4", "uint32"))
+
+
+@pytest.mark.parametrize("compression", [1, 5, 8, 34925])
+@pytest.mark.parametrize("kind, photometric, endian, predictor", [
+    ("i4", 1, "<", 1), ("i4", 1, ">", 1), ("u4", 1, "<", 1), ("f4", 1, "<", 1), ("f4", 1, ">", 1),
+    ("f4", 0, "<", 1), ("f4", 0, ">", 1), ("i4", 1, "<", 2), ("i4", 1, ">", 2), ("f4", 1, "<", 2),
+    ("f4", 1, "<", 3), ("f4", 1, ">", 3), ("f4", 0, "<", 3), ("u4", 1, ">", 1), ("i4", 0, "<", 1)])
+def test_thirty_two_bit_samples(kind, photometric, endian, predictor, compression):
+    """I;32N, I;32S, I;32BS, F;32F and F;32BF: clipped to 0..255 (F
+    truncated, NaN 0); compressed big-endian values come out byte-swapped
+    (libtiff hands over native order, Pillow reads the file's); Predictor
+    2 and 3 (floating point) as libtiff undoes them. Photometric 0 reads F
+    uninverted; big-endian unsigned and photometric-0 integers are no row
+    of Pillow's table."""
+    if predictor != 1 and compression == 1:
+        predictor = 1
+    rng = np.random.default_rng(zlib.crc32(repr((kind, photometric, endian, predictor, compression)).encode()))
+    assert_same_as_pillow(_wide_file(_wide_values(rng, kind), kind, photometric, endian=endian,
+                                     compression=compression, predictor=predictor, rows_per_strip=5))
+
+
+def _twelve_bit_file(values: np.ndarray, *, endian="<", compression=1, predictor=1) -> bytes:
+    h, w = values.shape
+    padded = np.zeros((h, w + (w & 1)), np.uint16)
+    padded[:, :w] = values
+    a, b = padded[:, 0::2], padded[:, 1::2]
+    packed = np.stack([a >> 4, ((a & 15) << 4) | (b >> 8), b & 255], axis=2).reshape(h, -1).astype(np.uint8)
+    packed = packed[:, :-(-w * 12 // 8)]
+    tags = {256: (4, [w]), 258: (3, [12])}
+    if predictor != 1:
+        tags[317] = (3, [predictor])
+    return write_tiff(packed[..., None], (8,), 1, endian=endian, compression=compression, rows_per_strip=4,
+                      tags=tags)
+
+
+@pytest.mark.parametrize("width", [1, 2, 7, 20])
+@pytest.mark.parametrize("compression", [1, 5, 8, 34925])
+def test_twelve_bit_grey(compression, width):
+    """I;12 → I;16 → clipped at 255; odd widths end on half a byte."""
+    rng = np.random.default_rng(width * 10 + compression)
+    v = rng.integers(0, 4096, (9, width))
+    v[0, 0] = 255
+    assert_equal_to_pillow(_twelve_bit_file(v, compression=compression))
+
+
+@pytest.mark.parametrize("case", ["big_endian", "predictor2", "predictor3_integer", "fill_order2"])
+def test_twelve_bit_layouts_both_refuse(case):
+    v = np.random.default_rng(3).integers(0, 4096, (6, 9))
+    if case == "big_endian":  # Pillow's 12-bit row is little-endian only
+        raw = _twelve_bit_file(v, endian=">")
+    elif case == "predictor2":
+        raw = _twelve_bit_file(v, compression=5, predictor=2)
+    elif case == "predictor3_integer":
+        raw = _wide_file(_wide_values(np.random.default_rng(1), "i4"), "i4", 1, compression=5, predictor=3)
+    else:
+        raw = _twelve_bit_file(v)
+        at = raw.index(struct.pack("<HHL", 262, 3, 1))
+        raw = raw[:at] + struct.pack("<HHLHH", 266, 3, 1, 2, 0) + raw[at + 12:]  # Photometric → FillOrder 2
+    assert_both_refuse(raw)
+
+
+@pytest.mark.parametrize("kw", [dict(compression=1), dict(compression=5, predictor=2), dict(compression=8),
+                                dict(compression=1, planar=2), dict(compression=5, planar=2),
+                                dict(compression=34925, tile=(16, 16)), dict(compression=32773, endian=">")],
+                         ids=lambda v: str(v).replace(" ", ""))
+def test_hand_built_cielab(kw):
+    """CIELab: contiguous samples through Pillow's LAB unpacker (a and b
+    offset by 128); planes through its one-band unpackers, which copy."""
+    rng = np.random.default_rng(zlib.crc32(repr(kw).encode()))
+    samples = rng.integers(0, 256, (23, 37, 3), dtype=np.uint8)
+    assert_same_as_pillow(write_tiff(samples, (8, 8, 8), 8, **kw))
+
+
+def lab_grid_matches_pillow(stride: int) -> int:
+    """Every `stride`-th of the 2^24 (L, a, b) triples as an uncompressed
+    CIELab TIFF, decoded here and by Pillow: the number of triples."""
+    v = np.arange(0, 1 << 24, stride, dtype=np.uint32)
+    v = np.concatenate([v, np.zeros(-len(v) % 4096, np.uint32)])
+    lab = np.stack([v >> 16, (v >> 8) & 255, v & 255], axis=1).astype(np.uint8).reshape(-1, 4096, 3)
+    raw = write_tiff(lab, (8, 8, 8), 8)
+    np.testing.assert_array_equal(decode_image(raw), pillow_rgb(raw))
+    return len(v)
+
+
+def test_cielab_matches_pillow_on_a_strided_subset():
+    """LittleCMS's Lab → sRGB transform as native/tiff_color.cpp rebuilds
+    it, on every 61st input (275,000 of them). The whole 2^24 is
+    ``lab_grid_matches_pillow(1)`` (a 4096 × 4096 file, ~10 s)."""
+    assert lab_grid_matches_pillow(61) >= (1 << 24) // 61
