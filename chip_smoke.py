@@ -1460,6 +1460,7 @@ def host_prep_phase(torch, engine, pages=N_REQUESTS):
             "the native resize differs from its NumPy twin")
     host_prep_jpeg()
     host_prep_formats()
+    host_prep_pnm()
     host_prep_webp()
     native_cache_check()
 
@@ -1515,6 +1516,43 @@ def host_prep_formats():
     require(all(f["sha256_equal"] for f in files.values()),
             "a TIFF, BMP or GIF page fixture decoded to other pixels than Pillow's")
     require(lzma_imports, "host_prep_formats: the standard library's lzma does not import on this host")
+
+
+def host_prep_pnm():
+    """The PNM and Zstandard TIFF page fixtures decoded on the host
+    (image/pnm.py over native/pnm.cpp, image/tiff.py over native/zstd.cpp;
+    decode_fixtures), and the pages tests/data/make_pnm_pages.py's numpy
+    writers build from committed fixtures (P6, 16-bit P5 and plain P2 of
+    the LZW page's pixels, the baseline JPEG page as an old-style JPEG
+    TIFF, read through native/jpeg.cpp's raw data units and
+    native/tiff_color.cpp), each decoded 3 times against Pillow's sha256,
+    beside os.cpu_count() and the card."""
+    import hashlib
+
+    from dsocr_tpu_torch.image.decode import decode_image
+
+    t0 = time.perf_counter()
+    files, _ = decode_fixtures("pnm_pages.json")
+    sys.path.insert(0, JPEG_PAGES)
+    try:
+        from make_pnm_pages import built_pages
+    finally:
+        sys.path.remove(JPEG_PAGES)
+    with open(os.path.join(JPEG_PAGES, "pnm_pages.json")) as fh:
+        entries = json.load(fh)["built"]
+    lzw = decode_image(page_fixtures("format_pages.json")["page_lzw.tif"][0])
+    baseline = page_fixtures("jpeg_pages.json")["page_baseline.jpg"][0]
+    built = {}
+    for name, (raw, source) in built_pages(lzw, baseline).items():
+        pixels, ms, runs = decode_timed(raw)
+        built[name] = {"source": source, "bytes": len(raw), "shape": list(pixels.shape), "decode_ms": ms,
+                       "decode_ms_runs": runs,
+                       "sha256_equal": hashlib.sha256(pixels.tobytes()).hexdigest() == entries[name]["sha256"]}
+    emit({"phase": "host_prep_pnm", "cpu_count": os.cpu_count(), "nvidia_smi": smi_line(), "files": files,
+          "built": built, "seconds": time.perf_counter() - t0})
+    require(all(f["sha256_equal"] for f in files.values()) and all(f["sha256_equal"] for f in built.values())
+            and set(built) == set(entries), "a PNM, Zstandard TIFF or old-style JPEG TIFF page decoded to other "
+            "pixels than Pillow's")
 
 
 def host_prep_webp():
@@ -2205,13 +2243,13 @@ def write_png(path, image):
     return data
 
 
-JPEG_PAGES = os.path.join(HERE, "tests", "data")  # written by tests/data/make_{jpeg,format,webp}_pages.py with Pillow
+JPEG_PAGES = os.path.join(HERE, "tests", "data")  # written by tests/data/make_{jpeg,format,webp,pnm}_pages.py
 
 
 def page_fixtures(meta):
     """The page fixtures a JSON of tests/data/ lists (jpeg_pages.json: the
     JPEG pages; format_pages.json: TIFF, BMP and GIF; webp_pages.json:
-    WebP) → {name: (bytes,
+    WebP; pnm_pages.json: the P4 and Zstandard TIFF pages) → {name: (bytes,
     their entry: shape, bytes, the sha256 of Pillow's RGB)}."""
     with open(os.path.join(JPEG_PAGES, meta)) as fh:
         entries = json.load(fh)["files"]
@@ -2354,7 +2392,7 @@ def frontends_phase(torch, K, index, config_path, q8_snapshot, required):
     cfg = DeepseekOcrConfig()
     lang = cfg.language
     tmp = tempfile.mkdtemp(prefix="frontends-", dir=WEIGHTS_DIR)
-    server = cli = mesh_server = None
+    server = cli = cli_pbm = mesh_server = None
     log_path = os.path.join(tmp, "server.log")
     launches = {}
     t_phase = time.perf_counter()
@@ -2387,6 +2425,10 @@ def frontends_phase(torch, K, index, config_path, q8_snapshot, required):
         ycc_url = "data:image/tiff;base64," + base64.b64encode(ycc).decode()
         webp = page_fixtures("webp_pages.json")["page_lossy.webp"][0]
         webp_url = "data:image/webp;base64," + base64.b64encode(webp).decode()
+        pbm = page_fixtures("pnm_pages.json")["page.pbm"][0]  # the G4 page's pixels as raw PBM (P4)
+        pbm_url = "data:image/x-portable-bitmap;base64," + base64.b64encode(pbm).decode()
+        with open(os.path.join(tmp, "page.pbm"), "wb") as fh:
+            fh.write(pbm)
         with open(os.path.join(tmp, "page.jpg"), "wb") as fh:
             fh.write(jpeg)
         jpeg_url = "data:image/jpeg;base64," + base64.b64encode(jpeg).decode()
@@ -2408,6 +2450,7 @@ def frontends_phase(torch, K, index, config_path, q8_snapshot, required):
         jpeg_png = png_bytes(jpeg_pixels)
         jpeg_png_url = "data:image/png;base64," + base64.b64encode(jpeg_png).decode()
         g4_pixels = decode_image(g4)
+        pbm_pixels = decode_image(pbm)
         ycc_pixels = decode_image(ycc)
         webp_pixels = decode_image(webp)
         g4_png_url = "data:image/png;base64," + base64.b64encode(png_bytes(g4_pixels)).decode()
@@ -2558,12 +2601,17 @@ def frontends_phase(torch, K, index, config_path, q8_snapshot, required):
         status_y, _, text_y = http_call(port, "POST", "/v1/chat/completions",
                                         chat_body("deepseek-ocr-q8k", ycc_url, FRONTEND_MAX_NEW))
         ycc_s = time.perf_counter() - t0
-        reply_j, reply_p, reply_t, reply_tp, reply_w, reply_y = (
+        t0 = time.perf_counter()
+        status_n, _, text_n = http_call(port, "POST", "/v1/chat/completions",
+                                        chat_body("deepseek-ocr-q8k", pbm_url, FRONTEND_MAX_NEW))
+        pbm_s = time.perf_counter() - t0
+        reply_j, reply_p, reply_t, reply_tp, reply_w, reply_y, reply_n = (
             json.loads(text) if status == 200 else {} for status, text in (
                 (status_j, text_j), (status_p, text_p), (status_t, text_t), (status_tp, text_tp), (status_w, text_w),
-                (status_y, text_y)))
-        got_j, got_p, got_t, got_tp, got_w, got_y = (r.get("choices", [{}])[0].get("message", {}).get("content")
-                                                     for r in (reply_j, reply_p, reply_t, reply_tp, reply_w, reply_y))
+                (status_y, text_y), (status_n, text_n)))
+        got_j, got_p, got_t, got_tp, got_w, got_y, got_n = (
+            r.get("choices", [{}])[0].get("message", {}).get("content")
+            for r in (reply_j, reply_p, reply_t, reply_tp, reply_w, reply_y, reply_n))
 
         # The CLI and (d)'s server under --mesh start here, beside this
         # server's last checks (none of them timed), and are checked after
@@ -2655,6 +2703,13 @@ def frontends_phase(torch, K, index, config_path, q8_snapshot, required):
         check("jpeg_in_tiff", status_y == 200 and got_y == want_y.text and reply_y["usage"] == usage_y,
               status=status_y, seconds=ycc_s, tiff_bytes=len(ycc), usage=reply_y.get("usage"),
               in_process_usage=usage_y, text_equal_in_process=got_y == want_y.text, text_chars=len(want_y.text))
+        # the P4 page holds the G4 page's pixels: its answer is the G4 page's
+        # PNG's and the in-process scheduler's for those pixels
+        pbm_same_pixels = bool(np.array_equal(pbm_pixels, g4_pixels))
+        check("pnm", status_n == 200 and pbm_same_pixels and got_n == want_t.text and got_n == got_tp
+              and reply_n["usage"] == usage_t,
+              status=status_n, seconds=pbm_s, pbm_bytes=len(pbm), pixels_equal_g4=pbm_same_pixels,
+              usage=reply_n.get("usage"), text_equal_in_process=got_n == want_t.text, text_equal_png=got_n == got_tp)
 
         # the error shapes
         unknown = http_call(port, "POST", "/v1/chat/completions", chat_body("bogus", url, 8))
@@ -2665,11 +2720,11 @@ def frontends_phase(torch, K, index, config_path, q8_snapshot, required):
         arith[arith.index(b"\xff\xc0") + 1] = 0xC9  # SOF0 → SOF9: arithmetic coding
         arith_url = "data:image/jpeg;base64," + base64.b64encode(bytes(arith)).decode()
         arith_reply = http_call(port, "POST", "/v1/chat/completions", chat_body("deepseek-ocr-q8k", arith_url, 8))
-        zstd_tiff = bytearray(g4)  # Compression (SHORT, 1, 4: T.6) → 50000: Zstandard, refused by name
-        at = zstd_tiff.index(b"\x03\x01\x03\x00\x01\x00\x00\x00\x04\x00")
-        zstd_tiff[at + 8:at + 10] = (50000).to_bytes(2, "little")
-        zt_url = "data:image/tiff;base64," + base64.b64encode(bytes(zstd_tiff)).decode()
-        zt_reply = http_call(port, "POST", "/v1/chat/completions", chat_body("deepseek-ocr-q8k", zt_url, 8))
+        thunder = bytearray(g4)  # Compression (SHORT, 1, 4: T.6) → 32809: ThunderScan, refused by name
+        at = thunder.index(b"\x03\x01\x03\x00\x01\x00\x00\x00\x04\x00")
+        thunder[at + 8:at + 10] = (32809).to_bytes(2, "little")
+        ts_url = "data:image/tiff;base64," + base64.b64encode(bytes(thunder)).decode()
+        ts_reply = http_call(port, "POST", "/v1/chat/completions", chat_body("deepseek-ocr-q8k", ts_url, 8))
         big = http_call(port, "POST", "/v1/chat/completions", raw=b"x" * (50 * 2 ** 20 + 1))
         sock = socket.create_connection(("127.0.0.1", port), timeout=REQUEST_S)
         raw = json.dumps(chat_body("deepseek-ocr-q8k", url, FRONTEND_MAX_NEW, stream=True)).encode()
@@ -2687,11 +2742,11 @@ def frontends_phase(torch, K, index, config_path, q8_snapshot, required):
               and broken[0] == 400 and "JPEG" in json.loads(broken[2])["error"]["message"]
               and arith_reply[0] == 400
               and "arithmetic-coded JPEG (SOF9)" in json.loads(arith_reply[2])["error"]["message"]
-              and zt_reply[0] == 400 and "Zstandard-compressed TIFF" in json.loads(zt_reply[2])["error"]["message"]
+              and ts_reply[0] == 400 and "ThunderScan-compressed TIFF" in json.loads(ts_reply[2])["error"]["message"]
               and big[0] == 413 and after_leave[0] == 200 and server.poll() is None,
               unknown=unknown[0], fallback=fallback[0], jpeg=broken[0], jpeg_message=broken[2][:200],
               arithmetic=arith_reply[0], arithmetic_message=arith_reply[2][:200],
-              zstd_tiff=zt_reply[0], zstd_tiff_message=zt_reply[2][:200],
+              thunderscan_tiff=ts_reply[0], thunderscan_tiff_message=ts_reply[2][:200],
               over_50mb=big[0], after_client_left=after_leave[0])
         server.send_signal(15)
         server.wait(60)
@@ -2729,6 +2784,16 @@ def frontends_phase(torch, K, index, config_path, q8_snapshot, required):
         server.wait(60)
         stopped = server.returncode
         server = None
+        # a second CLI, on the P4 page, once the mesh server has left the
+        # card (beside it, or beside the first CLI, it runs out of an 80 GB
+        # H100's memory)
+        pbm_json, pbm_log = os.path.join(tmp, "out_pbm.json"), os.path.join(tmp, "cli_pbm.log")
+        cli_pbm_t0 = time.perf_counter()
+        with open(pbm_log, "w") as log:
+            cli_pbm = subprocess.Popen([sys.executable, "-m", "dsocr_tpu_torch.cli", "--config", toml, "--model",
+                                        "deepseek-ocr", "--prompt", PROMPT, "--image", os.path.join(tmp, "page.pbm"),
+                                        "--max-new-tokens", "32", "--output-json", pbm_json],
+                                       cwd=HERE, env=env, stdout=log, stderr=subprocess.STDOUT)
         with open(mesh_log, errors="replace") as fh:
             backend = [line.strip() for line in fh if "mesh of 2 ranks" in line]
         reply = json.loads(text) if status == 200 else {}
@@ -2765,9 +2830,27 @@ def frontends_phase(torch, K, index, config_path, q8_snapshot, required):
               first_differing_step=first if got != want_m.text else None, single_process_top2_margin=margin,
               min_top2_margin=least, min_margin_step=least_step + 1, logit_tol=MESH_LOGIT_TOL,
               stopped=stopped)
+
+        # the P4 page's CLI against engine.decode of the same pixels
+        cli_pbm.wait(REQUEST_S)
+        cli_pbm_s = time.perf_counter() - cli_pbm_t0
+        if cli_pbm.returncode != 0:
+            with open(pbm_log, errors="replace") as fh:
+                print(fh.read()[-8000:], file=sys.stderr)
+        result = json.load(open(pbm_json)) if cli_pbm.returncode == 0 else {}
+        K.reset_launches()
+        mine = engine.decode(tokenizer, prompt, [g4_pixels], vision, DecodeParameters(max_new_tokens=32))
+        torch.cuda.synchronize()
+        decode_launches = K.launch_counts()
+        launches = {k: launches[k] + decode_launches[k] for k in launches}
+        check("cli_pnm", cli_pbm.returncode == 0 and result.get("text") == mine.text
+              and result.get("generated_tokens") == mine.generated_tokens,
+              returncode=cli_pbm.returncode, seconds=cli_pbm_s, tokens=len(mine.generated_tokens),
+              tokens_equal=result.get("generated_tokens") == mine.generated_tokens,
+              text_equal=result.get("text") == mine.text)
         del engine
     finally:
-        for proc in (server, cli, mesh_server):
+        for proc in (server, cli, cli_pbm, mesh_server):
             if proc is not None and proc.poll() is None:
                 proc.kill()
                 proc.wait(60)

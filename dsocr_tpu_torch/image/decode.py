@@ -3,19 +3,22 @@
 cli/app.py; the card's machine has no Pillow).
 
 ``decode_image(raw)`` returns (H, W, 3) uint8, bit-equal to Pillow's
-``convert("RGB")`` (Pillow 12.1 over libjpeg-turbo 3.1, libtiff 4.7,
-LittleCMS 2.17 and libwebp 1.6), for PNG and JPEG (here), and TIFF, BMP,
-GIF and WebP (image/tiff.py, bmp.py, gif.py and webp.py, which the
-dispatch below imports at first use; their codecs are native/tiff.cpp,
-tiff_color.cpp, bmp.cpp, gif.cpp, webp_lossless.cpp and webp_lossy.cpp,
-built and loaded by ``_native``).
+``convert("RGB")`` (Pillow 12.1 over libjpeg-turbo 3.1, libtiff 4.7
+with libzstd, LittleCMS 2.17 and libwebp 1.6), for PNG and JPEG (here),
+and TIFF, BMP, GIF, WebP and PNM (image/tiff.py, bmp.py, gif.py, webp.py
+and pnm.py, which the dispatch below imports at first use; their codecs
+are native/tiff.cpp, zstd.cpp, tiff_color.cpp, bmp.cpp, gif.cpp,
+webp_lossless.cpp, webp_lossy.cpp and pnm.cpp, built and loaded by
+``_native``).
 
 PNG in full: color types 0, 2, 3, 4 and 6 at every bit depth the spec
 allows (1, 2, 4, 8, 16), palettes, ``tRNS`` (alpha is dropped, not
 composited, as ``convert("RGB")`` does), Adam7 interlace, the five filter
 types (unfiltered by native/png.cpp) and any number of ``IDAT`` chunks;
-every chunk's CRC is checked. Where Pillow maps samples the conversion
-follows it:
+every chunk's CRC is checked. More than 178,956,970 pixels raise from the
+IHDR, before anything inflates (Pillow's decompression-bomb check at
+open), and the inflate stops at the bytes the header allows. Where Pillow
+maps samples the conversion follows it:
 
 - 1-, 2- and 4-bit grey scale to 0..255 (× 255, 85, 17);
 - 16-bit grey (Pillow's "I;16") clips at 255, as Pillow's I;16 → L does;
@@ -57,9 +60,9 @@ bit reader's state; the port raises). Damaged entropy data that libjpeg
 only warns about decodes as libjpeg decodes it.
 
 Bytes with no known magic raise ``UnsupportedImageFormat``, as do the
-variants each decoder refuses by name (old-style JPEG-in-TIFF, Zstandard
-TIFF, BMP with embedded JPEG or PNG, ...); broken data raises
-``ImageDecodeError``.
+variants each decoder refuses by name (ThunderScan or SGILog TIFF, BMP
+with embedded JPEG or PNG, a PNM magic Pillow does not know, ...); broken
+data raises ``ImageDecodeError``.
 """
 
 from __future__ import annotations
@@ -69,7 +72,7 @@ import pathlib
 import struct
 import threading
 import zlib
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -85,15 +88,17 @@ _I32P, _I64P, _I, _I64 = ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c
 _F32P = ctypes.POINTER(ctypes.c_float)
 _SIGNATURES = {
     "png": {"png_unfilter": [_U8P, _I, _I, _I, _U8P]},
+    "pnm": {"pnm_plain": [_U8P, _I64, _I64, _I64, _I, _I64P, _I64P]},
     "tiff": {"tiff_lzw": [_U8P, _I64, _U8P, _I64], "tiff_packbits": [_U8P, _I64, _U8P, _I64],
              "tiff_fax": [_U8P, _I64, _U8P, _I, _I, _I, _I, _I32P]},
+    "zstd": {"zstd_strip": [_U8P, _I64, _U8P, _I64, _I64P]},
     "tiff_color": {"tiff_ycbcr": [_U8P, _I64, _I, _I, _I, _I, _I, _F32P, _F32P, _U8P], "tiff_lab": [_U8P, _I64, _U8P]},
     "bmp": {"bmp_rle": [_U8P, _I64, _I64, _I, _I, _I, _U8P, _I64P]},
     "gif": {"gif_lzw": [_U8P, _I64, _I, _U8P, _I64]},
     "webp_lossless": {"webp_lossless": [_U8P, _I64, _U8P, _I64, _I, _I, _I],
                       "webp_alpha_lossless": [_U8P, _I64, _I, _I, _U8P], "webp_alpha_unfilter": [_U8P, _I, _I, _I]},
     "webp_lossy": {"webp_lossy": [_U8P, _I64, _U8P, _I64, _I, _I, _I]},
-    "jpeg": {"jpeg_scan": [_U8P, _I64, _I64, _I32P, _U8P, _I16P, _I64P, _I64P, ctypes.c_char_p, _I],
+    "jpeg": {"jpeg_scan": [_U8P, _I64, _I64, _I32P, _U8P, _I16P, _I64P, _I64P, ctypes.c_char_p, _I, _I64P, _I64],
              "jpeg_output": [_I16P, _I64P, _I32P, _U16P, _U8P]},
 }
 _lock = threading.Lock()
@@ -108,13 +113,14 @@ class UnsupportedImageFormat(ImageDecodeError):
     """An image format the decoder does not read; ``format`` names it."""
 
     def __init__(self, fmt: str):
-        super().__init__(f"{fmt} images are not supported (PNG, Huffman-coded JPEG, TIFF, BMP, GIF and WebP are read)")
+        super().__init__(f"{fmt} images are not supported (PNG, Huffman-coded JPEG, TIFF, BMP, GIF, WebP and PNM "
+                         f"are read)")
         self.format = fmt
 
 
 def image_format(raw: bytes) -> str:
     """The format named by the magic bytes: PNG, JPEG, GIF, WebP, BMP,
-    TIFF or "unknown"."""
+    TIFF, PNM or "unknown"."""
     if raw.startswith(PNG_SIGNATURE):
         return "PNG"
     if raw[:4] == b"RIFF" and raw[8:12] == b"WEBP":
@@ -122,6 +128,8 @@ def image_format(raw: bytes) -> str:
     for magic, name in _MAGIC:
         if raw.startswith(magic):
             return name
+    if raw[:1] == b"P" and raw[1:2] and raw[1] in b"0123456fy":  # PpmImagePlugin's _accept
+        return "PNM"
     return "unknown"
 
 
@@ -148,9 +156,27 @@ def decode_image(raw: bytes) -> np.ndarray:
         from .webp import decode_webp
 
         return decode_webp(bytes(raw))
+    if fmt == "PNM":
+        from .pnm import decode_pnm
+
+        return decode_pnm(bytes(raw))
     if fmt == "unknown":
         raise UnsupportedImageFormat("unrecognized (no known magic bytes)")
     raise UnsupportedImageFormat(fmt)
+
+
+def cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
+    """Pillow's cmyk2rgb on [..., 4] uint8: nk - MULDIV255(c, nk), nk = 255 - k."""
+    c = cmyk[..., :3].astype(np.int32)
+    nk = 255 - cmyk[..., 3:4].astype(np.int32)
+    t = c * nk + 128
+    return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
+
+
+def float_to_grey(v: np.ndarray) -> np.ndarray:
+    """Pillow's F → L: 255 from 255 up, 0 for NaN and below 1, else truncated."""
+    with np.errstate(invalid="ignore"):
+        return np.where(v >= 255, 255, np.where(v > 0, np.trunc(np.nan_to_num(v)), 0)).astype(np.uint8)
 
 
 def _native(stem: str) -> ctypes.CDLL:
@@ -228,26 +254,29 @@ def decode_png(raw: bytes) -> np.ndarray:
                                f"interlace {interlace} is not valid")
     if width == 0 or height == 0:
         raise ImageDecodeError("PNG has an empty size")
+    if width * height > MAX_PIXELS:  # Pillow's DecompressionBombError, raised at open
+        raise ImageDecodeError(f"PNG image of {width} × {height} is over Pillow's decompression-bomb limit "
+                               f"of {MAX_PIXELS} pixels")
     if ctype == 3 and palette is None:
         raise ImageDecodeError("PNG palette image without a PLTE chunk")
     if not idat:
         raise ImageDecodeError("PNG has no IDAT chunk")
-    try:
-        data = zlib.decompress(b"".join(idat))
-    except zlib.error as err:
-        raise ImageDecodeError(f"PNG image data does not inflate: {err}") from None
 
     channels = _CHANNELS[ctype]
     bits = channels * depth
     bpp = max(1, bits // 8)
-    passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
+    passes = []  # (x0, y0, dx, dy, pass width, pass height, row bytes)
+    for x0, y0, dx, dy in _ADAM7 if interlace else ((0, 0, 1, 1),):
+        pw, ph = -(-(width - x0) // dx), -(-(height - y0) // dy)
+        if pw > 0 and ph > 0:
+            passes.append((x0, y0, dx, dy, pw, ph, -(-pw * bits // 8)))
+    try:  # inflated no further than the header allows
+        data = zlib.decompressobj().decompress(b"".join(idat), sum(ph * (stride + 1) for *_, ph, stride in passes))
+    except zlib.error as err:
+        raise ImageDecodeError(f"PNG image data does not inflate: {err}") from None
     samples = np.empty((height, width, channels), np.uint16 if depth == 16 else np.uint8)
     pos = 0
-    for x0, y0, dx, dy in passes:
-        pw, ph = -(-(width - x0) // dx), -(-(height - y0) // dy)
-        if pw <= 0 or ph <= 0:
-            continue
-        stride = -(-pw * bits // 8)
+    for x0, y0, dx, dy, pw, ph, stride in passes:
         size = ph * (stride + 1)
         if pos + size > len(data):
             raise ImageDecodeError(f"PNG image data is truncated ({len(data)} bytes inflated)")
@@ -301,7 +330,7 @@ _ZIGZAG = np.array([0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 
                     38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
 MAX_PIXELS = 2 * (1024 * 1024 * 1024 // 4 // 3)  # Pillow's DecompressionBombError limit, every format's
 _MAX_DIMENSION = 65500  # libjpeg's JPEG_MAX_DIMENSION
-_GREY, _YCC, _RGB, _CMYK, _YCCK, _RAW = range(6)  # jpeg_output's color spaces
+_GREY, _YCC, _RGB, _CMYK, _YCCK, _RAW, _UNITS = range(7)  # jpeg_output's color spaces
 
 
 def _huffman_spec(counts: bytes, symbols: bytes) -> np.ndarray:
@@ -346,6 +375,7 @@ class _Frame:
         self.coefs = np.zeros(sum(sizes), np.int16)
         self.quant: List[Optional[np.ndarray]] = [None] * n  # latched at each component's first scan
         self.coef_bits = np.full((n, 64), -1, np.int32)  # progressive: the Al each coefficient last took
+        self.resync_at: Optional[int] = None  # the first MCU whose restart marker was out of place
 
     def blocks(self, ci: int):
         """(plane stride, blocks a row, block rows) of component ci."""
@@ -436,12 +466,18 @@ def decode_jpeg(raw: bytes) -> np.ndarray:
     return decode_jpeg_stream(raw)[1]
 
 
-def decode_jpeg_stream(raw: bytes, tables: Optional[JpegTables] = None, color: Optional[int] = None):
+def decode_jpeg_stream(raw: bytes, tables: Optional[JpegTables] = None, color: Optional[int] = None,
+                       pieces: Optional[Tuple[np.ndarray, np.ndarray]] = None):
     """One JPEG stream → (its frame, its pixels). `tables`: the tables the
     decoder holds before the stream (updated by the stream's own); `color`
     a color space that replaces the one the markers name, as libtiff's
     JPEGPreDecode sets it (_YCC: YCbCr → RGB, _RAW: the components as they
-    are, (H, W, components)). JPEG-in-TIFF strips and tiles
+    are, (H, W, components); _UNITS: libjpeg's raw data packed in YCbCr
+    data units, (unit rows, bytes), as tif_ojpeg.c reads it); `pieces`:
+    (bytes, [n, 2] (offset, length) stretches of them) read in order as
+    the entropy-coded data after the first SOS, where `raw` ends (old-style
+    JPEG strips, read in place however often they repeat the file's
+    bytes). JPEG-in-TIFF strips and tiles and old-style JPEG images
     (image/tiff.py) come through here."""
     if raw[:2] != b"\xff\xd8":
         raise ImageDecodeError("JPEG data does not start with SOI")
@@ -510,7 +546,9 @@ def decode_jpeg_stream(raw: bytes, tables: Optional[JpegTables] = None, color: O
                 if color == _YCC and len(frame.ids) != 3:
                     raise ImageDecodeError(f"JPEG with {len(frame.ids)} components read as YCbCr")
             scans += 1
-            pos, unread_bits = _scan(frame, data, body, pos, at, scans, quant, huffman, restart)
+            pos, unread_bits = _scan(frame, data, body, pos, at, scans, quant, huffman, restart, pieces)
+            if forced == _UNITS and not frame.progressive and body[0] == len(frame.ids):
+                break  # tif_ojpeg.c reads the raw data's rows and never the markers after them
             if scans == 1 and not frame.progressive and body[0] == len(frame.ids):
                 if 0 <= unread_bits < 57:  # libjpeg's reader may have wanted bytes past the end
                     raise ImageDecodeError(f"JPEG data is truncated: it ends {unread_bits} bits after the scan")
@@ -530,7 +568,13 @@ def decode_jpeg_stream(raw: bytes, tables: Optional[JpegTables] = None, color: O
         if q is not None:
             latched[ci] = q
     params = np.array(params, np.int32)
-    out = np.empty((frame.height, frame.width, nc if color == _RAW else 3), np.uint8)
+    if color == _UNITS:  # raw data in YCbCr data units (old-style JPEG-in-TIFF)
+        if nc != 3 or frame.h[1:] != [1, 1] or frame.v[1:] != [1, 1]:
+            raise ImageDecodeError(f"JPEG sampling {list(zip(frame.h, frame.v))} does not pack in YCbCr data units")
+        across, down = -(-frame.width // frame.hmax), -(-frame.height // frame.vmax)
+        out = np.empty((down, across * (frame.hmax * frame.vmax + 2)), np.uint8)
+    else:
+        out = np.empty((frame.height, frame.width, nc if color == _RAW else 3), np.uint8)
     bad = _native("jpeg").jpeg_output(frame.coefs.ctypes.data_as(_I16P), frame.offsets.ctypes.data_as(_I64P),
                                       params.ctypes.data_as(_I32P), latched.ctypes.data_as(_U16P),
                                       out.ctypes.data_as(_U8P))
@@ -568,11 +612,13 @@ def _read_dqt(body: bytes, at: int, quant: List[Optional[np.ndarray]]) -> None:
 
 
 def _scan(frame: _Frame, data: np.ndarray, body: bytes, pos: int, at: int, number: int,
-          quant: List[Optional[np.ndarray]], huffman: Dict[tuple, np.ndarray], restart: int) -> int:
+          quant: List[Optional[np.ndarray]], huffman: Dict[tuple, np.ndarray], restart: int,
+          pieces: Optional[Tuple[np.ndarray, np.ndarray]] = None) -> int:
     """One SOS: check its header, latch its quantization tables, decode
     its entropy-coded data natively → (the offset where markers resume,
     the data bits left to the end of the file, or -1 where a marker comes
-    first)."""
+    first); the first MCU that needed a resync to a restart marker is
+    kept as frame.resync_at."""
     ns = body[0] if body else 0
     if not 1 <= ns <= 4 or len(body) != 4 + 2 * ns:
         raise ImageDecodeError(f"JPEG SOS at byte {at} has a bad length")
@@ -613,13 +659,21 @@ def _scan(frame: _Frame, data: np.ndarray, body: bytes, pos: int, at: int, numbe
             tables[i, k] = spec
         params += [c, frame.h[c], frame.v[c], *frame.blocks(c)]
     params = np.array(params, np.int32)
-    out = np.zeros(3, np.int64)
+    out = np.zeros(4, np.int64)
     msg = ctypes.create_string_buffer(160)
-    status = _native("jpeg").jpeg_scan(data.ctypes.data_as(_U8P), len(data), pos, params.ctypes.data_as(_I32P),
-                                       tables.ctypes.data_as(_U8P), frame.coefs.ctypes.data_as(_I16P),
-                                       frame.offsets.ctypes.data_as(_I64P), out.ctypes.data_as(_I64P), msg, len(msg))
+    size, stretches = len(data), np.zeros((0, 2), np.int64)
+    if pieces is not None:  # the data after SOS is the pieces' alone
+        data, stretches = pieces[0], np.ascontiguousarray(pieces[1], np.int64).reshape(-1, 2)
+        size = pos = 0
+    status = _native("jpeg").jpeg_scan(data.ctypes.data_as(_U8P), size, pos,
+                                       params.ctypes.data_as(_I32P), tables.ctypes.data_as(_U8P),
+                                       frame.coefs.ctypes.data_as(_I16P), frame.offsets.ctypes.data_as(_I64P),
+                                       out.ctypes.data_as(_I64P), msg, len(msg), stretches.ctypes.data_as(_I64P),
+                                       len(stretches))
     if status == 1:
         raise ImageDecodeError(f"JPEG data is truncated: {where} ends at MCU {out[1]}")
     if status:
         raise ImageDecodeError(f"{where}, MCU {out[1]}: {msg.value.decode()}")
+    if out[3] >= 0 and frame.resync_at is None:
+        frame.resync_at = int(out[3])
     return int(out[0]), int(out[2])

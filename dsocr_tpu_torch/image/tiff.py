@@ -12,20 +12,24 @@ mode" does.
 
 Data: strips or tiles, PlanarConfiguration 1 and 2, compression 1 (none),
 32773 (PackBits), 5 (LZW, new and old style), 8 and 32946 (Deflate), 2
-(CCITT modified Huffman), 3 (T.4, 1-D and 2-D), 4 (T.6), 7 (JPEG) and
-34925 (LZMA); the codecs but Deflate and LZMA (Python's zlib and lzma)
-are native/tiff.cpp's, JPEG's image/decode.py's. Refused by name with
-``UnsupportedImageFormat``: old-style JPEG (6), Zstandard (50000), CCITT
-RLEW (32771), ThunderScan (32809), SGILog and SGILog24 (34676, 34677),
-WebP (50001), Windows Media Photo, every other compression, and the
-layouts listed below. Pillow decodes compressed data through libtiff and
-uncompressed data with its own unpackers, and the two differ; each is
-followed:
+(CCITT modified Huffman), 3 (T.4, 1-D and 2-D), 4 (T.6), 7 (JPEG), 6
+(old-style JPEG), 34925 (LZMA) and 50000 (Zstandard); the codecs but
+Deflate and LZMA (Python's zlib and lzma) are native/tiff.cpp's and
+native/zstd.cpp's, JPEG's image/decode.py's. Refused by name with
+``UnsupportedImageFormat``: CCITT RLEW (32771), ThunderScan (32809),
+SGILog and SGILog24 (34676, 34677), WebP (50001), Windows Media Photo,
+every other compression, and the layouts listed below. Pillow decodes
+compressed data through libtiff and uncompressed data with its own
+unpackers, and the two differ; each is followed:
 
 - compressed: the strip's StripByteCounts bytes decode to its rows (a
   count over 1 MiB and over 10 × the strip's size + 4096 cut to that, as
   libtiff's TIFFFillStrip cuts it), and data that decodes short raises
-  (libtiff's "Not enough data"); Predictor 2 undoes horizontal
+  (libtiff's "Not enough data"; Zstandard: tif_zstd.c's one
+  ZSTD_decompressStream loop a strip decodes its first frame only, so a
+  skippable frame or a second frame leaves it short, a frame longer than
+  the strip stops when the strip is full, and a dictionary ID, a bad
+  checksum or a window over libzstd's limit fails); Predictor 2 undoes horizontal
   differencing of 8-, 16- and 32-bit samples, Predictor 3 libtiff's
   floating-point differencing of 32-bit floats (byte differences, then
   the byte planes put back), another predictor or depth raises as
@@ -65,8 +69,21 @@ raises too (libtiff warns and leaves Pillow's rows undefined). 12-bit
 JPEG strips (BitsPerSample 12, which Pillow reads as I;12) raise
 ``UnsupportedImageFormat``.
 
-YCbCr in any other form (LZW, Deflate, PackBits, LZMA, or JPEG planes)
-goes, as in Pillow, through libtiff's RGBA reader (tif_getimage.c;
+Old-style JPEG (compression 6), which Pillow reads as YCbCr (Photometric
+2, 6 or none; SamplesPerPixel 3 or none), is modelled on tif_ojpeg.c
+(``_OldJpeg``): the JPEGInterchangeFormat stream, or the JPEGQTables,
+JPEGDCTables and JPEGACTables tags with bare entropy-coded strips, one
+libjpeg session over the stream libtiff regenerates (an RST marker
+between strips, the restart interval one strip's MCUs), its raw data in
+YCbCr data units (native/jpeg.cpp) for the RGBA reader; the SOF's
+subsampling replaces YCbCrSubsampling, strips of several must be
+multiples of 8 × the vertical subsampling rows, and a restart marker out
+of place fails (libtiff's resync_to_restart): its strip reads as zeros, a
+strip after it raises. Tiled and planar old-style JPEG and SOF3 are
+refused by name.
+
+YCbCr in any other form (LZW, Deflate, PackBits, LZMA, Zstandard, or JPEG
+planes) goes, as in Pillow, through libtiff's RGBA reader (tif_getimage.c;
 native/tiff_color.cpp converts): packed data units at 4:4, 4:2, 4:1,
 2:2, 2:1, 1:2 or 1:1 (planar data 1:1 only), the tables of
 YCbCrCoefficients and ReferenceBlackWhite; strips are read for their
@@ -105,8 +122,8 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-from .decode import _RAW, _YCC, MAX_PIXELS, ImageDecodeError, JpegTables, UnsupportedImageFormat, _native, \
-    decode_jpeg_stream
+from .decode import _I64P, _RAW, _UNITS, _YCC, MAX_PIXELS, ImageDecodeError, JpegTables, UnsupportedImageFormat, \
+    _native, cmyk_to_rgb, decode_jpeg_stream, float_to_grey
 
 II, MM = b"II", b"MM"
 
@@ -116,16 +133,16 @@ STRIP_OFFSETS, ORIENTATION, SAMPLES, ROWS_PER_STRIP, STRIP_COUNTS = 273, 274, 27
 PLANAR, T4_OPTIONS, PREDICTOR, COLORMAP = 284, 292, 317, 320
 TILE_WIDTH, TILE_LENGTH, TILE_OFFSETS, TILE_COUNTS, EXTRA, SAMPLE_FORMAT = 322, 323, 324, 325, 338, 339
 JPEG_TABLES, YCBCR_COEFFICIENTS, YCBCR_SUBSAMPLING, REFERENCE_BLACK_WHITE = 347, 529, 530, 532
+JPEG_IF, JPEG_IF_LENGTH, JPEG_RESTART, JPEG_QTABLES, JPEG_DCTABLES, JPEG_ACTABLES = 513, 514, 515, 519, 520, 521
 
 # field type → (struct code, size)
 _TYPES = {1: ("B", 1), 2: ("B", 1), 3: ("H", 2), 4: ("L", 4), 5: ("LL", 8), 6: ("b", 1), 7: ("B", 1), 8: ("h", 2),
           9: ("l", 4), 10: ("ll", 8), 11: ("f", 4), 12: ("d", 8), 13: ("L", 4), 16: ("Q", 8), 17: ("q", 8),
           18: ("Q", 8)}
-_READ = {1: "none", 2: "CCITT modified Huffman", 3: "CCITT T.4", 4: "CCITT T.6", 5: "LZW", 7: "JPEG", 8: "Deflate",
-         32773: "PackBits", 32946: "Deflate", 34925: "LZMA"}
-_REFUSED = {6: "old-style JPEG", 32771: "CCITT RLEW", 32809: "ThunderScan", 34676: "SGILog", 34677: "SGILog24",
-            50000: "Zstandard", 50001: "WebP"}
-_PREDICTED = (5, 8, 32946, 34925)  # the codecs libtiff runs its predictors with
+_READ = {1: "none", 2: "CCITT modified Huffman", 3: "CCITT T.4", 4: "CCITT T.6", 5: "LZW", 6: "old-style JPEG",
+         7: "JPEG", 8: "Deflate", 32773: "PackBits", 32946: "Deflate", 34925: "LZMA", 50000: "Zstandard"}
+_REFUSED = {32771: "CCITT RLEW", 32809: "ThunderScan", 34676: "SGILog", 34677: "SGILog24", 50001: "WebP"}
+_PREDICTED = (5, 8, 32946, 34925, 50000)  # the codecs libtiff runs its predictors with
 
 # Pillow's OPEN_INFO rows that are read: (photometric, sample format,
 # fill order, bits, extra) → (mode, raw mode), for both byte orders
@@ -303,12 +320,34 @@ def _unxz(data: bytes, want: int, where: str) -> np.ndarray:
     return np.frombuffer(out, np.uint8)
 
 
+_ZSTD_ERRORS = {1: "ends early", 2: "is corrupt", 3: "names a dictionary (libtiff's decoder has none)",
+                4: "needs a window over libzstd's default limit", 5: "fails its content checksum",
+                6: "does not start with a Zstandard frame"}
+
+
+def _unzstd(data: bytes, dst: np.ndarray):
+    """tif_zstd.c: the strip's first frame into `dst` (native/zstd.cpp) →
+    (status, bytes written); what was not written stays as it was."""
+    src = np.frombuffer(data, np.uint8)
+    info = np.zeros(2, np.int64)
+    status = _native("zstd").zstd_strip(_ptr(src), len(src), _ptr(dst), len(dst), info.ctypes.data_as(_I64P))
+    return status, int(info[1])
+
+
 def _decompress(data: bytes, compression: int, want: int, width: int, rows: int, t4: int, where: str) -> np.ndarray:
     """One strip or tile's data → its `want` decoded bytes."""
     if compression in (8, 32946):
         return _inflate(data, want, where)
     if compression == 34925:
         return _unxz(data, want, where)
+    if compression == 50000:
+        out = np.zeros(want, np.uint8)
+        status, written = _unzstd(data, out)
+        if status > 1:
+            raise ImageDecodeError(f"TIFF {where}: Zstandard data {_ZSTD_ERRORS[status]}")
+        if written < want:
+            raise ImageDecodeError(f"TIFF {where}: Zstandard data ends after {written} of {want} bytes")
+        return out
     src = np.frombuffer(data, np.uint8)
     out = np.empty(want, np.uint8)
     if compression in (5, 32773):
@@ -335,6 +374,10 @@ def _decompress_into(data: bytes, compression: int, dst: np.ndarray) -> None:
     if compression in (5, 32773):
         src = np.frombuffer(data, np.uint8)
         (_lib().tiff_lzw if compression == 5 else _lib().tiff_packbits)(_ptr(src), len(src), _ptr(dst), want)
+        return
+    if compression == 50000:
+        if _unzstd(data, dst)[0] > 1:
+            dst[:] = 0  # ZSTDDecode zeros what ZSTD_decompressStream did not report
         return
     try:
         out = (lzma.LZMADecompressor(lzma.FORMAT_XZ) if compression == 34925 else zlib.decompressobj()).decompress(
@@ -393,14 +436,6 @@ def _samples(rows: np.ndarray, width: int, spp: int, bits: int, endian: str, raw
     return unpacked.reshape(n, -1)[:, :width, None]
 
 
-def _cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
-    """Pillow's cmyk2rgb: nk - MULDIV255(c, nk), nk = 255 - k."""
-    c = cmyk[..., :3].astype(np.int32)
-    nk = 255 - cmyk[..., 3:4].astype(np.int32)
-    t = c * nk + 128
-    return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
-
-
 def _unpremultiply(rgb: np.ndarray, alpha: np.ndarray) -> np.ndarray:
     a = alpha.astype(np.int32)[..., None]
     out = np.where(a == 0, 0, np.minimum(rgb.astype(np.int32) * 255 // np.maximum(a, 1), 255))
@@ -431,9 +466,8 @@ def _to_rgb(s: np.ndarray, mode: str, rawmode: str, depth: int, premultiplied: b
     elif mode == "I":  # signed 16-bit samples, or 32-bit ones: I → L clips to 0..255
         wide = v.astype(np.uint16).view(np.int16) if v.dtype == np.uint16 else v
         grey = np.clip(wide, 0, 255).astype(np.uint8)
-    elif mode == "F":  # F → L: 255 from 255 up, 0 for NaN and below 1, else truncated
-        with np.errstate(invalid="ignore"):
-            grey = np.where(v >= 255, 255, np.where(v > 0, np.trunc(np.nan_to_num(v)), 0)).astype(np.uint8)
+    elif mode == "F":
+        grey = float_to_grey(v)
     elif mode == "LA":
         grey = v
     elif mode in ("P", "PA"):
@@ -444,7 +478,7 @@ def _to_rgb(s: np.ndarray, mode: str, rawmode: str, depth: int, premultiplied: b
         if s.dtype == np.uint16:
             s = (s >> 8).astype(np.uint8)
         if mode == "CMYK":
-            return _cmyk_to_rgb(s[..., :4])
+            return cmyk_to_rgb(s[..., :4])
         if premultiplied:
             return _unpremultiply(s[..., :3], s[..., 3])
         return np.ascontiguousarray(s[..., :3])
@@ -470,7 +504,7 @@ def decode_tiff(raw: bytes) -> np.ndarray:
         raise UnsupportedImageFormat(f"{_REFUSED[compression]}-compressed TIFF (compression {compression})")
     if compression not in _READ:
         raise UnsupportedImageFormat(f"TIFF compression {compression}")
-    photo = d.one(PHOTOMETRIC, 0)
+    photo = 6 if compression == 6 else d.one(PHOTOMETRIC, 0)  # Pillow: old-style JPEG is YCbCr
     fill = d.one(FILL_ORDER, 1)
     width, height = d.get(WIDTH), d.get(LENGTH)
     if width is None or height is None:
@@ -487,7 +521,7 @@ def decode_tiff(raw: bytes) -> np.ndarray:
         sample_format = (1,)
     bits = tuple(d.get(BITS, (1,)))
     extra = tuple(d.get(EXTRA, ()))
-    spp = d.one(SAMPLES, 1)
+    spp = d.one(SAMPLES, 3 if compression == 6 else 1)
     if spp > 6:
         raise ImageDecodeError(f"TIFF has {spp} samples per pixel")
     if spp < len(bits):
@@ -518,6 +552,8 @@ def decode_tiff(raw: bytes) -> np.ndarray:
         raise ImageDecodeError(f"TIFF JPEG data under {depth}-bit samples (libtiff: improper JPEG data precision)")
     if photo == 6 and mode == "L" and compression != 1:
         raise ImageDecodeError("compressed one-sample YCbCr TIFF (libtiff's RGBA reader has no routine for it)")
+    if compression == 6 and d.one(PHOTOMETRIC, 6) not in (2, 6):  # libtiff reads RGB as YCbCr, but no other
+        raise ImageDecodeError(f"old-style JPEG TIFF with Photometric {d.one(PHOTOMETRIC)} (libtiff fails it)")
     if photo == 6 and mode == "RGB":
         if compression == 1:  # Pillow's raw reader unpacks three samples as RGBX
             raise UnsupportedImageFormat("uncompressed YCbCr TIFF")
@@ -737,6 +773,305 @@ class _JpegCodec:
         return pixels[:rows, :width]
 
 
+# -- old-style JPEG (compression 6) -------------------------------------------------------------
+
+
+class _OldJpeg:
+    """libtiff's tif_ojpeg.c over one image of YCbCr strips, as the RGBA
+    reader drives it: the JPEGInterchangeFormat bytes and then every
+    strip's, read as one stream (OJPEGReadBufferFill); its markers up to
+    SOS read as OJPEGReadHeaderInfoSec reads them, or, where the stream
+    starts with no marker, the frame built from the tags (the tables of
+    JPEGQTables, JPEGDCTables and JPEGACTables, YCbCrSubsampling or its
+    2 × 2 default, the image's size); the subsampling the stream's SOF
+    names taking the tag's place (OJPEGSubsamplingCorrect); one libjpeg
+    session over the stream libtiff writes for it (SOI, the tables, DRI,
+    SOF and SOS regenerated, then the data after SOS with an RST marker
+    after each strip but the last, then EOI for ever), whose raw data (no
+    upsampling, no color conversion) comes out in YCbCr data units.
+
+    A strip with no byte count, or one past the end, reads on to the end
+    of the file, so strips may repeat the file's bytes many times over:
+    the stream is kept as stretches of the file that the decoder reads in
+    place. Two bounds a file of one image's strips never meets: the
+    markers before SOS are read from the stream's first file-size bytes,
+    and a stream of more than _MAX_STREAM bytes raises."""
+
+    _MAX_STREAM = 1 << 32
+
+    def __init__(self, raw: bytes, d: _Directory, width: int, height: int, offsets, counts):
+        if TILE_OFFSETS in d.tags:
+            raise UnsupportedImageFormat("tiled old-style JPEG TIFF")
+        if d.one(PLANAR, 1) != 1:
+            raise UnsupportedImageFormat("planar old-style JPEG TIFF")
+        rps = d.one(ROWS_PER_STRIP, height) or height
+        tag = d.get(YCBCR_SUBSAMPLING)
+        hs, vs = tuple(tag) if tag is not None and len(tag) == 2 else (2, 2)
+        pieces, ends = self._source(raw, d, offsets, counts)
+        header = _OldJpegHeader(_OldJpeg._head(raw, pieces), width, height, sum(n for _, n in pieces) > len(raw))
+        if header.sof is not None:  # OJPEGSubsamplingCorrect: the SOF's factors win
+            comps = header.sof[3]
+            hs, vs = comps[0][1] >> 4, comps[0][1] & 15
+            if hs not in (1, 2, 4) or vs not in (1, 2, 4) or any(hv != 0x11 for _, hv, _ in comps[1:]):
+                raise ImageDecodeError("old-style JPEG TIFF whose SOF sampling libtiff leaves to libjpeg to "
+                                       "upsample (and then refuses: max_h_samp_factor)")
+        restart = d.one(JPEG_RESTART, 0) or 0
+        if rps < height:
+            if hs not in (1, 2, 4) or vs not in (1, 2, 4):
+                raise ImageDecodeError(f"old-style JPEG TIFF subsampled {hs}×{vs} (libtiff: invalid subsampling)")
+            if rps % (8 * vs):
+                raise ImageDecodeError(f"old-style JPEG TIFF strips of {rps} rows under vertical subsampling {vs} "
+                                       "(libtiff: incompatible strip length)")
+            restart = -(-width // (8 * hs)) * (rps // (8 * vs))
+        self.hs, self.vs = hs, vs
+        stream, data = header.regenerate(d, raw, hs, vs, restart, width, height, pieces, len(pieces) - len(ends))
+        frame, units = decode_jpeg_stream(stream, color=_UNITS, pieces=data)
+        if frame.hmax != hs or frame.vmax != vs:  # OJPEGWriteHeaderInfo's check after jpeg_start_decompress
+            raise ImageDecodeError(f"old-style JPEG sampling {frame.hmax}×{frame.vmax} is not the {hs}×{vs} expected")
+        bad_row = frame.resync_at // frame.mcus_x * 8 if frame.resync_at is not None else None  # a unit row
+        if header.empty:
+            bad_row = 0
+        if bad_row is not None and bad_row < -(-height // vs):
+            # libtiff's resync_to_restart (or a stream with no data) is an
+            # error: the strip reading that iMCU row reads as zeros, and a
+            # strip after it fails to start
+            strip = bad_row * vs // rps
+            if strip < -(-height // rps) - 1:
+                raise ImageDecodeError(f"old-style JPEG restart marker out of place in strip {strip} (libtiff fails "
+                                       "the strips after it)")
+            units[strip * rps // vs:] = 0
+        self.units = units  # [unit rows, bytes]
+
+    @staticmethod
+    def _source(raw: bytes, d: _Directory, offsets, counts):
+        """OJPEGReadBufferFill's stream → (its (offset, length) stretches of
+        the file: the JPEGInterchangeFormat bytes if any, then one a strip,
+        empty for a strip outside the data; where each strip ends in it)."""
+        size = len(raw)
+        pieces, ends, pos = [], [], 0
+        at, length = d.one(JPEG_IF, 0) or 0, d.one(JPEG_IF_LENGTH, 0) or 0
+        if at and at < size:
+            if not length or at + length > size:
+                length = size - at
+            pieces.append((at, length))
+            pos += length
+        for i, offset in enumerate(offsets):
+            count = counts[i] if counts is not None and i < len(counts) else 0
+            togo = 0 if not offset or offset >= size else size - offset if not count or offset + count > size \
+                else count  # a strip outside the data is skipped
+            pieces.append((offset, togo))
+            pos += togo
+            ends.append(pos)
+        if pos > _OldJpeg._MAX_STREAM:
+            raise ImageDecodeError(f"old-style JPEG TIFF whose strips read {pos} bytes (past this decoder's bound of "
+                                   f"{_OldJpeg._MAX_STREAM}: they repeat the file's {size} bytes over and over)")
+        return pieces, ends
+
+    @staticmethod
+    def _head(raw: bytes, pieces) -> bytes:
+        """The stream's first len(raw) bytes, where its markers are read."""
+        head, left = [], len(raw)
+        for offset, n in pieces:
+            if left <= 0:
+                break
+            head.append(raw[offset:offset + min(n, left)])
+            left -= n
+        return b"".join(head)
+
+    def block(self, y0: int, rows: int) -> np.ndarray:
+        """The data units of a strip's rows, as OJPEGDecodeRaw packs them."""
+        first, count = y0 // self.vs, -(-rows // self.vs)
+        got = self.units[first:first + count]
+        if len(got) < count:
+            raise ImageDecodeError("old-style JPEG image ends before the strip")
+        return got.reshape(-1)
+
+
+_MARKERS = b"".join(bytes([0xFF, 0xD0 + i]) for i in range(8)) + b"\xff\xd9" * 2  # RST0-RST7, EOI twice
+
+
+class _OldJpegHeader:
+    """OJPEGReadHeaderInfoSec: the markers before SOS, kept as libtiff keeps
+    them for the stream it writes (DQT and DHT segments by their table's
+    slot, SOF and SOS fields, DRI)."""
+
+    def __init__(self, src: bytes, width: int, height: int, cut: bool):
+        self.width, self.height = width, height
+        self.cut = cut  # the stream goes on past `src`
+        self.qtables: Dict[int, bytes] = {}
+        self.dctables: Dict[int, bytes] = {}
+        self.actables: Dict[int, bytes] = {}
+        self.sof = None  # (marker, lines, samples per line, [(id, hv, tq)] * 3)
+        self.sos = None  # [(cs, tda)] * 3
+        self.restart = None
+        pos = 0
+        while True:
+            if pos >= len(src):
+                raise self._ends()
+            if src[pos] != 0xFF:
+                self.data_at = pos  # no (more) markers: the frame comes from the tags
+                return
+            while pos < len(src) and src[pos] == 0xFF:
+                pos += 1
+            if pos + 1 > len(src):
+                raise self._ends()
+            code = src[pos]
+            pos += 1
+            if code == 0xD8:
+                continue
+            if pos + 2 > len(src):
+                raise self._ends()
+            length = int.from_bytes(src[pos:pos + 2], "big")
+            body = src[pos + 2:pos + length]
+            if length < 2 or len(body) < length - 2:
+                if self.cut and length >= 2:
+                    raise self._ends()
+                raise ImageDecodeError(f"old-style JPEG marker FF{code:02X} is corrupt or cut")
+            if code == 0xDD:
+                if length != 4:
+                    raise ImageDecodeError("old-style JPEG DRI is corrupt")
+                self.restart = int.from_bytes(body, "big")
+            elif code == 0xDB:
+                self._dqt(body)
+            elif code == 0xC4:
+                if not body or body[0] >> 4 > 1 or body[0] & 15 > 3:
+                    raise ImageDecodeError("old-style JPEG DHT is corrupt")
+                (self.actables if body[0] >> 4 else self.dctables)[body[0] & 15] = src[pos - 2:pos + length]
+            elif code in (0xC0, 0xC1):
+                self._sof(code, body)
+            elif code == 0xC3:
+                raise UnsupportedImageFormat("lossless old-style JPEG TIFF (SOF3)")
+            elif code == 0xDA:
+                self._sos(body)
+                self.data_at = pos + length
+                return
+            elif code != 0xFE and not 0xE0 <= code <= 0xEF:  # COM and APPn are skipped
+                raise ImageDecodeError(f"old-style JPEG header holds marker FF{code:02X} (libtiff: unknown marker)")
+            pos += length
+
+    def _ends(self) -> ImageDecodeError:
+        if self.cut:
+            return ImageDecodeError("old-style JPEG header runs past the file's length (its strips repeat the "
+                                    "file's bytes)")
+        return ImageDecodeError("old-style JPEG data ends in its header")
+
+    def _dqt(self, body: bytes) -> None:
+        if not body or len(body) % 65:
+            raise ImageDecodeError("old-style JPEG DQT is corrupt (libtiff reads 8-bit tables only)")
+        for at in range(0, len(body), 65):
+            if body[at] >> 4 or body[at] & 15 > 3:
+                raise ImageDecodeError("old-style JPEG DQT holds a 16-bit or out-of-range table")
+            self.qtables[body[at] & 15] = b"\xff\xdb\x00\x43" + body[at:at + 65]
+
+    def _sof(self, code: int, body: bytes) -> None:
+        if self.sof is not None:
+            raise ImageDecodeError("old-style JPEG header has a second SOF")
+        if len(body) != 15 or body[5] != 3:
+            raise ImageDecodeError("old-style JPEG SOF does not have 3 components")
+        if body[0] != 8:
+            raise ImageDecodeError(f"old-style JPEG of {body[0]}-bit samples")
+        lines, samples = int.from_bytes(body[1:3], "big"), int.from_bytes(body[3:5], "big")
+        if lines < self.height or samples != self.width:
+            raise ImageDecodeError(f"old-style JPEG frame of {samples} × {lines} for an image of {self.width} × "
+                                   f"{self.height}")
+        self.sof = (code, lines, samples, [tuple(body[6 + 3 * i:9 + 3 * i]) for i in range(3)])
+
+    def _sos(self, body: bytes) -> None:
+        if self.sof is None:
+            raise ImageDecodeError("old-style JPEG SOS before any SOF")
+        if len(body) != 10 or body[0] != 3:
+            raise ImageDecodeError("old-style JPEG SOS is corrupt")
+        self.sos = [(body[1 + 2 * i], body[2 + 2 * i]) for i in range(3)]
+
+    def regenerate(self, d: _Directory, raw: bytes, hs: int, vs: int, restart: int, width: int, height: int,
+                   pieces, first_strip: int):
+        """The stream libtiff hands libjpeg (OJPEGWriteStream) → (its
+        markers through SOS, the pieces of its data for decode_jpeg_stream:
+        the file's bytes with RST and EOI markers after them, and the
+        stretches of those read in order)."""
+        if self.restart is not None:
+            restart = self.restart  # the stream's DRI, read after the strips' interval was set
+        if self.sof is None:
+            tq, tda = self._tables_from_tags(d, raw)
+            sof = (0xC0, height, width, [(c, (hs << 4) | vs if c == 0 else 0x11, tq[c]) for c in range(3)])
+            sos = [(c, tda[c]) for c in range(3)]
+        elif self.sos is None:  # libtiff's SOS would name components 0, 0, 0, which the frame lacks
+            raise ImageDecodeError("old-style JPEG stream has a SOF but no SOS")
+        else:
+            sof, sos = self.sof, self.sos
+        code, lines, samples, comps = sof
+        if lines > 0xFFFF or samples > 0xFFFF:
+            raise ImageDecodeError(f"old-style JPEG frame of {samples} × {lines} (JPEG's limit is 65535 each way)")
+        out = bytearray(b"\xff\xd8")
+        for tables in (self.qtables, self.dctables, self.actables):
+            for index in range(4):
+                out += tables.get(index, b"")
+        if restart:
+            out += b"\xff\xdd\x00\x04" + restart.to_bytes(2, "big")
+        out += bytes([0xFF, code, 0, 17, 8]) + lines.to_bytes(2, "big") + samples.to_bytes(2, "big") + b"\x03"
+        out += b"".join(bytes(c) for c in comps)
+        out += b"\xff\xda\x00\x0c\x03" + b"".join(bytes(c) for c in sos) + b"\x00\x3f\x00"
+        # the data after SOS, an RST marker after each strip but the last
+        # that read any of it (the RSTs and EOI follow the file's bytes)
+        markers = len(raw)
+        data, pos, added, index = [], 0, False, 0
+        for k, (offset, n) in enumerate(pieces):
+            lo = max(pos, self.data_at)
+            if pos + n > lo:
+                data.append((offset + lo - pos, pos + n - lo))
+                added = True
+            pos += n
+            strip = k - first_strip
+            if strip >= 0:
+                if added and strip + 1 < len(pieces) - first_strip:
+                    data.append((markers + 2 * index, 2))
+                    index = (index + 1) % 8
+                added = False
+        self.empty = not data  # no data: libjpeg's first read of it fails (OJPEGReadBufferFill at EOF)
+        data.append((markers + 16, 4))
+        return bytes(out), (np.frombuffer(raw + _MARKERS, np.uint8), np.array(data, np.int64))
+
+    def _tables_from_tags(self, d: _Directory, raw: bytes):
+        """OJPEGReadHeaderInfoSecTables{QTable,DcTable,AcTable}: each table
+        read at its tag's offset, a component whose offset repeats the one
+        before sharing its table → (Tq, Td << 4 | Ta) of each component."""
+        tq, tda = [0, 0, 0], [0, 0, 0]
+        for tag in (JPEG_QTABLES, JPEG_DCTABLES, JPEG_ACTABLES):
+            offsets = (list(d.get(tag, ())) + [0] * 3)[:3]
+            if not offsets[0]:
+                raise ImageDecodeError("old-style JPEG TIFF has neither JPEGInterchangeFormat nor its JPEG tables "
+                                       "(libtiff: missing JPEG tables)")
+            for m in range(3):
+                if offsets[m] and (m == 0 or offsets[m] != offsets[m - 1]):
+                    if any(offsets[m] == offsets[n] for n in range(m - 1)):
+                        raise ImageDecodeError(f"old-style JPEG TIFF's tag {tag} repeats an offset")
+                    at = offsets[m]
+                    if tag == JPEG_QTABLES:
+                        table = raw[at:at + 64]
+                        if len(table) != 64:
+                            raise ImageDecodeError("old-style JPEG TIFF's quantization table lies past the end")
+                        self.qtables[m] = b"\xff\xdb\x00\x43" + bytes([m]) + table
+                        tq[m] = m
+                        continue
+                    counts = raw[at:at + 16]
+                    symbols = raw[at + 16:at + 16 + sum(counts)]
+                    if len(counts) != 16 or len(symbols) != sum(counts):
+                        raise ImageDecodeError("old-style JPEG TIFF's Huffman table lies past the end")
+                    body = bytes([m if tag == JPEG_DCTABLES else 16 | m]) + counts + symbols
+                    segment = b"\xff\xc4" + (len(body) + 2).to_bytes(2, "big") + body
+                    if tag == JPEG_DCTABLES:
+                        self.dctables[m], tda[m] = segment, m << 4
+                    else:
+                        self.actables[m], tda[m] = segment, tda[m] | m
+                elif m and tag == JPEG_QTABLES:
+                    tq[m] = tq[m - 1]
+                elif m and tag == JPEG_DCTABLES:
+                    tda[m] = tda[m - 1]
+                elif m:
+                    tda[m] = (tda[m] & 0xF0) | (tda[m - 1] & 0x0F)
+        return tq, tda
+
+
 # -- YCbCr through libtiff's RGBA reader ----------------------------------------------------------
 
 
@@ -762,15 +1097,29 @@ def _ycbcr_rgba(raw: bytes, d: _Directory, compression: int, width: int, height:
     predictor = d.one(PREDICTOR, 1) if compression in _PREDICTED else 1
     if predictor != 1:
         raise UnsupportedImageFormat("YCbCr TIFF with a predictor")
+    old_jpeg = None
+    if compression == 6 and STRIP_OFFSETS not in d.tags and TILE_OFFSETS not in d.tags \
+            and (d.one(ROWS_PER_STRIP, height) or height) >= height:
+        # tif_dirread.c's OJPEG hack: one strip needs no StripOffsets
+        tiled, blocks, offsets, counts = False, [(0, 0, width, height)], (), ()
+    else:
+        tiled, blocks, offsets, counts = _layout(d, width, height)
+    if compression == 6:
+        # libtiff keeps as many strip offsets as strips, padded with zeros;
+        # tif_ojpeg.c reads every strip itself (TIFF_NOREADRAW)
+        n = len(blocks)
+        offsets, counts = (tuple(a or ())[:n] + (0,) * (n - len(a or ())) for a in (offsets, counts))
+        old_jpeg = _OldJpeg(raw, d, width, height, offsets, counts)
     tag = d.get(YCBCR_SUBSAMPLING)
     hs, vs = tuple(tag) if tag is not None and len(tag) == 2 else (2, 2)
+    if old_jpeg is not None:  # tif_ojpeg.c answers the tag with the SOF's subsampling
+        hs, vs = old_jpeg.hs, old_jpeg.vs
     luma = d.floats(YCBCR_COEFFICIENTS, 3, (0.299, 0.587, 0.114))
     ref = d.floats(REFERENCE_BLACK_WHITE, 6, (0.0, 255.0, 128.0, 255.0, 128.0, 255.0))
     if planar == 2 and (hs, vs) != (1, 1):
         raise ImageDecodeError(f"planar YCbCr TIFF subsampled {hs}×{vs} (libtiff's RGBA reader reads only 1×1)")
     if (hs << 4 | vs) not in (0x44, 0x42, 0x41, 0x22, 0x21, 0x12, 0x11):
         raise ImageDecodeError(f"YCbCr TIFF subsampled {hs}×{vs} (libtiff's RGBA reader has no routine for it)")
-    tiled, blocks, offsets, counts = _layout(d, width, height)
     planes = 3 if planar == 2 else 1
     if len(offsets) < len(blocks) * planes:
         raise ImageDecodeError(f"TIFF has {len(offsets)} strip or tile offsets for {len(blocks) * planes} blocks")
@@ -796,6 +1145,12 @@ def _ycbcr_rgba(raw: bytes, d: _Directory, compression: int, width: int, height:
         for plane in range(planes):
             index = plane * len(blocks) + bi
             where = f"{'tile' if tiled else 'strip'} {index}"
+            if old_jpeg is not None:  # TIFF_NOREADRAW: tif_ojpeg.c reads its own stream
+                if buffers is None:
+                    buffers = np.zeros((planes, size), np.uint8)
+                if want % (across * unit) == 0:  # else OJPEGDecodeRaw: "Fractional scanline not read"
+                    buffers[plane, :want] = old_jpeg.block(y0, rows)[:want]
+                continue
             try:
                 data = _strip_bytes(raw, offsets, counts, index, size, 1, where)
             except ImageDecodeError:

@@ -2,8 +2,10 @@
 // decoder: Huffman entropy decoding of sequential (SOF0/SOF1) and
 // progressive (SOF2) scans into whole-image coefficient planes, then the
 // output pass: dequantization, the `islow` inverse DCT, upsampling and
-// color conversion into an (H, W, 3) uint8 buffer. decode.py parses the
-// markers and calls jpeg_scan once per SOS and jpeg_output after EOI.
+// color conversion into an (H, W, 3) uint8 buffer, or the components'
+// samples as they are (libjpeg's raw data, for old-style JPEG-in-TIFF).
+// decode.py parses the markers and calls jpeg_scan once per SOS and
+// jpeg_output after EOI.
 //
 // Every step reproduces libjpeg-turbo's defaults as Pillow leaves them
 // (JDCT_ISLOW, fancy upsampling, no merged upsampler, no DCT scaling), so
@@ -97,19 +99,32 @@ bool build_huff(const uint8_t* spec, bool dc, Huff& h) {
 struct Reader {
     const uint8_t* data;
     int64_t size, pos;
+    const int64_t* pieces = nullptr;  // (offset, length) stretches of `data` read after [pos, size)
+    int64_t npieces = 0;
     uint64_t buf = 0;
     int bits = 0, pad = 0;  // bits held; the lowest `pad` of them are zero fill
     int marker = 0;         // the marker code that stopped the reader, 0 if none
     int64_t marker_at = 0;  // the offset of the FF before that code
     bool insufficient = false, eof = false;
 
+    // Whether a byte is left, going on to the next piece where one ends.
+    inline bool more() {
+        while (pos >= size) {
+            if (npieces == 0) return false;
+            pos = pieces[0];
+            size = pieces[0] + pieces[1];
+            pieces += 2;
+            --npieces;
+        }
+        return true;
+    }
     void fill() {
         while (bits <= 56) {
             int c;
             if (marker || eof) {
                 c = 0;
                 pad += 8;
-            } else if (pos >= size) {
+            } else if (!more()) {
                 eof = true;
                 continue;
             } else {
@@ -117,7 +132,7 @@ struct Reader {
                 if (c == 0xFF) {
                     int c2;
                     do {
-                        if (pos >= size) {
+                        if (!more()) {
                             eof = true;
                             break;
                         }
@@ -158,10 +173,15 @@ struct Reader {
     bool next_marker() {
         if (marker) return true;
         for (;;) {
-            while (pos < size && data[pos] != 0xFF) ++pos;
-            if (pos >= size) return false;
-            while (pos < size && data[pos] == 0xFF) ++pos;
-            if (pos >= size) return false;
+            if (!more()) return false;
+            const void* ff = std::memchr(data + pos, 0xFF, (size_t)(size - pos));
+            if (!ff) {
+                pos = size;
+                continue;
+            }
+            pos = (const uint8_t*)ff - data + 1;
+            while (more() && data[pos] == 0xFF) ++pos;
+            if (!more()) return false;
             const int c = data[pos++];
             if (c != 0) {
                 marker = c;
@@ -214,9 +234,16 @@ extern "C" {
 // component the DC then the AC table, each 16 counts and 256 symbols.
 // `offsets`: each frame component's first coefficient in `coefs`.
 // `out`: the offset where marker parsing resumes, the MCU that failed or
-// the count of MCUs, and the data bits left unread (below).
+// the count of MCUs, the data bits left unread (below), and the first MCU
+// whose restart marker was not the one due (-1 if none: libjpeg's
+// resync_to_restart, which tif_ojpeg.c turns into an error). `pieces`:
+// `npieces` (offset, length) stretches of `data` read after [start,
+// size), as one stream (old-style JPEG-in-TIFF's strips, read in place);
+// the offsets in `out` are then those in `data`, and the bits left count
+// to the end of the last piece read.
 int jpeg_scan(const uint8_t* data, int64_t size, int64_t start, const int32_t* p, const uint8_t* tables,
-              int16_t* coefs, const int64_t* offsets, int64_t* out, char* msg, int msglen) {
+              int16_t* coefs, const int64_t* offsets, int64_t* out, char* msg, int msglen, const int64_t* pieces,
+              int64_t npieces) {
     const int progressive = p[0], ns = p[1], Ss = p[2], Se = p[3], Ah = p[4], Al = p[5], interval = p[6];
     const int mcus_x = p[7], mcus_y = p[8];
     std::vector<ScanComp> comps(ns);
@@ -239,7 +266,8 @@ int jpeg_scan(const uint8_t* data, int64_t size, int64_t start, const int32_t* p
             return kBadTable;
         }
     }
-    Reader r{data, size, start};
+    Reader r{data, size, start, pieces, npieces};
+    out[3] = -1;
     int32_t last_dc[4] = {0, 0, 0, 0};
     int eobrun = 0, next_rst = 0;
     bool cut = false;  // the data ended where a restart marker was due
@@ -259,6 +287,7 @@ int jpeg_scan(const uint8_t* data, int64_t size, int64_t start, const int32_t* p
             if (r.marker == 0xD0 + next_rst) {
                 r.marker = 0;
             } else {
+                if (out[3] < 0) out[3] = m;
                 for (;;) {
                     const int mk = r.marker;
                     int action;
@@ -416,10 +445,10 @@ int jpeg_scan(const uint8_t* data, int64_t size, int64_t start, const int32_t* p
     // of the data, so with fewer left a one-pass decode may not finish.
     // -1: a marker ends the data first, and the reader never passes one.
     out[2] = r.marker ? -1 : r.bits - r.pad;
-    for (int64_t i = r.pos; !r.marker && !r.eof && i < size; ++i) {
+    for (int64_t i = r.pos; !r.marker && !r.eof && i < r.size; ++i) {
         if (data[i] == 0xFF) {  // FF fill bytes, then 00 (a data FF) or a marker code
-            while (i + 1 < size && data[i + 1] == 0xFF) ++i;
-            if (++i >= size) break;
+            while (i + 1 < r.size && data[i + 1] == 0xFF) ++i;
+            if (++i >= r.size) break;
             if (data[i] != 0) {
                 out[2] = -1;
                 break;
@@ -593,11 +622,15 @@ extern "C" {
 
 // The output pass. `p`: width, height, components, color space (0 grey,
 // 1 YCbCr, 2 RGB, 3 CMYK, 4 YCCK, 5 none: the components as they are,
-// libjpeg's JCS_UNKNOWN), max h, max v, then per component: h, v, plane
-// stride in blocks. `quant`: per component 64 latched quantizer values in
-// natural order (all zero for a component no scan carried). `out`: height
-// × width × 3, or × components for color space 5. Returns 0, or 1 for
-// sampling factors that are no integer ratio (libjpeg refuses them too).
+// libjpeg's JCS_UNKNOWN; 6: raw data, no upsampling, packed in data
+// units — of three components, the first at max h × max v, the others
+// 1 × 1 — each hs × vs luma samples row by row then Cb and Cr, rows of
+// ceil(width / hs) units, ceil(height / vs) rows), max h, max v, then per
+// component: h, v, plane stride in blocks. `quant`: per component 64
+// latched quantizer values in natural order (all zero for a component no
+// scan carried). `out`: height × width × 3, or × components for color
+// space 5, or the units. Returns 0, or 1 for sampling factors that are no
+// integer ratio (libjpeg refuses them too).
 int jpeg_output(const int16_t* coefs, const int64_t* offsets, const int32_t* p, const uint16_t* quant,
                 uint8_t* out) {
     const int W = p[0], H = p[1], nc = p[2], color = p[3], hmax = p[4], vmax = p[5];
@@ -633,6 +666,21 @@ int jpeg_output(const int16_t* coefs, const int64_t* offsets, const int32_t* p, 
         }
         c.hx = hr;
         c.vx = vr;
+    }
+    if (color == 6) {  // libjpeg's raw data, packed in YCbCr data units as tif_ojpeg.c packs them
+        const int hs = hmax, vs = vmax, unit = hs * vs + 2;
+        const int64_t across = (W + hs - 1) / hs, down = (H + vs - 1) / vs;
+        const Plane &y = planes[0], &cb = planes[1], &cr = planes[2];
+        for (int64_t j = 0; j < down; ++j) {
+            uint8_t* o = out + j * across * unit;
+            for (int64_t q = 0; q < across; ++q, o += unit) {
+                for (int sy = 0; sy < vs; ++sy)
+                    std::memcpy(o + sy * hs, y.px.data() + (j * vs + sy) * y.pitch + q * hs, (size_t)hs);
+                o[hs * vs] = cb.px[(size_t)(j * cb.pitch + q)];
+                o[hs * vs + 1] = cr.px[(size_t)(j * cr.pitch + q)];
+            }
+        }
+        return 0;
     }
     static const YccTables t;
     std::vector<uint8_t> rows((size_t)nc * W);

@@ -4,8 +4,8 @@ History collapses to the system messages before the latest user turn and
 that turn (OCR models are not chat-trained); a message's parts are
 flattened in reverse order (images first); images come only from data:
 URLs or http(s) fetches (urllib, 30 s timeout) and are decoded by
-image/decode.py (PNG, JPEG, TIFF, BMP, GIF and WebP, natively and bit-equal to
-the reference's Pillow): a format or variant it does not read, or bytes
+image/decode.py (PNG, JPEG, TIFF, BMP, GIF, WebP and PNM, natively and
+bit-equal to the reference's Pillow): a format or variant it does not read, or bytes
 that do not decode, is a 400 naming what is wrong.
 """
 

@@ -102,6 +102,22 @@ def test_a_webp_page_answers_as_the_same_pixels_in_png(env, tmp_path, capsys):
     assert webp["text"] == png["text"] and webp == ref and webp["prompt_tokens"] > 0
 
 
+@pytest.mark.parametrize("magic", ["P6", "P3"])
+def test_a_pnm_page_answers_as_the_same_pixels_in_png(env, tmp_path, capsys, magic):
+    """A PPM of the PNG page's pixels, raw and plain: the port's answer
+    equals its answer for the PNG and the reference's (Pillow) for the PPM."""
+    page = np.asarray(Image.open(env / "page.png").convert("RGB"))
+    body = page.tobytes() if magic == "P6" else " ".join(map(str, page.ravel().tolist())).encode()
+    ppm = tmp_path / "page.ppm"
+    ppm.write_bytes(b"%s\n%d %d\n255\n" % (magic.encode(), page.shape[1], page.shape[0]) + body)
+    argv = ARGS + ["--prompt", "<image>\nFree OCR.", "--max-new-tokens", "8"]
+    assert main(argv + ["--image", str(ppm), "--output-json", str(tmp_path / "ppm.json")]) == 0
+    assert main(argv + ["--image", str(env / "page.png"), "--output-json", str(tmp_path / "png.json")]) == 0
+    assert ref_main(argv + ["--image", str(ppm), "--output-json", str(tmp_path / "ref.json")]) == 0
+    got, png, ref = (json.loads((tmp_path / f"{n}.json").read_text()) for n in ("ppm", "png", "ref"))
+    assert got["text"] == png["text"] and got == ref and got["prompt_tokens"] > 0
+
+
 def test_streamed_stdout_and_bench_output(env, tmp_path, capsys):
     argv = ARGS + ["--prompt", "<image>\nFree OCR.", "--image", str(env / "page.png"), "--max-new-tokens", "6"]
     assert main(argv + ["--output-json", str(tmp_path / "o.json")]) == 0

@@ -203,10 +203,75 @@ def test_bad_filter_type_raises():
         decode_image(raw)
 
 
-@pytest.mark.parametrize("fmt", ["GIF", "BMP", "TIFF", "WEBP"])
+def _bomb_png(side: int = 13400) -> bytes:
+    """A 1-bit side × side PNG of one zlib stream of zero rows (21,904
+    bytes at 13,400)."""
+    row = b"\x00" + bytes(-(-side // 8))
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", side, side, 1, 0, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(row * side, 9)) + chunk(b"IEND", b""))
+
+
+def test_png_past_the_bomb_limit_raises_before_inflating(monkeypatch):
+    """Over Pillow's 178,956,970 pixels a PNG raises from its IHDR, as
+    Pillow's DecompressionBombError does at open: no inflate runs, nothing
+    of the image's size is allocated."""
+    import time
+    import tracemalloc
+
+    from dsocr_tpu_torch.image import decode as D
+
+    raw = _bomb_png()
+    assert len(raw) == 21904
+    with pytest.raises(Image.DecompressionBombError):
+        Image.open(io.BytesIO(raw))
+
+    def no_inflate(*args, **kwargs):
+        raise AssertionError("the PNG was inflated")
+
+    monkeypatch.setattr(D.zlib, "decompressobj", no_inflate)
+    monkeypatch.setattr(D.zlib, "decompress", no_inflate)
+    tracemalloc.start()
+    t0 = time.perf_counter()
+    try:
+        with pytest.raises(ImageDecodeError, match="decompression-bomb"):
+            decode_image(raw)
+        seconds = time.perf_counter() - t0
+        peak = tracemalloc.get_traced_memory()[1]
+    finally:
+        tracemalloc.stop()
+    assert seconds < 0.1 and peak < 4 * 2 ** 20
+
+
+def test_png_inflates_no_further_than_its_header_allows(monkeypatch):
+    """A stream that inflates far past its image (here 8 MiB of zeros after
+    a 10 × 10 image's rows) is cut at the image's bytes, and the image reads
+    as Pillow reads it."""
+    from dsocr_tpu_torch.image import decode as D
+
+    rows = np.random.default_rng(2).integers(0, 256, (10, 31), dtype=np.uint8)
+    rows[:, 0] = 0
+    raw = (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", 10, 10, 8, 2, 0, 0, 0))
+           + chunk(b"IDAT", zlib.compress(rows.tobytes() + bytes(8 << 20))) + chunk(b"IEND", b""))
+    limits = []
+    real = D.zlib.decompressobj
+
+    class Recording:
+        def __init__(self):
+            self.inner = real()
+
+        def decompress(self, data, max_length=0):
+            limits.append(max_length)
+            return self.inner.decompress(data, max_length)
+
+    monkeypatch.setattr(D.zlib, "decompressobj", Recording)
+    np.testing.assert_array_equal(decode_image(raw), pillow_rgb(raw))
+    assert limits == [10 * 31]
+
+
+@pytest.mark.parametrize("fmt", ["GIF", "BMP", "TIFF", "WEBP", "PPM"])
 def test_other_formats_decode_equal_to_pillow(fmt):
-    """GIF, BMP, TIFF and WebP decode (image/gif.py, bmp.py, tiff.py,
-    webp.py; their own test files hold the matrices)."""
+    """GIF, BMP, TIFF, WebP and PNM decode (image/gif.py, bmp.py, tiff.py,
+    webp.py, pnm.py; their own test files hold the matrices)."""
     img = np.random.default_rng(5).integers(0, 256, (8, 9, 3), dtype=np.uint8)
     buf = io.BytesIO()
     Image.fromarray(img).save(buf, format=fmt)
@@ -215,7 +280,7 @@ def test_other_formats_decode_equal_to_pillow(fmt):
 
 
 @pytest.mark.parametrize("fmt, name", [("TIFF-32809", "ThunderScan-compressed TIFF (compression 32809)"),
-                                       ("TIFF-6", "old-style JPEG-compressed TIFF (compression 6)")])
+                                       ("TIFF-34676", "SGILog-compressed TIFF (compression 34676)")])
 def test_other_formats_raise_by_name(fmt, name):
     buf = io.BytesIO()
     try:

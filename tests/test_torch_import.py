@@ -66,6 +66,7 @@ SLICE_MODULES = [
     "dsocr_tpu_torch.image.gif",
     "dsocr_tpu_torch.image.webp",
     "dsocr_tpu_torch.image.ops",
+    "dsocr_tpu_torch.image.pnm",
     "dsocr_tpu_torch.image.resample",
     "dsocr_tpu_torch.image.tiling",
     "dsocr_tpu_torch.image.smart_resize",
@@ -137,7 +138,7 @@ SLICE_MODULES = [
     "dsocr_tpu_torch.utils.safetensors_io",
     "dsocr_tpu_torch.utils.tokenizer",
 ]
-FORBIDDEN = ["jax", "PIL", "safetensors", "ml_dtypes", "tokenizers", "aiohttp", "requests", "triton"]
+FORBIDDEN = ["jax", "PIL", "safetensors", "ml_dtypes", "tokenizers", "aiohttp", "requests", "triton", "zstandard"]
 
 
 def test_port_imports_no_jax_nor_heavy_deps():

@@ -19,6 +19,7 @@ import socket
 import struct
 import threading
 import weakref
+import zlib
 
 import numpy as np
 import pytest
@@ -241,6 +242,49 @@ def test_jpeg_data_url_is_a_400_naming_jpeg(fake):
     status, _, text = server.request("POST", "/v1/chat/completions", body)
     assert status == 400
     assert "arithmetic-coded JPEG (SOF9)" in json.loads(text)["error"]["message"]
+
+
+def test_png_past_the_bomb_limit_is_a_400(fake):
+    """A 21,904-byte 1-bit 13,400 × 13,400 PNG: Pillow raises
+    DecompressionBombError at open, so the reference answers 400; the
+    port refuses it from its header, before inflating."""
+    ref_state, server = fake
+    row = b"\x00" + bytes(13400 // 8 + 1)
+    ihdr = struct.pack(">IIBBBBB", 13400, 13400, 1, 0, 0, 0, 0)
+    chunks = b"".join(struct.pack(">I", len(b)) + k + b + struct.pack(">I", zlib.crc32(k + b))
+                      for k, b in ((b"IHDR", ihdr), (b"IDAT", zlib.compress(row * 13400, 9)), (b"IEND", b"")))
+    body = chat()
+    body["messages"][0]["content"][1]["image_url"]["url"] = ("data:image/png;base64," + base64.standard_b64encode(
+        b"\x89PNG\r\n\x1a\n" + chunks).decode())
+    ref, port = ref_request(ref_state, "POST", "/v1/chat/completions", body), \
+        server.request("POST", "/v1/chat/completions", body)
+    assert port[0] == ref[0] == 400
+    assert "decompression-bomb" in json.loads(port[2])["error"]["message"]
+
+
+@pytest.mark.parametrize("magic", ["P6", "P3", "P5", "P4"])
+def test_real_engine_pnm_data_url_answers_equal(real, magic):
+    """A PNM page (decoded by Pillow in the reference's app, natively in
+    the port's) answers 200 with the same body, raw and plain, colour,
+    grey and bilevel."""
+    ref_state, server = real
+    img = np.random.default_rng(7).integers(0, 256, (60, 70, 3), dtype=np.uint8)
+    head = b"%s\n70 60\n" % magic.encode()
+    if magic == "P6":
+        raw = head + b"255\n" + img.tobytes()
+    elif magic == "P3":
+        raw = head + b"255\n" + " ".join(map(str, img.ravel().tolist())).encode()
+    elif magic == "P5":
+        raw = head + b"1000\n" + (img[..., 0].astype(">u2") * 3).tobytes()
+    else:
+        raw = head + np.packbits(img[..., 0] > 127, axis=1).tobytes()
+    body = chat("deepseek-ocr", max_tokens=12)
+    body["messages"][0]["content"][1]["image_url"]["url"] = ("data:image/x-portable-anymap;base64,"
+                                                             + base64.standard_b64encode(raw).decode())
+    ref, port = ref_request(ref_state, "POST", "/v1/chat/completions", body), \
+        server.request("POST", "/v1/chat/completions", body)
+    assert port[0] == 200
+    same_answer(ref, port)
 
 
 # -- the HTTP layer -----------------------------------------------------------------------
@@ -488,7 +532,7 @@ def test_real_engine_webp_data_url_answers_equal(real, save):
         assert answers[0] == answers[1]
 
 
-@pytest.mark.parametrize("compression, name", [(50001, "WebP-compressed TIFF"), (6, "old-style JPEG-compressed TIFF")])
+@pytest.mark.parametrize("compression, name", [(50001, "WebP-compressed TIFF"), (32809, "ThunderScan-compressed TIFF")])
 def test_jpeg_in_tiff_data_url_is_a_400_naming_it(fake, compression, name):
     _, server = fake
     buf = io.BytesIO()

@@ -14,8 +14,9 @@ both refuse it.
   grey and palettes in both fill orders, 16-bit grey (signed, photometric
   0, FillOrder 2), premultiplied and other extra samples, 16-bit
   premultiplied RGBA and CMYK;
-- refusals by name (JPEG-in-TIFF 6 and 7, other compressions, 32-bit,
-  YCbCr, uncompressed planar data Pillow misreads), and data both refuse:
+- refusals by name (ThunderScan, RLEW, SGILog, SGILog24, other
+  compressions, uncompressed YCbCr and planar data Pillow misreads), and
+  data both refuse:
   a layout outside Pillow's table, truncated strips of every codec, a
   predictor libtiff refuses, a decompression bomb.
 
@@ -447,8 +448,8 @@ def test_short_palette_and_grey_ramp_past_it():
 
 
 @pytest.mark.parametrize("compression, name", [
-    (6, "old-style JPEG-compressed TIFF"), (32771, "CCITT RLEW-compressed TIFF"), (34676, "SGILog-compressed TIFF"),
-    (50000, "Zstandard"), (9999, "TIFF compression 9999")])
+    (32809, "ThunderScan-compressed TIFF"), (32771, "CCITT RLEW-compressed TIFF"), (34676, "SGILog-compressed TIFF"),
+    (34677, "SGILog24"), (9999, "TIFF compression 9999")])
 def test_refused_compressions_raise_by_name(compression, name):
     raw = hand_built("RGB", np.random.default_rng(0), tags={259: (3, [compression])})
     with pytest.raises(UnsupportedImageFormat, match=name) as err:

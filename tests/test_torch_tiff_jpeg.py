@@ -16,9 +16,9 @@ raises ``ImageDecodeError`` where Pillow raises.
   data; truncated strips; packed YCbCr data units under LZW, Deflate,
   PackBits and LZMA at every subsampling, odd sizes, strips and tiles,
   other YCbCrCoefficients and ReferenceBlackWhite, every Orientation;
-- what stays refused by name (12-bit JPEG strips, old-style JPEG,
-  Zstandard, RLEW, ThunderScan, SGILog, SGILog24, WebP, uncompressed
-  YCbCr).
+- what stays refused by name (12-bit JPEG strips, RLEW, ThunderScan,
+  SGILog, SGILog24, WebP, uncompressed YCbCr), and one page each of
+  old-style JPEG and Zstandard, which are read now.
 """
 
 import base64
@@ -527,13 +527,30 @@ def test_fuzzed_ycbcr_files(seed):
 
 
 @pytest.mark.parametrize("compression, name", [
-    (6, "old-style JPEG"), (50000, "Zstandard"), (32771, "CCITT RLEW"), (32809, "ThunderScan"), (34676, "SGILog"),
-    (34677, "SGILog24"), (50001, "WebP")])
+    (32771, "CCITT RLEW"), (32809, "ThunderScan"), (34676, "SGILog"), (34677, "SGILog24"), (50001, "WebP")])
 def test_compressions_still_refused_by_name(compression, name):
     raw = tiff([bytes(48)], 4, 4, (8, 8, 8), 2, compression)
     with pytest.raises(UnsupportedImageFormat) as err:
         decode_image(raw)
     assert err.value.format == f"{name}-compressed TIFF (compression {compression})"
+
+
+@pytest.mark.parametrize("compression", [6, 50000])
+def test_old_style_jpeg_and_zstandard_decode(compression):
+    """Once refused by name (old-style JPEG, Zstandard), now read:
+    tests/test_torch_tiff_ojpeg.py and test_torch_tiff_zstd.py hold the
+    matrices; one YCbCr page of each here, through load_image too."""
+    rng = np.random.default_rng(compression)
+    px = np.clip(np.cumsum(rng.integers(-6, 7, (24, 32, 3)), axis=1) + 128, 0, 255).astype(np.uint8)
+    if compression == 50000:
+        zstd = pytest.importorskip("zstandard")
+        raw = tiff([zstd.ZstdCompressor().compress(px.tobytes())], 32, 24, (8, 8, 8), 6, 50000, tags={530: (3, [1, 1])})
+    else:
+        buf = io.BytesIO()
+        Image.fromarray(px).save(buf, "JPEG", subsampling=2)
+        stream = buf.getvalue()
+        raw = tiff([stream], 32, 24, (8, 8, 8), 6, 6, tags={513: (4, [8]), 514: (4, [len(stream)])})
+    assert_same(raw)
 
 
 @pytest.mark.parametrize("factors", [None, (2, 2)])
